@@ -15,11 +15,23 @@ Phases, one line each; any failure raises and exits non-zero:
   6. the main path: the flagship cornell box (pmj02bn, 512x512, 64 spp,
      1024^2 material of 0.5, seed 0) through Scene.render, its launch
      counts, its image against one plain render, its time, and the time
-     of the kernel alone and of its plain version on the same tables.
+     of the kernel alone and of its plain version on the same tables;
+  7. the gradient kernel at 128x128, 16 spp, a random 64^2 material and a
+     random adjoint: against the plain backward (per-channel sums within
+     rtol 1e-5; texels whose gradient passes 1e-3 of the largest within
+     rtol 1e-4: float atomics sum in a run-dependent order, so the two are
+     not bit-exact), and its own radiance bit for bit against the forward
+     kernel's render at the same seed;
+  8. the main path's iteration: the flagship with a material that requires
+     grad, loss = image[..., :3].sum(), loss.backward(); the launch counts,
+     the gradient finite, nonzero and at phase 7's bars against the plain
+     backward; the iteration's time, the gradient kernel's alone and the
+     plain backward's (medians of 5 after a warm-up).
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own.
-The next-to-last line is the kernels' JSON record ("ms" and "plain_ms" are
-the kernel alone and its plain version); the last line is
+The next-to-last line is the kernels' JSON record ("ms": the kernel alone,
+the median of 5 runs by CUDA events; "plain_ms": its plain version by the
+host clock); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -31,6 +43,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -58,12 +71,12 @@ def _flagship(device):
     return scene
 
 
-def _material(seed, device):
-    """Random (TEX, TEX, 4) material: diffuse in [0.1, 0.9], roughness in
+def _material(seed, device, tex=TEX):
+    """Random (tex, tex, 4) material: diffuse in [0.1, 0.9], roughness in
     [0.2, 0.9]."""
     g = torch.Generator().manual_seed(seed)
-    mat = 0.1 + 0.8 * torch.rand((TEX, TEX, 4), generator=g)
-    mat[..., 3] = 0.2 + 0.7 * torch.rand((TEX, TEX), generator=g)
+    mat = 0.1 + 0.8 * torch.rand((tex, tex, 4), generator=g)
+    mat[..., 3] = 0.2 + 0.7 * torch.rand((tex, tex), generator=g)
     return mat.to(device)
 
 
@@ -87,20 +100,32 @@ def phase_build():
     t0 = time.perf_counter()
     kernels.load_library()
     regs = [ln.strip() for ln in kernels.build_info["log"].splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
     print(f"[2 build] nvcc sm_90a {time.perf_counter() - t0:.2f} s into "
           f"{os.path.relpath(kernels.BUILD_DIR, ROOT)}; ptxas: {' | '.join(regs)}", flush=True)
 
 
-def _event_ms(fn, reps=3):
+def _event_ms(fn, reps=5):
+    """Median of `reps` runs after a warm-up, each timed by CUDA events
+    around it -> (ms, runs)."""
     fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    times = []
     for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), times
+
+
+def _median_ms(fn, reps=5):
+    """Median of `reps` synchronised runs after a warm-up, timed by the host
+    clock -> (ms, runs)."""
+    fn()
+    times = [_sync_ms(fn)[1] for _ in range(reps)]
+    return statistics.median(times), times
 
 
 def phase_sampler_probe(dev):
@@ -123,8 +148,8 @@ def phase_sampler_probe(dev):
         if not torch.equal(got, want):
             bad = int((got != want).sum())
             raise AssertionError(f"sampler_probe {kind}: {bad} of {got.numel()} draws differ")
-        times[kind] = (_event_ms(lambda: kernels.sampler_probe(kind, SPP, lanes, k, bn)),
-                       _event_ms(lambda: sampler_probe_plain(kind, SPP, lanes, k, bn)))
+        times[kind] = (_event_ms(lambda: kernels.sampler_probe(kind, SPP, lanes, k, bn))[0],
+                       _event_ms(lambda: sampler_probe_plain(kind, SPP, lanes, k, bn))[0])
     print(f"[3 sampler_probe] lcg and pmj02bn bit-exact over {n} lanes x {3 * k} draws; "
           + "; ".join(f"{kk} kernel {a:.3f} ms plain {b:.3f} ms" for kk, (a, b) in times.items()),
           flush=True)
@@ -226,7 +251,7 @@ def phase_main(dev, smi):
     tb = pl.build_loop_tables(scene._data, scene.camera, scene._config(RES, SPP), 0)
     lanes = pl.pixel_lanes(RES, SPP, dev)
     carry0 = pl.init_carry(lanes)
-    kernel_ms = _event_ms(lambda: kernels.path_loop(tb, lanes, mat, carry0, tb.n_steps), reps=5)
+    kernel_ms, _runs = _event_ms(lambda: kernels.path_loop(tb, lanes, mat, carry0, tb.n_steps))
     plain, plain_ms = _sync_ms(lambda: pl.render_path_loop_plain(
         tb, lanes, mat, carry0, tb.n_steps))
     want = (plain.f[0:3] / torch.tensor(float(SPP), device=dev)).T.reshape(RES[1], RES[0], 3)
@@ -241,10 +266,110 @@ def phase_main(dev, smi):
           f"means {[round(x, 6) for x in means.tolist()]} vs plain (rtol 1e-4), max abs diff "
           f"{max_err:.3e}; Scene.render median {ms:.2f} ms of {[round(t, 2) for t in times]} "
           f"(first {first_ms:.2f} ms) = {n_samples / ms / 1e3:.2f} M samples/s; kernel alone "
-          f"{kernel_ms:.2f} ms (CUDA events, mean of 5) = {n_samples / kernel_ms / 1e3:.2f} M "
+          f"{kernel_ms:.2f} ms (CUDA events, median of 5) = {n_samples / kernel_ms / 1e3:.2f} M "
           f"samples/s; plain {plain_ms:.2f} ms = {n_samples / plain_ms / 1e3:.3f} M samples/s; "
           f"card {smi}", flush=True)
     return dict(launches=launches, max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms)
+
+
+def _assert_grad_close(got, want, what):
+    """Per-channel sums within rtol 1e-5, and every texel whose gradient
+    (largest |channel|) passes 1e-3 of the largest within rtol 1e-4 of it.
+    Not bit-exact: the kernel's float atomics, and the plain version's
+    index_add_, sum the taps in a run-dependent order, and the kernel's
+    derivatives are written by hand where the plain version's are torch's.
+    -> (max abs error, worst texel's relative error)."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite gradient")
+    sums, want_sums = got.double().sum((0, 1)), want.double().sum((0, 1))
+    if not bool(torch.allclose(sums, want_sums, rtol=1e-5, atol=0.0)):
+        raise AssertionError(f"{what}: channel sums {sums.tolist()} vs plain {want_sums.tolist()}")
+    mag = want.abs().amax(-1)
+    big = mag > 1e-3 * float(mag.max())
+    rel = (got - want).abs().amax(-1)[big] / mag[big]
+    worst = float(rel.max())
+    if worst > 1e-4:
+        raise AssertionError(f"{what}: {int((rel > 1e-4).sum())} of {int(big.sum())} texels "
+                             f"past rtol 1e-4 (worst {worst:.3e})")
+    return float((got - want).abs().max()), worst
+
+
+def phase_grad(dev):
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    scene = _flagship(dev)
+    mat = _material(4, dev, tex=64)
+    tb = pl.build_loop_tables(scene._data, scene.camera, scene._config((128, 128), 16), 6)
+    lanes = pl.pixel_lanes(tb.res, tb.spp, dev)
+    le = torch.as_tensor(np.random.RandomState(3).rand(3, lanes.shape[1]).astype(np.float32),
+                         device=dev)
+    got, carry = kernels.path_loop_grad(tb, lanes, mat, le, tb.n_steps)
+    fwd = kernels.path_loop(tb, lanes, mat, pl.init_carry(lanes), tb.n_steps)
+    want, _ = pl.render_path_backward_loop_plain(tb, lanes, mat, le, tb.n_steps)
+    torch.cuda.synchronize()
+    if not torch.equal(carry.f[0:3], fwd.f[0:3]):
+        raise AssertionError("path_loop_grad: its radiance differs from the forward kernel's")
+    max_err, worst = _assert_grad_close(got, want, "path_loop_grad 128x128")
+    print(f"[7 grad] 128x128 16 spp 64^2 material, random adjoint: kernel vs plain backward "
+          f"channel sums {[round(x, 6) for x in got.double().sum((0, 1)).tolist()]} (rtol "
+          f"1e-5), worst texel rel err {worst:.3e} (rtol 1e-4), max abs diff {max_err:.3e}; "
+          f"the kernel's radiance equals the forward kernel's bit for bit", flush=True)
+
+
+def phase_main_grad(dev, smi):
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    scene = _flagship(dev)
+    mat = torch.full((TEX, TEX, 4), 0.5, dtype=torch.float32, device=dev).requires_grad_()
+
+    def iteration():
+        mat.grad = None
+        loss = scene.render(mat, res=RES, spp=SPP, seed=0)[..., :3].sum()
+        loss.backward()
+        return loss
+
+    kernels.path_loop.launches = 0
+    kernels.path_loop_grad.launches = 0
+    plain = (pl.loop_step.calls, pl.render_path_loop_plain.calls,
+             pl.render_path_backward_loop_plain.calls)
+    loss, first_ms = _sync_ms(iteration)
+    launches = (kernels.path_loop.launches, kernels.path_loop_grad.launches)
+    if min(launches) < 1:
+        raise AssertionError(f"the main path's launches (path_loop, path_loop_grad): {launches}")
+    if (pl.loop_step.calls, pl.render_path_loop_plain.calls,
+            pl.render_path_backward_loop_plain.calls) != plain:
+        raise AssertionError("the main path's iteration ran a plain version")
+    grad = mat.grad.detach().clone()
+    if tuple(grad.shape) != (TEX, TEX, 4) or not bool(torch.isfinite(grad).all()):
+        raise AssertionError(f"main path gradient: shape {tuple(grad.shape)} or non-finite")
+    if float(grad.abs().max()) == 0.0:
+        raise AssertionError("main path gradient is zero")
+
+    # the same backward by the plain version: seed + 1, adjoint 1 / spp
+    tb = pl.build_loop_tables(scene._data, scene.camera, scene._config(RES, SPP), 1)
+    lanes = pl.pixel_lanes(RES, SPP, dev)
+    le = torch.full((3, lanes.shape[1]), 1.0 / SPP, device=dev)
+    m = mat.detach()
+    want, _ = pl.render_path_backward_loop_plain(tb, lanes, m, le, tb.n_steps)
+    max_err, worst = _assert_grad_close(grad, want, "main path gradient")
+
+    it_ms, it_runs = _median_ms(iteration)
+    grad_ms, grad_runs = _event_ms(lambda: kernels.path_loop_grad(tb, lanes, m, le, tb.n_steps))
+    plain_ms, plain_runs = _median_ms(
+        lambda: pl.render_path_backward_loop_plain(tb, lanes, m, le, tb.n_steps))
+    n_samples = RES[0] * RES[1] * SPP
+    print(f"[8 main-grad] cornell box pmj02bn {RES[0]}x{RES[1]} {SPP} spp {TEX}^2 material, "
+          f"loss = image[..., :3].sum(), loss.backward(): {launches[0]} path_loop and "
+          f"{launches[1]} path_loop_grad launch(es), no plain version called; loss "
+          f"{float(loss.detach()):.4f}; gradient vs plain backward: worst texel rel err {worst:.3e}, max "
+          f"abs diff {max_err:.3e}; iteration median {it_ms:.2f} ms of "
+          f"{[round(t, 2) for t in it_runs]} (first {first_ms:.2f} ms); path_loop_grad alone "
+          f"median {grad_ms:.2f} ms of {[round(t, 2) for t in grad_runs]} (CUDA events) = "
+          f"{n_samples / grad_ms / 1e3:.2f} M samples/s; plain backward median {plain_ms:.2f} ms of "
+          f"{[round(t, 2) for t in plain_runs]}; card {smi}", flush=True)
+    return dict(launches=launches[1], max_abs_err=max_err, ms=grad_ms, plain_ms=plain_ms)
 
 
 def main():
@@ -257,16 +382,25 @@ def main():
     phase_step(dev)
     phase_render(dev)
     main_run = phase_main(dev, smi)
+    phase_grad(dev)
+    grad_run = phase_main_grad(dev, smi)
     record = {"kernels": [{
         "name": "path_loop",
         "route": "cuda",
         "source": "zdr_tpu_torch/kernels/csrc/path_loop.cu",
         "replaces": "zdr_tpu/integrators/pallas_loop.py:388",
         **main_run,
+    }, {
+        "name": "path_loop_grad",
+        "route": "cuda",
+        "source": "zdr_tpu_torch/kernels/csrc/path_loop_grad.cu",
+        "replaces": "zdr_tpu/integrators/pallas_loop.py:388 (tap mode) + :1082-1286",
+        **grad_run,
     }]}
-    for v in record["kernels"][0].values():
-        if isinstance(v, float) and not math.isfinite(v):
-            raise AssertionError(f"non-finite number in the kernel record: {record}")
+    for entry in record["kernels"]:
+        for v in entry.values():
+            if isinstance(v, float) and not math.isfinite(v):
+                raise AssertionError(f"non-finite number in the kernel record: {record}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -80,3 +80,38 @@ def test_render_matches_plain(dev):
     diff = (img[..., :3] - want).abs()
     assert float(diff.mean()) <= 1e-6
     assert float((diff.amax(-1) <= 1e-5).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("kind", ["lcg", "pmj02bn"])
+def test_grad_kernel_matches_plain_backward(dev, kind):
+    """64x64, 8 spp, a random adjoint: per-channel sums within rtol 1e-5,
+    texels past 1e-3 of the largest gradient within rtol 1e-4 (float
+    atomics sum in a run-dependent order); the kernel's radiance equals the
+    forward kernel's bit for bit."""
+    s = _scene(dev, kind)
+    mat = _material(dev)
+    tb = pl.build_loop_tables(s._data, s.camera, s._config((64, 64), 8), 3)
+    lanes = pl.pixel_lanes(tb.res, tb.spp, dev)
+    le = torch.as_tensor(np.random.RandomState(2).rand(3, lanes.shape[1]).astype(np.float32),
+                         device=dev)
+    before = kernels.path_loop_grad.launches
+    got, carry = kernels.path_loop_grad(tb, lanes, mat, le, tb.n_steps)
+    assert kernels.path_loop_grad.launches == before + 1
+    fwd = kernels.path_loop(tb, lanes, mat, pl.init_carry(lanes), tb.n_steps)
+    want, _ = pl.render_path_backward_loop_plain(tb, lanes, mat, le, tb.n_steps)
+    torch.cuda.synchronize()
+    assert torch.equal(carry.f[0:3], fwd.f[0:3])
+    torch.testing.assert_close(got.double().sum((0, 1)), want.double().sum((0, 1)),
+                               rtol=1e-5, atol=0.0)
+    mag = want.abs().amax(-1)
+    big = mag > 1e-3 * float(mag.max())
+    assert float(((got - want).abs().amax(-1)[big] / mag[big]).max()) <= 1e-4
+
+
+def test_scene_backward_launches_the_grad_kernel(dev):
+    s = _scene(dev)
+    mat = _material(dev).requires_grad_()
+    before = kernels.path_loop_grad.launches
+    s.render(mat, res=(32, 32), spp=4, seed=1)[..., :3].sum().backward()
+    assert kernels.path_loop_grad.launches == before + 1
+    assert bool(torch.isfinite(mat.grad).all()) and float(mat.grad.abs().max()) > 0

@@ -191,8 +191,13 @@ def test_scope_gates_raise():
     s = zt.Scene([(t_make_cornell_box(), None, None),
                   (t_make_cornell_light(), None, 15.0)], device="cpu")
     mat = torch.full((8, 8, 4), 0.5)
-    with pytest.raises(NotImplementedError, match="A8"):
+    s.splat_merge = 4
+    with pytest.raises(NotImplementedError, match="A17"):
         s.render(mat.clone().requires_grad_(True), res=(4, 4), spp=1)
+    s.splat_merge, s.packed_splat = 1, True
+    with pytest.raises(NotImplementedError, match="A17"):
+        s.render(mat, res=(4, 4), spp=1)
+    s.packed_splat = False
     with pytest.raises(NotImplementedError, match="A11"):
         s.add_envmap(np.ones((4, 8, 3), np.float32))
     with pytest.raises(NotImplementedError, match="A4"):

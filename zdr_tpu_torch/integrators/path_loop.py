@@ -1,8 +1,9 @@
-"""Persistent path loop, forward: one path bounce per step for every lane.
+"""Persistent path loop: one path bounce per step for every lane, and the
+PRB texture gradient on the same walk.
 
-Port of the forward mode of zdr_tpu/integrators/pallas_loop.py::_loop_kernel
-(:388-684) and of `render_path_loop` (:1017-1069). One step of a lane runs,
-in order:
+Port of zdr_tpu/integrators/pallas_loop.py::_loop_kernel (:388-684) in both
+modes, of `render_path_loop` (:1017-1069) and of the one-walk backward
+`render_path_backward_loop` (:1082-1286). One step of a lane runs, in order:
 
   1. the bilinear material fetch at the carried uv;
   2. the NEE shadow test, GGX shade + sample, Russian roulette;
@@ -12,10 +13,12 @@ in order:
   5. the NEE light selection and the next bounce's draws.
 
 The draws follow pallas_loop.py:592-640 exactly, so the sample stream is the
-JAX package's. `loop_step` and `render_path_loop_plain` are the plain
-versions of the CUDA kernel (kernels/csrc/path_loop.cu): the kernel's
-wrapper runs them for CPU tensors, and on the card they run only where a
-check compares them with the kernel.
+JAX package's. In tap mode a step also returns its gradient taps
+(TAP_NAMES). `loop_step`, `render_path_loop_plain` and
+`render_path_backward_loop_plain` are the plain versions of the CUDA
+kernels (kernels/csrc/path_loop.cu, path_loop_grad.cu): the kernels'
+wrappers run them for CPU tensors, and on the card they run only where a
+check compares them with the kernels.
 
 The closest-hit and occlusion sweeps are brute force, O(T) per ray, over the
 triangle table; the BVH is ROADMAP A13.
@@ -32,15 +35,16 @@ from ..camera import camera_const, camera_ray
 from ..microfacet import (
     ggx_brdf,
     ggx_sample,
+    ggx_shade_vjp,
     ggx_sample_pdf,
     make_onb,
     to_local,
     to_world,
 )
-from ..samplers.hashes import to_i32, u32
+from ..samplers.hashes import lcg_step, lcg_to_unit_float, to_i32, u32
 from ..samplers.lcg import LCGSampler, lcg_fresh_state
 from ..samplers.pmj02bn import PMJ02BNSamplerP2, bluenoise, bn_base
-from ..texture import read_bilinear
+from ..texture import read_bilinear, scatter_add4, splat_ids
 from ..vec import div, vadd, vcross, vdot, vnormalize, vscale, vsub
 from . import scene_tables
 
@@ -63,6 +67,15 @@ F_NAMES = (
 I_NAMES = ("sample_idx", "shade", "depth", "in_flight", "smp0", "smp1")
 F_IDX = {n: k for k, n in enumerate(F_NAMES)}
 I_IDX = {n: k for k, n in enumerate(I_NAMES)}
+# one step's gradient taps in tap mode (pallas_loop.py:666-687): radiance,
+# P (the NEE part), Q and S (the bounce part, times G'), the merge draw
+# u_m, the splat texel id (H*W: none) and flags (terminated | good << 1 |
+# in_flight << 2)
+TAP_NAMES = (
+    "rad_r", "rad_g", "rad_b", "p0", "p1", "p2", "p3", "q0", "q1", "q2",
+    "s0", "s1", "s2", "u_m", "ids", "flags",
+)
+N_TAP_PLANES = len(TAP_NAMES)
 
 
 @dataclasses.dataclass
@@ -318,9 +331,14 @@ def nee_select(tb: LoopTables, p, smp):
 
 # --------------------------------------------------------------- the step
 
-def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> Carry:
+def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+              le_grad=None):
     """One bounce for every lane (the plain version of the CUDA kernel's
-    step; a finished lane idles, as in the JAX kernel)."""
+    step; a finished lane idles, as in the JAX kernel) -> the next Carry.
+
+    Tap mode, with le_grad the (3, N) per-sample adjoint: -> (Carry, taps),
+    taps the N_TAP_PLANES (N,) planes of this step, in TAP_NAMES order
+    (pallas_loop.py:666-684)."""
     loop_step.calls += 1
     s = {n: carry.f[k] for k, n in enumerate(F_NAMES)}
     si = {n: carry.i[k] for k, n in enumerate(I_NAMES)}
@@ -360,8 +378,11 @@ def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch
     bounce_ok = shade & (vdot(wi, ng) >= 1e-4) & (wi_local[2] >= 1e-4)
     next_o = vadd(p, vscale(ng, 1e-4))
 
-    b_nee = ggx_brdf(wo_local, wi_light_local, dif, rough)
-    b_bounce = ggx_brdf(wo_local, wi_local, dif, rough)
+    if le_grad is None:
+        b_nee = ggx_brdf(wo_local, wi_light_local, dif, rough)
+        b_bounce = ggx_brdf(wo_local, wi_local, dif, rough)
+    else:
+        b_nee, b_bounce, vjp = ggx_shade_vjp(wo_local, wi_light_local, wi_local, dif, rough)
     inv_pdf = 1.0 / torch.clamp_min(pdf_bounce, 1e-9)
     beta_next = tuple(beta[c] * b_bounce[c] * inv_pdf for c in range(3))
     lum = (0.212671 * beta_next[0] + 0.715160 * beta_next[1]
@@ -436,7 +457,38 @@ def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch
     )
     i_out = (sample_idx, nshade.to(torch.int32), depth_n,
              in_flight_n.to(torch.int32), fin0, fin1)
-    return Carry(torch.stack(f_out), torch.stack(i_out))
+    out = Carry(torch.stack(f_out), torch.stack(i_out))
+    if le_grad is None:
+        return out
+
+    # gradient taps (pallas_loop.py:512-572): everything of this bounce's
+    # texture gradient but the suffix radiance G' of the rest of the path
+    lg = tuple(le_grad[c] for c in range(3))
+    zero = torch.zeros_like(lg[0])
+    ct_nee = tuple(
+        torch.where(nee_ok, beta[c] * nee_weight * l_eval[c] * lg[c], 0.0) for c in range(3)
+    )
+    p_taps = vjp((ct_nee, (zero, zero, zero)))
+    # unit bounce cotangent: d b_bounce_c / d dif_c = wi_z / pi, and
+    # d/d rough summed over the 3 channels = 3 * dspec/drough * wi_z
+    u0, _u1, _u2, u3 = vjp(((zero, zero, zero), (zero + 1.0, zero + 1.0, zero + 1.0)))
+    b = tuple(
+        torch.where(bounce_ok & (b_bounce[c] > 1e-8),
+                    lg[c] / torch.clamp_min(b_bounce[c], 1e-8), 0.0)
+        for c in range(3)
+    )
+    q_taps = tuple(b[c] * u0 for c in range(3))
+    s_taps = tuple(b[c] * (u3 * (1.0 / 3.0)) for c in range(3))
+    # the splat corner, drawn from the carried sampler's salt: the state
+    # before this step's restart and draws
+    salt = _sampler(tb, lanes, si["smp0"], si["smp1"]).salt()
+    u_m = lcg_to_unit_float(lcg_step(salt))
+    h, w = material.shape[0], material.shape[1]
+    ids = splat_ids(s["uv_x"], s["uv_y"], lcg_to_unit_float(salt), h, w)
+    ids = torch.where(nee_ok | bounce_ok, ids, h * w)
+    flags = (terminated.to(torch.int32) | (good.to(torch.int32) << 1)
+             | (in_flight.to(torch.int32) << 2))
+    return out, (*rad, *p_taps, *q_taps, *s_taps, u_m, ids, flags)
 
 
 loop_step.calls = 0
@@ -457,6 +509,51 @@ def render_path_loop_plain(tb: LoopTables, lanes, material, carry: Carry, n_step
 render_path_loop_plain.calls = 0
 
 
+def render_path_backward_loop_plain(tb: LoopTables, lanes, material, le_grad, n_steps: int):
+    """PRB texture gradient of every lane's samples, given the (3, N)
+    per-sample adjoint le_grad -> (d_material (H, W, 4), the final Carry):
+    the plain version of the path_loop_grad kernel, and the JAX package's
+    one-walk algorithm (pallas_loop.py:1082-1286) at splat_merge=1,
+    packed_splat=False.
+
+    Walks the forward from the first carry, keeping every step's taps; then,
+    for all lanes at once, a sequential reverse pass over the steps recovers
+    G'[it] = term ? 0 : G[it+1], with G[it] = rad[it] + G'[it], and the
+    sample's ok flag (good at its terminating step), as post_pass defines
+    them; forms g_j = P_j + G'_j Q_j and g_rough = P_3 + sum_c G'_c S_c,
+    zeroes NaN taps and the taps of a NaN sample, and scatters."""
+    render_path_backward_loop_plain.calls += 1
+    carry = init_carry(lanes)
+    steps = []
+    for _ in range(n_steps):
+        if not bool((carry.i[I_IDX["sample_idx"]] < lanes[2]).any()):
+            break
+        carry, taps = loop_step(carry, tb, lanes, material, le_grad)
+        steps.append(taps)
+    zero = torch.zeros_like(le_grad[0])
+    g_next = (zero, zero, zero)  # G[it + 1]
+    ok_next = torch.ones_like(zero, dtype=torch.bool)  # no later term: keep
+    ids, vals = [], []
+    for taps in reversed(steps):
+        rad, p, q, s = taps[0:3], taps[3:7], taps[7:10], taps[10:13]
+        flags = taps[15]
+        term = (flags & 1) != 0
+        ok = torch.where(term, (flags & 2) != 0, ok_next)
+        gp = tuple(torch.where(term, 0.0, g_next[c]) for c in range(3))
+        g = (p[0] + gp[0] * q[0], p[1] + gp[1] * q[1], p[2] + gp[2] * q[2],
+             p[3] + gp[0] * s[0] + gp[1] * s[1] + gp[2] * s[2])
+        vals.append(torch.stack([torch.where(ok & ~torch.isnan(x), x, 0.0) for x in g], 1))
+        ids.append(taps[14])
+        g_next = tuple(rad[c] + gp[c] for c in range(3))
+        ok_next = ok
+    h, w = material.shape[0], material.shape[1]
+    grad = scatter_add4(torch.cat(ids), torch.cat(vals), h * w).reshape(h, w, 4)
+    return grad, carry
+
+
+render_path_backward_loop_plain.calls = 0
+
+
 def pixel_lanes(res, spp: int, device) -> torch.Tensor:
     """(3, W*H) int32 lane rows of the raster pixel grid, x fastest."""
     w, h = res
@@ -474,3 +571,15 @@ def render_path_loop(data, material, camera, seed: int, cfg) -> torch.Tensor:
     lanes = pixel_lanes(cfg.res, cfg.spp, data.device)
     carry = kernels.path_loop(tb, lanes, material, init_carry(lanes), tb.n_steps)
     return div(carry.f[0:3].T, float(cfg.spp))
+
+
+def render_path_backward_loop(data, material, camera, seed: int, cfg, le_grad) -> torch.Tensor:
+    """PRB texture gradient -> d_material (H, W, 4), given the (3, W*H)
+    per-sample adjoint of each pixel lane. On a CUDA device one launch of
+    the path_loop_grad kernel; on the CPU the plain walk."""
+    from .. import kernels
+
+    tb = build_loop_tables(data, camera, cfg, seed)
+    lanes = pixel_lanes(cfg.res, cfg.spp, data.device)
+    grad, _carry = kernels.path_loop_grad(tb, lanes, material, le_grad, tb.n_steps)
+    return grad

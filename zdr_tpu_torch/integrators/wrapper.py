@@ -1,10 +1,14 @@
-"""Render settings and the forward render (port of
-zdr_tpu/integrators/wrapper.py:34-116, 134-220, loop route only).
+"""Render settings, the forward render, the PRB gradient and the autograd
+bridge between them (port of zdr_tpu/integrators/wrapper.py:34-116,
+134-220, 299-385, loop route only).
 
 The port renders all spp in one call: the sampler is keyed by the absolute
 sample index, so the JAX package's spp windows give the same image.
-Everything outside the path loop's scope raises NotImplementedError naming
-the ROADMAP item that ports it.
+`RenderFunction` makes the render differentiable in the material: its
+backward re-estimates the gradient at seed + 1 with the per-sample adjoint
+d_image / spp (the path_loop_grad kernel on the card). Everything outside
+the path loop's scope raises NotImplementedError naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Tuple
 import torch
 
 from ..samplers import SAMPLERS
+from ..vec import div
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +35,11 @@ class RenderConfig:
     max_depth: int = 16
     rr_depth: int = 2
     bilinear: bool = True
+    # the PRB backward's TPU scatter knobs (JAX defaults 4 and True); the
+    # port splats every tap unmerged, in float32: the JAX package's exact
+    # estimator
+    splat_merge: int = 1
+    packed_splat: bool = False
 
 
 def check_scope(cfg: RenderConfig, material: torch.Tensor) -> None:
@@ -53,6 +63,11 @@ def check_scope(cfg: RenderConfig, material: torch.Tensor) -> None:
         raise NotImplementedError(
             "pmj02bn at non-power-of-two spp (generic permutation): ROADMAP A4"
         )
+    if cfg.splat_merge != 1 or cfg.packed_splat:
+        raise NotImplementedError(
+            "splat_merge != 1 or packed_splat=True (merged or bf16-packed "
+            "gradient splats): ROADMAP A17"
+        )
 
 
 def render_forward(data, material: torch.Tensor, camera, seed: int, cfg: RenderConfig) -> torch.Tensor:
@@ -64,3 +79,39 @@ def render_forward(data, material: torch.Tensor, camera, seed: int, cfg: RenderC
     rgb = render_path_loop(data, material, camera, seed, cfg).reshape(h, w, 3)
     alpha = torch.ones((h, w, 1), dtype=torch.float32, device=rgb.device)
     return torch.cat([rgb, alpha], dim=-1)
+
+
+def render_grad(data, material: torch.Tensor, camera, seed: int, d_image: torch.Tensor,
+                cfg: RenderConfig) -> torch.Tensor:
+    """Gradient estimator (wrapper.py:299-323): replay the samples at this
+    seed with d_image[..., :3] / spp as every sample's adjoint (NaN -> 0)
+    -> d_material (H_tex, W_tex, 4)."""
+    from .path_loop import render_path_backward_loop
+
+    check_scope(cfg, material)
+    w, h = cfg.res
+    le_grad = div(d_image[..., :3].reshape(h * w, 3), float(cfg.spp))
+    le_grad = torch.where(torch.isnan(le_grad), 0.0, le_grad)
+    return render_path_backward_loop(
+        data, material, camera, seed, cfg, le_grad.T.contiguous()
+    )
+
+
+class RenderFunction(torch.autograd.Function):
+    """render_forward, differentiable in the material (wrapper.py:341-385,
+    and the original zdr's RenderOperator): the backward re-estimates the
+    gradient at seed + 1, decorrelated from the image it differentiates."""
+
+    @staticmethod
+    def forward(ctx, material, data, camera, seed: int, cfg: RenderConfig):
+        ctx.save_for_backward(material)
+        ctx.scene = (data, camera, seed, cfg)
+        return render_forward(data, material, camera, seed, cfg)
+
+    @staticmethod
+    def backward(ctx, d_image):
+        (material,) = ctx.saved_tensors
+        data, camera, seed, cfg = ctx.scene
+        # uint32 wrap: the bits of JAX's int32 seed + 1
+        d_mat = render_grad(data, material, camera, (seed + 1) & 0xFFFFFFFF, d_image, cfg)
+        return d_mat, None, None, None, None

@@ -12,10 +12,16 @@ launches on the current stream without synchronising, raises on a launch
 error, and counts its launches in `.launches`; any other device raises.
 
 Kernels:
-  path_loop      the forward render of the path integrator (csrc/path_loop.cu);
-                 plain version: integrators/path_loop.render_path_loop_plain
-  sampler_probe  K fresh-sampler draws per lane, for bit-exactness checks;
-                 plain version: samplers.sampler_probe_plain
+  path_loop       the forward render of the path integrator (csrc/path_loop.cu);
+                  plain version: integrators/path_loop.render_path_loop_plain
+  path_loop_grad  the PRB texture gradient of the same walk, with its
+                  per-sample replay and atomic scatter (csrc/path_loop_grad.cu);
+                  plain version: integrators/path_loop.render_path_backward_loop_plain
+  sampler_probe   K fresh-sampler draws per lane, for bit-exactness checks;
+                  plain version: samplers.sampler_probe_plain
+
+Each source under CUDA_SOURCES is its own library, and the nvcc runs start
+together.
 """
 
 from __future__ import annotations
@@ -27,14 +33,18 @@ import os
 import shutil
 import subprocess
 import time
+import types
 
 import torch
 
 from ..integrators.path_loop import (
     F_NAMES,
     I_NAMES,
+    N_TAP_PLANES,
     Carry,
     LoopTables,
+    init_carry,
+    render_path_backward_loop_plain,
     render_path_loop_plain,
 )
 from ..samplers import sampler_probe_plain
@@ -42,7 +52,7 @@ from ..samplers.hashes import next_pow2_mask
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-CUDA_SOURCES = ("path_loop.cu",)
+CUDA_SOURCES = ("path_loop.cu", "path_loop_grad.cu")
 HEADERS = ("path_loop_step.cuh",)
 # -fmad=false and no fast math: the kernel rounds as its plain version does
 NVCC_FLAGS = (
@@ -54,6 +64,10 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 # dynamic shared memory a block may hold on sm_90 (227 KB)
 MAX_TABLE_BYTES = 232448
 KINDS = {"lcg": 0, "pmj02bn": 1}
+# per-sample scratch rows of path_loop_grad (path_loop_step.cuh kTapPlanes):
+# the 16 tap planes less u_m (no merge) and flags (the replay runs at the
+# sample's end)
+GRAD_SCRATCH_PLANES = N_TAP_PLANES - 2
 
 # what the last build did: seconds, and the compiler's report (registers,
 # spills) — empty when the library was already built
@@ -67,57 +81,88 @@ def _nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def _compile(compiler, flags, sources, stem) -> str:
-    """Compile `sources` (names in csrc/) into BUILD_DIR, unless a library
-    of the same sources and flags is there -> its path."""
+def _library_path(compiler, flags, sources, stem) -> str:
+    """BUILD_DIR/<stem>-<hash of the sources, the headers and the flags>.so"""
     digest = hashlib.sha256()
     for name in sources + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as fh:
             digest.update(fh.read())
     digest.update(" ".join((compiler,) + flags).encode())
-    out = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        return out
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+
+
+def _compile(compiler, flags, builds) -> list:
+    """Compile each (sources, stem) of `builds` into BUILD_DIR, unless a
+    library of the same sources and flags is there, all compilers running
+    at once -> the libraries' paths."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [compiler, *flags, "-o", tmp, *(os.path.join(CSRC, s) for s in sources)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"kernel build failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
-    return out
+    outs, running = [], []
+    for sources, stem in builds:
+        out = _library_path(compiler, flags, sources, stem)
+        outs.append(out)
+        if not os.path.exists(out):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [compiler, *flags, "-o", tmp, *(os.path.join(CSRC, s) for s in sources)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            running.append((cmd, proc, tmp, out))
+    logs = []
+    for cmd, proc, tmp, out in running:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            for _c, other, _t, _o in running:
+                other.kill()
+            raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{log}")
+        os.replace(tmp, out)
+        logs.append(log)
+    if running:
+        build_info["seconds"] = time.perf_counter() - t0
+        build_info["log"] = "".join(logs)
+    return outs
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the CUDA library."""
-    lib = ctypes.CDLL(_compile(_nvcc(), NVCC_FLAGS, CUDA_SOURCES, "libzdr_cuda"))
-    lib.zdr_path_loop.argtypes = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]
-    lib.zdr_path_loop.restype = _I
-    lib.zdr_sampler_probe.argtypes = [_P, _P, _P, _I, _I, _P, _P]
-    lib.zdr_sampler_probe.restype = _I
-    return lib
+def _bind(lib, name, argtypes):
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = _I
+    return fn
+
+
+# zdr_path_loop / zdr_path_loop_grad arguments: params, tables, tables_n,
+# bn, material, lanes, [le_grad,] f_in, i_in, f_out, i_out, [scratch,
+# grad,] n, n_steps
+_LOOP_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I]
+_GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I]
 
 
 @functools.lru_cache(maxsize=None)
-def load_host_library() -> ctypes.CDLL:
-    """Build (if needed) and load the g++ build of the same per-lane step,
-    for tests that run the kernel's code without a card."""
-    lib = ctypes.CDLL(_compile("g++", HOST_FLAGS, HOST_SOURCES, "libzdr_host"))
-    lib.zdr_path_loop_host.argtypes = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I]
-    lib.zdr_path_loop_host.restype = _I
-    lib.zdr_sampler_probe_host.argtypes = [_P, _P, _P, _I, _I, _P]
-    lib.zdr_sampler_probe_host.restype = _I
-    return lib
+def load_library() -> types.SimpleNamespace:
+    """Build (if needed) and load the CUDA libraries -> their entries."""
+    builds = [((src,), f"libzdr_{src.split('.')[0]}") for src in CUDA_SOURCES]
+    fwd, grad = (ctypes.CDLL(p) for p in _compile(_nvcc(), NVCC_FLAGS, builds))
+    return types.SimpleNamespace(
+        zdr_path_loop=_bind(fwd, "zdr_path_loop", _LOOP_ARGS + [_P]),
+        zdr_sampler_probe=_bind(fwd, "zdr_sampler_probe", [_P, _P, _P, _I, _I, _P, _P]),
+        zdr_path_loop_grad=_bind(grad, "zdr_path_loop_grad", _GRAD_ARGS + [_P]),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def load_host_library() -> types.SimpleNamespace:
+    """Build (if needed) and load the g++ build of the same per-lane code,
+    for tests that run the kernels' code without a card."""
+    (path,) = _compile("g++", HOST_FLAGS, [(HOST_SOURCES, "libzdr_host")])
+    lib = ctypes.CDLL(path)
+    return types.SimpleNamespace(
+        zdr_path_loop_host=_bind(lib, "zdr_path_loop_host", _LOOP_ARGS),
+        zdr_sampler_probe_host=_bind(lib, "zdr_sampler_probe_host", [_P, _P, _P, _I, _I, _P]),
+        zdr_path_loop_grad_host=_bind(lib, "zdr_path_loop_grad_host", _GRAD_ARGS),
+    )
 
 
 def pack_params(kind: str, spp: int, seed: int, *, res=(1, 1), use_tent=True,
@@ -165,21 +210,10 @@ def _on_card(dev: torch.device, name: str) -> bool:
     return dev.type == "cuda"
 
 
-def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
-              carry: Carry, n_steps: int) -> Carry:
-    """Run every lane of `carry` for up to n_steps steps -> the new carry.
-    lanes: (3, N) int32 px, py, stop; material: (H, W, 4).
-
-    On the card a lane stops once its samples are done; the plain version
-    idles it, which changes only its sampler state (acc_* and sample_idx
-    agree)."""
-    dev = lanes.device
-    if not _on_card(dev, "path_loop"):
-        return render_path_loop_plain(tb, lanes, material, carry, n_steps)
+def _loop_inputs(tb: LoopTables, lanes, material, n_steps, dev):
+    """Check what both path-loop kernels read -> (N, packed tables, params)."""
     n = lanes.shape[1]
     _check(lanes, "lanes", torch.int32, (3, n), dev)
-    _check(carry.f, "carry.f", torch.float32, (len(F_NAMES), n), dev)
-    _check(carry.i, "carry.i", torch.int32, (len(I_NAMES), n), dev)
     if material.ndim != 3 or material.shape[2] != 4 or min(material.shape[:2]) < 2:
         raise ValueError(f"material must be (H >= 2, W >= 2, 4), got {tuple(material.shape)}")
     _check(material, "material", torch.float32, material.shape, dev)
@@ -197,7 +231,23 @@ def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
         )
     if n_steps < 0 or n >= 2**31:
         raise ValueError("n_steps must be >= 0 and N < 2**31")
-    params = loop_params(tb, material)
+    return n, tables, loop_params(tb, material)
+
+
+def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+              carry: Carry, n_steps: int) -> Carry:
+    """Run every lane of `carry` for up to n_steps steps -> the new carry.
+    lanes: (3, N) int32 px, py, stop; material: (H, W, 4).
+
+    On the card a lane stops once its samples are done; the plain version
+    idles it, which changes only its sampler state (acc_* and sample_idx
+    agree)."""
+    dev = lanes.device
+    if not _on_card(dev, "path_loop"):
+        return render_path_loop_plain(tb, lanes, material, carry, n_steps)
+    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev)
+    _check(carry.f, "carry.f", torch.float32, (len(F_NAMES), n), dev)
+    _check(carry.i, "carry.i", torch.int32, (len(I_NAMES), n), dev)
     f_out = torch.empty_like(carry.f)
     i_out = torch.empty_like(carry.i)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -214,6 +264,44 @@ def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
 
 
 path_loop.launches = 0
+
+
+def path_loop_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                   le_grad: torch.Tensor, n_steps: int):
+    """PRB texture gradient of every lane's samples, walked from the first
+    carry, given le_grad, the (3, N) float32 adjoint of each of a lane's
+    samples -> (d_material (H, W, 4), the final carry, whose acc_* rows are
+    the forward render's).
+
+    On the card the float atomics sum the taps in an order that changes
+    from run to run, so the gradient's last bits do too."""
+    dev = lanes.device
+    if not _on_card(dev, "path_loop_grad"):
+        return render_path_backward_loop_plain(tb, lanes, material, le_grad, n_steps)
+    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev)
+    _check(le_grad, "le_grad", torch.float32, (3, n), dev)
+    carry = init_carry(lanes)
+    f_out = torch.empty_like(carry.f)
+    i_out = torch.empty_like(carry.i)
+    # a sample takes at most max_depth steps: one scratch row per step
+    rows = max(tb.max_depth, 1)
+    scratch = torch.empty((rows, GRAD_SCRATCH_PLANES, n), dtype=torch.float32, device=dev)
+    grad = torch.zeros_like(material)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = load_library().zdr_path_loop_grad(
+        params, tables.data_ptr(), tables.numel(),
+        tb.bn.data_ptr() if tb.kind == "pmj02bn" else None,
+        material.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(), carry.f.data_ptr(),
+        carry.i.data_ptr(), f_out.data_ptr(), i_out.data_ptr(), scratch.data_ptr(),
+        grad.data_ptr(), n, n_steps, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"path_loop_grad kernel launch failed: CUDA error {rc}")
+    path_loop_grad.launches += 1
+    return grad, Carry(f_out, i_out)
+
+
+path_loop_grad.launches = 0
 
 
 def sampler_probe(kind: str, spp: int, lanes: torch.Tensor, k: int, bn) -> torch.Tensor:

@@ -46,6 +46,22 @@ def ggx_brdf(wo, wi, dif, roughness):
     return tuple((spec + div(dif[c], _PI)) * wi[2] for c in range(3))
 
 
+def ggx_shade_vjp(wo, wi_nee, wi_bounce, dif, roughness):
+    """ggx_brdf toward the light and along the bounce, and their VJP in
+    (dif_r, dif_g, dif_b, roughness) -> (b_nee, b_bounce, vjp), where
+    vjp((ct_nee3, ct_bounce3)) -> 4 tensors (pallas_loop.py:481-490).
+
+    torch.func differentiates ggx_brdf as written, so this stays an
+    independent check on the CUDA kernel's hand-written derivative."""
+
+    def shade(d0, d1, d2, rg):
+        df = (d0, d1, d2)
+        return ggx_brdf(wo, wi_nee, df, rg), ggx_brdf(wo, wi_bounce, df, rg)
+
+    (b_nee, b_bounce), vjp = torch.func.vjp(shade, *dif, roughness)
+    return b_nee, b_bounce, vjp
+
+
 def _sample_wm(w, alpha, u0, u1):
     """pbrt-v4 visible-normal sample."""
     wh = vnormalize((alpha * w[0], alpha * w[1], w[2]))

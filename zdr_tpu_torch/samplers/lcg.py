@@ -12,6 +12,8 @@ import torch
 
 from .hashes import lcg_step, lcg_to_unit_float, mul32, u32, xxhash32_4
 
+SALT = 0x5F356495
+
 
 @dataclasses.dataclass(frozen=True)
 class LCGSampler:
@@ -20,6 +22,11 @@ class LCGSampler:
     def next1(self):
         s = lcg_step(self.state)
         return lcg_to_unit_float(s), LCGSampler(s)
+
+    def salt(self) -> torch.Tensor:
+        """Per-lane uint32 that varies each bounce, for side-channel draws
+        (the gradient's splat corner) that must not advance the stream."""
+        return self.state ^ SALT
 
     def next2_xy(self):
         s1 = lcg_step(self.state)

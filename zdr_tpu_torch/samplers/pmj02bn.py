@@ -34,6 +34,7 @@ from .hashes import (
     u32,
     xxhash32_4,
 )
+from .lcg import SALT
 
 TABLES_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -141,6 +142,11 @@ class PMJ02BNSamplerP2:
 
     def _bn(self, dim: torch.Tensor) -> torch.Tensor:
         return self.bn_rows[self.bn_base + dim % self.n_tex]
+
+    def salt(self) -> torch.Tensor:
+        """Per-lane, per-bounce uint32 side channel (see LCGSampler.salt)."""
+        return xxhash32_4(self.px ^ SALT, self.py, self.dimension,
+                          u32(self.seed) ^ self.sample_index)
 
     def next1(self):
         w = next_pow2_mask(self.spp)

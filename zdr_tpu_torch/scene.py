@@ -5,10 +5,15 @@
     scene.camera = Camera(fov=..., origin=..., target=..., up=...)
     image = scene.render(material, res=(W, H), spp=64, seed=0)   # (H, W, 4)
 
+    material.requires_grad_()
+    image = scene.render(material, res=(W, H), spp=64, seed=0)
+    image[..., :3].sum().backward()                                # material.grad
+
 The device is explicit: the scene's tensors live there, the material must
-too, and a render runs there (the CUDA kernel on "cuda", the plain loop on
-"cpu"). The render is not differentiable yet: the PRB backward is
-ROADMAP A8, and a material that requires grad is refused.
+too, and a render runs there (the CUDA kernels path_loop and, for the
+backward, path_loop_grad on "cuda"; their plain versions on "cpu"). The
+render is differentiable in the material: the backward re-estimates the
+Path Replay Backprop texture gradient at seed + 1.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 from .dtypes import default_camera
 from .geometry.load_obj import ObjMesh
 from .geometry.mesh import build_geometry
-from .integrators.wrapper import RenderConfig, render_forward
+from .integrators.wrapper import RenderConfig, RenderFunction
 from .scenedata import SceneData, build_light_meta
 
 MAX_INSTANCES = 10000
@@ -74,6 +79,9 @@ class Scene:
         self.max_depth = 16
         self.rr_depth = 2
         self.bilinear = True
+        # PRB scatter knobs; the port takes only 1 and False (ROADMAP A17)
+        self.splat_merge = 1
+        self.packed_splat = False
 
     def add_envmap(self, img, compensate_mis: bool = True) -> None:
         raise NotImplementedError("envmap: ROADMAP A11")
@@ -88,20 +96,21 @@ class Scene:
             max_depth=int(self.max_depth),
             rr_depth=int(self.rr_depth),
             bilinear=bool(self.bilinear),
+            splat_merge=int(self.splat_merge),
+            packed_splat=bool(self.packed_splat),
         )
 
     def render(self, material: torch.Tensor, *, res, spp, seed=0) -> torch.Tensor:
-        """Render -> (H, W, 4) float32 image on the scene's device.
+        """Render -> (H, W, 4) float32 image on the scene's device;
+        differentiable w.r.t. material.
 
         Args:
             material: (H_tex, W_tex, 4) float32 tensor on the scene's device:
                 diffuse RGB + roughness A.
             res: (width, height).
             spp: samples per pixel.
-            seed: sampler seed.
+            seed: sampler seed; the backward pass uses seed + 1.
         """
-        if material.requires_grad:
-            raise NotImplementedError("PRB backward: ROADMAP A8")
         if material.ndim != 3 or material.shape[2] != 4:
             raise ValueError(f"material must be (H, W, 4), got {tuple(material.shape)}")
         if material.dtype != torch.float32:
@@ -110,7 +119,7 @@ class Scene:
             raise ValueError(
                 f"material is on {material.device}, the scene on {self.device}"
             )
-        return render_forward(
-            self._data, material.contiguous(), self.camera, int(seed),
+        return RenderFunction.apply(
+            material.contiguous(), self._data, self.camera, int(seed),
             self._config(res, spp),
         )
