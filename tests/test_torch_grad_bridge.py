@@ -100,7 +100,7 @@ def test_autograd_bridge_matches_jax_grad():
         js.render(m, res=(16, 16), spp=4, seed=3)[..., :3] * w))(jnp.asarray(mat)))
 
     ts = zt.Scene([(make_cornell_box(), None, None), (make_cornell_light(), None, 15.0)],
-                  device="cpu")
+                  integrator="path", device="cpu")
     ts.camera = _port_camera()
     tmat = torch.as_tensor(mat).requires_grad_()
     launches = kernels.path_loop_grad.launches
@@ -116,7 +116,7 @@ def test_backward_reestimates_at_the_next_seed():
     """The bridge's gradient is the plain backward's at seed + 1 with the
     adjoint d_image / spp; seed 2**32 - 1 wraps to 0 as JAX's int32 does."""
     ts = zt.Scene([(make_cornell_box(), None, None), (make_cornell_light(), None, 15.0)],
-                  sampler="lcg", device="cpu")
+                  integrator="path", sampler="lcg", device="cpu")
     ts.camera = _port_camera()
     ts.max_depth = 3
     mat = torch.as_tensor(_material(seed=5))

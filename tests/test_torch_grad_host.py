@@ -17,7 +17,7 @@ from zdr_tpu_torch.integrators import path_loop as pl
 
 def _scene(sampler):
     s = zt.Scene([(make_cornell_box(), None, None), (make_cornell_light(), None, 15.0)],
-                 sampler=sampler, device="cpu")
+                 integrator="path", sampler=sampler, device="cpu")
     s.camera = zt.Camera(fov=50 / 180 * 3.14159, origin=(-0.2, 2.6, -0.5),
                          target=(-0.2, 2.6, -5.0))
     return s

@@ -160,7 +160,7 @@ def test_render_matches_jax_loop():
         s._data, jnp.asarray(mat), s.camera, jnp.int32(3), cfg,
         _pixel_grid(cfg.res))).reshape(16, 16, 3)
     ts = zt.Scene([(t_make_cornell_box(), None, None),
-                   (t_make_cornell_light(), None, 15.0)], device="cpu")
+                   (t_make_cornell_light(), None, 15.0)], integrator="path", device="cpu")
     ts.camera = _port_camera()
     got = ts.render(torch.as_tensor(mat), res=(16, 16), spp=4, seed=3).numpy()
     np.testing.assert_array_equal(got[..., 3], 1.0)
@@ -189,7 +189,7 @@ def test_golden_path_cbox():
 
 def test_scope_gates_raise():
     s = zt.Scene([(t_make_cornell_box(), None, None),
-                  (t_make_cornell_light(), None, 15.0)], device="cpu")
+                  (t_make_cornell_light(), None, 15.0)], integrator="path", device="cpu")
     mat = torch.full((8, 8, 4), 0.5)
     s.splat_merge = 4
     with pytest.raises(NotImplementedError, match="A17"):
@@ -202,10 +202,10 @@ def test_scope_gates_raise():
         s.add_envmap(np.ones((4, 8, 3), np.float32))
     with pytest.raises(NotImplementedError, match="A4"):
         s.render(mat, res=(4, 4), spp=3)
-    s.integrator = "direct"
+    s.integrator, s.use_mis = "direct", False
     with pytest.raises(NotImplementedError, match="A10"):
         s.render(mat, res=(4, 4), spp=1)
-    s.integrator = "path"
+    s.integrator, s.use_mis = "path", True
     s.sampler = "corrmj"
     with pytest.raises(NotImplementedError, match="A4"):
         s.render(mat, res=(4, 4), spp=4)

@@ -18,7 +18,15 @@ import torch
 from ..scenedata import SceneData
 from ..vec import vcross
 
+SCENE_COLS = 31
 LIGHT_COLS = 16
+CAM_COLS = 16
+
+
+def table_floats(meta) -> int:
+    """Floats of the scene, light, light-instance, point and camera rows."""
+    return (meta.num_tris * SCENE_COLS + len(meta.light_tri_ids) * LIGHT_COLS
+            + meta.n_lights * 2 + meta.n_point * 6 + CAM_COLS)
 
 
 def _norm(c):

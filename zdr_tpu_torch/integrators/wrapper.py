@@ -1,14 +1,15 @@
-"""Render settings, the forward render, the PRB gradient and the autograd
-bridge between them (port of zdr_tpu/integrators/wrapper.py:34-116,
-134-220, 299-385, loop route only).
+"""Render settings, the forward render, the texture gradient and the
+autograd bridge between them (port of zdr_tpu/integrators/wrapper.py:34-116,
+134-220, 299-385: the path loop's route and the direct integrator's fused
+route).
 
 The port renders all spp in one call: the sampler is keyed by the absolute
 sample index, so the JAX package's spp windows give the same image.
 `RenderFunction` makes the render differentiable in the material: its
 backward re-estimates the gradient at seed + 1 with the per-sample adjoint
-d_image / spp (the path_loop_grad kernel on the card). Everything outside
-the path loop's scope raises NotImplementedError naming the ROADMAP item
-that ports it.
+d_image / spp (on the card the path_loop_grad or direct_grad kernel).
+Everything outside the port's scope raises NotImplementedError naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -20,39 +21,46 @@ import torch
 
 from ..samplers import SAMPLERS
 from ..vec import div
+from .scene_tables import table_floats
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render settings (the fields of the JAX RenderConfig that the
-    path loop reads)."""
+    path loop and the direct integrator read)."""
 
     res: Tuple[int, int]  # (width, height)
     spp: int
-    integrator: str = "path"
+    integrator: str = "direct"
     sampler: str = "pmj02bn"
     use_tent_filter: bool = True
+    use_mis: bool = True  # direct: NEE and the BSDF bounce, MIS-weighted
     max_depth: int = 16
     rr_depth: int = 2
     bilinear: bool = True
     # the PRB backward's TPU scatter knobs (JAX defaults 4 and True); the
     # port splats every tap unmerged, in float32: the JAX package's exact
-    # estimator
+    # estimator. The direct integrator never merges (direct_fused.py:320).
     splat_merge: int = 1
     packed_splat: bool = False
 
 
-def check_scope(cfg: RenderConfig, material: torch.Tensor) -> None:
+def check_scope(cfg: RenderConfig, material: torch.Tensor, data) -> None:
     """Raise NotImplementedError for what the port does not render yet."""
-    if cfg.integrator == "direct":
-        raise NotImplementedError("direct integrator: ROADMAP A10")
     if cfg.integrator == "collocated":
         raise NotImplementedError("collocated integrator: ROADMAP A12")
-    if cfg.integrator != "path":
+    if cfg.integrator not in ("path", "direct"):
         raise ValueError(f"unknown integrator: {cfg.integrator!r}")
+    if cfg.integrator == "direct" and not cfg.use_mis:
+        raise NotImplementedError(
+            "direct integrator with use_mis=False (the JAX package's unfused "
+            "direct.py): ROADMAP A10"
+        )
+    if data.meta.n_env:
+        raise NotImplementedError("envmap: ROADMAP A11")
     if not cfg.bilinear or min(material.shape[0], material.shape[1]) < 2:
         raise NotImplementedError(
-            "path walk without the bilinear loop (nearest filtering, or a "
+            "render without the bilinear fetch (nearest filtering, or a "
             "material under 2x2): ROADMAP A6"
         )
     if cfg.sampler == "corrmj":
@@ -63,20 +71,25 @@ def check_scope(cfg: RenderConfig, material: torch.Tensor) -> None:
         raise NotImplementedError(
             "pmj02bn at non-power-of-two spp (generic permutation): ROADMAP A4"
         )
-    if cfg.splat_merge != 1 or cfg.packed_splat:
+    if (cfg.integrator == "path" and cfg.splat_merge != 1) or cfg.packed_splat:
         raise NotImplementedError(
             "splat_merge != 1 or packed_splat=True (merged or bf16-packed "
             "gradient splats): ROADMAP A17"
         )
+    from ..kernels import check_table_fits
+
+    check_table_fits(data.meta.num_tris, table_floats(data.meta), cfg.integrator)
 
 
 def render_forward(data, material: torch.Tensor, camera, seed: int, cfg: RenderConfig) -> torch.Tensor:
     """Forward render -> (H, W, 4) image (mean radiance, alpha = 1)."""
+    from .direct import render_direct
     from .path_loop import render_path_loop
 
-    check_scope(cfg, material)
+    check_scope(cfg, material, data)
     w, h = cfg.res
-    rgb = render_path_loop(data, material, camera, seed, cfg).reshape(h, w, 3)
+    render = render_direct if cfg.integrator == "direct" else render_path_loop
+    rgb = render(data, material, camera, seed, cfg).reshape(h, w, 3)
     alpha = torch.ones((h, w, 1), dtype=torch.float32, device=rgb.device)
     return torch.cat([rgb, alpha], dim=-1)
 
@@ -86,15 +99,16 @@ def render_grad(data, material: torch.Tensor, camera, seed: int, d_image: torch.
     """Gradient estimator (wrapper.py:299-323): replay the samples at this
     seed with d_image[..., :3] / spp as every sample's adjoint (NaN -> 0)
     -> d_material (H_tex, W_tex, 4)."""
+    from .direct import render_direct_backward
     from .path_loop import render_path_backward_loop
 
-    check_scope(cfg, material)
+    check_scope(cfg, material, data)
     w, h = cfg.res
     le_grad = div(d_image[..., :3].reshape(h * w, 3), float(cfg.spp))
     le_grad = torch.where(torch.isnan(le_grad), 0.0, le_grad)
-    return render_path_backward_loop(
-        data, material, camera, seed, cfg, le_grad.T.contiguous()
-    )
+    backward = (render_direct_backward if cfg.integrator == "direct"
+                else render_path_backward_loop)
+    return backward(data, material, camera, seed, cfg, le_grad.T.contiguous())
 
 
 class RenderFunction(torch.autograd.Function):

@@ -19,6 +19,19 @@ Kernels:
                   plain version: integrators/path_loop.render_path_backward_loop_plain
   sampler_probe   K fresh-sampler draws per lane, for bit-exactness checks;
                   plain version: samplers.sampler_probe_plain
+  trace_interact  closest hit + interaction of a ray batch, full or lite
+                  (csrc/direct.cu), for checks; plain version:
+                  integrators/bounce.trace_interact_plain
+  direct          the forward render of the direct integrator
+                  (csrc/direct.cu); plain version:
+                  integrators/direct.render_direct_plain
+  direct_grad     its texture gradient, one atomic tap a sample
+                  (csrc/direct.cu); plain version:
+                  integrators/direct.render_direct_backward_plain
+
+The direct kernels also add the ray-triangle tests they made into
+`.tests`, a one-element int64 tensor on the card (read it after a
+synchronise): the work a bound on their time is counted from.
 
 Each source under CUDA_SOURCES is its own library, and the nvcc runs start
 together.
@@ -47,27 +60,34 @@ from ..integrators.path_loop import (
     render_path_backward_loop_plain,
     render_path_loop_plain,
 )
+from ..integrators.bounce import trace_interact_plain
+from ..integrators.direct import render_direct_backward_plain, render_direct_plain
+from ..integrators.scene_tables import SCENE_COLS
 from ..samplers import sampler_probe_plain
 from ..samplers.hashes import next_pow2_mask
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-CUDA_SOURCES = ("path_loop.cu", "path_loop_grad.cu")
-HEADERS = ("path_loop_step.cuh",)
+CUDA_SOURCES = ("path_loop.cu", "path_loop_grad.cu", "direct.cu")
+HEADERS = ("path_loop_step.cuh", "direct_step.cuh")
 # -fmad=false and no fast math: the kernel rounds as its plain version does
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
-HOST_SOURCES = ("path_loop_host.cpp",)
+HOST_SOURCES = ("path_loop_host.cpp", "direct_host.cpp")
 HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
-# dynamic shared memory a block may hold on sm_90 (227 KB)
-MAX_TABLE_BYTES = 232448
 KINDS = {"lcg": 0, "pmj02bn": 1}
 # per-sample scratch rows of path_loop_grad (path_loop_step.cuh kTapPlanes):
 # the 16 tap planes less u_m (no merge) and flags (the replay runs at the
 # sample's end)
 GRAD_SCRATCH_PLANES = N_TAP_PLANES - 2
+# dynamic shared memory a block may hold on sm_90 (227 KB): the kernels keep
+# their tables there
+MAX_TABLE_BYTES = 232448
+# direct_step.cuh kGeomCols: the direct kernels and trace_interact keep only
+# each triangle's geometry in shared memory, in rows of 12 floats
+GEOM_COLS = 12
 
 # what the last build did: seconds, and the compiler's report (registers,
 # spills) — empty when the library was already built
@@ -138,17 +158,27 @@ def _bind(lib, name, argtypes):
 # grad,] n, n_steps
 _LOOP_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I]
 _GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I]
+# zdr_trace_interact: params, tables, tables_n, rays, active, f_out, i_out,
+# n, lite; zdr_direct: params, tables, tables_n, bn, material, lanes, acc,
+# tests, n; zdr_direct_grad: the same with le_grad after lanes and grad
+# after acc
+_TRACE_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _I]
+_DIRECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _I]
+_DIRECT_GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I]
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> types.SimpleNamespace:
     """Build (if needed) and load the CUDA libraries -> their entries."""
     builds = [((src,), f"libzdr_{src.split('.')[0]}") for src in CUDA_SOURCES]
-    fwd, grad = (ctypes.CDLL(p) for p in _compile(_nvcc(), NVCC_FLAGS, builds))
+    fwd, grad, direct_lib = (ctypes.CDLL(p) for p in _compile(_nvcc(), NVCC_FLAGS, builds))
     return types.SimpleNamespace(
         zdr_path_loop=_bind(fwd, "zdr_path_loop", _LOOP_ARGS + [_P]),
         zdr_sampler_probe=_bind(fwd, "zdr_sampler_probe", [_P, _P, _P, _I, _I, _P, _P]),
         zdr_path_loop_grad=_bind(grad, "zdr_path_loop_grad", _GRAD_ARGS + [_P]),
+        zdr_trace_interact=_bind(direct_lib, "zdr_trace_interact", _TRACE_ARGS + [_P]),
+        zdr_direct=_bind(direct_lib, "zdr_direct", _DIRECT_ARGS + [_P]),
+        zdr_direct_grad=_bind(direct_lib, "zdr_direct_grad", _DIRECT_GRAD_ARGS + [_P]),
     )
 
 
@@ -156,12 +186,15 @@ def load_library() -> types.SimpleNamespace:
 def load_host_library() -> types.SimpleNamespace:
     """Build (if needed) and load the g++ build of the same per-lane code,
     for tests that run the kernels' code without a card."""
-    (path,) = _compile("g++", HOST_FLAGS, [(HOST_SOURCES, "libzdr_host")])
-    lib = ctypes.CDLL(path)
+    builds = [((src,), f"libzdr_{src.split('.')[0]}") for src in HOST_SOURCES]
+    lib, direct_lib = (ctypes.CDLL(p) for p in _compile("g++", HOST_FLAGS, builds))
     return types.SimpleNamespace(
         zdr_path_loop_host=_bind(lib, "zdr_path_loop_host", _LOOP_ARGS),
         zdr_sampler_probe_host=_bind(lib, "zdr_sampler_probe_host", [_P, _P, _P, _I, _I, _P]),
         zdr_path_loop_grad_host=_bind(lib, "zdr_path_loop_grad_host", _GRAD_ARGS),
+        zdr_trace_interact_host=_bind(direct_lib, "zdr_trace_interact_host", _TRACE_ARGS),
+        zdr_direct_host=_bind(direct_lib, "zdr_direct_host",
+                              [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I]),
     )
 
 
@@ -210,8 +243,23 @@ def _on_card(dev: torch.device, name: str) -> bool:
     return dev.type == "cuda"
 
 
-def _loop_inputs(tb: LoopTables, lanes, material, n_steps, dev):
-    """Check what both path-loop kernels read -> (N, packed tables, params)."""
+def check_table_fits(n_tris: int, n_floats: int, integrator: str) -> None:
+    """Raise NotImplementedError unless the shared-memory copy of the tables
+    (n_floats in all, of which n_tris triangle rows of SCENE_COLS) fits a
+    block: the path-loop kernels copy the tables whole, the direct kernels
+    and trace_interact with triangle rows of GEOM_COLS (direct_step.cuh
+    compact_size)."""
+    cols = SCENE_COLS if integrator == "path" else GEOM_COLS
+    if (n_floats - n_tris * (SCENE_COLS - cols)) * 4 > MAX_TABLE_BYTES:
+        raise NotImplementedError(
+            f"{n_tris} triangles exceed the {integrator} kernels' shared-memory "
+            "scene table; the BVH is ROADMAP A13"
+        )
+
+
+def _loop_inputs(tb: LoopTables, lanes, material, n_steps, dev, integrator):
+    """Check what the path-loop ("path") and direct ("direct") kernels read
+    -> (N, packed tables, params)."""
     n = lanes.shape[1]
     _check(lanes, "lanes", torch.int32, (3, n), dev)
     if material.ndim != 3 or material.shape[2] != 4 or min(material.shape[:2]) < 2:
@@ -224,11 +272,7 @@ def _loop_inputs(tb: LoopTables, lanes, material, n_steps, dev):
     if tb.kind == "pmj02bn":
         _check(tb.bn, "blue noise", torch.float32, (tb.bn_res * tb.bn_res * tb.bn_ntex,), dev)
     tables = pack_tables(tb).to(dev)
-    if tables.numel() * 4 > MAX_TABLE_BYTES:
-        raise NotImplementedError(
-            f"{tb.scene.shape[0]} triangles exceed the kernel's shared-memory "
-            "scene table; the BVH is ROADMAP A13"
-        )
+    check_table_fits(tb.scene.shape[0], tables.numel(), integrator)
     if n_steps < 0 or n >= 2**31:
         raise ValueError("n_steps must be >= 0 and N < 2**31")
     return n, tables, loop_params(tb, material)
@@ -245,7 +289,7 @@ def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     dev = lanes.device
     if not _on_card(dev, "path_loop"):
         return render_path_loop_plain(tb, lanes, material, carry, n_steps)
-    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev)
+    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
     _check(carry.f, "carry.f", torch.float32, (len(F_NAMES), n), dev)
     _check(carry.i, "carry.i", torch.int32, (len(I_NAMES), n), dev)
     f_out = torch.empty_like(carry.f)
@@ -278,7 +322,7 @@ def path_loop_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     dev = lanes.device
     if not _on_card(dev, "path_loop_grad"):
         return render_path_backward_loop_plain(tb, lanes, material, le_grad, n_steps)
-    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev)
+    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
     _check(le_grad, "le_grad", torch.float32, (3, n), dev)
     carry = init_carry(lanes)
     f_out = torch.empty_like(carry.f)
@@ -332,3 +376,95 @@ def sampler_probe(kind: str, spp: int, lanes: torch.Tensor, k: int, bn) -> torch
 
 
 sampler_probe.launches = 0
+
+
+def trace_interact(scene: torch.Tensor, rays, lite: bool = False):
+    """Closest hit + interaction of every ray: scene the (T, 31) table,
+    rays 8 (N,) tensors o3, d3, pdf_prev float32 and active int32 -> the
+    16 outputs of integrators/bounce.TRACE_NAMES (4 with lite)."""
+    dev = scene.device
+    if not _on_card(dev, "trace_interact"):
+        return trace_interact_plain(scene, rays, lite)
+    n = rays[0].shape[0]
+    _check(scene, "scene", torch.float32, (scene.shape[0], 31), dev)
+    check_table_fits(scene.shape[0], scene.numel(), "direct")
+    for k, r in enumerate(rays):
+        _check(r, f"rays[{k}]", torch.int32 if k == 7 else torch.float32, (n,), dev)
+    f_in = torch.stack(rays[:7]).contiguous()
+    n_f, n_i = (3, 1) if lite else (14, 2)
+    f_out = torch.empty((n_f, n), dtype=torch.float32, device=dev)
+    i_out = torch.empty((n_i, n), dtype=torch.int32, device=dev)
+    params = pack_params("lcg", 1, 0, counts=(scene.shape[0], 0, 0, 0))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = load_library().zdr_trace_interact(
+        params, scene.data_ptr(), scene.numel(), f_in.data_ptr(), rays[7].data_ptr(),
+        f_out.data_ptr(), i_out.data_ptr(), n, int(lite), stream)
+    if rc != 0:
+        raise RuntimeError(f"trace_interact kernel launch failed: CUDA error {rc}")
+    trace_interact.launches += 1
+    if lite:
+        return (*f_out.unbind(0), i_out[0])
+    f, i = f_out.unbind(0), i_out.unbind(0)
+    return (*f[0:11], i[0], *f[11:14], i[1])
+
+
+trace_interact.launches = 0
+
+
+def direct(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch.Tensor:
+    """Every lane's samples 0 .. stop-1 of the direct integrator -> the
+    (3, N) float32 sums of their clamped radiances. lanes: (3, N) int32
+    px, py, stop; material: (H, W, 4)."""
+    dev = lanes.device
+    if not _on_card(dev, "direct"):
+        return render_direct_plain(tb, lanes, material)
+    n, tables, params = _loop_inputs(tb, lanes, material, 0, dev, "direct")
+    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
+    tests = torch.zeros((1,), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = load_library().zdr_direct(
+        params, tables.data_ptr(), tables.numel(),
+        tb.bn.data_ptr() if tb.kind == "pmj02bn" else None,
+        material.data_ptr(), lanes.data_ptr(), acc.data_ptr(), tests.data_ptr(), n, stream)
+    if rc != 0:
+        raise RuntimeError(f"direct kernel launch failed: CUDA error {rc}")
+    direct.launches += 1
+    direct.tests = tests
+    return acc
+
+
+direct.launches = 0
+direct.tests = None
+
+
+def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                le_grad: torch.Tensor):
+    """Texture gradient of every lane's direct samples, given le_grad, the
+    (3, N) float32 adjoint of each of a lane's samples -> (d_material
+    (H, W, 4), the (3, N) radiance sums of the same samples, as direct's).
+
+    On the card the float atomics sum the taps in an order that changes
+    from run to run, so the gradient's last bits do too."""
+    dev = lanes.device
+    if not _on_card(dev, "direct_grad"):
+        return render_direct_backward_plain(tb, lanes, material, le_grad)
+    n, tables, params = _loop_inputs(tb, lanes, material, 0, dev, "direct")
+    _check(le_grad, "le_grad", torch.float32, (3, n), dev)
+    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
+    grad = torch.zeros_like(material)
+    tests = torch.zeros((1,), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = load_library().zdr_direct_grad(
+        params, tables.data_ptr(), tables.numel(),
+        tb.bn.data_ptr() if tb.kind == "pmj02bn" else None,
+        material.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(), acc.data_ptr(),
+        grad.data_ptr(), tests.data_ptr(), n, stream)
+    if rc != 0:
+        raise RuntimeError(f"direct_grad kernel launch failed: CUDA error {rc}")
+    direct_grad.launches += 1
+    direct_grad.tests = tests
+    return grad, acc
+
+
+direct_grad.launches = 0
+direct_grad.tests = None

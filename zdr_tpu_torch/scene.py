@@ -1,7 +1,7 @@
 """Scene: the user-facing API (port of zdr_tpu/scene.py:84-302), on torch.
 
     scene = Scene([(obj_file, transform_or_None, emission_or_None), ...],
-                  integrator="path", device="cuda")
+                  integrator="direct", device="cuda")
     scene.camera = Camera(fov=..., origin=..., target=..., up=...)
     image = scene.render(material, res=(W, H), spp=64, seed=0)   # (H, W, 4)
 
@@ -10,15 +10,18 @@
     image[..., :3].sum().backward()                                # material.grad
 
 The device is explicit: the scene's tensors live there, the material must
-too, and a render runs there (the CUDA kernels path_loop and, for the
-backward, path_loop_grad on "cuda"; their plain versions on "cpu"). The
-render is differentiable in the material: the backward re-estimates the
-Path Replay Backprop texture gradient at seed + 1.
+too, and a render runs there (on "cuda" the CUDA kernels: direct and, for
+the backward, direct_grad; path_loop and path_loop_grad for the path
+integrator; on "cpu" their plain versions). The render is differentiable in
+the material: the backward re-estimates the texture gradient at seed + 1
+(Path Replay Backprop for the path integrator).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple, Union
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -46,7 +49,7 @@ class Scene:
     Args:
         models: list of (obj_file_or_ObjMesh, transform_4x4_or_None,
             emission_or_None). Emission > 0 marks an instance as an area light.
-        integrator: 'path' (the port's only integrator so far).
+        integrator: 'direct' (default) | 'path'.
         sampler: 'pmj02bn' (default) | 'lcg'.
         device: torch device of the scene and of every render.
     """
@@ -54,7 +57,7 @@ class Scene:
     def __init__(
         self,
         models: Sequence[Tuple[Union[str, ObjMesh], Optional[np.ndarray], object]],
-        integrator: str = "path",
+        integrator: str = "direct",
         sampler: str = "pmj02bn",
         *,
         device,
@@ -63,12 +66,11 @@ class Scene:
             raise RuntimeError("exceeding maximum number of mesh instances")
         self.device = torch.device(device)
         geom = build_geometry([(src, t) for (src, t, _e) in models], self.device)
-        emissions = [_normalize_emission(e) for (_s, _t, e) in models]
-        light_insts = [i for i, e in enumerate(emissions) if (e > 0).any()]
+        self.emissions = [_normalize_emission(e) for (_s, _t, e) in models]
         self._data = SceneData(
             geom=geom,
-            emission=torch.as_tensor(np.stack(emissions), device=self.device),
-            meta=build_light_meta(geom, light_insts),
+            emission=torch.as_tensor(np.stack(self.emissions), device=self.device),
+            meta=build_light_meta(geom, self._light_insts()),
             point_pos=torch.zeros((0, 3), dtype=torch.float32, device=self.device),
             point_intensity=torch.zeros((0, 3), dtype=torch.float32, device=self.device),
         )
@@ -76,12 +78,49 @@ class Scene:
         self.integrator = integrator
         self.sampler = sampler
         self.use_tent_filter = True
+        self.use_mis = True
         self.max_depth = 16
         self.rr_depth = 2
         self.bilinear = True
         # PRB scatter knobs; the port takes only 1 and False (ROADMAP A17)
         self.splat_merge = 1
         self.packed_splat = False
+
+    def _light_insts(self):
+        return [i for i, e in enumerate(self.emissions) if (e > 0).any()]
+
+    def update_lights(self, emissions) -> None:
+        """Rewrite the per-instance emission (light-stage switching; JAX
+        scene.py:161-186)."""
+        n_inst = self._data.geom.inst_tri_count.shape[0]
+        if len(emissions) != n_inst:
+            raise ValueError(f"{len(emissions)} emissions for {n_inst} instances")
+        self.emissions = [_normalize_emission(e) for e in emissions]
+        self._data = dataclasses.replace(
+            self._data,
+            emission=torch.as_tensor(np.stack(self.emissions), device=self.device),
+            meta=build_light_meta(self._data.geom, self._light_insts(),
+                                  self._data.meta.n_point),
+        )
+
+    def add_point_light(self, position, intensity) -> None:
+        """Add a point light (JAX scene.py:188-217).
+
+        Args:
+            position: world-space (3,).
+            intensity: radiant intensity (3,) or scalar.
+        """
+        pos = torch.as_tensor(np.asarray(position, np.float32).reshape(1, 3),
+                              device=self.device)
+        inten = torch.as_tensor(_normalize_emission(intensity).reshape(1, 3),
+                                device=self.device)
+        d = self._data
+        self._data = dataclasses.replace(
+            d,
+            point_pos=torch.cat([d.point_pos, pos]),
+            point_intensity=torch.cat([d.point_intensity, inten]),
+            meta=dataclasses.replace(d.meta, n_point=d.meta.n_point + 1),
+        )
 
     def add_envmap(self, img, compensate_mis: bool = True) -> None:
         raise NotImplementedError("envmap: ROADMAP A11")
@@ -93,6 +132,7 @@ class Scene:
             integrator=self.integrator,
             sampler=self.sampler,
             use_tent_filter=bool(self.use_tent_filter),
+            use_mis=bool(self.use_mis),
             max_depth=int(self.max_depth),
             rr_depth=int(self.rr_depth),
             bilinear=bool(self.bilinear),
