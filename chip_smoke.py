@@ -43,7 +43,21 @@ Phases, one line each; any failure raises and exits non-zero:
      phase 10's bar; direct_grad, with the iteration's adjoint on those
      lanes and 0 elsewhere, at phase 7's bars); the iteration's median,
      Scene.render's and each kernel's alone (CUDA events); then the same
-     for the cornell box at 512x512, 64 spp.
+     for the cornell box at 512x512, 64 spp;
+ 12. the trace kernels, trace_closest and trace_any (per-ray t_max), on
+     262,144 random rays: the dense sweep over the 962-triangle protocol
+     scene, the BVH over it and over the big mesh (50,882 triangles); each
+     bit for bit against its plain version, with the same counted tests and
+     node visits, and timed;
+ 13. the big-mesh main path (tools/bench_bigmesh.py's sphere of 160 x 160,
+     50,880 triangles, over the protocol's quad light of 40, its camera;
+     pmj02bn, 512x512, 64 spp, 1024^2 material of 0.5) through Scene.render
+     + loss.backward(), for the direct and the path integrator: one launch
+     of each BVH kernel and none of the dense ones, no plain version
+     called; both BVH kernels against their plain walks on the main path's
+     own inputs at every 64th lane for the first CHECK_SAMPLES samples
+     (phase 10's and phase 7's bars); the iteration's median, Scene.render's
+     and each kernel's alone, with its counted tests and node visits.
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own.
 The next-to-last line is the kernels' JSON record: "launches" on the main
@@ -56,9 +70,10 @@ events, "plain_ms" its plain version by the host clock (on the inputs of
 "plain_shape", a subset of the main path's where the full width would take
 minutes), and
 "bound_ms" the larger of the kernel's FP32 work (ray-triangle tests, 46
-operations each, counted in this run) at 67 TFLOP/s and its bytes (each
-input read once, each output written once) at 3.35 TB/s. The last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+operations each, and BVH node visits, SLAB_OPS each, counted in this run)
+at 67 TFLOP/s and its bytes (each input read once, each output written
+once) at 3.35 TB/s. The last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 import json
@@ -79,7 +94,14 @@ PROTOCOL_SPP = 256
 # CHECK_STRIDE-th lane of the main path
 CHECK_STRIDE = 64
 KERNELS = ("sampler_probe", "path_loop", "path_loop_grad", "trace_interact", "direct",
-           "direct_grad")
+           "direct_grad", "trace_closest", "trace_any", "path_loop_bvh", "path_loop_grad_bvh",
+           "direct_bvh", "direct_grad_bvh")
+# the dense instantiations of the four megakernels
+DENSE = ("path_loop", "path_loop_grad", "direct", "direct_grad")
+# phase 13 holds the BVH kernels against their plain walks on the first
+# CHECK_SAMPLES samples of every CHECK_STRIDE-th lane: the plain walk steps
+# all its rays a node at a time, ~0.7 s a sample on the big mesh
+CHECK_SAMPLES = 8
 # the launch counts of every main-path call (_drive_main)
 MAIN_COUNTS = []
 # the H100 SXM's peaks (NVIDIA's data sheet, at 700 W): FP32 outside the
@@ -89,6 +111,11 @@ FP32_PEAK, HBM_RATE = 67e12, 3.35e12
 # kernels/csrc/path_loop_step.cuh): 2 cross products, 4 dot products, 3
 # scalings, a reciprocal, a difference and u + v
 MT_OPS = 46
+# FP32 operations of one node visit's slab test (aabb_hit in
+# kernels/csrc/trace.cuh; the reciprocal direction is computed once a ray):
+# 6 differences and 6 products, 3 min and 3 max, 2 max and 2 min across the
+# axes, 3 comparisons
+SLAB_OPS = 25
 
 
 def _drive_main(fn):
@@ -104,10 +131,10 @@ def _drive_main(fn):
     return out, counts
 
 
-def _bound(tests, nbytes):
-    """-> (bound_ms, bound_by): the larger of the tests' FP32 operations at
-    the FP32 peak and the bytes at the memory rate."""
-    t_ops = tests * MT_OPS / FP32_PEAK * 1e3
+def _bound(tests, nbytes, visits=0):
+    """-> (bound_ms, bound_by): the larger of the tests' and node visits'
+    FP32 operations at the FP32 peak and the bytes at the memory rate."""
+    t_ops = (tests * MT_OPS + visits * SLAB_OPS) / FP32_PEAK * 1e3
     t_bytes = nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -698,6 +725,197 @@ def phase_main_direct(dev, smi):
     return proto
 
 
+def _bigmesh(device, integrator):
+    """tools/bench_bigmesh.py's sphere of 160 x 160 (50,880 triangles) and
+    camera, over the protocol's 2-triangle quad light of 40."""
+    import zdr_tpu_torch as zt
+    from zdr_tpu_torch.geometry.procedural import make_quad, make_uv_sphere
+
+    scene = zt.Scene([(make_uv_sphere(0.5, n_lat=160, n_lon=160), None, None),
+                      (make_quad(size=1.0, y=-2.0), None, 40.0)],
+                     integrator=integrator, device=device)
+    scene.camera = zt.Camera(fov=0.8, origin=(1.5, 0.2, 0.0), target=(0.0, 0.0, 0.0))
+    return scene
+
+
+def phase_trace_bvh(dev, smi):
+    """Phase 12: trace_closest and trace_any, dense and BVH, against their
+    plain versions bit for bit -> their records (the BVH on the big mesh)."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.accel import build_accel
+    from zdr_tpu_torch.accel import trace as tt
+
+    n = RES[0] * RES[1]
+    g = torch.Generator().manual_seed(12)
+    o = torch.randn((n, 3), generator=g)
+    o = (1.6 * o / o.norm(dim=1, keepdim=True)).to(dev)
+    d = torch.rand((n, 3), generator=g).to(dev) - 0.5 - o
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    t_max = (0.5 + 2.5 * torch.rand(n, generator=g)).to(dev)
+    notes, records = [], {}
+    cases = (("protocol", _protocol(dev), "bruteforce"), ("protocol", _protocol(dev), "bvh"),
+             ("big mesh", _bigmesh(dev, "direct"), "bvh"))
+    for name, scene, method in cases:
+        acc = build_accel(scene._data.geom, method)
+        runs = {
+            "trace_closest": (lambda a=acc: kernels.trace_closest(a, o, d, 0.0, 1e30),
+                              lambda a=acc: tt.trace_closest_plain(a, o, d, 0.0, 1e30)),
+            "trace_any": (lambda a=acc: (kernels.trace_any(a, o, d, 1e-4, t_max),),
+                          lambda a=acc: tt.trace_any_plain(a, o, d, 1e-4, t_max)),
+        }
+        for kname, (kern, plain) in runs.items():
+            got = kern()
+            counts = getattr(kernels, kname).counts.tolist()
+            (want, work), plain_ms = _sync_ms(plain)
+            want = want if kname == "trace_closest" else (want,)
+            for a, b in zip(got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{kname} {method} on the {name}: {int((a != b).sum())} "
+                                         f"of {n} rays differ from the plain version")
+            if counts != [int(x) for x in work]:
+                raise AssertionError(f"{kname} {method} on the {name}: counts {counts} vs plain "
+                                     f"{[int(x) for x in work]}")
+            ms, _runs = _event_ms(kern)
+            outs = 16 * n if kname == "trace_closest" else 4 * n
+            bound = _bound(counts[0], _nbytes(o, d, t_max, t_max, acc.geom, acc.tri_perm,
+                                              acc.node_box, acc.node_link) + outs, counts[1])
+            notes.append(f"{kname} {method} {name} ({acc.num_triangles} tris): kernel {ms:.3f} ms, "
+                         f"plain {plain_ms:.1f} ms, {counts[0] / n:.1f} tests and {counts[1] / n:.1f} "
+                         f"visits a ray, bound {bound[0]:.4f} ms ({bound[1]})")
+            if name == "big mesh":
+                records[kname] = dict(launches=None, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                      plain_shape=f"{n} rays x {acc.num_triangles} triangles (BVH)",
+                                      bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                                      tests=counts[0], visits=counts[1])
+    print(f"[12 trace] {n} random rays around the sphere, per-ray t_max in [0.5, 3) for any "
+          f"hit; kernel vs plain bit for bit, counts equal; " + "; ".join(notes)
+          + f"; card {smi}", flush=True)
+    return records
+
+
+def _bigmesh_check(tb, tb1, mat, integrator):
+    """Both BVH kernels against their plain walks on the main path's own
+    inputs (its tables at seed 0 and 1, its material, the adjoint 1 / spp)
+    at every CHECK_STRIDE-th lane, the first CHECK_SAMPLES samples of each
+    -> (forward max abs diff a sample, gradient max abs diff, a note)."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import direct as dr
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    dev, spp = mat.device, tb.spp
+    sub = pl.pixel_lanes(tb.res, CHECK_SAMPLES, dev)[:, ::CHECK_STRIDE].contiguous()
+    le = torch.full((3, sub.shape[1]), 1.0 / spp, device=dev)
+    if integrator == "direct":
+        got = kernels.direct(tb, sub, mat)
+        want, plain_ms = _sync_ms(lambda: dr.render_direct_plain(tb, sub, mat))
+        ggot, _acc = kernels.direct_grad(tb1, sub, mat, le)
+        (gwant, _acc), gplain_ms = _sync_ms(
+            lambda: dr.render_direct_backward_plain(tb1, sub, mat, le))
+    else:
+        got = kernels.path_loop(tb, sub, mat, pl.init_carry(sub), tb.n_steps).f[0:3]
+        plain, plain_ms = _sync_ms(lambda: pl.render_path_loop_plain(
+            tb, sub, mat, pl.init_carry(sub), tb.n_steps))
+        want = plain.f[0:3]
+        ggot, _c = kernels.path_loop_grad(tb1, sub, mat, le, tb.n_steps)
+        (gwant, _c), gplain_ms = _sync_ms(
+            lambda: pl.render_path_backward_loop_plain(tb1, sub, mat, le, tb.n_steps))
+    torch.cuda.synchronize()
+    diff = (got - want).abs().amax(0) / CHECK_SAMPLES
+    mean, within = float(diff.mean()), float((diff <= 1e-5).float().mean())
+    if not (mean <= 1e-6 and within >= 0.999):
+        raise AssertionError(f"big mesh {integrator}: kernel vs plain mean abs diff {mean:.3e}, "
+                             f"{within:.4%} within 1e-5")
+    g_err, g_worst = _assert_grad_close(ggot, gwant, f"big mesh {integrator} gradient")
+    note = (f"at every {CHECK_STRIDE}th lane, the first {CHECK_SAMPLES} samples "
+            f"({sub.shape[1]} lanes): forward vs plain mean abs diff {mean:.3e}, bit-identical "
+            f"{bool(torch.equal(got, want))}, plain {plain_ms:.1f} ms; gradient worst texel rel "
+            f"err {g_worst:.3e} (rtol 1e-4), max abs diff {g_err:.3e}, plain {gplain_ms:.1f} ms")
+    return float(diff.max()), g_err, plain_ms, gplain_ms, note
+
+
+def phase_bigmesh(dev, smi):
+    """Phase 13: the 50,880-triangle scene through Scene.render +
+    loss.backward() for both integrators -> the BVH kernels' records."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    records = {}
+    for integrator, (fwd, bwd) in (("direct", ("direct_bvh", "direct_grad_bvh")),
+                                   ("path", ("path_loop_bvh", "path_loop_grad_bvh"))):
+        scene = _bigmesh(dev, integrator)
+        mat = torch.full((TEX, TEX, 4), 0.5, dtype=torch.float32, device=dev).requires_grad_()
+
+        def iteration():
+            mat.grad = None
+            loss = scene.render(mat, res=RES, spp=SPP, seed=0)[..., :3].sum()
+            loss.backward()
+            return loss
+
+        plain = (_plain_calls(), pl.loop_step.calls, pl.render_path_backward_loop_plain.calls)
+        (loss, first_ms), counts = _drive_main(lambda: _sync_ms(iteration))
+        if (counts[fwd], counts[bwd]) != (1, 1) or any(counts[k] for k in DENSE):
+            raise AssertionError(f"big mesh {integrator}: launches {counts}; expected one of "
+                                 f"{fwd} and {bwd} and none of the dense kernels")
+        if (_plain_calls(), pl.loop_step.calls, pl.render_path_backward_loop_plain.calls) != plain:
+            raise AssertionError(f"big mesh {integrator}: the iteration ran a plain version")
+        grad = mat.grad.detach()
+        if not (bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+                and math.isfinite(float(loss.detach()))):
+            raise AssertionError(f"big mesh {integrator}: non-finite or zero loss or gradient")
+
+        m = mat.detach()
+        data = scene._render_data(integrator)
+        tb = pl.build_loop_tables(data, scene.camera, scene._config(RES, SPP), 0)
+        tb1 = pl.build_loop_tables(data, scene.camera, scene._config(RES, SPP), 1)
+        if tb.bvh is None or tb.scene.shape[0] != 50882:
+            raise AssertionError(f"big mesh {integrator}: not the 50,882-triangle BVH route")
+        err, g_err, plain_ms, gplain_ms, check = _bigmesh_check(tb, tb1, m, integrator)
+
+        it_ms, it_runs = _median_ms(iteration)
+        render_ms, _r = _median_ms(lambda: scene.render(m, res=RES, spp=SPP, seed=0))
+        lanes = pl.pixel_lanes(RES, SPP, dev)
+        le = torch.full((3, lanes.shape[1]), 1.0 / SPP, device=dev)
+        if integrator == "direct":
+            ms, _r = _event_ms(lambda: kernels.direct(tb, lanes, m))
+            work = kernels.direct_bvh.counts.tolist()
+            gms, _r = _event_ms(lambda: kernels.direct_grad(tb1, lanes, m, le))
+            gwork = kernels.direct_grad_bvh.counts.tolist()
+            state = [torch.empty((3, lanes.shape[1]), device=dev)]
+        else:
+            carry0 = pl.init_carry(lanes)
+            ms, _r = _event_ms(lambda: kernels.path_loop(tb, lanes, m, carry0, tb.n_steps))
+            work = kernels.path_loop_bvh.counts.tolist()
+            gms, _r = _event_ms(lambda: kernels.path_loop_grad(tb1, lanes, m, le, tb.n_steps))
+            gwork = kernels.path_loop_grad_bvh.counts.tolist()
+            state = [carry0.f, carry0.i, carry0.f, carry0.i]
+        a = tb.bvh
+        tables = (lanes, m, tb.scene, tb.lights, tb.bn, a.geom, a.tri_perm, a.node_box, a.node_link)
+        bound = _bound(work[0], _nbytes(*tables, *state), work[1])
+        gbound = _bound(gwork[0], _nbytes(*tables, le, m, *state), gwork[1])
+        n_samples = RES[0] * RES[1] * SPP
+        print(f"[13 big mesh] {integrator}: {tb.scene.shape[0]} tris, BVH of "
+              f"{a.node_box.shape[0]} nodes, pmj02bn {RES[0]}x{RES[1]} {SPP} spp {TEX}^2 "
+              f"material of 0.5, loss = image[..., :3].sum(), loss.backward(): 1 {fwd} and 1 "
+              f"{bwd} launch, no dense kernel, no plain version; loss "
+              f"{float(loss.detach()):.4f}, |g|max {float(grad.abs().max()):.4e}; {check}; "
+              f"iteration median {it_ms:.2f} ms of {[round(t, 2) for t in it_runs]} (first "
+              f"{first_ms:.2f} ms); Scene.render median {render_ms:.2f} ms; {fwd} alone {ms:.2f} "
+              f"ms = {n_samples / ms / 1e3:.2f} M samples/s, {work[0]:.4g} tests and {work[1]:.4g} "
+              f"node visits ({work[0] / n_samples:.1f} and {work[1] / n_samples:.1f} a sample) "
+              f"-> bound {bound[0]:.3f} ms ({bound[1]}); {bwd} alone {gms:.2f} ms, "
+              f"{gwork[0]:.4g} tests, {gwork[1]:.4g} visits -> bound {gbound[0]:.3f} ms "
+              f"({gbound[1]}); card {smi}", flush=True)
+        shape = (f"every {CHECK_STRIDE}th lane of {RES[0]}x{RES[1]}, the first {CHECK_SAMPLES} "
+                 f"of {SPP} samples")
+        records[fwd] = dict(launches=counts[fwd], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            plain_shape=shape, bound_ms=bound[0], bound_by=bound[1],
+                            library_ms=None, tests=work[0], visits=work[1], iteration_ms=it_ms)
+        records[bwd] = dict(launches=counts[bwd], max_abs_err=g_err, ms=gms, plain_ms=gplain_ms,
+                            plain_shape=shape, bound_ms=gbound[0], bound_by=gbound[1],
+                            library_ms=None, tests=gwork[0], visits=gwork[1])
+    return records
+
+
 def main():
     name, smi = phase_device()
     sys.path.insert(0, ROOT)
@@ -713,9 +931,14 @@ def main():
     trace_run = phase_trace(dev)
     check = phase_direct(dev)
     proto = phase_main_direct(dev, smi)
-    # the probes are on no main path: what the main-path calls launched of them
+    traces = phase_trace_bvh(dev, smi)
+    big = phase_bigmesh(dev, smi)
+    # the probes and the standalone traces are on no main path: what the
+    # main-path calls launched of them
     probe_run["launches"] = sum(c["sampler_probe"] for c in MAIN_COUNTS)
     trace_run["launches"] = sum(c["trace_interact"] for c in MAIN_COUNTS)
+    for k in ("trace_closest", "trace_any"):
+        traces[k]["launches"] = sum(c[k] for c in MAIN_COUNTS)
     direct_src = "zdr_tpu_torch/kernels/csrc/direct.cu"
     record = {"kernels": [{
         "name": "sampler_probe",
@@ -757,6 +980,48 @@ def main():
         "launches": proto["launches"][1], "max_abs_err": max(check["g_err"], proto["g_err"]),
         "ms": proto["gms"], "plain_ms": proto["gplain_ms"], "plain_shape": proto["plain_shape"],
         "bound_ms": proto["gbound"][0], "bound_by": proto["gbound"][1], "library_ms": None,
+    }, {
+        "name": "trace_closest",
+        "route": "cuda",
+        "source": "zdr_tpu_torch/kernels/csrc/accel.cu",
+        "replaces": "zdr_tpu/integrators/pallas_stream.py:392 (BVH mode) + "
+                    "zdr_tpu/accel/pallas_trace.py:35 (dense mode)",
+        **traces["trace_closest"],
+    }, {
+        "name": "trace_any",
+        "route": "cuda",
+        "source": "zdr_tpu_torch/kernels/csrc/accel.cu",
+        "replaces": "zdr_tpu/integrators/pallas_stream.py:507 (BVH mode) + "
+                    "zdr_tpu/accel/pallas_trace.py:103 (dense mode)",
+        **traces["trace_any"],
+    }, {
+        "name": "path_loop_bvh",
+        "route": "cuda",
+        "source": "zdr_tpu_torch/kernels/csrc/path_loop.cu",
+        "replaces": "zdr_tpu/integrators/pallas_loop.py:388 with pallas_stream.py:392 + :507 "
+                    "(path_fused.py:132-172)",
+        **big["path_loop_bvh"],
+    }, {
+        "name": "path_loop_grad_bvh",
+        "route": "cuda",
+        "source": "zdr_tpu_torch/kernels/csrc/path_loop_grad.cu",
+        "replaces": "zdr_tpu/integrators/pallas_loop.py:388 (tap mode) with "
+                    "pallas_stream.py:392 + :507",
+        **big["path_loop_grad_bvh"],
+    }, {
+        "name": "direct_bvh",
+        "route": "cuda",
+        "source": direct_src,
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:861 + :917 with pallas_stream.py:392 "
+                    "+ :507 (direct_fused.py:139-240)",
+        **big["direct_bvh"],
+    }, {
+        "name": "direct_grad_bvh",
+        "route": "cuda",
+        "source": direct_src,
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:917 (want_grad) with "
+                    "pallas_stream.py:392 + :507",
+        **big["direct_grad_bvh"],
     }]}
     for entry in record["kernels"]:
         for v in entry.values():

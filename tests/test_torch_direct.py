@@ -480,9 +480,14 @@ def test_scope_gates_raise():
     s.packed_splat = False
     s.splat_merge = 4  # the direct integrator never merges splats
     assert s.render(mat, res=(4, 4), spp=1).shape == (4, 4, 4)
-    big = zt.Scene([(tproc.make_uv_sphere(0.5, 40, 100), None, None)], device="cpu")
+    # past the kernels' shared memory: the dense sweep raises, naming the
+    # BVH route; "auto" (the default) takes it
+    big = zt.Scene([(tproc.make_uv_sphere(0.5, 40, 100), None, None)], accel="bruteforce",
+                   device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         big.render(mat, res=(4, 4), spp=1)
+    big.accel = "auto"
+    assert bool(torch.isfinite(big.render(mat, res=(4, 4), spp=1)).all())
     with pytest.raises(ValueError, match="instances"):
         s.update_lights([1.0])
 
@@ -498,7 +503,7 @@ def test_table_limit_follows_each_kernels_layout():
     assert s._data.meta.num_tris == 3102
     img = s.render(mat, res=(2, 2), spp=1)
     assert img.shape == (2, 2, 4) and bool(torch.isfinite(img).all())
-    s.integrator = "path"
+    s.integrator, s.accel = "path", "bruteforce"  # "auto" takes the BVH
     with pytest.raises(NotImplementedError, match="A13"):
         s.render(mat, res=(2, 2), spp=1)
     floats = kernels.MAX_TABLE_BYTES // 4

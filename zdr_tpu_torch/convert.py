@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .accel.types import GEOM_COLS, Accel
 from .geometry.mesh import geometry_from_numpy
 from .scenedata import LightMeta, SceneData
 
@@ -88,3 +89,28 @@ def scene_to_numpy(data: SceneData):
         num_tris=m.num_tris, n_env=m.n_env, n_point=m.n_point,
     )
     return arrays, meta
+
+
+def accel_from_jax(arrays: dict, device) -> Accel:
+    """The port's Accel from the numpy arrays of a JAX Accel: "p0", "e1",
+    "e2" (S, 3), "tri_perm" (S,), "tri_inst" (T,), "method", and for
+    method "bvh" its "node_packed" (M, 8) rows, whose escape and leaf slots
+    hold int32 bits in float32 (zdr_tpu/accel/bvh.py::to_stackless)."""
+    method = str(arrays["method"])
+    if method not in ("bruteforce", "pallas", "bvh"):
+        raise ValueError(f"no port Accel for a JAX {method!r} accel (no tree to carry)")
+    rows = np.zeros((np.asarray(arrays["p0"]).shape[0], GEOM_COLS), np.float32)
+    for k, name in enumerate(("p0", "e1", "e2")):
+        rows[:, 3 * k:3 * k + 3] = np.asarray(arrays[name], np.float32)
+    if method == "bvh":
+        packed = np.ascontiguousarray(np.asarray(arrays["node_packed"], np.float32))
+        box, link = packed[:, 0:6], packed[:, 6:8].view(np.int32)
+    else:
+        box, link = np.zeros((0, 6), np.float32), np.zeros((0, 2), np.int32)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a, dtype), device=device)
+
+    return Accel(method=method, geom=t(rows, np.float32),
+                 tri_perm=t(arrays["tri_perm"], np.int32), tri_inst=t(arrays["tri_inst"], np.int64),
+                 node_box=t(box, np.float32), node_link=t(link, np.int32))

@@ -15,7 +15,9 @@ They take and return tuples of (N,) tensors in the order of the TPU
 kernels' planes, without the (rows, 512) tiling. They are the plain
 versions of the per-lane code in kernels/csrc/direct_step.cuh (which runs
 the same steps inside the direct kernels) and of the trace_interact kernel.
-The sweeps are brute force, O(T) per ray; the BVH is ROADMAP A13.
+The sweeps are brute force, O(T) per ray, or, given a BVH (the big-mesh
+route, where the JAX package streamed B5/B6), the escape-link walk of
+accel/trace.py.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ from ..microfacet import (
     to_local,
     to_world,
 )
+from ..accel.trace import chunks
 from ..texture import splat_ids
 from ..vec import vadd, vdot, vscale
-from .path_loop import _mt_all, closest_hit, interact_epilogue
+from .path_loop import _mt_all, closest_hit, interact_epilogue, occluded
 
 # trace_interact's 16 outputs (pallas_bounce.py:1360); lite returns the
 # last 4
@@ -41,27 +44,21 @@ TRACE_NAMES = (
     "p_x", "p_y", "p_z", "uv_x", "uv_y", "ns_x", "ns_y", "ns_z",
     "ng_x", "ng_y", "ng_z", "shade", "ae_r", "ae_g", "ae_b", "miss",
 )
-# rays per chunk times triangles, so that a sweep's (N, T) planes stay small
-_CHUNK_ELEMS = 1 << 22
-
-
-def _chunks(n: int, n_tris: int):
-    step = max(1, _CHUNK_ELEMS // max(n_tris, 1))
-    return [slice(a, min(a + step, n)) for a in range(0, n, step)]
-
-
-def trace_interact_plain(scene: torch.Tensor, rays, lite: bool = False):
+def trace_interact_plain(scene: torch.Tensor, rays, lite: bool = False, bvh=None):
     """Closest hit + interaction of every ray (the plain version of the
     trace_interact kernel). scene: the (T, 31) table; rays: 8 (N,) tensors
     o3, d3, pdf_prev float32 and active int32 -> the 16 TRACE_NAMES tensors
-    (shade and miss int32), or with lite their last 4."""
+    (shade and miss int32), or with lite their last 4. Given `bvh`, the hit
+    is the BVH walk's."""
     trace_interact_plain.calls += 1
     o, d, pdf_prev, active = rays[0:3], rays[3:6], rays[6], rays[7] != 0
-    parts = []
-    for sl in _chunks(o[0].shape[0], scene.shape[0]):
-        best_t, bu, bv, prim = closest_hit(scene, [x[sl] for x in o], [x[sl] for x in d])
-        parts.append((best_t, bu, bv, prim))
-    best_t, bu, bv, prim = (torch.cat(x) for x in zip(*parts))
+    if bvh is not None:
+        best_t, bu, bv, prim = closest_hit(scene, o, d, bvh)
+    else:
+        parts = []
+        for sl in chunks(o[0].shape[0], scene.shape[0]):
+            parts.append(closest_hit(scene, [x[sl] for x in o], [x[sl] for x in d]))
+        best_t, bu, bv, prim = (torch.cat(x) for x in zip(*parts))
     miss = prim < 0
     rows = torch.where(miss[:, None], 0.0, scene[torch.clamp_min(prim, 0), 9:31])
     p, uv, ns, ng, shade, ae = interact_epilogue(
@@ -75,17 +72,20 @@ def trace_interact_plain(scene: torch.Tensor, rays, lite: bool = False):
 trace_interact_plain.calls = 0
 
 
-def occluded_plain(scene, p, wi, dist):
-    """Any triangle hit at t in (1e-4, dist), per ray, in chunks of rays."""
+def occluded_plain(scene, p, wi, dist, bvh=None):
+    """Any triangle hit at t in (1e-4, dist), per ray, in chunks of rays, or
+    through `bvh`."""
+    if bvh is not None:
+        return occluded(scene, p, wi, dist, bvh)
     out = []
-    for sl in _chunks(p[0].shape[0], scene.shape[0]):
+    for sl in chunks(p[0].shape[0], scene.shape[0]):
         ok, _u, _v, t = _mt_all(scene, [x[sl] for x in p], [x[sl] for x in wi])
         out.append((ok & (t > 1e-4) & (t < dist[sl][:, None])).any(dim=1))
     return torch.cat(out)
 
 
 def shade_plain(scene, ray, nee, draws, rr_depth: int, max_depth: int, tex_h: int,
-                tex_w: int, grad=None, occ_in=None, want_occ: bool = False):
+                tex_w: int, grad=None, occ_in=None, want_occ: bool = False, bvh=None):
     """One GGX bounce of every ray (the plain version of B2's split mode).
 
     ray: 24 (N,) tensors p3, ns3, ng3, d3, shade (int32), material4,
@@ -96,7 +96,8 @@ def shade_plain(scene, ray, nee, draws, rr_depth: int, max_depth: int, tex_h: in
     -> 14 tensors: radiance_add3, beta_next3, pdf_bounce, next_o3,
     next_d3, alive (int32); with grad 8 more: le_rem_next3, g0..g3, splat
     id (int32; tex_h * tex_w where the tap splats nowhere); with want_occ
-    the occlusion (int32) last (pallas_bounce.py:1429-1443)."""
+    the occlusion (int32) last (pallas_bounce.py:1429-1443). Given `bvh`,
+    the shadow test walks it."""
     shade_plain.calls += 1
     p, ns, ng, d = ray[0:3], ray[3:6], ray[6:9], ray[9:12]
     shade = ray[12] != 0
@@ -108,7 +109,7 @@ def shade_plain(scene, ray, nee, draws, rr_depth: int, max_depth: int, tex_h: in
     wo = vscale(d, -1.0)
     tangent, binormal = make_onb(ns)
     wo_local = to_local(tangent, binormal, ns, wo)
-    occ = occ_in != 0 if occ_in is not None else occluded_plain(scene, p, wi_l, l_dist)
+    occ = occ_in != 0 if occ_in is not None else occluded_plain(scene, p, wi_l, l_dist, bvh)
     wi_light_local = to_local(tangent, binormal, ns, wi_l)
     nee_ok = shade & ~occ & (wi_light_local[2] >= 1e-4)
     pdf_bsdf_at_light = ggx_sample_pdf(wo_local, wi_light_local, rough)

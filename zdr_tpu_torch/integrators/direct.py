@@ -23,6 +23,8 @@ sample, added without a splat merge (:320-325).
 `direct_sample_plain` are the plain versions of the CUDA kernels
 (kernels/csrc/direct.cu): the kernels' wrappers run them for CPU tensors,
 and on the card they run only where a check compares them with the kernels.
+With a BVH in the tables (the big-mesh route) every sweep walks it, as the
+kernels' BVH instantiations do.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ def direct_sample_plain(tb: LoopTables, lanes, material, sample_idx: int, le_gra
     o, d = camera_ray(tb.cam, lanes[0], lanes[1], cu0, cu1, tb.res, tb.use_tent)
     big = torch.full((n,), PDF_NONE, dtype=torch.float32, device=dev)
     ones_i = torch.ones((n,), dtype=torch.int32, device=dev)
-    k1 = trace_interact_plain(tb.scene, (*o, *d, big, ones_i))
+    k1 = trace_interact_plain(tb.scene, (*o, *d, big, ones_i), bvh=tb.bvh)
     p, uv, ns, ng, shade, ae = k1[0:3], k1[3:5], k1[5:8], k1[8:11], k1[11], k1[12:15]
     mat = read_bilinear(material, uv[0], uv[1])
     (wl, l_dist, l_pdf, lev), smp = nee_select(tb, p, smp)
@@ -76,8 +78,8 @@ def direct_sample_plain(tb: LoopTables, lanes, material, sample_idx: int, le_gra
     draws = (u_lobe, u0, u1, torch.zeros_like(u_lobe))
     h, w = material.shape[0], material.shape[1]
     k2 = shade_plain(tb.scene, ray, nee, draws, RR_DEPTH, MAX_DEPTH, h, w,
-                     want_occ=le_grad is not None)
-    bae = trace_interact_plain(tb.scene, (*k2[7:13], k2[6], k2[13]), lite=True)
+                     want_occ=le_grad is not None, bvh=tb.bvh)
+    bae = trace_interact_plain(tb.scene, (*k2[7:13], k2[6], k2[13]), lite=True, bvh=tb.bvh)
     rad = tuple(k2[c] + k2[3 + c] * bae[c] for c in range(3))
     if le_grad is None:
         return rad
@@ -98,14 +100,20 @@ def _accumulate(acc, rad):
         for c in range(3))
 
 
+def _n_samples(lanes) -> int:
+    """The most samples a lane takes: its stop row, spp on a render."""
+    return int(lanes[2].max()) if lanes.shape[1] else 0
+
+
 def render_direct_plain(tb: LoopTables, lanes, material) -> torch.Tensor:
-    """Each lane's samples 0 .. spp-1 -> the (3, N) sums of their clamped
+    """Each lane's samples 0 .. stop-1 -> the (3, N) sums of their clamped
     radiances (the plain version of the direct kernel)."""
     render_direct_plain.calls += 1
     zero = torch.zeros((lanes.shape[1],), dtype=torch.float32, device=lanes.device)
     acc = (zero, zero, zero)
-    for it in range(tb.spp):
-        acc = _accumulate(acc, direct_sample_plain(tb, lanes, material, it))
+    for it in range(_n_samples(lanes)):
+        more = _accumulate(acc, direct_sample_plain(tb, lanes, material, it))
+        acc = tuple(torch.where(it < lanes[2], m, a) for m, a in zip(more, acc))
     return torch.stack(acc)
 
 
@@ -122,9 +130,13 @@ def render_direct_backward_plain(tb: LoopTables, lanes, material, le_grad):
     zero = torch.zeros_like(lg[0])
     acc = (zero, zero, zero)
     grad = torch.zeros((h * w, 4), dtype=torch.float32, device=material.device)
-    for it in range(tb.spp):
+    for it in range(_n_samples(lanes)):
         rad, (g0, g1, g2, g3, ids) = direct_sample_plain(tb, lanes, material, it, lg)
-        acc = _accumulate(acc, rad)
+        live = it < lanes[2]
+        more = _accumulate(acc, rad)
+        acc = tuple(torch.where(live, m, a) for m, a in zip(more, acc))
+        # a lane past its stop splats nowhere (the sentinel id h * w)
+        ids = torch.where(live, ids, h * w)
         grad += scatter_add4(ids.to(torch.int64), torch.stack([g0, g1, g2, g3], 1), h * w)
     return grad.reshape(h, w, 4), torch.stack(acc)
 

@@ -21,16 +21,19 @@ wrappers run them for CPU tensors, and on the card they run only where a
 check compares them with the kernels.
 
 The closest-hit and occlusion sweeps are brute force, O(T) per ray, over the
-triangle table; the BVH is ROADMAP A13.
+triangle table, or, when the tables carry a BVH (LoopTables.bvh, the big-mesh
+route), the escape-link walk of accel/trace.py that the BVH kernels run.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ..accel.trace import bvh_any, bvh_closest, mt
+from ..accel.types import Accel
 from ..camera import camera_const, camera_ray
 from ..microfacet import (
     ggx_brdf,
@@ -45,7 +48,7 @@ from ..samplers.hashes import lcg_step, lcg_to_unit_float, to_i32, u32
 from ..samplers.lcg import LCGSampler, lcg_fresh_state
 from ..samplers.pmj02bn import PMJ02BNSamplerP2, bluenoise, bn_base
 from ..texture import read_bilinear, scatter_add4, splat_ids
-from ..vec import div, vadd, vcross, vdot, vnormalize, vscale, vsub
+from ..vec import div, vadd, vdot, vnormalize, vscale, vsub
 from . import scene_tables
 
 RADIANCE_CLAMP = 1e5
@@ -118,6 +121,9 @@ class LoopTables:
     bn: torch.Tensor  # (res*res*n_tex,) blue noise; empty for lcg
     bn_res: int
     bn_ntex: int
+    # the scene's BVH: the sweeps walk it, and the kernels' wrappers launch
+    # their BVH instantiations; None: the dense sweeps over `scene`
+    bvh: Optional[Accel] = None
 
     @property
     def n_steps(self) -> int:
@@ -141,7 +147,7 @@ def build_loop_tables(data, camera, cfg, seed: int) -> LoopTables:
         seed=int(seed) & 0xFFFFFFFF,
         n_point=data.meta.n_point,
         n_mesh=data.meta.n_lights,
-        scene=scene_tables.scene_table(data),
+        scene=data.table if data.table is not None else scene_tables.scene_table(data),
         lights=scene_tables.light_table(data),
         light_inst=scene_tables.light_inst_table(data),
         points=scene_tables.point_table(data),
@@ -149,6 +155,7 @@ def build_loop_tables(data, camera, cfg, seed: int) -> LoopTables:
         bn=bn,
         bn_res=res,
         bn_ntex=n_tex,
+        bvh=data.accel if data.accel is not None and data.accel.is_bvh else None,
     )
 
 
@@ -189,31 +196,27 @@ def _mt_all(scene, o, d):
     (ok without the t range, u, v, t)."""
     cols = [scene[:, k][None, :] for k in range(9)]
     p0, e1, e2 = tuple(cols[0:3]), tuple(cols[3:6]), tuple(cols[6:9])
-    o = tuple(x[:, None] for x in o)
-    d = tuple(x[:, None] for x in d)
-    h = vcross(d, e2)
-    a = vdot(e1, h)
-    nz = torch.abs(a) > 1e-12
-    f = torch.where(nz, 1.0 / torch.where(a == 0, 1.0, a), 0.0)
-    sv = vsub(o, p0)
-    u = f * vdot(sv, h)
-    qv = vcross(sv, e1)
-    v = f * vdot(d, qv)
-    t = f * vdot(e2, qv)
-    ok = nz & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-    return ok, u, v, t
+    return mt(p0, e1, e2, tuple(x[:, None] for x in o), tuple(x[:, None] for x in d))
 
 
-def occluded(scene, p, wi, dist):
-    """Any triangle hit at t in (1e-4, dist) (pallas_loop.py:690)."""
+def occluded(scene, p, wi, dist, bvh=None):
+    """Any triangle hit at t in (1e-4, dist) (pallas_loop.py:690), over the
+    scene rows or through `bvh`."""
+    if bvh is not None:
+        return bvh_any(bvh, p, wi, torch.full_like(dist, 1e-4), dist)[0]
     ok, _u, _v, t = _mt_all(scene, p, wi)
     ok = ok & (t > 1e-4) & (t < dist[:, None])
     return ok.any(dim=1)
 
 
-def closest_hit(scene, o, d):
+def closest_hit(scene, o, d, bvh=None):
     """-> (best_t, u, v, prim): the sequential sweep's strict `t < best_t`
-    keeps the first of equal nearest triangles, and so does argmin."""
+    keeps the first of equal nearest triangles, and so does argmin; through
+    `bvh`, the smallest id among equal nearest t, the same triangle."""
+    if bvh is not None:
+        zero = torch.zeros_like(o[0])
+        (best_t, prim, bu, bv), _work = bvh_closest(bvh, o, d, zero, zero + T_MAX)
+        return best_t, bu, bv, prim.to(torch.int64)
     ok, u, v, t = _mt_all(scene, o, d)
     ok = ok & (t > 0.0) & (t < T_MAX)
     tt = torch.where(ok, t, torch.inf)
@@ -254,8 +257,8 @@ def interact_epilogue(o, d, pdf_prev, active, best_t, bu, bv, miss, av):
     return p, (ux, uy), ns, ng, shade, ae
 
 
-def closest_interact(scene, o, d, pdf_prev, active):
-    best_t, bu, bv, prim = closest_hit(scene, o, d)
+def closest_interact(scene, o, d, pdf_prev, active, bvh=None):
+    best_t, bu, bv, prim = closest_hit(scene, o, d, bvh)
     miss = prim < 0
     rows = scene[torch.clamp_min(prim, 0), 9:31]
     rows = torch.where(miss[:, None], 0.0, rows)
@@ -365,7 +368,7 @@ def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch
     wo = vscale(d, -1.0)
     tangent, binormal = make_onb(ns)
     wo_local = to_local(tangent, binormal, ns, wo)
-    occ = occluded(tb.scene, p, wi_l, l_dist)
+    occ = occluded(tb.scene, p, wi_l, l_dist, tb.bvh)
     wi_light_local = to_local(tangent, binormal, ns, wi_l)
     nee_ok = shade & ~occ & (wi_light_local[2] >= 1e-4)
     pdf_bsdf_at_light = ggx_sample_pdf(wo_local, wi_light_local, rough)
@@ -441,7 +444,7 @@ def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch
 
     # next closest hit + interaction
     np_, nuv, nns, nng, nshade, nae = closest_interact(
-        tb.scene, o_n, d_n, pdf_prev, in_flight_n
+        tb.scene, o_n, d_n, pdf_prev, in_flight_n, tb.bvh
     )
 
     # NEE + bounce draws for the next bounce

@@ -21,7 +21,7 @@ import torch
 
 from ..samplers import SAMPLERS
 from ..vec import div
-from .scene_tables import table_floats
+from .scene_tables import SCENE_COLS, table_floats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +78,13 @@ def check_scope(cfg: RenderConfig, material: torch.Tensor, data) -> None:
         )
     from ..kernels import check_table_fits
 
-    check_table_fits(data.meta.num_tris, table_floats(data.meta), cfg.integrator)
+    # the BVH route keeps only the light, point and camera rows in shared
+    # memory; the dense route the scene rows too
+    n_tris = data.meta.num_tris
+    if data.accel is not None and data.accel.is_bvh:
+        check_table_fits(0, table_floats(data.meta) - n_tris * SCENE_COLS, cfg.integrator)
+    else:
+        check_table_fits(n_tris, table_floats(data.meta), cfg.integrator)
 
 
 def render_forward(data, material: torch.Tensor, camera, seed: int, cfg: RenderConfig) -> torch.Tensor:

@@ -11,6 +11,13 @@ CUDA device it checks its tensors, allocates its outputs with torch.empty,
 launches on the current stream without synchronising, raises on a launch
 error, and counts its launches in `.launches`; any other device raises.
 
+The four megakernels have two instantiations each: the dense one sweeps the
+scene table from shared memory, the BVH one (path_loop_bvh,
+path_loop_grad_bvh, direct_bvh, direct_grad_bvh) walks the escape-link BVH
+in global memory (csrc/trace.cuh) for scenes past shared memory. The
+wrappers pick it from the tables (LoopTables.bvh, built once per Scene),
+never as a fallback, and count its launches under its own name.
+
 Kernels:
   path_loop       the forward render of the path integrator (csrc/path_loop.cu);
                   plain version: integrators/path_loop.render_path_loop_plain
@@ -28,10 +35,15 @@ Kernels:
   direct_grad     its texture gradient, one atomic tap a sample
                   (csrc/direct.cu); plain version:
                   integrators/direct.render_direct_backward_plain
+  trace_closest   closest hit of a ray batch, dense or through the BVH
+  trace_any       any hit of a ray batch, likewise (csrc/accel.cu); plain
+                  versions: accel/trace.trace_closest_plain, trace_any_plain
 
-The direct kernels also add the ray-triangle tests they made into
-`.tests`, a one-element int64 tensor on the card (read it after a
-synchronise): the work a bound on their time is counted from.
+The direct kernels add the ray-triangle tests they made into `.tests` (and
+their BVH node visits into `.visits`), int64 tensors on the card (read them
+after a synchronise): the work a bound on their time is counted from. The
+BVH instantiations and the trace kernels keep both in `.counts`, a
+two-element int64 tensor: tests, visits.
 
 Each source under CUDA_SOURCES is its own library, and the nvcc runs start
 together.
@@ -62,20 +74,22 @@ from ..integrators.path_loop import (
 )
 from ..integrators.bounce import trace_interact_plain
 from ..integrators.direct import render_direct_backward_plain, render_direct_plain
+from ..accel.trace import trace_any_plain, trace_closest_plain
+from ..accel.types import GEOM_COLS
 from ..integrators.scene_tables import SCENE_COLS
 from ..samplers import sampler_probe_plain
 from ..samplers.hashes import next_pow2_mask
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-CUDA_SOURCES = ("path_loop.cu", "path_loop_grad.cu", "direct.cu")
-HEADERS = ("path_loop_step.cuh", "direct_step.cuh")
+CUDA_SOURCES = ("path_loop.cu", "path_loop_grad.cu", "direct.cu", "accel.cu")
+HEADERS = ("path_loop_step.cuh", "direct_step.cuh", "trace.cuh")
 # -fmad=false and no fast math: the kernel rounds as its plain version does
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
-HOST_SOURCES = ("path_loop_host.cpp", "direct_host.cpp")
+HOST_SOURCES = ("path_loop_host.cpp", "direct_host.cpp", "accel_host.cpp")
 HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 KINDS = {"lcg": 0, "pmj02bn": 1}
 # per-sample scratch rows of path_loop_grad (path_loop_step.cuh kTapPlanes):
@@ -83,11 +97,9 @@ KINDS = {"lcg": 0, "pmj02bn": 1}
 # sample's end)
 GRAD_SCRATCH_PLANES = N_TAP_PLANES - 2
 # dynamic shared memory a block may hold on sm_90 (227 KB): the kernels keep
-# their tables there
+# their tables there (trace.cuh kGeomCols = GEOM_COLS: the direct kernels and
+# trace_interact keep only each triangle's geometry there, in rows of 12)
 MAX_TABLE_BYTES = 232448
-# direct_step.cuh kGeomCols: the direct kernels and trace_interact keep only
-# each triangle's geometry in shared memory, in rows of 12 floats
-GEOM_COLS = 12
 
 # what the last build did: seconds, and the compiler's report (registers,
 # spills) — empty when the library was already built
@@ -165,20 +177,39 @@ _GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I]
 _TRACE_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _I]
 _DIRECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _I]
 _DIRECT_GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I]
+# the BVH: box, link, geom, perm, n_nodes
+_BVH_ARGS = [_P, _P, _P, _P, _I]
+# zdr_path_loop_bvh: _LOOP_ARGS, the BVH, counts; zdr_path_loop_grad_bvh:
+# _GRAD_ARGS, the BVH, counts; zdr_direct_bvh: params, tables, tables_n,
+# bn, material, lanes, le_grad, acc, grad, the BVH, counts, n
+_LOOP_BVH_ARGS = _LOOP_ARGS + _BVH_ARGS + [_P]
+_GRAD_BVH_ARGS = _GRAD_ARGS + _BVH_ARGS + [_P]
+_DIRECT_BVH_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P] + _BVH_ARGS + [_P, _I]
+# zdr_trace_closest: bvh_mode, geom, n_rows, box, link, perm, n_nodes, o, d,
+# t_min, t_max, t, u, v, prim, counts, n; zdr_trace_any: the same with occ
+# in place of t, u, v, prim
+_CLOSEST_ARGS = [_I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I]
+_ANY_ARGS = [_I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I]
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> types.SimpleNamespace:
     """Build (if needed) and load the CUDA libraries -> their entries."""
     builds = [((src,), f"libzdr_{src.split('.')[0]}") for src in CUDA_SOURCES]
-    fwd, grad, direct_lib = (ctypes.CDLL(p) for p in _compile(_nvcc(), NVCC_FLAGS, builds))
+    fwd, grad, direct_lib, accel_lib = (
+        ctypes.CDLL(p) for p in _compile(_nvcc(), NVCC_FLAGS, builds))
     return types.SimpleNamespace(
         zdr_path_loop=_bind(fwd, "zdr_path_loop", _LOOP_ARGS + [_P]),
+        zdr_path_loop_bvh=_bind(fwd, "zdr_path_loop_bvh", _LOOP_BVH_ARGS + [_P]),
         zdr_sampler_probe=_bind(fwd, "zdr_sampler_probe", [_P, _P, _P, _I, _I, _P, _P]),
         zdr_path_loop_grad=_bind(grad, "zdr_path_loop_grad", _GRAD_ARGS + [_P]),
+        zdr_path_loop_grad_bvh=_bind(grad, "zdr_path_loop_grad_bvh", _GRAD_BVH_ARGS + [_P]),
         zdr_trace_interact=_bind(direct_lib, "zdr_trace_interact", _TRACE_ARGS + [_P]),
         zdr_direct=_bind(direct_lib, "zdr_direct", _DIRECT_ARGS + [_P]),
         zdr_direct_grad=_bind(direct_lib, "zdr_direct_grad", _DIRECT_GRAD_ARGS + [_P]),
+        zdr_direct_bvh=_bind(direct_lib, "zdr_direct_bvh", _DIRECT_BVH_ARGS + [_P]),
+        zdr_trace_closest=_bind(accel_lib, "zdr_trace_closest", _CLOSEST_ARGS + [_P]),
+        zdr_trace_any=_bind(accel_lib, "zdr_trace_any", _ANY_ARGS + [_P]),
     )
 
 
@@ -187,14 +218,20 @@ def load_host_library() -> types.SimpleNamespace:
     """Build (if needed) and load the g++ build of the same per-lane code,
     for tests that run the kernels' code without a card."""
     builds = [((src,), f"libzdr_{src.split('.')[0]}") for src in HOST_SOURCES]
-    lib, direct_lib = (ctypes.CDLL(p) for p in _compile("g++", HOST_FLAGS, builds))
+    lib, direct_lib, accel_lib = (ctypes.CDLL(p) for p in _compile("g++", HOST_FLAGS, builds))
     return types.SimpleNamespace(
         zdr_path_loop_host=_bind(lib, "zdr_path_loop_host", _LOOP_ARGS),
         zdr_sampler_probe_host=_bind(lib, "zdr_sampler_probe_host", [_P, _P, _P, _I, _I, _P]),
         zdr_path_loop_grad_host=_bind(lib, "zdr_path_loop_grad_host", _GRAD_ARGS),
+        # the forward when le_grad (7th) is null
+        zdr_path_loop_bvh_host=_bind(lib, "zdr_path_loop_bvh_host", _GRAD_BVH_ARGS),
         zdr_trace_interact_host=_bind(direct_lib, "zdr_trace_interact_host", _TRACE_ARGS),
         zdr_direct_host=_bind(direct_lib, "zdr_direct_host",
                               [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I]),
+        zdr_direct_bvh_host=_bind(direct_lib, "zdr_direct_bvh_host",
+                                  [_P, _P, _I, _P, _P, _P, _P, _P, _P] + _BVH_ARGS + [_P, _I]),
+        zdr_trace_closest_host=_bind(accel_lib, "zdr_trace_closest_host", _CLOSEST_ARGS),
+        zdr_trace_any_host=_bind(accel_lib, "zdr_trace_any_host", _ANY_ARGS),
     )
 
 
@@ -248,12 +285,13 @@ def check_table_fits(n_tris: int, n_floats: int, integrator: str) -> None:
     (n_floats in all, of which n_tris triangle rows of SCENE_COLS) fits a
     block: the path-loop kernels copy the tables whole, the direct kernels
     and trace_interact with triangle rows of GEOM_COLS (direct_step.cuh
-    compact_size)."""
+    compact_size); the BVH instantiations copy no triangle row (n_tris 0)."""
     cols = SCENE_COLS if integrator == "path" else GEOM_COLS
     if (n_floats - n_tris * (SCENE_COLS - cols)) * 4 > MAX_TABLE_BYTES:
         raise NotImplementedError(
             f"{n_tris} triangles exceed the {integrator} kernels' shared-memory "
-            "scene table; the BVH is ROADMAP A13"
+            f"scene table ({MAX_TABLE_BYTES} bytes); build the Scene with "
+            "accel='auto' or 'bvh' for the BVH route (ROADMAP A13)"
         )
 
 
@@ -272,16 +310,58 @@ def _loop_inputs(tb: LoopTables, lanes, material, n_steps, dev, integrator):
     if tb.kind == "pmj02bn":
         _check(tb.bn, "blue noise", torch.float32, (tb.bn_res * tb.bn_res * tb.bn_ntex,), dev)
     tables = pack_tables(tb).to(dev)
-    check_table_fits(tb.scene.shape[0], tables.numel(), integrator)
+    n_tris = tb.scene.shape[0]
+    if tb.bvh is None:
+        check_table_fits(n_tris, tables.numel(), integrator)
+    else:
+        check_table_fits(0, tables.numel() - n_tris * SCENE_COLS, integrator)
     if n_steps < 0 or n >= 2**31:
         raise ValueError("n_steps must be >= 0 and N < 2**31")
     return n, tables, loop_params(tb, material)
 
 
+def _bvh_args(accel, dev) -> tuple:
+    """Check an Accel's BVH -> the kernels' arguments box, link, geom, perm,
+    n_nodes."""
+    if not accel.is_bvh:
+        raise ValueError(f"a BVH instantiation needs a 'bvh' Accel, got {accel.method!r}")
+    m, slots = accel.node_box.shape[0], accel.geom.shape[0]
+    _check(accel.node_box, "node_box", torch.float32, (m, 6), dev)
+    _check(accel.node_link, "node_link", torch.int32, (m, 2), dev)
+    _check(accel.geom, "geom", torch.float32, (slots, GEOM_COLS), dev)
+    _check(accel.tri_perm, "tri_perm", torch.int32, (slots,), dev)
+    if accel.geom.data_ptr() % 16:
+        raise ValueError("the BVH's geometry rows must be 16-byte aligned for float4 loads")
+    return (accel.node_box.data_ptr(), accel.node_link.data_ptr(), accel.geom.data_ptr(),
+            accel.tri_perm.data_ptr(), m)
+
+
+def _counts(dev) -> torch.Tensor:
+    """A kernel's work counter: ray-triangle tests, node visits."""
+    return torch.zeros((2,), dtype=torch.int64, device=dev)
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _bn_ptr(tb: LoopTables):
+    return tb.bn.data_ptr() if tb.kind == "pmj02bn" else None
+
+
+def _carry_out(carry: Carry, n: int, dev):
+    """Check a carry -> the outputs of a launch that steps it."""
+    _check(carry.f, "carry.f", torch.float32, (len(F_NAMES), n), dev)
+    _check(carry.i, "carry.i", torch.int32, (len(I_NAMES), n), dev)
+    return torch.empty_like(carry.f), torch.empty_like(carry.i)
+
+
 def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
               carry: Carry, n_steps: int) -> Carry:
     """Run every lane of `carry` for up to n_steps steps -> the new carry.
-    lanes: (3, N) int32 px, py, stop; material: (H, W, 4).
+    lanes: (3, N) int32 px, py, stop; material: (H, W, 4). With a BVH in
+    the tables, path_loop_bvh runs.
 
     On the card a lane stops once its samples are done; the plain version
     idles it, which changes only its sampler state (acc_* and sample_idx
@@ -289,20 +369,16 @@ def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     dev = lanes.device
     if not _on_card(dev, "path_loop"):
         return render_path_loop_plain(tb, lanes, material, carry, n_steps)
+    if tb.bvh is not None:
+        return path_loop_bvh(tb, lanes, material, carry, n_steps)
     n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
-    _check(carry.f, "carry.f", torch.float32, (len(F_NAMES), n), dev)
-    _check(carry.i, "carry.i", torch.int32, (len(I_NAMES), n), dev)
-    f_out = torch.empty_like(carry.f)
-    i_out = torch.empty_like(carry.i)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    f_out, i_out = _carry_out(carry, n, dev)
     rc = load_library().zdr_path_loop(
-        params, tables.data_ptr(), tables.numel(),
-        tb.bn.data_ptr() if tb.kind == "pmj02bn" else None,
+        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb),
         material.data_ptr(), lanes.data_ptr(), carry.f.data_ptr(), carry.i.data_ptr(),
-        f_out.data_ptr(), i_out.data_ptr(), n, n_steps, stream,
+        f_out.data_ptr(), i_out.data_ptr(), n, n_steps, torch.cuda.current_stream(dev).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"path_loop kernel launch failed: CUDA error {rc}")
+    _raise_on(rc, "path_loop")
     path_loop.launches += 1
     return Carry(f_out, i_out)
 
@@ -310,42 +386,99 @@ def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
 path_loop.launches = 0
 
 
+def path_loop_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                  carry: Carry, n_steps: int) -> Carry:
+    """path_loop through the BVH of tb.bvh (the plain version the same:
+    render_path_loop_plain walks the BVH the tables carry)."""
+    dev = lanes.device
+    if not _on_card(dev, "path_loop_bvh"):
+        return render_path_loop_plain(tb, lanes, material, carry, n_steps)
+    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
+    f_out, i_out = _carry_out(carry, n, dev)
+    counts = _counts(dev)
+    rc = load_library().zdr_path_loop_bvh(
+        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb),
+        material.data_ptr(), lanes.data_ptr(), carry.f.data_ptr(), carry.i.data_ptr(),
+        f_out.data_ptr(), i_out.data_ptr(), n, n_steps, *_bvh_args(tb.bvh, dev),
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "path_loop_bvh")
+    path_loop_bvh.launches += 1
+    path_loop_bvh.counts = counts
+    return Carry(f_out, i_out)
+
+
+path_loop_bvh.launches = 0
+path_loop_bvh.counts = None
+
+
+def _grad_inputs(tb, lanes, material, le_grad, n_steps, dev):
+    """-> (N, tables, params, first carry, carry out f/i, scratch, grad)."""
+    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
+    _check(le_grad, "le_grad", torch.float32, (3, n), dev)
+    carry = init_carry(lanes)
+    # a sample takes at most max_depth steps: one scratch row per step
+    rows = max(tb.max_depth, 1)
+    scratch = torch.empty((rows, GRAD_SCRATCH_PLANES, n), dtype=torch.float32, device=dev)
+    return (n, tables, params, carry, torch.empty_like(carry.f), torch.empty_like(carry.i),
+            scratch, torch.zeros_like(material))
+
+
 def path_loop_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
                    le_grad: torch.Tensor, n_steps: int):
     """PRB texture gradient of every lane's samples, walked from the first
     carry, given le_grad, the (3, N) float32 adjoint of each of a lane's
     samples -> (d_material (H, W, 4), the final carry, whose acc_* rows are
-    the forward render's).
+    the forward render's). With a BVH in the tables, path_loop_grad_bvh
+    runs.
 
     On the card the float atomics sum the taps in an order that changes
     from run to run, so the gradient's last bits do too."""
     dev = lanes.device
     if not _on_card(dev, "path_loop_grad"):
         return render_path_backward_loop_plain(tb, lanes, material, le_grad, n_steps)
-    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
-    _check(le_grad, "le_grad", torch.float32, (3, n), dev)
-    carry = init_carry(lanes)
-    f_out = torch.empty_like(carry.f)
-    i_out = torch.empty_like(carry.i)
-    # a sample takes at most max_depth steps: one scratch row per step
-    rows = max(tb.max_depth, 1)
-    scratch = torch.empty((rows, GRAD_SCRATCH_PLANES, n), dtype=torch.float32, device=dev)
-    grad = torch.zeros_like(material)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    if tb.bvh is not None:
+        return path_loop_grad_bvh(tb, lanes, material, le_grad, n_steps)
+    n, tables, params, carry, f_out, i_out, scratch, grad = _grad_inputs(
+        tb, lanes, material, le_grad, n_steps, dev)
     rc = load_library().zdr_path_loop_grad(
-        params, tables.data_ptr(), tables.numel(),
-        tb.bn.data_ptr() if tb.kind == "pmj02bn" else None,
+        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb),
         material.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(), carry.f.data_ptr(),
         carry.i.data_ptr(), f_out.data_ptr(), i_out.data_ptr(), scratch.data_ptr(),
-        grad.data_ptr(), n, n_steps, stream,
+        grad.data_ptr(), n, n_steps, torch.cuda.current_stream(dev).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"path_loop_grad kernel launch failed: CUDA error {rc}")
+    _raise_on(rc, "path_loop_grad")
     path_loop_grad.launches += 1
     return grad, Carry(f_out, i_out)
 
 
 path_loop_grad.launches = 0
+
+
+def path_loop_grad_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                       le_grad: torch.Tensor, n_steps: int):
+    """path_loop_grad through the BVH of tb.bvh."""
+    dev = lanes.device
+    if not _on_card(dev, "path_loop_grad_bvh"):
+        return render_path_backward_loop_plain(tb, lanes, material, le_grad, n_steps)
+    n, tables, params, carry, f_out, i_out, scratch, grad = _grad_inputs(
+        tb, lanes, material, le_grad, n_steps, dev)
+    counts = _counts(dev)
+    rc = load_library().zdr_path_loop_grad_bvh(
+        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb),
+        material.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(), carry.f.data_ptr(),
+        carry.i.data_ptr(), f_out.data_ptr(), i_out.data_ptr(), scratch.data_ptr(),
+        grad.data_ptr(), n, n_steps, *_bvh_args(tb.bvh, dev), counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "path_loop_grad_bvh")
+    path_loop_grad_bvh.launches += 1
+    path_loop_grad_bvh.counts = counts
+    return grad, Carry(f_out, i_out)
+
+
+path_loop_grad_bvh.launches = 0
+path_loop_grad_bvh.counts = None
 
 
 def sampler_probe(kind: str, spp: int, lanes: torch.Tensor, k: int, bn) -> torch.Tensor:
@@ -414,27 +547,28 @@ trace_interact.launches = 0
 def direct(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch.Tensor:
     """Every lane's samples 0 .. stop-1 of the direct integrator -> the
     (3, N) float32 sums of their clamped radiances. lanes: (3, N) int32
-    px, py, stop; material: (H, W, 4)."""
+    px, py, stop; material: (H, W, 4). With a BVH in the tables, direct_bvh
+    runs."""
     dev = lanes.device
     if not _on_card(dev, "direct"):
         return render_direct_plain(tb, lanes, material)
+    if tb.bvh is not None:
+        return direct_bvh(tb, lanes, material)
     n, tables, params = _loop_inputs(tb, lanes, material, 0, dev, "direct")
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
-    tests = torch.zeros((1,), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = _counts(dev)
     rc = load_library().zdr_direct(
-        params, tables.data_ptr(), tables.numel(),
-        tb.bn.data_ptr() if tb.kind == "pmj02bn" else None,
-        material.data_ptr(), lanes.data_ptr(), acc.data_ptr(), tests.data_ptr(), n, stream)
-    if rc != 0:
-        raise RuntimeError(f"direct kernel launch failed: CUDA error {rc}")
+        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
+        lanes.data_ptr(), acc.data_ptr(), counts.data_ptr(), n,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "direct")
     direct.launches += 1
-    direct.tests = tests
+    direct.tests, direct.visits = counts[0], counts[1]
     return acc
 
 
 direct.launches = 0
-direct.tests = None
+direct.tests = direct.visits = None
 
 
 def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
@@ -442,29 +576,149 @@ def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     """Texture gradient of every lane's direct samples, given le_grad, the
     (3, N) float32 adjoint of each of a lane's samples -> (d_material
     (H, W, 4), the (3, N) radiance sums of the same samples, as direct's).
+    With a BVH in the tables, direct_grad_bvh runs.
 
     On the card the float atomics sum the taps in an order that changes
     from run to run, so the gradient's last bits do too."""
     dev = lanes.device
     if not _on_card(dev, "direct_grad"):
         return render_direct_backward_plain(tb, lanes, material, le_grad)
+    if tb.bvh is not None:
+        return direct_grad_bvh(tb, lanes, material, le_grad)
     n, tables, params = _loop_inputs(tb, lanes, material, 0, dev, "direct")
     _check(le_grad, "le_grad", torch.float32, (3, n), dev)
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
     grad = torch.zeros_like(material)
-    tests = torch.zeros((1,), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = _counts(dev)
     rc = load_library().zdr_direct_grad(
-        params, tables.data_ptr(), tables.numel(),
-        tb.bn.data_ptr() if tb.kind == "pmj02bn" else None,
-        material.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(), acc.data_ptr(),
-        grad.data_ptr(), tests.data_ptr(), n, stream)
-    if rc != 0:
-        raise RuntimeError(f"direct_grad kernel launch failed: CUDA error {rc}")
+        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
+        lanes.data_ptr(), le_grad.data_ptr(), acc.data_ptr(), grad.data_ptr(),
+        counts.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "direct_grad")
     direct_grad.launches += 1
-    direct_grad.tests = tests
+    direct_grad.tests, direct_grad.visits = counts[0], counts[1]
     return grad, acc
 
 
 direct_grad.launches = 0
-direct_grad.tests = None
+direct_grad.tests = direct_grad.visits = None
+
+
+def _direct_bvh_launch(tb, lanes, material, le_grad, dev):
+    """One launch of zdr_direct_bvh, forward (le_grad None) or tap mode ->
+    (grad or None, acc, counts)."""
+    n, tables, params = _loop_inputs(tb, lanes, material, 0, dev, "direct")
+    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
+    grad = None
+    if le_grad is not None:
+        _check(le_grad, "le_grad", torch.float32, (3, n), dev)
+        grad = torch.zeros_like(material)
+    counts = _counts(dev)
+    rc = load_library().zdr_direct_bvh(
+        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
+        lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
+        None if grad is None else grad.data_ptr(), *_bvh_args(tb.bvh, dev),
+        counts.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "direct_bvh" if le_grad is None else "direct_grad_bvh")
+    return grad, acc, counts
+
+
+def direct_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch.Tensor:
+    """direct through the BVH of tb.bvh."""
+    dev = lanes.device
+    if not _on_card(dev, "direct_bvh"):
+        return render_direct_plain(tb, lanes, material)
+    _grad, acc, counts = _direct_bvh_launch(tb, lanes, material, None, dev)
+    direct_bvh.launches += 1
+    direct_bvh.counts = counts
+    return acc
+
+
+direct_bvh.launches = 0
+direct_bvh.counts = None
+
+
+def direct_grad_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                    le_grad: torch.Tensor):
+    """direct_grad through the BVH of tb.bvh."""
+    dev = lanes.device
+    if not _on_card(dev, "direct_grad_bvh"):
+        return render_direct_backward_plain(tb, lanes, material, le_grad)
+    grad, acc, counts = _direct_bvh_launch(tb, lanes, material, le_grad, dev)
+    direct_grad_bvh.launches += 1
+    direct_grad_bvh.counts = counts
+    return grad, acc
+
+
+direct_grad_bvh.launches = 0
+direct_grad_bvh.counts = None
+
+
+def _trace_inputs(accel, o, d, t_min, t_max):
+    """Check a trace's rays -> (n, dev, t_min and t_max as (n,) float32,
+    the mode's arguments bvh_mode, geom, n_rows, box, link, perm, n_nodes)."""
+    n, dev = o.shape[0], o.device
+    _check(o, "o", torch.float32, (n, 3), dev)
+    _check(d, "d", torch.float32, (n, 3), dev)
+    t_lo = torch.broadcast_to(torch.as_tensor(t_min, dtype=torch.float32, device=dev),
+                              (n,)).contiguous()
+    t_hi = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev),
+                              (n,)).contiguous()
+    if n >= 2**31:
+        raise ValueError("N < 2**31")
+    if accel.is_bvh:
+        box, link, geom, perm, m = _bvh_args(accel, dev)
+        mode = (1, geom, accel.geom.shape[0], box, link, perm, m)
+    else:
+        _check(accel.geom, "geom", torch.float32, (accel.geom.shape[0], GEOM_COLS), dev)
+        if accel.geom.data_ptr() % 16:
+            raise ValueError("the geometry rows must be 16-byte aligned for float4 loads")
+        mode = (0, accel.geom.data_ptr(), accel.geom.shape[0], None, None, None, 0)
+    return n, dev, t_lo, t_hi, mode
+
+
+def trace_closest(accel, o: torch.Tensor, d: torch.Tensor, t_min=0.0, t_max=1e30):
+    """Closest hit of (N, 3) float32 rays at t in (t_min, t_max), scalars or
+    (N,), through the accel's dense rows or its BVH -> (t (t_max on a miss),
+    prim int32 global id (-1), u, v float32 (0 on a miss))."""
+    if not _on_card(o.device, "trace_closest"):
+        out, _work = trace_closest_plain(accel, o, d, t_min, t_max)
+        return out
+    n, dev, t_lo, t_hi, mode = _trace_inputs(accel, o, d, t_min, t_max)
+    t, u, v = (torch.empty((n,), dtype=torch.float32, device=dev) for _ in range(3))
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    counts = _counts(dev)
+    rc = load_library().zdr_trace_closest(
+        *mode, o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(), t.data_ptr(),
+        u.data_ptr(), v.data_ptr(), prim.data_ptr(), counts.data_ptr(), n,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "trace_closest")
+    trace_closest.launches += 1
+    trace_closest.counts = counts
+    return t, prim, u, v
+
+
+trace_closest.launches = 0
+trace_closest.counts = None
+
+
+def trace_any(accel, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_max=1e30) -> torch.Tensor:
+    """Any hit of (N, 3) float32 rays at t in (t_min, t_max), scalars or
+    (N,) -> (N,) bool."""
+    if not _on_card(o.device, "trace_any"):
+        occ, _work = trace_any_plain(accel, o, d, t_min, t_max)
+        return occ
+    n, dev, t_lo, t_hi, mode = _trace_inputs(accel, o, d, t_min, t_max)
+    occ = torch.empty((n,), dtype=torch.int32, device=dev)
+    counts = _counts(dev)
+    rc = load_library().zdr_trace_any(
+        *mode, o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(), occ.data_ptr(),
+        counts.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "trace_any")
+    trace_any.launches += 1
+    trace_any.counts = counts
+    return occ != 0
+
+
+trace_any.launches = 0
+trace_any.counts = None

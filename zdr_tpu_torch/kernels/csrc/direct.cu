@@ -32,8 +32,19 @@
 // kernels are held to 64 registers, 4 blocks (32 warps) an SM. Its time
 // against the first version's (full rows in shared memory), on the protocol
 // on an H100 80GB HBM3 at 700 W, is in PERF.md (chip_smoke.py, phase 11).
-// This first kernel is simple and right; lane sorting, an emissive-first
-// bounce lookup and a BVH are later work.
+// This first kernel is simple and right; lane sorting and an emissive-first
+// bounce lookup are later work.
+//
+// The BVH instantiations (direct_bvh_kernel<false> / <true>, both behind
+// zdr_direct_bvh) run the same samples with every sweep an escape-link
+// walk of the BVH in global memory (trace.cuh), read through the read-only
+// path: they replace the big-mesh chain of direct_fused.py, B5's closest
+// sweep on the primary ray (:139-142) and B6's occlusion for the shadow
+// (:197-200) and the bounce's emitter lookup. Shared memory keeps only the
+// light, point and camera rows; the tree (50,880 triangles: 2.4 MB of rows,
+// ~0.4 MB of nodes) lies in HBM and mostly in the 50 MB L2. What bounds them
+// is the walk's dependent loads and its divergence, not FP32 work: the
+// kernels count their node visits beside their tests.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false (see zdr_tpu_torch/kernels/__init__.py).
@@ -44,13 +55,6 @@
 namespace {
 
 constexpr int kBlock = 256;
-
-// Sum each thread's count over its warp, one atomic a warp. Every thread
-// of the block reaches it (no early return before).
-__device__ void add_tests(unsigned long long* counter, unsigned long long local) {
-  for (int off = 16; off > 0; off >>= 1) local += __shfl_down_sync(0xffffffffu, local, off);
-  if ((threadIdx.x & 31) == 0 && local) atomicAdd(counter, local);
-}
 
 // The compact copy of the first n floats of the tables (compact_at).
 __device__ void load_compact(float* smem, const float* __restrict__ tables,
@@ -76,12 +80,12 @@ __global__ void __launch_bounds__(kBlock, 4)
     direct_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                   const float* __restrict__ bn, const float* __restrict__ material,
                   const int* __restrict__ lanes, const float* __restrict__ le_grad,
-                  float* __restrict__ acc_out, float* grad, unsigned long long* tests,
+                  float* __restrict__ acc_out, float* grad, unsigned long long* counts,
                   int n) {
   extern __shared__ float smem[];
   load_compact(smem, tables, q, zdr::compact_size(q));
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned long long count = 0;
+  zdr::TraceCount count = {0, 0};
   if (lane < n) {
     zdr::Tables tb = zdr::compact_tables(smem, tables, bn, material, q);
     zdr::LaneConst lc = zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane],
@@ -98,7 +102,43 @@ __global__ void __launch_bounds__(kBlock, 4)
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
   }
-  add_tests(tests, count);
+  zdr::warp_add(counts, count.tests);
+}
+
+// The same samples with every sweep through the BVH; shared memory holds
+// the small tables only.
+template <bool kGrad>
+__global__ void __launch_bounds__(kBlock, 4)
+    direct_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables,
+                      const float* __restrict__ bn, const float* __restrict__ material,
+                      const int* __restrict__ lanes, const float* __restrict__ le_grad,
+                      float* __restrict__ acc_out, float* grad, zdr::Bvh bvh,
+                      unsigned long long* counts, int n) {
+  extern __shared__ float smem[];
+  const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
+  for (int k = threadIdx.x; k < zdr::small_size(q); k += blockDim.x) smem[k] = small[k];
+  __syncthreads();
+  long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  zdr::TraceCount count = {0, 0};
+  if (lane < n) {
+    zdr::Tables tb = zdr::bvh_tables(smem, tables, bn, material, q);
+    zdr::LaneConst lc = zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane],
+                                        q.seed, q);
+    zdr::DirectTaps dt;
+    if (kGrad) {
+      dt.lg[0] = le_grad[lane];
+      dt.lg[1] = le_grad[n + lane];
+      dt.lg[2] = le_grad[2L * n + lane];
+      dt.grad = grad;
+    }
+    zdr::BvhTrace tr{bvh};
+    zdr::V3 acc = zdr::direct_lane<kGrad>(tb, q, lc, &dt, count, tr);
+    acc_out[lane] = acc.x;
+    acc_out[n + lane] = acc.y;
+    acc_out[2L * n + lane] = acc.z;
+  }
+  zdr::warp_add(counts, count.tests);
+  zdr::warp_add(counts + 1, count.visits);
 }
 
 template <typename K>
@@ -131,10 +171,11 @@ int zdr_trace_interact(const int* params, const float* tables, int tables_n,
 
 // As zdr_path_loop (path_loop.cu) for the tables; lanes: (3, n) int32 px,
 // py, spp; acc: (3, n) float32, each lane's sum of clamped radiances;
-// tests: one uint64, to which the kernel adds its ray-triangle tests.
+// counts: two uint64, to which the kernel adds its ray-triangle tests and
+// its BVH node visits (none in the dense sweep).
 int zdr_direct(const int* params, const float* tables, int tables_n, const float* bn,
                const float* material, const int* lanes, float* acc,
-               unsigned long long* tests, int n, void* stream) {
+               unsigned long long* counts, int n, void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
   size_t smem = (size_t)zdr::compact_size(q) * sizeof(float);
@@ -142,7 +183,7 @@ int zdr_direct(const int* params, const float* tables, int tables_n, const float
   if (err) return err;
   int grid = (n + kBlock - 1) / kBlock;
   direct_kernel<false><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      q, tables, tables_n, bn, material, lanes, nullptr, acc, nullptr, tests, n);
+      q, tables, tables_n, bn, material, lanes, nullptr, acc, nullptr, counts, n);
   return (int)cudaGetLastError();
 }
 
@@ -151,7 +192,7 @@ int zdr_direct(const int* params, const float* tables, int tables_n, const float
 // the kernel adds.
 int zdr_direct_grad(const int* params, const float* tables, int tables_n, const float* bn,
                     const float* material, const int* lanes, const float* le_grad,
-                    float* acc, float* grad, unsigned long long* tests, int n,
+                    float* acc, float* grad, unsigned long long* counts, int n,
                     void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
@@ -160,7 +201,35 @@ int zdr_direct_grad(const int* params, const float* tables, int tables_n, const 
   if (err) return err;
   int grid = (n + kBlock - 1) / kBlock;
   direct_kernel<true><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      q, tables, tables_n, bn, material, lanes, le_grad, acc, grad, tests, n);
+      q, tables, tables_n, bn, material, lanes, le_grad, acc, grad, counts, n);
+  return (int)cudaGetLastError();
+}
+
+// zdr_direct (le_grad and grad null) and zdr_direct_grad through the BVH:
+// box (n_nodes, 6) float32, link (n_nodes, 2) int32, geom (slots, 12)
+// float32 rows in leaf order, perm (slots,) int32 global ids (-1 pads).
+int zdr_direct_bvh(const int* params, const float* tables, int tables_n, const float* bn,
+                   const float* material, const int* lanes, const float* le_grad, float* acc,
+                   float* grad, const float* box, const int* link, const float* geom,
+                   const int* perm, int n_nodes, unsigned long long* counts, int n,
+                   void* stream) {
+  zdr::LoopParams q = zdr::params_from(params);
+  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
+  size_t smem = (size_t)zdr::small_size(q) * sizeof(float);
+  zdr::Bvh bvh{box, link, geom, perm, n_nodes};
+  int grid = (n + kBlock - 1) / kBlock;
+  int err;
+  if (le_grad) {
+    err = launch_config(direct_bvh_kernel<true>, smem);
+    if (err) return err;
+    direct_bvh_kernel<true><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+        q, tables, bn, material, lanes, le_grad, acc, grad, bvh, counts, n);
+  } else {
+    err = launch_config(direct_bvh_kernel<false>, smem);
+    if (err) return err;
+    direct_bvh_kernel<false><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+        q, tables, bn, material, lanes, nullptr, acc, nullptr, bvh, counts, n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -21,7 +21,7 @@
 // Build it as that header says (no FMA contraction, no fast math).
 #pragma once
 
-#include "path_loop_step.cuh"
+#include "trace.cuh"
 
 namespace zdr {
 
@@ -30,11 +30,11 @@ namespace zdr {
 constexpr int kTraceF = 14;
 
 // The direct kernels keep a compact copy of the tables in shared memory:
-// each triangle's 9 geometry floats (p0, e1, e2) in a row of 12, 16-byte
-// aligned, then the light, light-instance, point and camera rows. A hit
-// triangle's attributes are read from the full (T, 31) rows once per
-// sweep, not swept.
-constexpr int kGeomCols = 12;
+// each triangle's 9 geometry floats (p0, e1, e2) in a row of kGeomCols
+// (trace.cuh), 16-byte aligned, then the light, light-instance, point and
+// camera rows. A hit triangle's attributes are read from the full (T, 31)
+// rows once per sweep, not swept. The BVH route keeps only the small tables
+// there (trace.cuh bvh_tables).
 
 ZDR_HD int compact_size(const LoopParams& q) {
   return tables_size(q) - q.n_tris * (kSceneCols - kGeomCols);
@@ -78,7 +78,7 @@ ZDR_HD void trace_interact_lane(const Tables& tb, const LoopParams& q, const flo
   float pdf_prev = ZDR_R(6);
 #undef ZDR_R
   bool act = active[lane] != 0;
-  Hit h = closest_interact<kGeomCols>(tb, q, o, d, pdf_prev, act);
+  Hit h = closest_interact(tb, q, o, d, pdf_prev, act, DenseSweep<kGeomCols>());
   int miss = (act && h.miss) ? 1 : 0;
   if (lite) {
     f_out[lane] = h.ae.x;
@@ -102,11 +102,12 @@ struct DirectTaps {
 
 // Sample `sample_idx` of a lane -> its radiance (before the clamp).
 // kGrad: also adds the sample's texture gradient, one tap at one texel.
-// `tests` counts the ray-triangle tests the sample made.
-template <bool kGrad = false>
+// The sweeps go through `tr` (the dense sweep over the compact rows, or
+// trace.cuh's BVH) and add their work to `cnt`.
+template <bool kGrad = false, class Tracer = DenseSweep<kGeomCols>>
 ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& lc,
-                        uint32_t sample_idx, const DirectTaps* dt,
-                        unsigned long long& tests) {
+                        uint32_t sample_idx, const DirectTaps* dt, TraceCount& cnt,
+                        const Tracer& tr = Tracer()) {
   SamplerCtx sc;
   sc.q = &q;
   sc.lc = &lc;
@@ -121,8 +122,7 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
   camera_ray(tb.cam, q, lc.px, lc.py, cu0, cu1, o, d);
 
   // B3 on the primary ray: no BSDF pdf, every lane active
-  Hit hit = closest_interact<kGeomCols>(tb, q, o, d, kPdfNone, true);
-  tests += (unsigned long long)q.n_tris;
+  Hit hit = closest_interact(tb, q, o, d, kPdfNone, true, tr, &cnt);
 
   // the glue: material, NEE's 4 draws, the BSDF's 3 (no roulette draw)
   V3 dif;
@@ -142,9 +142,7 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
   make_onb(hit.ns, tangent, binormal);
   V3 wo_local = to_local(tangent, binormal, hit.ns, wo);
   // only a shading lane reads the shadow test
-  int n_occ = 0;
-  bool occ = shade && occluded<kGeomCols>(tb, q, hit.p, nee.wi, nee.dist, &n_occ);
-  tests += (unsigned long long)n_occ;
+  bool occ = shade && tr.any(tb, q, hit.p, nee.wi, nee.dist, &cnt);
   V3 wll = to_local(tangent, binormal, hit.ns, nee.wi);
   bool nee_ok = shade && !occ && wll.z >= 1e-4f;
   float pdf_bsdf_at_light = ggx_sample_pdf(wo_local, wll, rough);
@@ -170,10 +168,7 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
   // the lite B3 on the bounce ray: its MIS-weighted emitter. A ray that
   // does not go on adds nothing, so its sweep is skipped.
   V3 bae = v3(0.0f, 0.0f, 0.0f);
-  if (bounce_ok) {
-    bae = closest_interact<kGeomCols>(tb, q, next_o, wi, pdf_bounce, true).ae;
-    tests += (unsigned long long)q.n_tris;
-  }
+  if (bounce_ok) bae = closest_interact(tb, q, next_o, wi, pdf_bounce, true, tr, &cnt).ae;
   V3 rad = v3(rk.x + beta_next.x * bae.x, rk.y + beta_next.y * bae.y,
               rk.z + beta_next.z * bae.z);
 
@@ -212,12 +207,12 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
 
 // A lane's samples 0 .. stop-1, accumulated with the clamp-and-NaN rule of
 // direct_fused.py:283-286 -> the sum of its clamped radiances.
-template <bool kGrad = false>
+template <bool kGrad = false, class Tracer = DenseSweep<kGeomCols>>
 ZDR_HD V3 direct_lane(const Tables& tb, const LoopParams& q, const LaneConst& lc,
-                      const DirectTaps* dt, unsigned long long& tests) {
+                      const DirectTaps* dt, TraceCount& cnt, const Tracer& tr = Tracer()) {
   V3 acc = v3(0.0f, 0.0f, 0.0f);
   for (int s = 0; s < lc.stop; ++s) {
-    V3 rad = direct_sample<kGrad>(tb, q, lc, (uint32_t)s, dt, tests);
+    V3 rad = direct_sample<kGrad>(tb, q, lc, (uint32_t)s, dt, cnt, tr);
     if (!(is_nan(rad.x) || is_nan(rad.y) || is_nan(rad.z)))
       acc = v3(acc.x + jclip(rad.x, 0.0f, kRadianceClamp),
                acc.y + jclip(rad.y, 0.0f, kRadianceClamp),

@@ -1,11 +1,13 @@
 // Host build of the path-loop step (path_loop_step.cuh) with g++, one lane
 // after the other, in forward and in tap mode (whose scatter is then a
-// serial add). It runs the kernels' own per-lane code on the CPU so that
+// serial add), over the dense tables or through the BVH (trace.cuh). It runs the kernels' own per-lane code on the CPU so that
 // tests without a card can hold it against the plain PyTorch version. Not
 // used by the renderer: on the CPU the renderer runs the plain version.
 //
 // Build: g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC
-#include "path_loop_step.cuh"
+#include <vector>
+
+#include "trace.cuh"
 
 extern "C" {
 
@@ -51,6 +53,46 @@ int zdr_path_loop_grad_host(const int* params, const float* tables, int tables_n
     zdr::run_lane<true>(s, lc, tb, q, n_steps, &gl);
     zdr::store_lane(s, f_out, i_out, lane, n);
   }
+  return 0;
+}
+
+// zdr_path_loop_bvh and zdr_path_loop_grad_bvh (path_loop.cu,
+// path_loop_grad.cu) without the stream; le_grad null runs the forward, and
+// scratch and grad are then unused.
+int zdr_path_loop_bvh_host(const int* params, const float* tables, int tables_n,
+                           const float* bn, const float* material, const int* lanes,
+                           const float* le_grad, const float* f_in, const int* i_in,
+                           float* f_out, int* i_out, float* scratch, float* grad, int n,
+                           int n_steps, const float* box, const int* link, const float* geom,
+                           const int* perm, int n_nodes, unsigned long long* counts) {
+  zdr::LoopParams q = zdr::params_from(params);
+  if (tables_n != zdr::tables_size(q)) return 1;
+  const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
+  std::vector<float> copy(small, small + zdr::small_size(q));
+  zdr::Tables tb = zdr::bvh_tables(copy.data(), tables, bn, material, q);
+  zdr::BvhTrace tr{zdr::Bvh{box, link, geom, perm, n_nodes}};
+  zdr::TraceCount c = {0, 0};
+  for (long lane = 0; lane < n; ++lane) {
+    zdr::LaneConst lc =
+        zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane], q.seed, q);
+    zdr::LaneState s;
+    zdr::load_lane(s, f_in, i_in, lane, n);
+    if (le_grad) {
+      zdr::GradLane gl;
+      gl.lg[0] = le_grad[lane];
+      gl.lg[1] = le_grad[n + lane];
+      gl.lg[2] = le_grad[2L * n + lane];
+      gl.rows = scratch + lane;
+      gl.n = n;
+      gl.grad = grad;
+      zdr::run_lane<true>(s, lc, tb, q, n_steps, &gl, tr, &c);
+    } else {
+      zdr::run_lane(s, lc, tb, q, n_steps, nullptr, tr, &c);
+    }
+    zdr::store_lane(s, f_out, i_out, lane, n);
+  }
+  counts[0] += c.tests;
+  counts[1] += c.visits;
   return 0;
 }
 

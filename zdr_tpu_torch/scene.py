@@ -15,6 +15,14 @@ the backward, direct_grad; path_loop and path_loop_grad for the path
 integrator; on "cpu" their plain versions). The render is differentiable in
 the material: the backward re-estimates the texture gradient at seed + 1
 (Path Replay Backprop for the path integrator).
+
+`accel` picks the route of the sweeps (JAX's names): "bruteforce" or
+"pallas", the dense sweep over the kernels' shared-memory scene table;
+"bvh" or "stream", the escape-link BVH in device memory (the big-mesh
+route); "auto" (the default), dense while the integrator's kernels hold the
+table in shared memory, else the BVH. The BVH is built once per Scene, at
+first need, and the scene rows once per light setup: update_lights and
+add_point_light rebuild the rows, never the tree.
 """
 
 from __future__ import annotations
@@ -26,9 +34,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from .accel.build import METHODS, build_accel, fits_shared_memory
 from .dtypes import default_camera
 from .geometry.load_obj import ObjMesh
 from .geometry.mesh import build_geometry
+from .integrators.scene_tables import scene_table, table_floats
 from .integrators.wrapper import RenderConfig, RenderFunction
 from .scenedata import SceneData, build_light_meta
 
@@ -51,6 +61,7 @@ class Scene:
             emission_or_None). Emission > 0 marks an instance as an area light.
         integrator: 'direct' (default) | 'path'.
         sampler: 'pmj02bn' (default) | 'lcg'.
+        accel: 'auto' (default) | 'bruteforce' | 'pallas' | 'bvh' | 'stream'.
         device: torch device of the scene and of every render.
     """
 
@@ -60,6 +71,7 @@ class Scene:
         integrator: str = "direct",
         sampler: str = "pmj02bn",
         *,
+        accel: str = "auto",
         device,
     ):
         if len(models) > MAX_INSTANCES:
@@ -74,6 +86,12 @@ class Scene:
             point_pos=torch.zeros((0, 3), dtype=torch.float32, device=self.device),
             point_intensity=torch.zeros((0, 3), dtype=torch.float32, device=self.device),
         )
+        self._data.table = scene_table(self._data)
+        if accel not in METHODS:
+            raise ValueError(f"unknown accel method {accel!r}")
+        self.accel = accel
+        if accel in ("bvh", "stream"):
+            self._with_bvh()
         self.camera = default_camera()
         self.integrator = integrator
         self.sampler = sampler
@@ -85,6 +103,25 @@ class Scene:
         # PRB scatter knobs; the port takes only 1 and False (ROADMAP A17)
         self.splat_merge = 1
         self.packed_splat = False
+
+    def _with_bvh(self) -> SceneData:
+        """The scene's data with its BVH, built at the first call."""
+        if self._data.accel is None:
+            self._data = dataclasses.replace(self._data, accel=build_accel(self._data.geom, "bvh"))
+        return self._data
+
+    def _render_data(self, integrator: str) -> SceneData:
+        """The scene's data with the accel of a render's route: the BVH, or
+        none for the dense sweep."""
+        if self.accel not in METHODS:
+            raise ValueError(f"unknown accel method {self.accel!r}")
+        d = self._data
+        dense = self.accel in ("bruteforce", "pallas") or (
+            self.accel == "auto"
+            and fits_shared_memory(d.meta.num_tris, table_floats(d.meta), integrator))
+        if dense:
+            return dataclasses.replace(d, accel=None) if d.accel is not None else d
+        return self._with_bvh()
 
     def _light_insts(self):
         return [i for i, e in enumerate(self.emissions) if (e > 0).any()]
@@ -102,6 +139,8 @@ class Scene:
             meta=build_light_meta(self._data.geom, self._light_insts(),
                                   self._data.meta.n_point),
         )
+        # the scene rows carry the emission and the light count; the BVH stays
+        self._data.table = scene_table(self._data)
 
     def add_point_light(self, position, intensity) -> None:
         """Add a point light (JAX scene.py:188-217).
@@ -121,6 +160,7 @@ class Scene:
             point_intensity=torch.cat([d.point_intensity, inten]),
             meta=dataclasses.replace(d.meta, n_point=d.meta.n_point + 1),
         )
+        self._data.table = scene_table(self._data)
 
     def add_envmap(self, img, compensate_mis: bool = True) -> None:
         raise NotImplementedError("envmap: ROADMAP A11")
@@ -159,7 +199,7 @@ class Scene:
             raise ValueError(
                 f"material is on {material.device}, the scene on {self.device}"
             )
+        cfg = self._config(res, spp)
         return RenderFunction.apply(
-            material.contiguous(), self._data, self.camera, int(seed),
-            self._config(res, spp),
+            material.contiguous(), self._render_data(cfg.integrator), self.camera, int(seed), cfg,
         )

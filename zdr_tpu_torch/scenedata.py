@@ -9,10 +9,11 @@ lights. There is no envmap in the port yet (ROADMAP A11).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .accel.types import Accel
 from .geometry.mesh import Geometry
 
 
@@ -60,6 +61,13 @@ class SceneData:
     meta: LightMeta
     point_pos: torch.Tensor  # (P, 3) float32; the first meta.n_point rows count
     point_intensity: torch.Tensor  # (P, 3) float32
+    # the intersection structure of the render: a "bvh" Accel sends every
+    # sweep through the BVH; None or a dense one, the dense sweeps over the
+    # kernels' shared-memory scene table
+    accel: Optional[Accel] = None
+    # the (T, 31) scene rows (integrators/scene_tables.scene_table), kept by
+    # a Scene and rebuilt when its lights change; None: built per render
+    table: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
