@@ -36,14 +36,16 @@ Phases, one line each; any failure raises and exits non-zero:
  11. the main path of the direct integrator, the default one: the
      reference's benchmark protocol (tools/bench_reference.py's sphere of
      962 triangles + quad light, camera and 1024^2 material of 0.5; direct
-     + MIS, pmj02bn, 512x512, 256 spp), loss = image[..., :3].sum(),
-     loss.backward(): the launch counts, no plain version called, the
-     gradient finite and nonzero; both kernels against their plain
-     versions on the main path's own inputs at every 64th lane (direct at
-     phase 10's bar; direct_grad, with the iteration's adjoint on those
-     lanes and 0 elsewhere, at phase 7's bars); the iteration's median,
-     Scene.render's and each kernel's alone (CUDA events); then the same
-     for the cornell box at 512x512, 64 spp;
+     + MIS, pmj02bn, 512x512, 256 spp) by the dense route
+     (accel="bruteforce"), loss = image[..., :3].sum(), loss.backward():
+     the launch counts, no plain version called, the gradient finite and
+     nonzero; both kernels against their plain versions on the main path's
+     own inputs at every 64th lane (direct at phase 10's bar; direct_grad,
+     with the iteration's adjoint on those lanes and 0 elsewhere, at phase
+     7's bars); the iteration's median, Scene.render's and each kernel's
+     alone (CUDA events); then the same for the cornell box at 512x512, 64
+     spp; then the protocol by the route accel="auto" takes, the BVH, as
+     phase 13 drives the big mesh;
  12. the trace kernels, trace_closest and trace_any (per-ray t_max), on
      262,144 random rays: the dense sweep over the 962-triangle protocol
      scene, the BVH over it and over the big mesh (50,882 triangles); each
@@ -57,20 +59,40 @@ Phases, one line each; any failure raises and exits non-zero:
      called; both BVH kernels against their plain walks on the main path's
      own inputs at every 64th lane for the first CHECK_SAMPLES samples
      (phase 10's and phase 7's bars); the iteration's median, Scene.render's
-     and each kernel's alone, with its counted tests and node visits.
+     and each kernel's alone, with its counted tests and node visits;
+ 14. the sweep variants (the counterparts of the TPU measurement kernels
+     under tools/): on the protocol's 962 triangles and 262,144 rays of
+     each set (the camera's coherent primaries, incoherent bounce-like
+     rays, shadow rays to the light), sweep_variant at every kTile x R,
+     woop_sweep and aabb_sweep, each bit for bit against its plain version
+     with equal counts (the epilogue modes at phase 9's bar), the MT ones
+     also against accel.cu's dense trace kernels; the Woop winners against
+     MT's; each timed against floor_probe, an empty kernel-shaped launch;
+     then trace_closest / trace_any through BVHs of leaf width 2, 4, 8 and
+     16 on the protocol scene and the big mesh;
+ 15. the dense-vs-BVH crossover: each integrator's iteration (pmj02bn,
+     512x512, 64 spp, 1024^2 material) at seven or eight scene sizes from the
+     cornell box to the largest its dense kernels hold, by both routes: the
+     images equal bit for bit, the gradients at phase 7's bars, the times
+     beside accel/build.DENSE_MAX_TRIS, which they set.
 
-Phase 1 prints nvidia-smi's name and power limit on a line of their own.
+Phase 1 prints nvidia-smi's name and power limit on a line of their own;
+a line before the last gives each phase's seconds.
 The next-to-last line is the kernels' JSON record: "launches" on the main
 path (every count is set to 0 just before each main-path call and read
-just after: phase 6 for path_loop, 8 for path_loop_grad, 11's protocol for
-direct and direct_grad; for the two probes, the sum over all of them),
+just after: phase 6 for path_loop, 8 for path_loop_grad, 11's protocol by
+the dense route for direct and direct_grad and by accel="auto" for
+direct_bvh and direct_grad_bvh, whose big-mesh numbers of phase 13 stand
+under "big_mesh", 13 for the path BVH kernels; for the probes, the
+standalone traces and the sweep variants, the sum over all of them),
 "max_abs_err" the largest difference from the plain version over the
 kernel's checks, "ms" the kernel alone at the main path's shapes by CUDA
 events, "plain_ms" its plain version by the host clock (on the inputs of
 "plain_shape", a subset of the main path's where the full width would take
 minutes), and
 "bound_ms" the larger of the kernel's FP32 work (ray-triangle tests, 46
-operations each, and BVH node visits, SLAB_OPS each, counted in this run)
+operations each or 40 for a Woop test, and BVH node visits and tile-box
+tests, SLAB_OPS each, counted in this run)
 at 67 TFLOP/s and its bytes (each input read once, each output written
 once) at 3.35 TB/s. The last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -95,12 +117,13 @@ PROTOCOL_SPP = 256
 CHECK_STRIDE = 64
 KERNELS = ("sampler_probe", "path_loop", "path_loop_grad", "trace_interact", "direct",
            "direct_grad", "trace_closest", "trace_any", "path_loop_bvh", "path_loop_grad_bvh",
-           "direct_bvh", "direct_grad_bvh")
+           "direct_bvh", "direct_grad_bvh", "sweep_variant", "woop_sweep", "aabb_sweep",
+           "floor_probe")
 # the dense instantiations of the four megakernels
 DENSE = ("path_loop", "path_loop_grad", "direct", "direct_grad")
-# phase 13 holds the BVH kernels against their plain walks on the first
-# CHECK_SAMPLES samples of every CHECK_STRIDE-th lane: the plain walk steps
-# all its rays a node at a time, ~0.7 s a sample on the big mesh
+# phases 11 and 13 hold the BVH kernels against their plain walks on the
+# first CHECK_SAMPLES samples of every CHECK_STRIDE-th lane: the plain walk
+# steps all its rays a node at a time, ~0.7 s a sample on the big mesh
 CHECK_SAMPLES = 8
 # the launch counts of every main-path call (_drive_main)
 MAIN_COUNTS = []
@@ -114,8 +137,8 @@ MT_OPS = 46
 # FP32 operations of one node visit's slab test (aabb_hit in
 # kernels/csrc/trace.cuh; the reciprocal direction is computed once a ray):
 # 6 differences and 6 products, 3 min and 3 max, 2 max and 2 min across the
-# axes, 3 comparisons
-SLAB_OPS = 25
+# axes, 2 products by the slack, 3 comparisons
+SLAB_OPS = 27
 
 
 def _drive_main(fn):
@@ -131,10 +154,11 @@ def _drive_main(fn):
     return out, counts
 
 
-def _bound(tests, nbytes, visits=0):
-    """-> (bound_ms, bound_by): the larger of the tests' and node visits'
-    FP32 operations at the FP32 peak and the bytes at the memory rate."""
-    t_ops = (tests * MT_OPS + visits * SLAB_OPS) / FP32_PEAK * 1e3
+def _bound(tests, nbytes, visits=0, ops=MT_OPS):
+    """-> (bound_ms, bound_by): the larger of the tests' (`ops` each) and
+    node visits' or box tests' FP32 operations at the FP32 peak and the
+    bytes at the memory rate."""
+    t_ops = (tests * ops + visits * SLAB_OPS) / FP32_PEAK * 1e3
     t_bytes = nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -151,28 +175,32 @@ def _sync_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _flagship(device, integrator="path"):
+def _flagship(device, integrator="path", accel="bruteforce"):
+    """bench.py's cornell box + light and camera; the dense route unless
+    `accel` says otherwise (phases 6, 8 and 11 hold the dense kernels)."""
     import zdr_tpu_torch as zt
     from zdr_tpu_torch.geometry.procedural import make_cornell_box, make_cornell_light
 
     scene = zt.Scene(
         [(make_cornell_box(), None, None), (make_cornell_light(), None, 15.0)],
-        integrator=integrator, device=device,
+        integrator=integrator, accel=accel, device=device,
     )
     scene.camera = zt.Camera(fov=50 / 180 * 3.1415926, origin=(-0.2, 2.6, -0.5),
                              target=(-0.2, 2.6, -5.0))
     return scene
 
 
-def _protocol(device):
+def _protocol(device, accel="bruteforce", integrator="direct", stacks=(16, 32)):
     """tools/bench_reference.py's scene: a uv sphere of 16 x 32 (960
-    triangles) over a 2-triangle quad light of 40, its camera; direct."""
+    triangles) over a 2-triangle quad light of 40, its camera; direct; the
+    dense route unless `accel` says otherwise. Phase 15 varies the sphere's
+    stacks and the integrator."""
     import zdr_tpu_torch as zt
     from zdr_tpu_torch.geometry.procedural import make_quad, make_uv_sphere
 
-    scene = zt.Scene([(make_uv_sphere(0.5, 16, 32), None, None),
+    scene = zt.Scene([(make_uv_sphere(0.5, *stacks), None, None),
                       (make_quad(size=1.0, y=-2.0), None, 40.0)],
-                     integrator="direct", device=device)
+                     integrator=integrator, accel=accel, device=device)
     scene.camera = zt.Camera(fov=0.8, origin=(1.5, 0.3, 0.0), target=(0.0, 0.0, 0.0))
     return scene
 
@@ -631,8 +659,8 @@ def _plain_calls():
 
 
 def _direct_main(scene, res, spp, what, smi, reps):
-    """One iteration of the direct integrator's main path, checked, then
-    timed -> its numbers."""
+    """One iteration of the direct integrator's main path, checked at every
+    CHECK_STRIDE-th lane, then timed -> its numbers."""
     from zdr_tpu_torch import kernels
     from zdr_tpu_torch.integrators import direct as dr
     from zdr_tpu_torch.integrators import path_loop as pl
@@ -716,13 +744,29 @@ def _direct_main(scene, res, spp, what, smi, reps):
                 plain_shape=f"every {CHECK_STRIDE}th lane of {res[0]}x{res[1]}, {spp} spp")
 
 
+def _iteration(scene, mat, res, spp):
+    """loss = scene.render(mat)[..., :3].sum(); loss.backward() -> loss."""
+    def run():
+        mat.grad = None
+        loss = scene.render(mat, res=res, spp=spp, seed=0)[..., :3].sum()
+        loss.backward()
+        return loss
+    return run
+
+
 def phase_main_direct(dev, smi):
+    """Phase 11: the protocol and the cornell box by the dense route, then
+    the protocol by the route accel="auto" takes, the BVH -> (the dense
+    kernels' numbers, the BVH kernels' records on the protocol)."""
     proto = _direct_main(_protocol(dev), RES, PROTOCOL_SPP,
                          "the reference's protocol (sphere + quad light)", smi, reps=3)
     cbox = _direct_main(_flagship(dev, "direct"), RES, SPP, "cornell box", smi, reps=5)
     for k in ("err", "g_err"):
         proto[k] = max(proto[k], cbox[k])
-    return proto
+    auto = _bvh_main(_protocol(dev, accel="auto"), "direct", PROTOCOL_SPP,
+                     "11 main-direct", "the protocol with accel='auto'", smi, reps=3)
+    proto["auto_ms"] = auto["direct_bvh"]["iteration_ms"]
+    return proto, auto
 
 
 def _bigmesh(device, integrator):
@@ -738,6 +782,18 @@ def _bigmesh(device, integrator):
     return scene
 
 
+def _sphere_rays(n, dev):
+    """Phase 12's rays: origins at radius 1.6, aimed near the sphere's
+    centre; a per-ray t_max in [0.5, 3) for any hit -> (o, d, t_max)."""
+    g = torch.Generator().manual_seed(12)
+    o = torch.randn((n, 3), generator=g)
+    o = (1.6 * o / o.norm(dim=1, keepdim=True)).to(dev)
+    d = torch.rand((n, 3), generator=g).to(dev) - 0.5 - o
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    t_max = (0.5 + 2.5 * torch.rand(n, generator=g)).to(dev)
+    return o, d, t_max
+
+
 def phase_trace_bvh(dev, smi):
     """Phase 12: trace_closest and trace_any, dense and BVH, against their
     plain versions bit for bit -> their records (the BVH on the big mesh)."""
@@ -746,12 +802,7 @@ def phase_trace_bvh(dev, smi):
     from zdr_tpu_torch.accel import trace as tt
 
     n = RES[0] * RES[1]
-    g = torch.Generator().manual_seed(12)
-    o = torch.randn((n, 3), generator=g)
-    o = (1.6 * o / o.norm(dim=1, keepdim=True)).to(dev)
-    d = torch.rand((n, 3), generator=g).to(dev) - 0.5 - o
-    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
-    t_max = (0.5 + 2.5 * torch.rand(n, generator=g)).to(dev)
+    o, d, t_max = _sphere_rays(n, dev)
     notes, records = [], {}
     cases = (("protocol", _protocol(dev), "bruteforce"), ("protocol", _protocol(dev), "bvh"),
              ("big mesh", _bigmesh(dev, "direct"), "bvh"))
@@ -793,7 +844,7 @@ def phase_trace_bvh(dev, smi):
     return records
 
 
-def _bigmesh_check(tb, tb1, mat, integrator):
+def _bvh_check(tb, tb1, mat, integrator, what):
     """Both BVH kernels against their plain walks on the main path's own
     inputs (its tables at seed 0 and 1, its material, the adjoint 1 / spp)
     at every CHECK_STRIDE-th lane, the first CHECK_SAMPLES samples of each
@@ -823,9 +874,9 @@ def _bigmesh_check(tb, tb1, mat, integrator):
     diff = (got - want).abs().amax(0) / CHECK_SAMPLES
     mean, within = float(diff.mean()), float((diff <= 1e-5).float().mean())
     if not (mean <= 1e-6 and within >= 0.999):
-        raise AssertionError(f"big mesh {integrator}: kernel vs plain mean abs diff {mean:.3e}, "
+        raise AssertionError(f"{what} {integrator}: kernel vs plain mean abs diff {mean:.3e}, "
                              f"{within:.4%} within 1e-5")
-    g_err, g_worst = _assert_grad_close(ggot, gwant, f"big mesh {integrator} gradient")
+    g_err, g_worst = _assert_grad_close(ggot, gwant, f"{what} {integrator} gradient")
     note = (f"at every {CHECK_STRIDE}th lane, the first {CHECK_SAMPLES} samples "
             f"({sub.shape[1]} lanes): forward vs plain mean abs diff {mean:.3e}, bit-identical "
             f"{bool(torch.equal(got, want))}, plain {plain_ms:.1f} ms; gradient worst texel rel "
@@ -833,113 +884,411 @@ def _bigmesh_check(tb, tb1, mat, integrator):
     return float(diff.max()), g_err, plain_ms, gplain_ms, note
 
 
-def phase_bigmesh(dev, smi):
-    """Phase 13: the 50,880-triangle scene through Scene.render +
-    loss.backward() for both integrators -> the BVH kernels' records."""
+# the BVH instantiations of each integrator: forward, gradient
+BVH_KERNELS = {"direct": ("direct_bvh", "direct_grad_bvh"),
+               "path": ("path_loop_bvh", "path_loop_grad_bvh")}
+
+
+def _bvh_main(scene, integrator, spp, tag, what, smi, reps=5):
+    """One main path through the BVH kernels: Scene.render + loss.backward()
+    of `scene` (pmj02bn, 512x512, `spp`, 1024^2 material of 0.5): one launch
+    of each BVH kernel and none of the dense ones, no plain version called;
+    both kernels against their plain walks on the main path's own inputs
+    (_bvh_check); the iteration's median, Scene.render's and each kernel's
+    alone, with its counted tests and node visits -> the two kernels'
+    records."""
     from zdr_tpu_torch import kernels
     from zdr_tpu_torch.integrators import path_loop as pl
 
+    fwd, bwd = BVH_KERNELS[integrator]
+    mat = torch.full((TEX, TEX, 4), 0.5, dtype=torch.float32, device=scene.device)
+    mat.requires_grad_()
+    iteration = _iteration(scene, mat, RES, spp)
+    plain = (_plain_calls(), pl.loop_step.calls, pl.render_path_backward_loop_plain.calls)
+    (loss, first_ms), counts = _drive_main(lambda: _sync_ms(iteration))
+    if (counts[fwd], counts[bwd]) != (1, 1) or any(counts[k] for k in DENSE):
+        raise AssertionError(f"{what} {integrator}: launches {counts}; expected one of "
+                             f"{fwd} and {bwd} and none of the dense kernels")
+    if (_plain_calls(), pl.loop_step.calls, pl.render_path_backward_loop_plain.calls) != plain:
+        raise AssertionError(f"{what} {integrator}: the iteration ran a plain version")
+    grad = mat.grad.detach()
+    if not (bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+            and math.isfinite(float(loss.detach()))):
+        raise AssertionError(f"{what} {integrator}: non-finite or zero loss or gradient")
+
+    m, dev = mat.detach(), scene.device
+    data = scene._render_data(integrator)
+    tb = pl.build_loop_tables(data, scene.camera, scene._config(RES, spp), 0)
+    tb1 = pl.build_loop_tables(data, scene.camera, scene._config(RES, spp), 1)
+    if tb.bvh is None:
+        raise AssertionError(f"{what} {integrator}: not the BVH route")
+    err, g_err, plain_ms, gplain_ms, check = _bvh_check(tb, tb1, m, integrator, what)
+
+    it_ms, it_runs = _median_ms(iteration, reps)
+    render_ms, _r = _median_ms(lambda: scene.render(m, res=RES, spp=spp, seed=0), reps)
+    lanes = pl.pixel_lanes(RES, spp, dev)
+    le = torch.full((3, lanes.shape[1]), 1.0 / spp, device=dev)
+    if integrator == "direct":
+        ms, _r = _event_ms(lambda: kernels.direct(tb, lanes, m), reps)
+        work = kernels.direct_bvh.counts.tolist()
+        gms, _r = _event_ms(lambda: kernels.direct_grad(tb1, lanes, m, le), reps)
+        gwork = kernels.direct_grad_bvh.counts.tolist()
+        state = [torch.empty((3, lanes.shape[1]), device=dev)]
+    else:
+        carry0 = pl.init_carry(lanes)
+        ms, _r = _event_ms(lambda: kernels.path_loop(tb, lanes, m, carry0, tb.n_steps), reps)
+        work = kernels.path_loop_bvh.counts.tolist()
+        gms, _r = _event_ms(lambda: kernels.path_loop_grad(tb1, lanes, m, le, tb.n_steps), reps)
+        gwork = kernels.path_loop_grad_bvh.counts.tolist()
+        state = [carry0.f, carry0.i, carry0.f, carry0.i]
+    a = tb.bvh
+    tables = (lanes, m, tb.scene, tb.lights, tb.bn, a.geom, a.tri_perm, a.node_box, a.node_link)
+    bound = _bound(work[0], _nbytes(*tables, *state), work[1])
+    gbound = _bound(gwork[0], _nbytes(*tables, le, m, *state), gwork[1])
+    n_samples = RES[0] * RES[1] * spp
+    print(f"[{tag}] {what}, {integrator}: {tb.scene.shape[0]} tris, BVH of "
+          f"{a.node_box.shape[0]} nodes, pmj02bn {RES[0]}x{RES[1]} {spp} spp {TEX}^2 "
+          f"material of 0.5, loss = image[..., :3].sum(), loss.backward(): 1 {fwd} and 1 "
+          f"{bwd} launch, no dense kernel, no plain version; loss "
+          f"{float(loss.detach()):.4f}, |g|max {float(grad.abs().max()):.4e}; {check}; "
+          f"iteration median {it_ms:.2f} ms of {[round(t, 2) for t in it_runs]} (first "
+          f"{first_ms:.2f} ms); Scene.render median {render_ms:.2f} ms; {fwd} alone {ms:.2f} "
+          f"ms = {n_samples / ms / 1e3:.2f} M samples/s, {work[0]:.4g} tests and {work[1]:.4g} "
+          f"node visits ({work[0] / n_samples:.1f} and {work[1] / n_samples:.1f} a sample) "
+          f"-> bound {bound[0]:.3f} ms ({bound[1]}); {bwd} alone {gms:.2f} ms, "
+          f"{gwork[0]:.4g} tests, {gwork[1]:.4g} visits -> bound {gbound[0]:.3f} ms "
+          f"({gbound[1]}); card {smi}", flush=True)
+    shape = (f"every {CHECK_STRIDE}th lane of {RES[0]}x{RES[1]}, the first {CHECK_SAMPLES} "
+             f"of {spp} samples")
+    return {fwd: dict(launches=counts[fwd], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      plain_shape=shape, bound_ms=bound[0], bound_by=bound[1],
+                      library_ms=None, tests=work[0], visits=work[1], iteration_ms=it_ms),
+            bwd: dict(launches=counts[bwd], max_abs_err=g_err, ms=gms, plain_ms=gplain_ms,
+                      plain_shape=shape, bound_ms=gbound[0], bound_by=gbound[1],
+                      library_ms=None, tests=gwork[0], visits=gwork[1])}
+
+
+def phase_bigmesh(dev, smi):
+    """Phase 13: the 50,880-triangle scene through Scene.render +
+    loss.backward() for both integrators -> the BVH kernels' records."""
     records = {}
-    for integrator, (fwd, bwd) in (("direct", ("direct_bvh", "direct_grad_bvh")),
-                                   ("path", ("path_loop_bvh", "path_loop_grad_bvh"))):
+    for integrator in ("direct", "path"):
         scene = _bigmesh(dev, integrator)
-        mat = torch.full((TEX, TEX, 4), 0.5, dtype=torch.float32, device=dev).requires_grad_()
+        if scene._data.meta.num_tris != 50882:
+            raise AssertionError("the big mesh is not 50,882 triangles")
+        records.update(_bvh_main(scene, integrator, SPP, "13 big mesh", "big mesh", smi))
+    return records
 
-        def iteration():
-            mat.grad = None
-            loss = scene.render(mat, res=RES, spp=SPP, seed=0)[..., :3].sum()
-            loss.backward()
-            return loss
+# FP32 operations of one Woop test (woop_hit in kernels/csrc/sweep_variants.cuh),
+# counted as MT_OPS is (no comparisons): three 4-dots with their offset (3
+# products and 3 sums each), three 3-dots (5 each), the division and the
+# negation, two scale-and-adds and u + v
+WOOP_OPS = 40
+# the BVH leaf widths phase 14 walks (production's is accel/bvh.LEAF_SIZE)
+LEAF_WIDTHS = (2, 4, 8, 16)
+# the B9 measurement kernels, on no main path
+VARIANTS = ("sweep_variant", "woop_sweep", "aabb_sweep", "floor_probe")
+# phase 14 times each variant by the median of VARIANT_REPS runs
+VARIANT_REPS = 10
 
-        plain = (_plain_calls(), pl.loop_step.calls, pl.render_path_backward_loop_plain.calls)
-        (loss, first_ms), counts = _drive_main(lambda: _sync_ms(iteration))
-        if (counts[fwd], counts[bwd]) != (1, 1) or any(counts[k] for k in DENSE):
-            raise AssertionError(f"big mesh {integrator}: launches {counts}; expected one of "
-                                 f"{fwd} and {bwd} and none of the dense kernels")
-        if (_plain_calls(), pl.loop_step.calls, pl.render_path_backward_loop_plain.calls) != plain:
-            raise AssertionError(f"big mesh {integrator}: the iteration ran a plain version")
-        grad = mat.grad.detach()
-        if not (bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
-                and math.isfinite(float(loss.detach()))):
-            raise AssertionError(f"big mesh {integrator}: non-finite or zero loss or gradient")
 
-        m = mat.detach()
-        data = scene._render_data(integrator)
-        tb = pl.build_loop_tables(data, scene.camera, scene._config(RES, SPP), 0)
-        tb1 = pl.build_loop_tables(data, scene.camera, scene._config(RES, SPP), 1)
-        if tb.bvh is None or tb.scene.shape[0] != 50882:
-            raise AssertionError(f"big mesh {integrator}: not the 50,882-triangle BVH route")
-        err, g_err, plain_ms, gplain_ms, check = _bigmesh_check(tb, tb1, m, integrator)
+def _same(got, want):
+    if isinstance(want, torch.Tensor):
+        return torch.equal(got, want)
+    return len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
 
-        it_ms, it_runs = _median_ms(iteration)
-        render_ms, _r = _median_ms(lambda: scene.render(m, res=RES, spp=SPP, seed=0))
-        lanes = pl.pixel_lanes(RES, SPP, dev)
-        le = torch.full((3, lanes.shape[1]), 1.0 / SPP, device=dev)
-        if integrator == "direct":
-            ms, _r = _event_ms(lambda: kernels.direct(tb, lanes, m))
-            work = kernels.direct_bvh.counts.tolist()
-            gms, _r = _event_ms(lambda: kernels.direct_grad(tb1, lanes, m, le))
-            gwork = kernels.direct_grad_bvh.counts.tolist()
-            state = [torch.empty((3, lanes.shape[1]), device=dev)]
-        else:
-            carry0 = pl.init_carry(lanes)
-            ms, _r = _event_ms(lambda: kernels.path_loop(tb, lanes, m, carry0, tb.n_steps))
-            work = kernels.path_loop_bvh.counts.tolist()
-            gms, _r = _event_ms(lambda: kernels.path_loop_grad(tb1, lanes, m, le, tb.n_steps))
-            gwork = kernels.path_loop_grad_bvh.counts.tolist()
-            state = [carry0.f, carry0.i, carry0.f, carry0.i]
-        a = tb.bvh
-        tables = (lanes, m, tb.scene, tb.lights, tb.bn, a.geom, a.tri_perm, a.node_box, a.node_link)
-        bound = _bound(work[0], _nbytes(*tables, *state), work[1])
-        gbound = _bound(gwork[0], _nbytes(*tables, le, m, *state), gwork[1])
-        n_samples = RES[0] * RES[1] * SPP
-        print(f"[13 big mesh] {integrator}: {tb.scene.shape[0]} tris, BVH of "
-              f"{a.node_box.shape[0]} nodes, pmj02bn {RES[0]}x{RES[1]} {SPP} spp {TEX}^2 "
-              f"material of 0.5, loss = image[..., :3].sum(), loss.backward(): 1 {fwd} and 1 "
-              f"{bwd} launch, no dense kernel, no plain version; loss "
-              f"{float(loss.detach()):.4f}, |g|max {float(grad.abs().max()):.4e}; {check}; "
-              f"iteration median {it_ms:.2f} ms of {[round(t, 2) for t in it_runs]} (first "
-              f"{first_ms:.2f} ms); Scene.render median {render_ms:.2f} ms; {fwd} alone {ms:.2f} "
-              f"ms = {n_samples / ms / 1e3:.2f} M samples/s, {work[0]:.4g} tests and {work[1]:.4g} "
-              f"node visits ({work[0] / n_samples:.1f} and {work[1] / n_samples:.1f} a sample) "
-              f"-> bound {bound[0]:.3f} ms ({bound[1]}); {bwd} alone {gms:.2f} ms, "
-              f"{gwork[0]:.4g} tests, {gwork[1]:.4g} visits -> bound {gbound[0]:.3f} ms "
-              f"({gbound[1]}); card {smi}", flush=True)
-        shape = (f"every {CHECK_STRIDE}th lane of {RES[0]}x{RES[1]}, the first {CHECK_SAMPLES} "
-                 f"of {SPP} samples")
-        records[fwd] = dict(launches=counts[fwd], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            plain_shape=shape, bound_ms=bound[0], bound_by=bound[1],
-                            library_ms=None, tests=work[0], visits=work[1], iteration_ms=it_ms)
-        records[bwd] = dict(launches=counts[bwd], max_abs_err=g_err, ms=gms, plain_ms=gplain_ms,
-                            plain_shape=shape, bound_ms=gbound[0], bound_by=gbound[1],
-                            library_ms=None, tests=gwork[0], visits=gwork[1])
+
+def _variant_run(what, wrapper, call, want, work, ops, nbytes, n, floor_ms, exact=True):
+    """One grid point of a sweep variant: bit for bit against its plain
+    version with equal counts (not `exact`, the epilogue modes: ints equal,
+    floats at phase 9's bar), then timed -> (ms, bound, its line)."""
+    got = call()
+    torch.cuda.synchronize()
+    counts = wrapper.counts.tolist()
+    if not _same(got, want):
+        if exact:
+            raise AssertionError(f"{what}: differs from its plain version")
+        for k, (a, b) in enumerate(zip(got, want)):
+            if a.dtype == torch.int32 and not torch.equal(a, b):
+                raise AssertionError(f"{what}: int plane {k} differs from the plain version")
+            if a.dtype != torch.int32 and not bool(torch.isclose(a, b, rtol=1e-6, atol=1e-6).all()):
+                raise AssertionError(f"{what}: float plane {k} max diff "
+                                     f"{float((a - b).abs().max()):.3e}")
+        worst = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        what += f" (floats within atol 1e-6 rtol 1e-6, max diff {worst:.3e})"
+    if counts != [int(x) for x in work]:
+        raise AssertionError(f"{what}: counts {counts} vs plain {[int(x) for x in work]}")
+    ms, _runs = _event_ms(call, VARIANT_REPS)
+    bound = _bound(counts[0], nbytes, counts[1], ops)
+    boxes = f" + {counts[1] / n:.2f} box tests" if counts[1] else ""
+    line = (f"{what}: {ms:.4f} ms, {counts[0] / n:.1f} tests{boxes} a ray, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), {ms / floor_ms:.1f}x the floor")
+    return ms, bound, line
+
+
+def phase_variants(dev, smi):
+    """Phase 14: the sweep variants (B9's counterparts) on the protocol's
+    962 triangles and 262,144 rays of each set, every grid point bit for bit
+    against its plain version, timed; then the BVH leaf widths -> the four
+    kernels' records."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.accel import build_accel
+    from zdr_tpu_torch.accel import trace as tt
+    from zdr_tpu_torch.accel import variants as tv
+    from zdr_tpu_torch.accel.woop import tile_boxes, woop_rows
+    from zdr_tpu_torch.integrators.scene_tables import scene_table
+
+    scene = _protocol(dev)
+    table = scene_table(scene._data)
+    acc = build_accel(scene._data.geom, "bruteforce")
+    geom, woop = acc.geom, woop_rows(acc.geom)
+    n = RES[0] * RES[1]
+    prim = tv.primary_rays(scene, RES)
+    sets = {"primary": prim, "bounce": tv.bounce_rays(n, dev),
+            "shadow": tv.shadow_rays(geom, table, prim)}
+
+    # the floor: out = a + b over two ray planes, through the same harness
+    a, b = prim[0][0].contiguous(), prim[0][3].contiguous()
+    if not torch.equal(kernels.floor_probe(a, b), a + b):
+        raise AssertionError("floor_probe differs from a + b")
+    floor_ms = _event_ms(lambda: kernels.floor_probe(a, b), VARIANT_REPS)[0]
+    floor_plain = _sync_ms(lambda: a + b)[1]
+    floor_library = _event_ms(lambda: torch.add(a, b), VARIANT_REPS)[0]
+    bound = _bound(0, 3 * n * 4)
+    records = {"floor_probe": dict(
+        launches=None, max_abs_err=0.0, ms=floor_ms, plain_ms=floor_plain,
+        plain_shape=f"{n} floats", bound_ms=bound[0], bound_by=bound[1],
+        library_ms=floor_library)}
+    print(f"[14 variants] {scene._data.meta.num_tris} tris, {n} rays a set (primary: the "
+          f"protocol camera's lcg primaries at seed 1; bounce: uniform directions at radius "
+          f"0.52; shadow: from the primaries' hits to the quad light, t_max its distance); "
+          f"floor_probe {floor_ms:.4f} ms (plain a + b {floor_plain:.4f} ms by the host clock, "
+          f"torch.add {floor_library:.4f} ms by events), bound "
+          f"{bound[0]:.4f} ms ({bound[1]}); card {smi}", flush=True)
+    outs = {"closest": 16, "any": 4, "interact": 64, "lite": 16}
+
+    def keep(name, ms, plain_ms, bound, point):
+        """The kernel's record: its fastest point on the primaries."""
+        if name not in records or ms < records[name]["ms"]:
+            records[name] = dict(launches=None, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                 plain_shape=f"{n} primary rays x {geom.shape[0]} triangles",
+                                 bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                                 point=point)
+
+    for set_name, (rays, act) in sets.items():
+        o, d = rays[0:3].T.contiguous(), rays[3:6].T.contiguous()
+        modes = ("any",) if set_name == "shadow" else ("closest", "interact", "lite")
+        lines = []
+        for mode in modes:
+            exact = mode in ("closest", "any")
+            nbytes = _nbytes(rays, act, geom) + outs[mode] * n + (
+                _nbytes(table) if mode in ("interact", "lite") else 0)
+            (want, work), plain_ms = _sync_ms(
+                lambda: tv.sweep_variant_plain(geom, table, rays, act, mode))
+            if mode in ("closest", "any"):
+                dense = (kernels.trace_closest(acc, o, d, 0.0, rays[7]) if mode == "closest"
+                         else kernels.trace_any(acc, o, d, 1e-4, rays[7]))
+                if not _same(dense, want):
+                    raise AssertionError(f"accel.cu's dense trace_{mode} differs from the "
+                                         f"plain sweep on the {set_name} rays")
+            for m, tile, r, use_woop, cull in kernels.variant_points():
+                if m != mode or use_woop or cull:
+                    continue
+                what = f"sweep_variant {mode} kTile {tile} R {r}"
+                ms, bnd, line = _variant_run(
+                    what, kernels.sweep_variant,
+                    lambda: kernels.sweep_variant(geom, table, rays, act, mode, tile, r),
+                    want, work, MT_OPS, nbytes, n, floor_ms, exact)
+                lines.append(line)
+                if set_name == "primary" and mode == "closest":
+                    keep("sweep_variant", ms, plain_ms, bnd, f"closest kTile {tile} R {r}")
+            # the Woop test, and what its winners do against MT's
+            (wwant, wwork), wplain = _sync_ms(
+                lambda: tv.woop_sweep_plain(woop, geom, table, rays, act, mode))
+            ms, bnd, line = _variant_run(
+                f"woop_sweep {mode} kTile 512", kernels.woop_sweep,
+                lambda: kernels.woop_sweep(woop, geom, table, rays, act, mode),
+                wwant, wwork, WOOP_OPS, nbytes + _nbytes(geom), n, floor_ms, exact)
+            if mode == "closest":
+                same = wwant[1] == want[1]
+                for k in (0, 2, 3):
+                    if not torch.equal(wwant[k][same], want[k][same]):
+                        raise AssertionError(f"woop_sweep {set_name}: t, u or v differs from "
+                                             "MT's where the winner is the same")
+                line += (f"; winner differs from MT's on {int((~same).sum())} of {n} rays "
+                         f"({float((~same).float().mean()):.3e})")
+                if set_name == "primary":
+                    keep("woop_sweep", ms, wplain, bnd, "closest kTile 512")
+            elif mode == "any":
+                line += (f"; occlusion differs from MT's on {int((wwant != want).sum())} of "
+                         f"{n} rays")
+            lines.append(line)
+            if mode not in ("closest", "any"):
+                continue
+            # the tile culls, MT and Woop: the unculled sweep's hits, fewer tests
+            for m, tile, _r, use_woop, cull in kernels.variant_points():
+                if m != mode or not cull:
+                    continue
+                rows = woop if use_woop else geom
+                boxes = tile_boxes(geom, tile)
+                (awant, awork), aplain = _sync_ms(lambda: tv.aabb_sweep_plain(
+                    rows, geom, boxes, tile, rays, act, mode, use_woop))
+                if not _same(awant, wwant if use_woop else want):
+                    raise AssertionError(f"aabb_sweep plain {mode} kTile {tile} woop "
+                                         f"{use_woop}: differs from the unculled sweep")
+                test = "Woop" if use_woop else "MT"
+                ms, bnd, line = _variant_run(
+                    f"aabb_sweep {mode} {test} kTile {tile}", kernels.aabb_sweep,
+                    lambda: kernels.aabb_sweep(rows, geom, boxes, tile, rays, act, mode,
+                                               use_woop),
+                    awant, awork, WOOP_OPS if use_woop else MT_OPS,
+                    nbytes + _nbytes(boxes), n, floor_ms)
+                lines.append(line)
+                if set_name == "primary" and mode == "closest":
+                    keep("aabb_sweep", ms, aplain, bnd, f"closest {test} kTile {tile}")
+        print(f"[14 variants] {set_name} rays, each against its plain version with equal "
+              f"counts, bit for bit unless marked (the MT closest and any sweeps also equal "
+              f"accel.cu's dense trace kernels): " + "; ".join(lines), flush=True)
+
+    # the BVH's leaf width: the trace kernels on phase 12's rays
+    o, d, t_max = _sphere_rays(n, dev)
+    for name, sc in (("protocol", scene), ("big mesh", _bigmesh(dev, "direct"))):
+        lines = []
+        for leaf in LEAF_WIDTHS:
+            bvh = tv.leaf_accel(sc._data.geom, leaf)
+            parts = []
+            for kname, call, plain in (
+                    ("closest", lambda: kernels.trace_closest(bvh, o, d, 0.0, 1e30),
+                     lambda: tt.trace_closest_plain(bvh, o, d, 0.0, 1e30)),
+                    ("any", lambda: (kernels.trace_any(bvh, o, d, 1e-4, t_max),),
+                     lambda: tt.trace_any_plain(bvh, o, d, 1e-4, t_max))):
+                wrapper = getattr(kernels, f"trace_{kname}")
+                want, work = plain()
+                want = want if kname == "closest" else (want,)
+                ms, bnd, _line = _variant_run(f"trace_{kname} leaf {leaf} {name}", wrapper, call,
+                                              want, work, MT_OPS, 0, n, floor_ms)
+                tests, visits = (int(x) for x in work)
+                parts.append(f"{kname} {ms:.4f} ms, {tests / n:.1f} tests + {visits / n:.1f} "
+                             f"visits a ray")
+            lines.append(f"leaf {leaf} ({bvh.node_box.shape[0]} nodes): " + ", ".join(parts))
+        print(f"[14 leaf width] {name} ({sc._data.meta.num_tris} tris), {n} random rays, "
+              f"trace_closest / trace_any through the BVH built at each leaf width, bit for bit "
+              f"against the plain walk with equal counts: " + "; ".join(lines), flush=True)
     return records
 
 
+# phase 15's scenes, by sphere stacks (None: the cornell box, 12 triangles)
+# over the protocol's quad light: 26, 50, 122, 226 and 962 (the protocol's)
+# triangles; for direct 3970 (where a route disagreement once showed in the
+# gradient alone); and the largest that each integrator's dense kernels hold
+# in shared memory (kernels.check_table_fits): 4762 direct, 1850 path
+_SMALL_STACKS = (None, (3, 6), (4, 8), (6, 12), (8, 16), (16, 32))
+CROSS_STACKS = {"direct": _SMALL_STACKS + ((32, 64), (36, 68)),
+                "path": _SMALL_STACKS + ((22, 44),)}
+
+
+def phase_crossover(dev, smi):
+    """Phase 15: each integrator's iteration (Scene.render + loss.backward(),
+    pmj02bn, 512x512, 64 spp, 1024^2 material of 0.5; median of 5) by the
+    dense route and by the BVH at each scene size: the images equal bit for
+    bit, the gradients at phase 7's bars -> the crossover a route."""
+    from zdr_tpu_torch.accel.build import DENSE_MAX_TRIS
+
+    found = {}
+    for integrator, stacks_list in CROSS_STACKS.items():
+        table = []
+        for stacks in stacks_list:
+            ms, img, grad = {}, {}, {}
+            for accel in ("bruteforce", "bvh"):
+                sc = (_flagship(dev, integrator, accel) if stacks is None
+                      else _protocol(dev, accel, integrator, stacks))
+                if (sc._render_data(integrator).accel is not None) != (accel == "bvh"):
+                    raise AssertionError(f"crossover: accel={accel!r} took the other route")
+                mat = torch.full((TEX, TEX, 4), 0.5, dtype=torch.float32,
+                                 device=dev).requires_grad_()
+                # the first iteration, kept, is the warm-up of the timed five
+                image = sc.render(mat, res=RES, spp=SPP, seed=0)
+                image[..., :3].sum().backward()
+                img[accel], grad[accel] = image.detach(), mat.grad.detach().clone()
+                run = _iteration(sc, mat, RES, SPP)
+                ms[accel] = statistics.median(_sync_ms(run)[1] for _ in range(5))
+            n_tris = sc._data.meta.num_tris
+            if not torch.equal(img["bvh"], img["bruteforce"]):
+                bad = int((img["bvh"] != img["bruteforce"]).any(-1).sum())
+                raise AssertionError(f"crossover {integrator} {n_tris} tris: the BVH image "
+                                     f"differs from the dense one in {bad} pixels")
+            _g_err, g_worst = _assert_grad_close(grad["bvh"], grad["bruteforce"],
+                                                 f"crossover {integrator} {n_tris} tris")
+            table.append((n_tris, ms["bruteforce"], ms["bvh"], g_worst))
+        # the smallest size from which the BVH is faster at every larger size,
+        # and where the two times meet, linearly between it and the size before
+        k = len(table)
+        while k and table[k - 1][2] < table[k - 1][1]:
+            k -= 1
+        if k == len(table):
+            verdict = "the dense route is faster at the largest size"
+        elif k == 0:
+            verdict = "the BVH is faster at every size"
+        else:
+            (n0, d0, b0, _w), (n1, d1, b1, _w) = table[k - 1], table[k]
+            meet = n0 + (d0 - b0) * (n1 - n0) / ((b1 - b0) - (d1 - d0))
+            verdict = (f"the BVH is faster from {n1} triangles on; the times meet at "
+                       f"{meet:.1f} triangles")
+        found[integrator] = table[k][0] if k < len(table) else None
+        rows = "; ".join(f"{t} tris: dense {a:.2f} ms, BVH {b:.2f} ms ({a / b:.2f}x), gradient "
+                         f"worst texel {w:.2e}" for t, a, b, w in table)
+        print(f"[15 crossover] {integrator}, pmj02bn {RES[0]}x{RES[1]} {SPP} spp {TEX}^2 "
+              f"material of 0.5, iteration median of 5, images bit for bit and gradients at "
+              f"phase 7's bars: {rows}; {verdict} (accel/build.DENSE_MAX_TRIS[{integrator!r}] "
+              f"= {DENSE_MAX_TRIS[integrator]}); card {smi}", flush=True)
+    return found
+
+
 def main():
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(tag, fn, *args):
+        """Run one phase, keeping its seconds for the timing line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[tag] = round(time.perf_counter() - t0, 1)
+        return out
+
     name, smi = phase_device()
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
-    probe_run = phase_sampler_probe(dev)
-    phase_step(dev)
-    phase_render(dev)
-    main_run = phase_main(dev, smi)
-    phase_grad(dev)
-    grad_run = phase_main_grad(dev, smi)
-    trace_run = phase_trace(dev)
-    check = phase_direct(dev)
-    proto = phase_main_direct(dev, smi)
-    traces = phase_trace_bvh(dev, smi)
-    big = phase_bigmesh(dev, smi)
-    # the probes and the standalone traces are on no main path: what the
-    # main-path calls launched of them
+    timed("2", phase_build)
+    probe_run = timed("3", phase_sampler_probe, dev)
+    timed("4", phase_step, dev)
+    timed("5", phase_render, dev)
+    main_run = timed("6", phase_main, dev, smi)
+    timed("7", phase_grad, dev)
+    grad_run = timed("8", phase_main_grad, dev, smi)
+    trace_run = timed("9", phase_trace, dev)
+    check = timed("10", phase_direct, dev)
+    proto, auto = timed("11", phase_main_direct, dev, smi)
+    traces = timed("12", phase_trace_bvh, dev, smi)
+    big = timed("13", phase_bigmesh, dev, smi)
+    variants = timed("14", phase_variants, dev, smi)
+    timed("15", phase_crossover, dev, smi)
+    print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
+    # direct_bvh and direct_grad_bvh report the protocol's main path by
+    # accel="auto" (phase 11), the big mesh's beside it (phase 13)
+    for k in BVH_KERNELS["direct"]:
+        big[k] = dict(auto[k], big_mesh=big[k])
+    # the probes, the standalone traces and the sweep variants are on no
+    # main path: what the main-path calls launched of them
     probe_run["launches"] = sum(c["sampler_probe"] for c in MAIN_COUNTS)
     trace_run["launches"] = sum(c["trace_interact"] for c in MAIN_COUNTS)
     for k in ("trace_closest", "trace_any"):
         traces[k]["launches"] = sum(c[k] for c in MAIN_COUNTS)
+    for k in VARIANTS:
+        variants[k]["launches"] = sum(c[k] for c in MAIN_COUNTS)
     direct_src = "zdr_tpu_torch/kernels/csrc/direct.cu"
+    variants_src = "zdr_tpu_torch/kernels/csrc/sweep_variants.cu"
     record = {"kernels": [{
         "name": "sampler_probe",
         "route": "cuda",
@@ -1022,6 +1371,33 @@ def main():
         "replaces": "zdr_tpu/integrators/pallas_bounce.py:917 (want_grad) with "
                     "pallas_stream.py:392 + :507",
         **big["direct_grad_bvh"],
+    }, {
+        "name": "sweep_variant",
+        "route": "cuda",
+        "source": variants_src,
+        "replaces": "tools/profile_wide.py:89 + tools/profile_chunk.py:96 + "
+                    "tools/profile_sweep_variants.py:156 + tools/profile_mxu_variants.py:101 "
+                    "+ :158",
+        **variants["sweep_variant"],
+    }, {
+        "name": "woop_sweep",
+        "route": "cuda",
+        "source": variants_src,
+        "replaces": "tools/profile_mxu_variants.py:212 + tools/profile_sweep_variants.py:156 "
+                    "(Woop)",
+        **variants["woop_sweep"],
+    }, {
+        "name": "aabb_sweep",
+        "route": "cuda",
+        "source": variants_src,
+        "replaces": "tools/profile_mxu_variants.py:358",
+        **variants["aabb_sweep"],
+    }, {
+        "name": "floor_probe",
+        "route": "cuda",
+        "source": variants_src,
+        "replaces": "tools/profile_chunk.py:161",
+        **variants["floor_probe"],
     }]}
     for entry in record["kernels"]:
         for v in entry.values():

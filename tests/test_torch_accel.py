@@ -26,6 +26,7 @@ from zdr_tpu.geometry.procedural import make_quad, make_uv_sphere
 from zdr_tpu_torch import convert, kernels
 from zdr_tpu_torch.accel import Accel, build_accel, trace_any, trace_closest
 from zdr_tpu_torch.accel import bvh as tbvh
+from zdr_tpu_torch.accel.build import DENSE_MAX_TRIS
 from zdr_tpu_torch.accel import native as tnative
 from zdr_tpu_torch.accel import trace as ttrace
 from zdr_tpu_torch.geometry import procedural as tproc
@@ -102,7 +103,7 @@ def _host_trace(accel: Accel, o, d, t_min, t_max, closest: bool):
     t_hi = torch.full((n,), float(t_max)) if np.ndim(t_max) == 0 else torch.as_tensor(t_max)
     counts = torch.zeros((2,), dtype=torch.int64)
     bvh = accel.is_bvh
-    mode = (int(bvh), accel.geom.data_ptr(), accel.geom.shape[0],
+    mode = (accel.leaf_slots if bvh else 0, accel.geom.data_ptr(), accel.geom.shape[0],
             accel.node_box.data_ptr() if bvh else None, accel.node_link.data_ptr() if bvh else None,
             accel.tri_perm.data_ptr() if bvh else None, accel.node_box.shape[0])
     args = (o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr())
@@ -290,8 +291,10 @@ def test_equal_nearest_hits_take_the_smallest_id():
 
 def test_wrappers_run_the_plain_versions_on_cpu_tensors():
     """Given CPU tensors, kernels.trace_closest and trace_any run the plain
-    versions and count no launch; "auto" keeps a small scene dense and
-    "stream" builds the BVH."""
+    versions and count no launch; "auto" keeps a scene below
+    DENSE_MAX_TRIS["direct"] (the cornell box) dense and builds the BVH
+    from there (the 960-triangle sphere) and past shared memory; "stream"
+    builds the BVH."""
     o, d, t_max = (torch.as_tensor(x[:256]) for x in _rays(seed=9))
     before = (kernels.trace_closest.launches, kernels.trace_any.launches)
     for mode in ("dense", "bvh"):
@@ -303,7 +306,10 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors():
                            ttrace.trace_any_plain(acc, o, d, 1e-4, t_max)[0])
     assert (kernels.trace_closest.launches, kernels.trace_any.launches) == before
     geom = _port_geom("sphere960")
-    assert build_accel(geom, "auto").method == "bruteforce"
+    box = build_geometry([(tproc.make_cornell_box(), None)], "cpu")
+    assert 12 < DENSE_MAX_TRIS["direct"] <= 960
+    assert build_accel(box, "auto").method == "bruteforce"
+    assert build_accel(geom, "auto").is_bvh
     assert build_accel(geom, "stream").is_bvh
     big = build_geometry([(tproc.make_uv_sphere(0.5, 40, 100), None)], "cpu")
     assert build_accel(big, "auto").is_bvh

@@ -24,6 +24,7 @@ from zdr_tpu.integrators import pallas_bounce as pb
 
 import zdr_tpu_torch as zt
 from zdr_tpu_torch import kernels
+from zdr_tpu_torch.accel.build import DENSE_MAX_TRIS
 from zdr_tpu_torch.geometry import procedural as tproc
 from zdr_tpu_torch.integrators import direct as dr
 from zdr_tpu_torch.integrators import path_loop as pl
@@ -61,6 +62,19 @@ def _port_iteration(scene, mat):
 
 
 _JAX = {}
+_BVH = {}
+
+
+def _bvh_iteration(integrator):
+    """_port_iteration of the protocol scene through accel="bvh" with
+    _material(), cached over the module: the tests against the dense route
+    and against JAX share it."""
+    if integrator not in _BVH:
+        s = _port_scene(integrator, "bvh")
+        calls = pl.render_path_loop_plain.calls
+        _BVH[integrator] = (s, *_port_iteration(s, _material()),
+                            pl.render_path_loop_plain.calls - calls)
+    return _BVH[integrator]
 
 
 def _jax_streamed(integrator):
@@ -90,11 +104,9 @@ def test_bvh_route_equals_the_dense_route(integrator):
     """accel="bvh" against accel="bruteforce" through Scene.render and
     loss.backward(): the image and the gradient bit for bit (the walk finds
     the dense sweep's triangle, and the rest of the math is shared)."""
-    bvh = _port_scene(integrator, "bvh")
-    calls = pl.render_path_loop_plain.calls
-    img, grad = _port_iteration(bvh, _material())
+    bvh, img, grad, plain_calls = _bvh_iteration(integrator)
     if integrator == "path":
-        assert pl.render_path_loop_plain.calls == calls + 1
+        assert plain_calls == 1
     dense_img, dense_grad = _port_iteration(_port_scene(integrator, "bruteforce"), _material())
     assert bvh._data.accel.is_bvh and img[..., :3].max() > 0
     np.testing.assert_array_equal(img, dense_img)
@@ -109,7 +121,7 @@ def test_render_matches_jax_streamed_route(integrator):
     test_torch_direct.py (measured 3.3e-6 direct, 3.8e-6 path). B5's packed
     key keeps t to 14 bits; it flips no winner here."""
     want, _g = _jax_streamed(integrator)
-    got, _g = _port_iteration(_port_scene(integrator, "bvh"), _material())
+    _s, got, _g, _c = _bvh_iteration(integrator)
     assert want[..., :3].max() > 0
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)
 
@@ -121,7 +133,7 @@ def test_gradient_matches_jax_streamed_route(integrator):
     [0.5, 0.9]: max|a - b| / max|a| < 1e-5, the bar of PR 2 and 3's
     gradient tests (measured 2.4e-6 for both)."""
     _img, want = _jax_streamed(integrator)
-    _img, got = _port_iteration(_port_scene(integrator, "bvh"), _material())
+    _s, _img, got, _c = _bvh_iteration(integrator)
     assert np.abs(want).max() > 0
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
 
@@ -193,26 +205,27 @@ def test_host_build_of_the_bvh_kernels_matches_plain(integrator):
 
 
 def test_auto_routes_past_shared_memory():
-    """The 3102-triangle scene: "auto" keeps the direct integrator dense
-    (12-float rows fit 227 KB) and sends the path integrator, whose whole
-    rows do not, through the BVH, built once; "bruteforce" raises for path,
-    naming the limit and accel='auto'. update_lights and add_point_light
-    keep the tree."""
+    """The 3102-triangle scene, past accel/build.DENSE_MAX_TRIS of both
+    integrators and past the path kernels' 227 KB of shared memory: "auto"
+    sends both through the BVH, built once; "bruteforce" keeps the direct
+    integrator dense (12-float rows fit 227 KB) and raises for path, naming
+    the limit and accel='auto'. update_lights and add_point_light keep the
+    tree."""
     s = _port_scene("direct", "auto", stacks=(32, 50))
     mat = torch.full((8, 8, 4), 0.5)
-    assert s._data.meta.num_tris == 3102
-    assert s._render_data("direct").accel is None and s._data.accel is None
+    assert s._data.meta.num_tris == 3102 >= max(DENSE_MAX_TRIS.values())
     s.render(mat, res=(2, 2), spp=1)
+    tree = s._data.accel
+    assert tree.is_bvh and s._render_data("direct").accel is tree
     s.integrator = "path"
     img = s.render(mat, res=(4, 4), spp=1)
     assert img.shape == (4, 4, 4) and bool(torch.isfinite(img).all())
-    tree = s._data.accel
-    assert tree.is_bvh and s._render_data("path").accel is tree
-    assert s._render_data("direct").accel is None
+    assert s._data.accel is tree and s._render_data("path").accel is tree
     s.update_lights([0.0, 20.0])
     s.add_point_light((0.0, 2.0, 0.0), 3.0)
     assert s._data.accel is tree
     s.accel = "bruteforce"
+    assert s._render_data("direct").accel is None
     with pytest.raises(NotImplementedError, match="accel='auto'"):
         s.render(mat, res=(2, 2), spp=1)
     with pytest.raises(ValueError, match="accel method"):

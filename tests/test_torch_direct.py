@@ -69,15 +69,17 @@ def _jax_scene(name, sampler="pmj02bn", point_light=False):
 
 
 def _port_scene(name, sampler="pmj02bn", point_light=False):
+    """The port's scene `name` by the dense route (JAX's fused direct
+    sweeps densely; "auto" walks the BVH past DENSE_MAX_TRIS)."""
     if name == "cbox":
         s = zt.Scene([(tproc.make_cornell_box(), None, None),
                       (tproc.make_cornell_light(), None, 15.0)],
-                     sampler=sampler, device="cpu")
+                     sampler=sampler, accel="bruteforce", device="cpu")
         s.camera = _port_camera()
     else:
         s = zt.Scene([(tproc.make_uv_sphere(0.5, 8, 16), None, None),
                       (tproc.make_quad(size=1.0, y=-2.0), None, 40.0)],
-                     sampler=sampler, device="cpu")
+                     sampler=sampler, accel="bruteforce", device="cpu")
         s.camera = zt.Camera(**SPHERE_CAM)
     if point_light:
         s.add_point_light((0.0, 4.5, -4.0), 6.0)
@@ -122,6 +124,23 @@ def _assert_planes(got, want, atol, rtol=0.0):
             np.testing.assert_allclose(g, w, atol=atol, rtol=rtol, err_msg=f"plane {k}")
 
 
+_JAX_TRACE = {}
+
+
+def _jax_trace_interact(name, rays, lite=False):
+    """fused_trace_interact in interpret mode over the scene `name`'s pack,
+    on the planes of `rays` -> its outputs as numpy; jitted once for each
+    scene and mode, so that the tests share one compilation (the eager
+    call's values, bit for bit)."""
+    if (name, lite) not in _JAX_TRACE:
+        js = _jax_scene(name)
+        meta = js._data.fused_meta
+        scene_pack, _ = build_fused_const(js._data, meta)
+        _JAX_TRACE[name, lite] = jax.jit(lambda planes: fused_trace_interact(
+            scene_pack, meta.num_tris, planes, interpret=True, woop=None, lite=lite))
+    return _np(_JAX_TRACE[name, lite](_jax_planes(rays)))
+
+
 @pytest.mark.parametrize("name", ["cbox", "sphere"])
 @pytest.mark.parametrize("lite", [False, True])
 def test_trace_interact_plain_matches_jax_kernel(name, lite):
@@ -131,11 +150,8 @@ def test_trace_interact_plain_matches_jax_kernel(name, lite):
     the sphere (measured: t 1e-6 relative in 6 of 16384 rays, the shading
     normal up to 7.8e-6; the cornell box within 1e-6)."""
     js = _jax_scene(name)
-    meta = js._data.fused_meta
-    scene_pack, _ = build_fused_const(js._data, meta)
     rays = _rays(name, 1)
-    want = _np(fused_trace_interact(scene_pack, meta.num_tris, _jax_planes(rays),
-                                    interpret=True, woop=None, lite=lite))
+    want = _jax_trace_interact(name, rays, lite)
     table = scene_table(_port_data(js))
     got = trace_interact_plain(table, [torch.as_tensor(r) for r in rays], lite)
     _assert_planes(got, want, atol=1e-5, rtol=1e-5)
@@ -149,8 +165,7 @@ def _shade_inputs(name, seed, rough_lo=0.2):
     meta = js._data.fused_meta
     scene_pack, _ = build_fused_const(js._data, meta)
     rays = _rays(name, seed)
-    k1 = _np(fused_trace_interact(scene_pack, meta.num_tris, _jax_planes(rays),
-                                  interpret=True, woop=None))
+    k1 = _jax_trace_interact(name, rays)
     rs = np.random.RandomState(seed + 10)
     f32 = np.float32
     mat = rs.uniform(0.1, 0.9, (4, N)).astype(f32)
@@ -497,13 +512,14 @@ def test_table_limit_follows_each_kernels_layout():
     3100 triangles fit the direct kernels' 12-float geometry rows, not the
     path loop's whole 31-float rows; the largest tables that fit 227 KB."""
     s = zt.Scene([(tproc.make_uv_sphere(0.5, 32, 50), None, None),
-                  (tproc.make_quad(size=1.0, y=-2.0), None, 40.0)], device="cpu")
+                  (tproc.make_quad(size=1.0, y=-2.0), None, 40.0)], accel="bruteforce",
+                 device="cpu")
     s.camera = zt.Camera(fov=0.8, origin=(1.5, 0.3, 0.0), target=(0.0, 0.0, 0.0))
     mat = torch.full((8, 8, 4), 0.5)
     assert s._data.meta.num_tris == 3102
     img = s.render(mat, res=(2, 2), spp=1)
     assert img.shape == (2, 2, 4) and bool(torch.isfinite(img).all())
-    s.integrator, s.accel = "path", "bruteforce"  # "auto" takes the BVH
+    s.integrator = "path"
     with pytest.raises(NotImplementedError, match="A13"):
         s.render(mat, res=(2, 2), spp=1)
     floats = kernels.MAX_TABLE_BYTES // 4

@@ -50,17 +50,31 @@ def _smooth_material(seed, lo=0.5):
     return mat
 
 
+_JAX_BACKWARD = {}
+
+
+def _jax_backward(sampler, point_light):
+    """JAX's loop backward at 16x16, 4 spp, max_depth 4, seed 3 for one
+    configuration -> (its Scene, the function of (material, adjoint)),
+    jitted once: the tests of a configuration share its compilation (the
+    same values as the eager call, bit for bit)."""
+    key = (sampler, point_light)
+    if key not in _JAX_BACKWARD:
+        s = _jax_scene(point_light, sampler)
+        s.max_depth = 4
+        cfg = dataclasses.replace(s._config((16, 16), 4), fused="force", splat_merge=1,
+                                  packed_splat=False)
+        _JAX_BACKWARD[key] = (s, jax.jit(lambda mat, le: plp.render_path_backward_loop(
+            s._data, mat, s.camera, jnp.int32(3), cfg, _pixel_grid(cfg.res), le)))
+    return _JAX_BACKWARD[key]
+
+
 def _backward_rel_err(sampler, point_light, mat, le_seed):
     """16x16, 4 spp, max_depth 4, seed 3, and a random per-pixel adjoint
     made with numpy: JAX's loop backward and the port's -> max|a-b|/max|a|."""
-    s = _jax_scene(point_light, sampler)
-    s.max_depth = 4
-    cfg = dataclasses.replace(s._config((16, 16), 4), fused="force", splat_merge=1,
-                              packed_splat=False)
+    s, backward = _jax_backward(sampler, point_light)
     le = np.random.RandomState(le_seed).rand(16 * 16, 3).astype(np.float32)
-    want = np.asarray(plp.render_path_backward_loop(
-        s._data, jnp.asarray(mat), s.camera, jnp.int32(3), cfg, _pixel_grid(cfg.res),
-        jnp.asarray(le)))
+    want = np.asarray(backward(jnp.asarray(mat), jnp.asarray(le)))
 
     tcfg = RenderConfig(res=(16, 16), spp=4, sampler=sampler, max_depth=4)
     calls = pl.render_path_backward_loop_plain.calls
@@ -89,15 +103,18 @@ def test_plain_backward_matches_jax_at_low_roughness(sampler, point_light):
 
 def test_autograd_bridge_matches_jax_grad():
     """Scene.render of a material that requires grad, and a weighted loss:
-    mat.grad against jax.grad of the same loss through a JAX Scene at
+    mat.grad against JAX's gradient of the same loss (jax.vjp with the
+    loss's cotangent, the weights on RGB and 0 on alpha) through a JAX Scene at
     16x16, 4 spp (max_depth 16); the image within the forward's 2e-5."""
     w = np.random.RandomState(2).uniform(0.0, 2.0, (16, 16, 3)).astype(np.float32)
     mat = _smooth_material(4)
     js = _jax_scene()
     js.fused, js.splat_merge, js.packed_splat = "force", 1, False
-    want_img = np.asarray(js.render(jnp.asarray(mat), res=(16, 16), spp=4, seed=3))
-    want = np.asarray(jax.grad(lambda m: jnp.sum(
-        js.render(m, res=(16, 16), spp=4, seed=3)[..., :3] * w))(jnp.asarray(mat)))
+    # the image and the loss's gradient from one jax.vjp of the render
+    want_img, vjp = jax.vjp(lambda m: js.render(m, res=(16, 16), spp=4, seed=3),
+                            jnp.asarray(mat))
+    (want,) = vjp(jnp.concatenate([jnp.asarray(w), jnp.zeros((16, 16, 1))], -1))
+    want_img, want = np.asarray(want_img), np.asarray(want)
 
     ts = zt.Scene([(make_cornell_box(), None, None), (make_cornell_light(), None, 15.0)],
                   integrator="path", device="cpu")

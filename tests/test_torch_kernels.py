@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 the path loop's (path_loop, path_loop_grad, sampler_probe), the direct
 integrator's (trace_interact, direct, direct_grad), the trace kernels
-(trace_closest, trace_any, dense and BVH) and the megakernels' BVH
-instantiations on scenes past shared memory. Marked `cuda`: each test skips
+(trace_closest, trace_any, dense and BVH), the megakernels' BVH
+instantiations on scenes past shared memory, and the sweep variants
+(sweep_variant, woop_sweep, aabb_sweep, floor_probe). Marked `cuda`: each test skips
 without a CUDA device. chip_smoke.py runs the same checks, and the main
 paths, on an H100."""
 
@@ -132,9 +133,11 @@ def _direct_scene(dev, name, sampler="pmj02bn"):
         return s
     # "bigsphere": 3102 triangles, a 149 KB shared-memory table (past the
     # 48 KB a launch gets without opting in)
+    # (the dense route: "auto" walks the BVH past DENSE_MAX_TRIS)
     stacks, slices = (32, 50) if name == "bigsphere" else (16, 32)
     s = zt.Scene([(tproc.make_uv_sphere(0.5, stacks, slices), None, None),
-                  (tproc.make_quad(size=1.0, y=-2.0), None, 40.0)], sampler=sampler, device=dev)
+                  (tproc.make_quad(size=1.0, y=-2.0), None, 40.0)], sampler=sampler,
+                 accel="bruteforce", device=dev)
     s.camera = zt.Camera(fov=0.8, origin=(1.5, 0.3, 0.0), target=(0.0, 0.0, 0.0))
     return s
 
@@ -311,3 +314,82 @@ def test_bvh_kernels_match_plain(dev, name, integrator):
     mag = want_g.abs().amax(-1)
     big = mag > 1e-3 * float(mag.max())
     assert float(((grad - want_g).abs().amax(-1)[big] / mag[big]).max()) <= 1e-4
+
+
+# ------------------------------------------- the sweep variants (B9's)
+
+
+def _variant_sets(dev):
+    """The protocol scene's geometry rows, table and Woop rows, and its
+    three ray sets of 16384 rays (accel/variants.py)."""
+    from zdr_tpu_torch.accel import build_accel
+    from zdr_tpu_torch.accel import variants as tv
+    from zdr_tpu_torch.accel.woop import woop_rows
+
+    s = _direct_scene(dev, "sphere")
+    table = scene_table(s._data)
+    geom = build_accel(s._data.geom, "bruteforce").geom
+    prim = tv.primary_rays(s, res=(128, 128))
+    sets = {"primary": prim, "bounce": tv.bounce_rays(16384, dev),
+            "shadow": tv.shadow_rays(geom, table, prim)}
+    return geom, table, woop_rows(geom), sets
+
+
+def _assert_variant(got, want, mode):
+    """Closest and any hit bit for bit; the epilogue modes' ints equal and
+    floats within atol 1e-6, rtol 1e-6 (chip_smoke.py phase 14's bar)."""
+    if mode == "any":
+        assert torch.equal(got, want)
+        return
+    for a, b in zip(got, want, strict=True):
+        if mode == "closest" or a.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["sweep_variant", "woop_sweep", "aabb_sweep"])
+def test_sweep_variants_match_plain(dev, name):
+    """Every grid point the kernel is built for, on the ray sets its phase-14
+    modes take (closest and the epilogues on the primaries and bounce rays,
+    any hit on the bounce and shadow rays): against its plain version, with
+    the same counted tests and box tests."""
+    from zdr_tpu_torch.accel import variants as tv
+    from zdr_tpu_torch.accel.woop import tile_boxes
+
+    geom, table, woop, sets = _variant_sets(dev)
+    # (mode, kTile, R, woop, cull) of the library's grid, by kernel
+    points = [p for p in kernels.variant_points()
+              if {"sweep_variant": not (p[3] or p[4]), "woop_sweep": p[3] and not p[4],
+                  "aabb_sweep": p[4]}[name]]
+    wrapper = getattr(kernels, name)
+    for set_name, (rays, act) in sets.items():
+        for point in points:
+            mode = point[0]
+            if (mode == "any") != (set_name == "shadow") and set_name != "bounce":
+                continue
+            before = wrapper.launches
+            if name == "sweep_variant":
+                got = wrapper(geom, table, rays, act, mode, point[1], point[2])
+                want, work = tv.sweep_variant_plain(geom, table, rays, act, mode)
+            elif name == "woop_sweep":
+                got = wrapper(woop, geom, table, rays, act, mode, point[1])
+                want, work = tv.woop_sweep_plain(woop, geom, table, rays, act, mode)
+            else:
+                rows, boxes = (woop if point[3] else geom), tile_boxes(geom, point[1])
+                got = wrapper(rows, geom, boxes, point[1], rays, act, mode, point[3])
+                want, work = tv.aabb_sweep_plain(rows, geom, boxes, point[1], rays, act, mode,
+                                                 point[3])
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            _assert_variant(got, want, mode)
+            assert wrapper.counts.tolist() == [int(x) for x in work], (set_name, point)
+
+
+def test_floor_probe_is_a_plus_b(dev):
+    """The floor of the timing harness: out = a + b, one launch."""
+    g = torch.Generator().manual_seed(5)
+    a, b = (torch.rand(100003, generator=g).to(dev) for _ in range(2))
+    before = kernels.floor_probe.launches
+    assert torch.equal(kernels.floor_probe(a, b), a + b)
+    assert kernels.floor_probe.launches == before + 1

@@ -20,8 +20,11 @@ sweep takes the first of equal t in global order, which is that id. The
 BVH walk compares (t, id) pairs, so it finds the same triangle whatever the
 order of its visits; JAX's walk breaks ties across leaves by visit order
 instead (:331-341), which only a ray through a shared edge can tell apart.
-The box test admits a node whose near distance is <= the best t so far, so
-the two modes differ only where the slab test rounds a grazing hit out.
+The box test admits a node whose near distance is <= the best t so far,
+with far and t_max widened by SLAB_SLACK: without it a hit on a box's face
+(a ray through a flat quad's corner, at 1 pixel of the protocol's 512x512
+render) rounded out of the box, and the walk lost a hit that the dense
+sweep finds. The two modes give the same hits.
 """
 
 from __future__ import annotations
@@ -29,10 +32,12 @@ from __future__ import annotations
 import torch
 
 from ..vec import vcross, vdot, vsub
-from .bvh import LEAF_SIZE
 from .types import Hit
 
 BIG = 1e30  # the t of a miss, and _safe_inv's reciprocal of a tiny component
+# the slab test's widening of far and t_max: 1 + 2^-20, exact in float32
+# (trace.cuh kSlabSlack)
+SLAB_SLACK = 1.0 + 2.0**-20
 # rays per chunk times triangles, so that a dense sweep's (N, T) planes stay
 # small
 _CHUNK_ELEMS = 1 << 22
@@ -69,18 +74,24 @@ def _row_cols(rows, idx=None):
     return tuple(c[0:3]), tuple(c[3:6]), tuple(c[6:9])
 
 
+def mt_rows(rows, o, d):
+    """Möller–Trumbore of (N,) rays against every row of `rows` (T, >= 9)
+    -> (N, T) planes (ok without the t range, u, v, t)."""
+    p0, e1, e2 = (tuple(x[None, :] for x in c) for c in _row_cols(rows))
+    return mt(p0, e1, e2, tuple(x[:, None] for x in o), tuple(x[:, None] for x in d))
+
+
 # ------------------------------------------------------------------ dense
 
 
-def dense_closest(rows, o, d, t_min, t_max):
-    """Nearest hit of every ray over every row of `rows` (T, >= 9) ->
-    (t, prim, u, v) (t_max, -1, 0, 0 on a miss) and the work."""
+def dense_closest(rows, o, d, t_min, t_max, test=mt_rows):
+    """Nearest hit of every ray over every row of `rows` (T, >= 9) by the
+    ray-triangle `test` (mt_rows, or variants.woop_rows_test over Woop rows)
+    -> (t, prim, u, v) (t_max, -1, 0, 0 on a miss) and the work."""
     n, n_tris = o[0].shape[0], rows.shape[0]
-    p0, e1, e2 = _row_cols(rows)
-    p0, e1, e2 = (tuple(x[None, :] for x in c) for c in (p0, e1, e2))
     parts = []
     for sl in chunks(n, n_tris):
-        ok, u, v, t = mt(p0, e1, e2, tuple(x[sl, None] for x in o), tuple(x[sl, None] for x in d))
+        ok, u, v, t = test(rows, tuple(x[sl] for x in o), tuple(x[sl] for x in d))
         ok = ok & (t > t_min[sl, None]) & (t < t_max[sl, None])
         prim = torch.argmin(torch.where(ok, t, torch.inf), dim=1, keepdim=True)
         hit = torch.gather(ok, 1, prim)[:, 0]
@@ -98,16 +109,13 @@ def dense_closest(rows, o, d, t_min, t_max):
     return out, (tests, torch.zeros_like(tests))
 
 
-def dense_any(rows, o, d, t_min, t_max):
+def dense_any(rows, o, d, t_min, t_max, test=mt_rows):
     """Any hit at t in (t_min, t_max) per ray -> (occluded bool, the work:
     a ray's tests stop at its first hit, in global order)."""
     n, n_tris = o[0].shape[0], rows.shape[0]
-    p0, e1, e2 = _row_cols(rows)
-    p0, e1, e2 = (tuple(x[None, :] for x in c) for c in (p0, e1, e2))
     occ, tests = [], torch.zeros((), dtype=torch.int64, device=rows.device)
     for sl in chunks(n, n_tris):
-        ok, _u, _v, t = mt(p0, e1, e2, tuple(x[sl, None] for x in o),
-                           tuple(x[sl, None] for x in d))
+        ok, _u, _v, t = test(rows, tuple(x[sl] for x in o), tuple(x[sl] for x in d))
         ok = ok & (t > t_min[sl, None]) & (t < t_max[sl, None])
         any_ = ok.any(dim=1)
         first = ok.to(torch.int8).argmax(dim=1) + 1
@@ -131,8 +139,9 @@ def safe_inv(d):
 
 
 def aabb_hit(o, inv, box, t_min, t_max):
-    """The slab test (JAX's _aabb_hit) of each ray against its row of
-    `box` (N, 6) -> hit (near <= far, far >= t_min, near <= t_max)."""
+    """The slab test (JAX's _aabb_hit, widened by SLAB_SLACK) of each ray
+    against its row of `box` (N, 6) -> hit (near <= far', far' >= t_min,
+    near <= t_max', with far' = far * SLAB_SLACK and t_max' likewise)."""
     near = far = None
     for k in range(3):
         t0 = (box[:, k] - o[k]) * inv[k]
@@ -140,12 +149,13 @@ def aabb_hit(o, inv, box, t_min, t_max):
         lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
         near = lo if near is None else torch.maximum(near, lo)
         far = hi if far is None else torch.minimum(far, hi)
-    return (near <= far) & (far >= t_min) & (near <= t_max)
+    far = far * SLAB_SLACK
+    return (near <= far) & (far >= t_min) & (near <= t_max * SLAB_SLACK)
 
 
 def _walk(accel, o, d, t_min, t_max, closest: bool):
     """The escape-link walk of every ray: at a node whose box the ray hits,
-    go down (id + 1), or test a leaf's LEAF_SIZE slots and leave it by its
+    go down (id + 1), or test a leaf's leaf_slots and leave it by its
     escape link; at a node it misses, take the escape link. The walk of a
     ray ends past the last node (or, for any-hit, at its first hit)."""
     n = o[0].shape[0]
@@ -160,7 +170,7 @@ def _walk(accel, o, d, t_min, t_max, closest: bool):
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
     tests = torch.zeros((), dtype=torch.int64, device=dev)
     visits = torch.zeros((), dtype=torch.int64, device=dev)
-    slots = torch.arange(LEAF_SIZE, device=dev)
+    slots = torch.arange(accel.leaf_slots, device=dev)
     big_id = torch.iinfo(torch.int32).max
     while m and bool((node < m).any()):
         for _ in range(_VISITS_PER_CHECK):

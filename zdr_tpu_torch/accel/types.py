@@ -36,8 +36,9 @@ class Accel:
 
     method "bruteforce" / "pallas": the dense sweep; `geom` holds the rows in
     global triangle order and there are no nodes. method "bvh": the
-    escape-link BVH; `geom` holds the rows in leaf order, LEAF_SIZE slots a
-    leaf, padded with zero rows whose `tri_perm` is -1.
+    escape-link BVH; `geom` holds the rows in leaf order, leaf_slots a leaf
+    (accel/bvh.LEAF_SIZE for build_accel's trees), padded with zero rows
+    whose `tri_perm` is -1.
     """
 
     method: str
@@ -52,6 +53,17 @@ class Accel:
     @property
     def is_bvh(self) -> bool:
         return self.method == "bvh"
+
+    @property
+    def leaf_slots(self) -> int:
+        """A BVH's slots a leaf, from its shapes alone: its M nodes form a
+        binary tree, whose (M + 1) / 2 leaves own the same number of the S
+        slots each (build_bvh_native's layout)."""
+        leaves = (self.node_box.shape[0] + 1) // 2
+        slots, rem = divmod(self.geom.shape[0], leaves)
+        if rem:
+            raise ValueError(f"{self.geom.shape[0]} slots do not split into {leaves} leaves")
+        return slots
 
     @property
     def num_triangles(self) -> int:

@@ -51,14 +51,27 @@ def trace_interact_plain(scene: torch.Tensor, rays, lite: bool = False, bvh=None
     (shade and miss int32), or with lite their last 4. Given `bvh`, the hit
     is the BVH walk's."""
     trace_interact_plain.calls += 1
-    o, d, pdf_prev, active = rays[0:3], rays[3:6], rays[6], rays[7] != 0
+    o, d = rays[0:3], rays[3:6]
     if bvh is not None:
-        best_t, bu, bv, prim = closest_hit(scene, o, d, bvh)
+        hit = closest_hit(scene, o, d, bvh)
     else:
         parts = []
         for sl in chunks(o[0].shape[0], scene.shape[0]):
             parts.append(closest_hit(scene, [x[sl] for x in o], [x[sl] for x in d]))
-        best_t, bu, bv, prim = (torch.cat(x) for x in zip(*parts))
+        hit = tuple(torch.cat(x) for x in zip(*parts))
+    return interact_planes(scene, rays, hit, lite)
+
+
+trace_interact_plain.calls = 0
+
+
+def interact_planes(scene: torch.Tensor, rays, hit, lite: bool = False):
+    """trace_interact's outputs from a given closest hit (best_t, u, v,
+    prim; t 1e30, u = v = 0 and prim -1 on a miss): the winner's attributes
+    from `scene`, the interaction and the emitter-hit MIS -> the 16
+    TRACE_NAMES tensors, or with lite their last 4."""
+    o, d, pdf_prev, active = rays[0:3], rays[3:6], rays[6], rays[7] != 0
+    best_t, bu, bv, prim = hit
     miss = prim < 0
     rows = torch.where(miss[:, None], 0.0, scene[torch.clamp_min(prim, 0), 9:31])
     p, uv, ns, ng, shade, ae = interact_epilogue(
@@ -67,9 +80,6 @@ def trace_interact_plain(scene: torch.Tensor, rays, lite: bool = False, bvh=None
     if lite:
         return (*ae, miss_i)
     return (*p, *uv, *ns, *ng, shade.to(torch.int32), *ae, miss_i)
-
-
-trace_interact_plain.calls = 0
 
 
 def occluded_plain(scene, p, wi, dist, bvh=None):

@@ -38,12 +38,21 @@ Kernels:
   trace_closest   closest hit of a ray batch, dense or through the BVH
   trace_any       any hit of a ray batch, likewise (csrc/accel.cu); plain
                   versions: accel/trace.trace_closest_plain, trace_any_plain
+  sweep_variant   the dense sweep at a grid point of kTile rows a tile and R
+                  rays a thread, closest, any, or with trace_interact's full
+                  or lite epilogue (csrc/sweep_variants.cu);
+  woop_sweep      the dense sweep by the Woop test;
+  aabb_sweep      the sweep with per-tile box culls, MT or Woop;
+  floor_probe     a + b, the floor of the timing harness: the measurement
+                  kernels of the TPU tools (B9), on no render path; plain
+                  versions: accel/variants.*_plain
 
 The direct kernels add the ray-triangle tests they made into `.tests` (and
 their BVH node visits into `.visits`), int64 tensors on the card (read them
 after a synchronise): the work a bound on their time is counted from. The
 BVH instantiations and the trace kernels keep both in `.counts`, a
-two-element int64 tensor: tests, visits.
+two-element int64 tensor: tests, visits; the sweep variants keep tests and
+tile-box tests there.
 
 Each source under CUDA_SOURCES is its own library, and the nvcc runs start
 together.
@@ -75,6 +84,13 @@ from ..integrators.path_loop import (
 from ..integrators.bounce import trace_interact_plain
 from ..integrators.direct import render_direct_backward_plain, render_direct_plain
 from ..accel.trace import trace_any_plain, trace_closest_plain
+from ..accel.variants import (
+    MODES,
+    aabb_sweep_plain,
+    floor_probe_plain,
+    sweep_variant_plain,
+    woop_sweep_plain,
+)
 from ..accel.types import GEOM_COLS
 from ..integrators.scene_tables import SCENE_COLS
 from ..samplers import sampler_probe_plain
@@ -82,14 +98,16 @@ from ..samplers.hashes import next_pow2_mask
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-CUDA_SOURCES = ("path_loop.cu", "path_loop_grad.cu", "direct.cu", "accel.cu")
-HEADERS = ("path_loop_step.cuh", "direct_step.cuh", "trace.cuh")
+CUDA_SOURCES = ("path_loop.cu", "path_loop_grad.cu", "direct.cu", "accel.cu",
+                "sweep_variants.cu")
+HEADERS = ("path_loop_step.cuh", "direct_step.cuh", "trace.cuh", "sweep_variants.cuh")
 # -fmad=false and no fast math: the kernel rounds as its plain version does
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
-HOST_SOURCES = ("path_loop_host.cpp", "direct_host.cpp", "accel_host.cpp")
+HOST_SOURCES = ("path_loop_host.cpp", "direct_host.cpp", "accel_host.cpp",
+                "sweep_variants_host.cpp")
 HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 KINDS = {"lcg": 0, "pmj02bn": 1}
 # per-sample scratch rows of path_loop_grad (path_loop_step.cuh kTapPlanes):
@@ -100,7 +118,6 @@ GRAD_SCRATCH_PLANES = N_TAP_PLANES - 2
 # their tables there (trace.cuh kGeomCols = GEOM_COLS: the direct kernels and
 # trace_interact keep only each triangle's geometry there, in rows of 12)
 MAX_TABLE_BYTES = 232448
-
 # what the last build did: seconds, and the compiler's report (registers,
 # spills) — empty when the library was already built
 build_info = {"seconds": 0.0, "log": ""}
@@ -185,18 +202,23 @@ _BVH_ARGS = [_P, _P, _P, _P, _I]
 _LOOP_BVH_ARGS = _LOOP_ARGS + _BVH_ARGS + [_P]
 _GRAD_BVH_ARGS = _GRAD_ARGS + _BVH_ARGS + [_P]
 _DIRECT_BVH_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P] + _BVH_ARGS + [_P, _I]
-# zdr_trace_closest: bvh_mode, geom, n_rows, box, link, perm, n_nodes, o, d,
+# zdr_trace_closest: bvh_mode (0: dense; > 0: the BVH with that many slots
+# a leaf), geom, n_rows, box, link, perm, n_nodes, o, d,
 # t_min, t_max, t, u, v, prim, counts, n; zdr_trace_any: the same with occ
 # in place of t, u, v, prim
 _CLOSEST_ARGS = [_I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I]
 _ANY_ARGS = [_I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I]
+# zdr_sweep_variant: mode, tile, r, woop, cull, rows, geom, table, boxes,
+# n_tris, rays, active, f_out, i_out, counts, n (the host build: without r)
+_VARIANT_HOST_ARGS = [_I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I]
+_VARIANT_ARGS = _VARIANT_HOST_ARGS[:2] + [_I] + _VARIANT_HOST_ARGS[2:]
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> types.SimpleNamespace:
     """Build (if needed) and load the CUDA libraries -> their entries."""
     builds = [((src,), f"libzdr_{src.split('.')[0]}") for src in CUDA_SOURCES]
-    fwd, grad, direct_lib, accel_lib = (
+    fwd, grad, direct_lib, accel_lib, variants_lib = (
         ctypes.CDLL(p) for p in _compile(_nvcc(), NVCC_FLAGS, builds))
     return types.SimpleNamespace(
         zdr_path_loop=_bind(fwd, "zdr_path_loop", _LOOP_ARGS + [_P]),
@@ -210,7 +232,23 @@ def load_library() -> types.SimpleNamespace:
         zdr_direct_bvh=_bind(direct_lib, "zdr_direct_bvh", _DIRECT_BVH_ARGS + [_P]),
         zdr_trace_closest=_bind(accel_lib, "zdr_trace_closest", _CLOSEST_ARGS + [_P]),
         zdr_trace_any=_bind(accel_lib, "zdr_trace_any", _ANY_ARGS + [_P]),
+        zdr_sweep_variant=_bind(variants_lib, "zdr_sweep_variant", _VARIANT_ARGS + [_P]),
+        zdr_floor_probe=_bind(variants_lib, "zdr_floor_probe", [_P, _P, _P, _I, _P]),
+        zdr_sweep_points=_bind(variants_lib, "zdr_sweep_points", [_P, _I]),
     )
+
+
+@functools.lru_cache(maxsize=None)
+def variant_points() -> tuple:
+    """The grid points csrc/sweep_variants.cu is built for, as its library
+    lists them -> ((mode, kTile, R, woop, cull), ...): sweep_variant's have
+    neither woop nor cull, woop_sweep's woop alone, aabb_sweep's cull."""
+    lib = load_library()
+    n = lib.zdr_sweep_points(None, 0)
+    flat = (ctypes.c_int * (5 * n))()
+    lib.zdr_sweep_points(flat, n)
+    return tuple((MODES[flat[5 * k]], flat[5 * k + 1], flat[5 * k + 2], bool(flat[5 * k + 3]),
+                  bool(flat[5 * k + 4])) for k in range(n))
 
 
 @functools.lru_cache(maxsize=None)
@@ -218,7 +256,8 @@ def load_host_library() -> types.SimpleNamespace:
     """Build (if needed) and load the g++ build of the same per-lane code,
     for tests that run the kernels' code without a card."""
     builds = [((src,), f"libzdr_{src.split('.')[0]}") for src in HOST_SOURCES]
-    lib, direct_lib, accel_lib = (ctypes.CDLL(p) for p in _compile("g++", HOST_FLAGS, builds))
+    lib, direct_lib, accel_lib, variants_lib = (
+        ctypes.CDLL(p) for p in _compile("g++", HOST_FLAGS, builds))
     return types.SimpleNamespace(
         zdr_path_loop_host=_bind(lib, "zdr_path_loop_host", _LOOP_ARGS),
         zdr_sampler_probe_host=_bind(lib, "zdr_sampler_probe_host", [_P, _P, _P, _I, _I, _P]),
@@ -232,6 +271,8 @@ def load_host_library() -> types.SimpleNamespace:
                                   [_P, _P, _I, _P, _P, _P, _P, _P, _P] + _BVH_ARGS + [_P, _I]),
         zdr_trace_closest_host=_bind(accel_lib, "zdr_trace_closest_host", _CLOSEST_ARGS),
         zdr_trace_any_host=_bind(accel_lib, "zdr_trace_any_host", _ANY_ARGS),
+        zdr_sweep_variant_host=_bind(variants_lib, "zdr_sweep_variant_host",
+                                     _VARIANT_HOST_ARGS),
     )
 
 
@@ -656,7 +697,8 @@ direct_grad_bvh.counts = None
 
 def _trace_inputs(accel, o, d, t_min, t_max):
     """Check a trace's rays -> (n, dev, t_min and t_max as (n,) float32,
-    the mode's arguments bvh_mode, geom, n_rows, box, link, perm, n_nodes)."""
+    the mode's arguments bvh_mode (0: dense, else the slots a leaf), geom,
+    n_rows, box, link, perm, n_nodes)."""
     n, dev = o.shape[0], o.device
     _check(o, "o", torch.float32, (n, 3), dev)
     _check(d, "d", torch.float32, (n, 3), dev)
@@ -668,7 +710,7 @@ def _trace_inputs(accel, o, d, t_min, t_max):
         raise ValueError("N < 2**31")
     if accel.is_bvh:
         box, link, geom, perm, m = _bvh_args(accel, dev)
-        mode = (1, geom, accel.geom.shape[0], box, link, perm, m)
+        mode = (accel.leaf_slots, geom, accel.geom.shape[0], box, link, perm, m)
     else:
         _check(accel.geom, "geom", torch.float32, (accel.geom.shape[0], GEOM_COLS), dev)
         if accel.geom.data_ptr() % 16:
@@ -722,3 +764,128 @@ def trace_any(accel, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_max=1e30) -
 
 trace_any.launches = 0
 trace_any.counts = None
+
+
+# -------------------------------------------------------- the sweep variants
+
+# f_out and i_out planes of each mode (csrc/sweep_variants.cu)
+_VARIANT_PLANES = {"closest": (3, 1), "any": (0, 1), "interact": (14, 2), "lite": (3, 1)}
+
+
+def variant_outputs(mode: str, f_out: torch.Tensor, i_out: torch.Tensor):
+    """A sweep variant's output planes -> its plain version's outputs."""
+    if mode == "closest":
+        return f_out[0], i_out[0], f_out[1], f_out[2]
+    if mode == "any":
+        return i_out[0] != 0
+    if mode == "lite":
+        return (*f_out.unbind(0), i_out[0])
+    f, i = f_out.unbind(0), i_out.unbind(0)
+    return (*f[0:11], i[0], *f[11:14], i[1])
+
+
+def _variant(name, mode, tile, r, woop, cull, rows, geom, table, boxes, rays, active):
+    """Check a sweep variant's inputs, launch it -> (its outputs, counts)."""
+    dev = rays.device
+    if mode not in MODES:
+        raise ValueError(f"{name}: unknown sweep mode {mode!r}")
+    n, n_tris = rays.shape[1], rows.shape[0]
+    _check(rays, "rays", torch.float32, (8, n), dev)
+    _check(active, "active", torch.int32, (n,), dev)
+    for t, what in ((rows, "rows"), (geom, "geom")):
+        _check(t, what, torch.float32, (n_tris, GEOM_COLS), dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned for float4 loads")
+    if mode in ("interact", "lite"):
+        _check(table, "table", torch.float32, (n_tris, SCENE_COLS), dev)
+    if cull:
+        _check(boxes, "boxes", torch.float32, (-(-n_tris // tile), 6), dev)
+    if n >= 2**31:
+        raise ValueError("N < 2**31")
+    n_f, n_i = _VARIANT_PLANES[mode]
+    f_out = torch.empty((n_f, n), dtype=torch.float32, device=dev)
+    i_out = torch.empty((n_i, n), dtype=torch.int32, device=dev)
+    counts = _counts(dev)
+    rc = load_library().zdr_sweep_variant(
+        MODES.index(mode), tile, r, int(woop), int(cull), rows.data_ptr(), geom.data_ptr(),
+        None if table is None else table.data_ptr(), None if boxes is None else boxes.data_ptr(),
+        n_tris, rays.data_ptr(), active.data_ptr(), f_out.data_ptr(), i_out.data_ptr(),
+        counts.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+    if rc == 1:  # cudaErrorInvalidValue
+        raise ValueError(f"{name}: ({mode}, kTile {tile}, R {r}, woop {woop}, cull {cull}) "
+                         "is no grid point of csrc/sweep_variants.cu (or a bad launch)")
+    _raise_on(rc, name)
+    return variant_outputs(mode, f_out, i_out), counts
+
+
+def sweep_variant(geom: torch.Tensor, table: torch.Tensor, rays: torch.Tensor,
+                  active: torch.Tensor, mode: str, tile: int = 512, r: int = 1):
+    """The dense Möller–Trumbore sweep of rays (8, N) (o3 d3 pdf_prev t_max)
+    over geom (T, 12), kTile `tile` rows a shared-memory tile and `r` rays a
+    thread, in `mode` (closest, any, interact, lite; table (T, 31) for the
+    last two) -> accel/variants.sweep_variant_plain's outputs."""
+    if not _on_card(rays.device, "sweep_variant"):
+        return sweep_variant_plain(geom, table, rays, active, mode)[0]
+    out, sweep_variant.counts = _variant("sweep_variant", mode, tile, r, False, False, geom,
+                                         geom, table, None, rays, active)
+    sweep_variant.launches += 1
+    return out
+
+
+sweep_variant.launches = 0
+sweep_variant.counts = None
+
+
+def woop_sweep(woop: torch.Tensor, geom: torch.Tensor, table: torch.Tensor,
+               rays: torch.Tensor, active: torch.Tensor, mode: str, tile: int = 512):
+    """The dense sweep by the Woop test over woop (T, 12) rows
+    (accel/woop.woop_rows), the winner re-derived from geom (T, 12) ->
+    accel/variants.woop_sweep_plain's outputs."""
+    if not _on_card(rays.device, "woop_sweep"):
+        return woop_sweep_plain(woop, geom, table, rays, active, mode)[0]
+    out, woop_sweep.counts = _variant("woop_sweep", mode, tile, 1, True, False, woop, geom,
+                                      table, None, rays, active)
+    woop_sweep.launches += 1
+    return out
+
+
+woop_sweep.launches = 0
+woop_sweep.counts = None
+
+
+def aabb_sweep(rows: torch.Tensor, geom: torch.Tensor, boxes: torch.Tensor, tile: int,
+               rays: torch.Tensor, active: torch.Tensor, mode: str, woop: bool = False):
+    """The sweep with per-tile box culls (boxes: accel/woop.tile_boxes(geom,
+    tile)), closest or any hit, over geometry rows or with woop Woop rows ->
+    accel/variants.aabb_sweep_plain's outputs; `.counts`: tests, box tests."""
+    if not _on_card(rays.device, "aabb_sweep"):
+        return aabb_sweep_plain(rows, geom, boxes, tile, rays, active, mode, woop)[0]
+    if mode not in ("closest", "any"):
+        raise ValueError(f"aabb_sweep runs closest or any hit, got {mode!r}")
+    out, aabb_sweep.counts = _variant("aabb_sweep", mode, tile, 1, woop, True, rows, geom,
+                                      None, boxes, rays, active)
+    aabb_sweep.launches += 1
+    return out
+
+
+aabb_sweep.launches = 0
+aabb_sweep.counts = None
+
+
+def floor_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b over two (N,) float32 tensors: an empty, kernel-shaped launch."""
+    dev = a.device
+    if not _on_card(dev, "floor_probe"):
+        return floor_probe_plain(a, b)
+    n = a.shape[0]
+    _check(a, "a", torch.float32, (n,), dev)
+    _check(b, "b", torch.float32, (n,), dev)
+    out = torch.empty_like(a)
+    rc = load_library().zdr_floor_probe(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+                                        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "floor_probe")
+    floor_probe.launches += 1
+    return out
+
+
+floor_probe.launches = 0

@@ -99,23 +99,29 @@ __global__ void __launch_bounds__(kBlock)
   zdr::warp_add(counts, tests);
 }
 
+// leaf_slots: the tree's slots a leaf, read at run time (accel/bvh.py's
+// LEAF_SIZE, or another width for the leaf-width measurement); the
+// megakernels' walks keep the constant kLeafSize
 template <bool kClosest>
 __global__ void __launch_bounds__(kBlock)
-    bvh_kernel(zdr::Bvh bvh, Rays r, float* __restrict__ t_out, float* __restrict__ u_out,
-               float* __restrict__ v_out, int* __restrict__ prim_out,
-               int* __restrict__ occ_out, unsigned long long* counts) {
+    bvh_kernel(zdr::Bvh bvh, int leaf_slots, Rays r, float* __restrict__ t_out,
+               float* __restrict__ u_out, float* __restrict__ v_out,
+               int* __restrict__ prim_out, int* __restrict__ occ_out,
+               unsigned long long* counts) {
   long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   zdr::TraceCount count = {0, 0};
   if (i < r.n) {
     zdr::V3 o = ray_vec(r.o, i), d = ray_vec(r.d, i);
     if (kClosest) {
       float best_t = r.t_max[i], bu = 0.0f, bv = 0.0f;
-      prim_out[i] = zdr::bvh_closest(bvh, o, d, r.t_min[i], best_t, bu, bv, &count);
+      prim_out[i] = zdr::bvh_closest(bvh, o, d, r.t_min[i], best_t, bu, bv, &count,
+                                      leaf_slots);
       t_out[i] = best_t;
       u_out[i] = bu;
       v_out[i] = bv;
     } else {
-      occ_out[i] = zdr::bvh_any(bvh, o, d, r.t_min[i], r.t_max[i], &count) ? 1 : 0;
+      occ_out[i] =
+          zdr::bvh_any(bvh, o, d, r.t_min[i], r.t_max[i], &count, leaf_slots) ? 1 : 0;
     }
   }
   zdr::warp_add(counts, count.tests);
@@ -130,7 +136,7 @@ int launch(int bvh_mode, const float* geom, int n_rows, const float* box, const 
   if (grid == 0) return 0;
   if (bvh_mode)
     bvh_kernel<kClosest><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        zdr::Bvh{box, link, geom, perm, n_nodes}, r, t, u, v, prim, occ, counts);
+        zdr::Bvh{box, link, geom, perm, n_nodes}, bvh_mode, r, t, u, v, prim, occ, counts);
   else
     dense_kernel<kClosest><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
         geom, n_rows, r, t, u, v, prim, occ, counts);
@@ -141,12 +147,12 @@ int launch(int bvh_mode, const float* geom, int n_rows, const float* box, const 
 
 extern "C" {
 
-// bvh_mode 0: geom (n_rows, 12) float32 rows in global order; 1: the BVH
-// (trace.cuh Bvh: box (n_nodes, 6), link (n_nodes, 2) int32, geom rows in
-// leaf order, perm (n_rows,) int32). o, d: (n, 3) float32; t_min, t_max:
-// (n,) float32. Out: t (t_max on a miss), u, v (0 on a miss) float32, prim
-// int32 (-1 on a miss); counts: two uint64, to which the kernel adds its
-// ray-triangle tests and node visits. Returns the CUDA error of the launch.
+// bvh_mode 0: geom (n_rows, 12) float32 rows in global order; > 0: the BVH
+// with that many slots a leaf (trace.cuh Bvh: box (n_nodes, 6), link
+// (n_nodes, 2) int32, geom rows in leaf order, perm (n_rows,) int32). o, d:
+// (n, 3) float32; t_min, t_max: (n,) float32. Out: t (t_max on a miss),
+// u, v (0 on a miss) float32, prim int32 (-1 on a miss); counts: two
+// uint64, to which the kernel adds its ray-triangle tests and node visits. Returns the CUDA error of the launch.
 int zdr_trace_closest(int bvh_mode, const float* geom, int n_rows, const float* box,
                       const int* link, const int* perm, int n_nodes, const float* o,
                       const float* d, const float* t_min, const float* t_max, float* t,

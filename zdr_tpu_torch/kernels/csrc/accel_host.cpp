@@ -26,7 +26,8 @@ int zdr_trace_closest_host(int bvh_mode, const float* geom, int n_rows, const fl
     float best_t = t_max[i], bu = 0.0f, bv = 0.0f;
     int p = -1;
     if (bvh_mode) {
-      p = zdr::bvh_closest(bvh, ray_vec(o, i), ray_vec(d, i), t_min[i], best_t, bu, bv, &c);
+      p = zdr::bvh_closest(bvh, ray_vec(o, i), ray_vec(d, i), t_min[i], best_t, bu, bv, &c,
+                           bvh_mode);
     } else {
       zdr::dense_closest(geom, n_rows, 0, ray_vec(o, i), ray_vec(d, i), t_min[i], best_t, bu,
                          bv, p);
@@ -52,7 +53,7 @@ int zdr_trace_any_host(int bvh_mode, const float* geom, int n_rows, const float*
   for (long i = 0; i < n; ++i) {
     bool hit;
     if (bvh_mode) {
-      hit = zdr::bvh_any(bvh, ray_vec(o, i), ray_vec(d, i), t_min[i], t_max[i], &c);
+      hit = zdr::bvh_any(bvh, ray_vec(o, i), ray_vec(d, i), t_min[i], t_max[i], &c, bvh_mode);
     } else {
       int k = zdr::dense_any(geom, n_rows, ray_vec(o, i), ray_vec(d, i), t_min[i], t_max[i]);
       hit = k > 0;

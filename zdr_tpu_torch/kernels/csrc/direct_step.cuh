@@ -69,16 +69,18 @@ ZDR_HD Tables compact_tables(const float* compact, const float* tables, const fl
 // active flags, over compact tables: closest hit, interaction and
 // emitter-hit MIS (pallas_bounce.py:474-534). Every ray sweeps the whole
 // table, as in the TPU kernel: its outputs are defined for inactive rays too.
+// The hit comes from `tr` (the sweep variants hand in a hit found before).
+template <class Tracer = DenseSweep<kGeomCols>>
 ZDR_HD void trace_interact_lane(const Tables& tb, const LoopParams& q, const float* rays,
                                 const int* active, float* f_out, int* i_out, long lane,
-                                long n, bool lite) {
+                                long n, bool lite, const Tracer& tr = Tracer()) {
 #define ZDR_R(k) rays[(long)(k) * n + lane]
   V3 o = v3(ZDR_R(0), ZDR_R(1), ZDR_R(2));
   V3 d = v3(ZDR_R(3), ZDR_R(4), ZDR_R(5));
   float pdf_prev = ZDR_R(6);
 #undef ZDR_R
   bool act = active[lane] != 0;
-  Hit h = closest_interact(tb, q, o, d, pdf_prev, act, DenseSweep<kGeomCols>());
+  Hit h = closest_interact(tb, q, o, d, pdf_prev, act, tr);
   int miss = (act && h.miss) ? 1 : 0;
   if (lite) {
     f_out[lane] = h.ae.x;

@@ -13,16 +13,17 @@
 // software either way, and a GPU thread walks the escape-link BVH that the
 // JAX package already builds (zdr_tpu/accel/bvh.py::to_stackless,
 // accel/trace.py::_bvh_stackless): a node the ray's box test passes is left
-// for id + 1, a leaf's 8 slots are tested, and a missed node or a finished
+// for id + 1, a leaf's slots (8) are tested, and a missed node or a finished
 // leaf is left by its escape link. No stack: the walk fits a thread beside
 // a megakernel's sample. It visits more nodes than an ordered walk with a
 // short stack; ordering, wider nodes and ray sorting are later work.
 //
 // The tie rule: among equal nearest t the smallest global triangle id wins,
-// as the dense sweep's first-in-order does, so the two routes give the same
-// hit unless the slab test rounds a grazing hit out. The box test admits a
-// node whose near distance is <= the best t so far. JAX's walk breaks
-// cross-leaf ties by visit order instead (trace.py:331-341).
+// as the dense sweep's first-in-order does, and the box test admits a node
+// whose near distance is <= the best t so far, widened by kSlabSlack so that
+// it does not round out a hit on the box's face: the two routes give the
+// same hit. JAX's walk breaks cross-leaf ties by visit order instead
+// (trace.py:331-341), and its slab test has no slack.
 //
 // Every formula is the plain version's (zdr_tpu_torch/accel/trace.py) in its
 // operand order, JAX's _safe_inv (1e-12) and _aabb_hit among them; build it
@@ -86,20 +87,29 @@ ZDR_HD float safe_inv(float x) {
   return fabsf(x) < 1e-12f ? (x >= 0.0f ? kBig : -kBig) : 1.0f / x;
 }
 
-// The slab test of JAX's _aabb_hit: near <= far, far >= t_min, near <= t_max.
+// The slab test widens far and t_max by this factor (1 + 2^-20, 8 ulps):
+// a hit on a box's face, such as a ray through a flat quad's corner, must
+// not round out of it, or the walk would lose a hit that the dense sweep
+// finds.
+constexpr float kSlabSlack = 1.00000095367431640625f;
+
+// The slab test of JAX's _aabb_hit, widened: near <= far', far' >= t_min,
+// near <= t_max' (far' = far * kSlabSlack, t_max' = t_max * kSlabSlack).
 ZDR_HD bool aabb_hit(V3 o, V3 inv, const float* box, float t_min, float t_max) {
   float x0 = (ro_load(box + 0) - o.x) * inv.x, x1 = (ro_load(box + 3) - o.x) * inv.x;
   float y0 = (ro_load(box + 1) - o.y) * inv.y, y1 = (ro_load(box + 4) - o.y) * inv.y;
   float z0 = (ro_load(box + 2) - o.z) * inv.z, z1 = (ro_load(box + 5) - o.z) * inv.z;
   float near = jmax(jmax(jmin(x0, x1), jmin(y0, y1)), jmin(z0, z1));
-  float far = jmin(jmin(jmax(x0, x1), jmax(y0, y1)), jmax(z0, z1));
-  return near <= far && far >= t_min && near <= t_max;
+  float far = jmin(jmin(jmax(x0, x1), jmax(y0, y1)), jmax(z0, z1)) * kSlabSlack;
+  return near <= far && far >= t_min && near <= t_max * kSlabSlack;
 }
 
 // Nearest hit at t in (t_min, best_t), best_t coming in as t_max -> the
-// hit's global id (-1: none), with best_t, bu, bv of the hit.
+// hit's global id (-1: none), with best_t, bu, bv of the hit. leaf_slots:
+// the tree's slots a leaf, kLeafSize but for the standalone trace kernels'
+// leaf-width measurement (accel.cu), which pass it at run time.
 ZDR_HD int bvh_closest(const Bvh& b, V3 o, V3 d, float t_min, float& best_t, float& bu,
-                       float& bv, TraceCount* c) {
+                       float& bv, TraceCount* c, int leaf_slots = kLeafSize) {
   V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
   int prim = -1;
   int node = 0;
@@ -112,7 +122,7 @@ ZDR_HD int bvh_closest(const Bvh& b, V3 o, V3 d, float t_min, float& best_t, flo
     } else if (leaf == 0) {
       node += 1;
     } else {
-      for (int k = 0; k < kLeafSize; ++k) {
+      for (int k = 0; k < leaf_slots; ++k) {
         int slot = leaf - 1 + k;
         int gid = ro_load(b.perm + slot);
         if (gid < 0) continue;
@@ -134,7 +144,8 @@ ZDR_HD int bvh_closest(const Bvh& b, V3 o, V3 d, float t_min, float& best_t, flo
 }
 
 // Any hit at t in (t_min, t_max); the walk stops at the first.
-ZDR_HD bool bvh_any(const Bvh& b, V3 o, V3 d, float t_min, float t_max, TraceCount* c) {
+ZDR_HD bool bvh_any(const Bvh& b, V3 o, V3 d, float t_min, float t_max, TraceCount* c,
+                    int leaf_slots = kLeafSize) {
   V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
   int node = 0;
   while (node < b.n_nodes) {
@@ -146,7 +157,7 @@ ZDR_HD bool bvh_any(const Bvh& b, V3 o, V3 d, float t_min, float t_max, TraceCou
     } else if (leaf == 0) {
       node += 1;
     } else {
-      for (int k = 0; k < kLeafSize; ++k) {
+      for (int k = 0; k < leaf_slots; ++k) {
         int slot = leaf - 1 + k;
         if (ro_load(b.perm + slot) < 0) continue;
         if (c) c->tests += 1;

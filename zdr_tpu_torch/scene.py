@@ -19,8 +19,9 @@ the material: the backward re-estimates the texture gradient at seed + 1
 `accel` picks the route of the sweeps (JAX's names): "bruteforce" or
 "pallas", the dense sweep over the kernels' shared-memory scene table;
 "bvh" or "stream", the escape-link BVH in device memory (the big-mesh
-route); "auto" (the default), dense while the integrator's kernels hold the
-table in shared memory, else the BVH. The BVH is built once per Scene, at
+route); "auto" (the default), dense below the integrator's measured
+crossover (accel/build.DENSE_MAX_TRIS) while its kernels hold the table in
+shared memory, else the BVH. The BVH is built once per Scene, at
 first need, and the scene rows once per light setup: update_lights and
 add_point_light rebuild the rows, never the tree.
 """
@@ -34,7 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .accel.build import METHODS, build_accel, fits_shared_memory
+from .accel.build import METHODS, build_accel, dense_route
 from .dtypes import default_camera
 from .geometry.load_obj import ObjMesh
 from .geometry.mesh import build_geometry
@@ -118,7 +119,7 @@ class Scene:
         d = self._data
         dense = self.accel in ("bruteforce", "pallas") or (
             self.accel == "auto"
-            and fits_shared_memory(d.meta.num_tris, table_floats(d.meta), integrator))
+            and dense_route(d.meta.num_tris, table_floats(d.meta), integrator))
         if dense:
             return dataclasses.replace(d, accel=None) if d.accel is not None else d
         return self._with_bvh()
