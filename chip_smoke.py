@@ -17,16 +17,18 @@ Phases, one line each; any failure raises and exits non-zero:
      counts, its image against one plain render, its time, and the time
      of the kernel alone and of its plain version on the same tables;
   7. the gradient kernel at 128x128, 16 spp, a random 64^2 material and a
-     random adjoint: against the plain backward (per-channel sums within
-     rtol 1e-5; texels whose gradient passes 1e-3 of the largest within
-     rtol 1e-4: float atomics sum in a run-dependent order, so the two are
-     not bit-exact), and its own radiance bit for bit against the forward
-     kernel's render at the same seed;
+     random adjoint, with its launch's tap rows in shared memory and with
+     every row in global scratch: against the plain backward (per-channel
+     sums within rtol 1e-5; texels whose gradient passes 1e-3 of the
+     largest within rtol 1e-4: float atomics sum in a run-dependent order,
+     so the two are not bit-exact), and its own radiance bit for bit
+     against the forward kernel's render at the same seed;
   8. the path integrator's iteration: the flagship with a material that
      requires grad, loss = image[..., :3].sum(), loss.backward(); the launch
      counts, the gradient finite, nonzero and at phase 7's bars against the
      plain backward; the iteration's time and the gradient kernel's alone
-     (medians of 5 after a warm-up), the plain backward's (one run);
+     (medians of 5 after a warm-up), the plain backward's (one run); the
+     launch's tap rows in shared memory, block, registers and occupancy;
   9. the trace_interact kernel, full and lite, on 512^2 random rays over
      the cornell box's table and the 962-triangle sphere + quad's: ints
      equal, floats within atol 1e-6 and rtol 1e-6 of the plain version;
@@ -67,14 +69,21 @@ Phases, one line each; any failure raises and exits non-zero:
      woop_sweep and aabb_sweep, each bit for bit against its plain version
      with equal counts (the epilogue modes at phase 9's bar), the MT ones
      also against accel.cu's dense trace kernels; the Woop winners against
-     MT's; each timed against floor_probe, an empty kernel-shaped launch;
+     MT's; each timed against floor_probe, an empty kernel-shaped launch
+     (a call's time by events around it, and the device's time a call, by a
+     CUDA graph of GRAPH_CALLS launches, beside torch.add's taken both
+     ways);
      then trace_closest / trace_any through BVHs of leaf width 2, 4, 8 and
      16 on the protocol scene and the big mesh;
  15. the dense-vs-BVH crossover: each integrator's iteration (pmj02bn,
      512x512, 64 spp, 1024^2 material) at seven or eight scene sizes from the
      cornell box to the largest its dense kernels hold, by both routes: the
      images equal bit for bit, the gradients at phase 7's bars, the times
-     beside accel/build.DENSE_MAX_TRIS, which they set.
+     beside accel/build.DENSE_MAX_TRIS, which they set;
+ 16. a scene past a block's shared memory in light rows alone (a uv sphere
+     of 4512 emissive triangles over a floor) at 128x128, 16 spp by
+     accel="auto", both integrators: the BVH kernels with the small tables
+     in global memory, against the plain walks at every 8th lane.
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
@@ -282,6 +291,38 @@ def _event_ms(fn, reps=5):
     return statistics.median(times), times
 
 
+# calls a CUDA graph holds, for a device time a call (_graph_ms), and the
+# rounds of floor_probe and torch.add that phase 14 takes in turns
+GRAPH_CALLS = 200
+FLOOR_ROUNDS = 9
+
+
+def _graph_ms(fn, reps=5):
+    """fn's device time a call: GRAPH_CALLS calls captured in a CUDA graph
+    (after a warm-up on a side stream), the graph replayed between one
+    event pair, the median of `reps` replays / GRAPH_CALLS -> ms."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_CALLS)
+    return statistics.median(times)
+
+
 def _median_ms(fn, reps=5):
     """Median of `reps` synchronised runs after a warm-up, timed by the host
     clock -> (ms, runs)."""
@@ -479,17 +520,23 @@ def phase_grad(dev):
     lanes = pl.pixel_lanes(tb.res, tb.spp, dev)
     le = torch.as_tensor(np.random.RandomState(3).rand(3, lanes.shape[1]).astype(np.float32),
                          device=dev)
-    got, carry = kernels.path_loop_grad(tb, lanes, mat, le, tb.n_steps)
     fwd = kernels.path_loop(tb, lanes, mat, pl.init_carry(lanes), tb.n_steps)
     want, _ = pl.render_path_backward_loop_plain(tb, lanes, mat, le, tb.n_steps)
-    torch.cuda.synchronize()
-    if not torch.equal(carry.f[0:3], fwd.f[0:3]):
-        raise AssertionError("path_loop_grad: its radiance differs from the forward kernel's")
-    max_err, worst = _assert_grad_close(got, want, "path_loop_grad 128x128")
+    notes = []
+    # the launch's own near rows, and every row in global scratch (k_cap 0)
+    for k_cap in (None, 0):
+        got, carry, _c, plan = kernels.grad_launch(kernels.load_library(), tb, lanes, mat, le,
+                                                   tb.n_steps, k_cap)
+        torch.cuda.synchronize()
+        if not torch.equal(carry.f[0:3], fwd.f[0:3]):
+            raise AssertionError("path_loop_grad: its radiance differs from the forward kernel's")
+        max_err, worst = _assert_grad_close(got, want, f"path_loop_grad 128x128 k {plan['k_near']}")
+        notes.append(f"{plan['k_near']} near rows: channel sums "
+                     f"{[round(x, 6) for x in got.double().sum((0, 1)).tolist()]} (rtol 1e-5), "
+                     f"worst texel rel err {worst:.3e} (rtol 1e-4), max abs diff {max_err:.3e}")
     print(f"[7 grad] 128x128 16 spp 64^2 material, random adjoint: kernel vs plain backward "
-          f"channel sums {[round(x, 6) for x in got.double().sum((0, 1)).tolist()]} (rtol "
-          f"1e-5), worst texel rel err {worst:.3e} (rtol 1e-4), max abs diff {max_err:.3e}; "
-          f"the kernel's radiance equals the forward kernel's bit for bit", flush=True)
+          f"with " + "; with ".join(notes) + "; the kernel's radiance equals the forward "
+          f"kernel's bit for bit", flush=True)
 
 
 def phase_main_grad(dev, smi):
@@ -528,6 +575,7 @@ def phase_main_grad(dev, smi):
     (want, _), plain_ms = _sync_ms(
         lambda: pl.render_path_backward_loop_plain(tb, lanes, m, le, tb.n_steps))
     max_err, worst = _assert_grad_close(grad, want, "main path gradient")
+    plan = kernels.path_loop_grad.plan
 
     it_ms, it_runs = _median_ms(iteration)
     grad_ms, grad_runs = _event_ms(lambda: kernels.path_loop_grad(tb, lanes, m, le, tb.n_steps))
@@ -545,10 +593,17 @@ def phase_main_grad(dev, smi):
           f"median {grad_ms:.2f} ms of {[round(t, 2) for t in grad_runs]} (CUDA events) = "
           f"{n_samples / grad_ms / 1e3:.2f} M samples/s; plain backward {plain_ms:.2f} ms (one "
           f"run); {tests:.4g} ray-triangle tests (every 16th lane, scaled) -> bound "
-          f"{bound_ms:.3f} ms ({bound_by}); card {smi}", flush=True)
+          f"{bound_ms:.3f} ms ({bound_by}); launch {_plan_note(plan)}; card {smi}", flush=True)
     return dict(launches=launches[1], max_abs_err=max_err, ms=grad_ms, plain_ms=plain_ms,
                 plain_shape=f"{RES[0]}x{RES[1]} {SPP} spp", bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, iteration_ms=it_ms, plan=plan)
+
+
+def _plan_note(plan):
+    return (f"{plan['k_near']} tap rows a sample in shared memory, block {plan['block']}, "
+            f"{plan['registers']} registers, {plan['blocks_per_sm']} blocks an SM, "
+            f"{plan['smem_bytes']} bytes of shared memory a block, {plan['local_bytes']} bytes "
+            f"of local memory a thread")
 
 
 def _random_rays(name, n, seed, dev):
@@ -844,17 +899,19 @@ def phase_trace_bvh(dev, smi):
     return records
 
 
-def _bvh_check(tb, tb1, mat, integrator, what):
+def _bvh_check(tb, tb1, mat, integrator, what, stride=None):
     """Both BVH kernels against their plain walks on the main path's own
     inputs (its tables at seed 0 and 1, its material, the adjoint 1 / spp)
-    at every CHECK_STRIDE-th lane, the first CHECK_SAMPLES samples of each
-    -> (forward max abs diff a sample, gradient max abs diff, a note)."""
+    at every `stride`-th lane (CHECK_STRIDE), the first CHECK_SAMPLES
+    samples of each -> (forward max abs diff a sample, gradient max abs
+    diff, a note)."""
     from zdr_tpu_torch import kernels
     from zdr_tpu_torch.integrators import direct as dr
     from zdr_tpu_torch.integrators import path_loop as pl
 
     dev, spp = mat.device, tb.spp
-    sub = pl.pixel_lanes(tb.res, CHECK_SAMPLES, dev)[:, ::CHECK_STRIDE].contiguous()
+    stride = stride or CHECK_STRIDE
+    sub = pl.pixel_lanes(tb.res, CHECK_SAMPLES, dev)[:, ::stride].contiguous()
     le = torch.full((3, sub.shape[1]), 1.0 / spp, device=dev)
     if integrator == "direct":
         got = kernels.direct(tb, sub, mat)
@@ -877,7 +934,7 @@ def _bvh_check(tb, tb1, mat, integrator, what):
         raise AssertionError(f"{what} {integrator}: kernel vs plain mean abs diff {mean:.3e}, "
                              f"{within:.4%} within 1e-5")
     g_err, g_worst = _assert_grad_close(ggot, gwant, f"{what} {integrator} gradient")
-    note = (f"at every {CHECK_STRIDE}th lane, the first {CHECK_SAMPLES} samples "
+    note = (f"at every {stride}th lane, the first {CHECK_SAMPLES} samples "
             f"({sub.shape[1]} lanes): forward vs plain mean abs diff {mean:.3e}, bit-identical "
             f"{bool(torch.equal(got, want))}, plain {plain_ms:.1f} ms; gradient worst texel rel "
             f"err {g_worst:.3e} (rtol 1e-4), max abs diff {g_err:.3e}, plain {gplain_ms:.1f} ms")
@@ -941,6 +998,8 @@ def _bvh_main(scene, integrator, spp, tag, what, smi, reps=5):
         gms, _r = _event_ms(lambda: kernels.path_loop_grad(tb1, lanes, m, le, tb.n_steps), reps)
         gwork = kernels.path_loop_grad_bvh.counts.tolist()
         state = [carry0.f, carry0.i, carry0.f, carry0.i]
+        plan = kernels.path_loop_grad_bvh.plan
+        check += f"; {bwd} launch {_plan_note(plan)}"
     a = tb.bvh
     tables = (lanes, m, tb.scene, tb.lights, tb.bn, a.geom, a.tri_perm, a.node_box, a.node_link)
     bound = _bound(work[0], _nbytes(*tables, *state), work[1])
@@ -966,6 +1025,64 @@ def _bvh_main(scene, integrator, spp, tag, what, smi, reps=5):
             bwd: dict(launches=counts[bwd], max_abs_err=g_err, ms=gms, plain_ms=gplain_ms,
                       plain_shape=shape, bound_ms=gbound[0], bound_by=gbound[1],
                       library_ms=None, tests=gwork[0], visits=gwork[1])}
+
+
+def _emissive(device, integrator):
+    """An emissive uv sphere of 48 x 48 (4512 light triangles, 288,768 bytes
+    of light rows: past a block's shared memory) over a floor quad,
+    accel="auto" (tests/test_torch_emissive.py's scene)."""
+    import zdr_tpu_torch as zt
+    from zdr_tpu_torch.geometry.procedural import make_quad, make_uv_sphere
+
+    scene = zt.Scene([(make_uv_sphere(0.5, 48, 48), None, 4.0),
+                      (make_quad(size=2.0, y=-0.7), None, None)],
+                     integrator=integrator, device=device)
+    scene.camera = zt.Camera(fov=0.9, origin=(1.6, 0.6, 0.4), target=(0.0, -0.3, 0.0))
+    return scene
+
+
+def phase_emissive(dev, smi):
+    """Phase 16: the emissive sphere at 128x128, 16 spp, by accel="auto",
+    both integrators, Scene.render + loss.backward(): one launch of each BVH
+    kernel with the small tables in global memory and none of the dense
+    ones, no plain version called; both kernels against their plain walks on
+    the main path's own inputs at every 8th lane, the first CHECK_SAMPLES
+    samples (phase 10's and phase 7's bars)."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import path_loop as pl
+    from zdr_tpu_torch.integrators.scene_tables import SCENE_COLS, table_floats
+
+    res, spp = (128, 128), 16
+    for integrator in ("direct", "path"):
+        scene = _emissive(dev, integrator)
+        meta = scene._data.meta
+        small = table_floats(meta) - meta.num_tris * SCENE_COLS
+        if len(meta.light_tri_ids) != 4512 or kernels.small_tables_shared(small):
+            raise AssertionError("the emissive sphere's light rows fit shared memory")
+        fwd, bwd = BVH_KERNELS[integrator]
+        mat = torch.full((TEX, TEX, 4), 0.5, dtype=torch.float32, device=dev).requires_grad_()
+        plain = (_plain_calls(), pl.loop_step.calls, pl.render_path_backward_loop_plain.calls)
+        (loss, ms), counts = _drive_main(lambda: _sync_ms(_iteration(scene, mat, res, spp)))
+        if (counts[fwd], counts[bwd]) != (1, 1) or any(counts[k] for k in DENSE):
+            raise AssertionError(f"emissive sphere {integrator}: launches {counts}")
+        if (_plain_calls(), pl.loop_step.calls, pl.render_path_backward_loop_plain.calls) != plain:
+            raise AssertionError(f"emissive sphere {integrator}: a plain version ran")
+        grad = mat.grad.detach()
+        if not (bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+                and math.isfinite(float(loss.detach()))):
+            raise AssertionError(f"emissive sphere {integrator}: non-finite or zero gradient")
+        data = scene._render_data(integrator)
+        tb = pl.build_loop_tables(data, scene.camera, scene._config(res, spp), 0)
+        tb1 = pl.build_loop_tables(data, scene.camera, scene._config(res, spp), 1)
+        _err, _g_err, _p, _gp, note = _bvh_check(tb, tb1, mat.detach(), integrator,
+                                                 "emissive sphere", stride=8)
+        print(f"[16 emissive] a uv sphere of 4512 emissive triangles ({small * 4} bytes of "
+              f"small tables, read from global memory) over a floor, {integrator}, pmj02bn "
+              f"{res[0]}x{res[1]} {spp} spp {TEX}^2 material of 0.5 by accel='auto', "
+              f"Scene.render + loss.backward(): 1 {fwd} and 1 {bwd} launch, no dense kernel, "
+              f"no plain version; loss {float(loss.detach()):.4f}, |g|max "
+              f"{float(grad.abs().max()):.4e}, first iteration {ms:.1f} ms; {note}; card {smi}",
+              flush=True)
 
 
 def phase_bigmesh(dev, smi):
@@ -1022,7 +1139,7 @@ def _variant_run(what, wrapper, call, want, work, ops, nbytes, n, floor_ms, exac
     bound = _bound(counts[0], nbytes, counts[1], ops)
     boxes = f" + {counts[1] / n:.2f} box tests" if counts[1] else ""
     line = (f"{what}: {ms:.4f} ms, {counts[0] / n:.1f} tests{boxes} a ray, bound "
-            f"{bound[0]:.4f} ms ({bound[1]}), {ms / floor_ms:.1f}x the floor")
+            f"{bound[0]:.4f} ms ({bound[1]}), {ms / floor_ms:.1f}x floor_probe's time a call")
     return ms, bound, line
 
 
@@ -1054,17 +1171,32 @@ def phase_variants(dev, smi):
     floor_ms = _event_ms(lambda: kernels.floor_probe(a, b), VARIANT_REPS)[0]
     floor_plain = _sync_ms(lambda: a + b)[1]
     floor_library = _event_ms(lambda: torch.add(a, b), VARIANT_REPS)[0]
+    # the device's time a call, the same way for both: a CUDA graph of
+    # GRAPH_CALLS launches replayed between one event pair, FLOOR_ROUNDS
+    # rounds in turns (each first in every other round), the median
+    dev_ms = {"floor_probe": [], "torch.add": []}
+    calls = {"floor_probe": lambda: kernels.floor_probe(a, b),
+             "torch.add": lambda: torch.add(a, b)}
+    for r in range(FLOOR_ROUNDS):
+        for name in sorted(calls, reverse=r % 2 == 1):  # which goes first alternates
+            dev_ms[name].append(_graph_ms(calls[name]))
+    floor_dev, add_dev = (statistics.median(dev_ms[k]) for k in ("floor_probe", "torch.add"))
     bound = _bound(0, 3 * n * 4)
     records = {"floor_probe": dict(
         launches=None, max_abs_err=0.0, ms=floor_ms, plain_ms=floor_plain,
         plain_shape=f"{n} floats", bound_ms=bound[0], bound_by=bound[1],
-        library_ms=floor_library)}
+        library_ms=floor_library, device_ms=floor_dev, library_device_ms=add_dev)}
     print(f"[14 variants] {scene._data.meta.num_tris} tris, {n} rays a set (primary: the "
           f"protocol camera's lcg primaries at seed 1; bounce: uniform directions at radius "
           f"0.52; shadow: from the primaries' hits to the quad light, t_max its distance); "
-          f"floor_probe {floor_ms:.4f} ms (plain a + b {floor_plain:.4f} ms by the host clock, "
-          f"torch.add {floor_library:.4f} ms by events), bound "
-          f"{bound[0]:.4f} ms ({bound[1]}); card {smi}", flush=True)
+          f"floor_probe a call {floor_ms:.4f} ms (CUDA events around the Python call, median "
+          f"of {VARIANT_REPS}; plain a + b {floor_plain:.4f} ms by the host clock, torch.add "
+          f"{floor_library:.4f} ms the same way); on the device, a CUDA graph of "
+          f"{GRAPH_CALLS} calls a replay: floor_probe {floor_dev:.5f} ms a call (runs "
+          f"{[round(x, 5) for x in dev_ms['floor_probe']]}), torch.add {add_dev:.5f} ms "
+          f"({[round(x, 5) for x in dev_ms['torch.add']]}); bound {bound[0]:.4f} ms "
+          f"({bound[1]}); the variants' 'x the floor' divide by floor_probe's time a call; "
+          f"card {smi}", flush=True)
     outs = {"closest": 16, "any": 4, "interact": 64, "lite": 16}
 
     def keep(name, ms, plain_ms, bound, point):
@@ -1273,6 +1405,7 @@ def main():
     big = timed("13", phase_bigmesh, dev, smi)
     variants = timed("14", phase_variants, dev, smi)
     timed("15", phase_crossover, dev, smi)
+    timed("16", phase_emissive, dev, smi)
     print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     # direct_bvh and direct_grad_bvh report the protocol's main path by

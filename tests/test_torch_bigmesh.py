@@ -138,9 +138,13 @@ def test_gradient_matches_jax_streamed_route(integrator):
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
 
 
-def _host_bvh(tb, lanes, mat, le_grad, integrator):
-    """The g++ build of the BVH instantiations -> (radiance sums (3, N),
-    gradient or None, counts)."""
+def _host_bvh(tb, lanes, mat, le_grad, integrator, small_shared=True,
+              k_near=kernels.GRAD_NEAR_ROWS["bvh"]):
+    """The g++ build of the BVH instantiations, the small tables from a copy
+    (small_shared, the kernels' shared memory) or from the packed tables
+    (the kernels' global memory), the path gradient's first k_near tap rows
+    apart from the rest -> (radiance sums (3, N), gradient or None,
+    counts)."""
     lib = kernels.load_host_library()
     n = lanes.shape[1]
     tables, params = kernels.pack_tables(tb), kernels.loop_params(tb, mat)
@@ -154,17 +158,18 @@ def _host_bvh(tb, lanes, mat, le_grad, integrator):
     if integrator == "direct":
         acc = torch.empty((3, n))
         assert lib.zdr_direct_bvh_host(params, tables.data_ptr(), tables.numel(),
-                                       tb.bn.data_ptr(), mat.data_ptr(), lanes.data_ptr(), le,
+                                       int(small_shared), tb.bn.data_ptr(), mat.data_ptr(), lanes.data_ptr(), le,
                                        acc.data_ptr(), g, *bvh, counts.data_ptr(), n) == 0
     else:
         carry = pl.init_carry(lanes)
         f_out, i_out = torch.empty_like(carry.f), torch.empty_like(carry.i)
-        scratch = torch.empty((tb.max_depth, kernels.GRAD_SCRATCH_PLANES, n))
+        k_near = min(k_near, tb.max_depth)
+        far = torch.empty((tb.max_depth - k_near, kernels.GRAD_ROW_PLANES, n))
         assert lib.zdr_path_loop_bvh_host(
-            params, tables.data_ptr(), tables.numel(), tb.bn.data_ptr(), mat.data_ptr(),
-            lanes.data_ptr(), le, carry.f.data_ptr(), carry.i.data_ptr(), f_out.data_ptr(),
-            i_out.data_ptr(), scratch.data_ptr(), g, n, tb.n_steps, *bvh,
-            counts.data_ptr()) == 0
+            params, tables.data_ptr(), tables.numel(), int(small_shared), tb.bn.data_ptr(),
+            mat.data_ptr(), lanes.data_ptr(), le, carry.f.data_ptr(), carry.i.data_ptr(),
+            f_out.data_ptr(), i_out.data_ptr(), far.data_ptr(), g, n, tb.n_steps, k_near,
+            *bvh, counts.data_ptr()) == 0
         acc = f_out[0:3]
     return acc, (None if le_grad is None else grad), counts
 

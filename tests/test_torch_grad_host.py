@@ -23,20 +23,25 @@ def _scene(sampler):
     return s
 
 
-def _host_grad(tb, lanes, mat, le_grad):
-    """zdr_path_loop_grad_host -> (d_material (H, W, 4), the final carry)."""
+def _host_grad(tb, lanes, mat, le_grad, k_near=kernels.GRAD_NEAR_ROWS["dense"]):
+    """zdr_path_loop_grad_host, the first k_near tap rows of a sample where
+    the kernel keeps them in shared memory (the flagship's launch takes
+    GRAD_NEAR_ROWS["dense"]), the rest in global scratch -> (d_material
+    (H, W, 4), the final carry)."""
     lib = kernels.load_host_library()
     n = lanes.shape[1]
     carry = pl.init_carry(lanes)
     f, i = torch.empty_like(carry.f), torch.empty_like(carry.i)
-    scratch = torch.empty((max(tb.max_depth, 1), kernels.GRAD_SCRATCH_PLANES, n))
+    rows = max(tb.max_depth, 1)
+    k_near = min(k_near, rows)
+    far = torch.empty((rows - k_near, kernels.GRAD_ROW_PLANES, n))
     grad = torch.zeros_like(mat)
     tables = kernels.pack_tables(tb)
     rc = lib.zdr_path_loop_grad_host(
         kernels.loop_params(tb, mat), tables.data_ptr(), tables.numel(), tb.bn.data_ptr(),
         mat.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(), carry.f.data_ptr(),
-        carry.i.data_ptr(), f.data_ptr(), i.data_ptr(), scratch.data_ptr(), grad.data_ptr(),
-        n, tb.n_steps)
+        carry.i.data_ptr(), f.data_ptr(), i.data_ptr(), far.data_ptr(), grad.data_ptr(),
+        n, tb.n_steps, k_near)
     assert rc == 0
     return grad, pl.Carry(f, i)
 
@@ -55,21 +60,22 @@ def _host_render(tb, lanes, mat):
     return f[0:3].T / tb.spp
 
 
-def _assert_host_grad_matches_plain(sampler, rough_lo, bar):
+def _assert_host_grad_matches_plain(sampler, rough_lo, bar, k_near=kernels.GRAD_NEAR_ROWS["dense"],
+                                    max_depth=6):
     """24x24, 8 spp, max_depth 6, roughness in [rough_lo, 0.9], a random
     adjoint: the gradient within max|a - b| / max|a| < bar, and the walk's
     own radiance (acc) as the forward render's (glibc's sinf and torch's
     differ by ulps, as in
     test_torch_loop.test_host_build_of_kernel_step_matches_plain)."""
     s = _scene(sampler)
-    s.max_depth = 6
+    s.max_depth = max_depth
     mat = _material(seed=6)
     mat[..., 3] = np.random.RandomState(7).uniform(rough_lo, 0.9, mat.shape[:2])
     mat = torch.as_tensor(mat)
     tb = pl.build_loop_tables(s._data, s.camera, s._config((24, 24), 8), 11)
     lanes = pl.pixel_lanes(tb.res, tb.spp, "cpu")
     le = torch.as_tensor(np.random.RandomState(8).rand(3, lanes.shape[1]).astype(np.float32))
-    got, carry = _host_grad(tb, lanes, mat, le)
+    got, carry = _host_grad(tb, lanes, mat, le, k_near)
     want, want_carry = pl.render_path_backward_loop_plain(tb, lanes, mat, le, tb.n_steps)
     assert float(want.abs().max()) > 0
     assert float((got - want).abs().max() / want.abs().max()) < bar
@@ -93,6 +99,18 @@ def test_host_build_of_grad_kernel_matches_plain_at_low_roughness(sampler):
     LOW_ROUGHNESS_BAR of 5e-5. Measured over 3 seeds: up to 8.9e-6; with
     the derivative taken through alpha instead, 9.5e-2 to 3.5e-1."""
     _assert_host_grad_matches_plain(sampler, 0.2, 5e-5)
+
+
+@pytest.mark.parametrize("k_near, max_depth",
+                         [(0, 6), (3, 6), (kernels.GRAD_NEAR_ROWS["dense"], 12)])
+def test_host_build_of_grad_kernel_keeps_its_rows_anywhere(k_near, max_depth):
+    """The tap rows split at any depth between the kernel's shared-memory
+    rows and its global scratch: every row in global scratch (k_near 0, the
+    first kernel's layout), a split inside the samples (3 of max_depth 6),
+    and the dense launch's GRAD_NEAR_ROWS["dense"] under a max_depth past
+    it (12, rows 8 .. 11 in scratch), each at the bar 1e-5 against the
+    plain backward."""
+    _assert_host_grad_matches_plain("pmj02bn", 0.5, 1e-5, k_near, max_depth)
 
 
 FD_EPS = 0.01

@@ -2,8 +2,10 @@
 the path loop's (path_loop, path_loop_grad, sampler_probe), the direct
 integrator's (trace_interact, direct, direct_grad), the trace kernels
 (trace_closest, trace_any, dense and BVH), the megakernels' BVH
-instantiations on scenes past shared memory, and the sweep variants
-(sweep_variant, woop_sweep, aabb_sweep, floor_probe). Marked `cuda`: each test skips
+instantiations on scenes past shared memory (in triangle rows, or in
+light rows alone), the gradient kernels' tap rows at every split between
+shared and global memory, and the sweep variants (sweep_variant,
+woop_sweep, aabb_sweep, floor_probe). Marked `cuda`: each test skips
 without a CUDA device. chip_smoke.py runs the same checks, and the main
 paths, on an H100."""
 
@@ -109,6 +111,51 @@ def test_grad_kernel_matches_plain_backward(dev, kind):
     fwd = kernels.path_loop(tb, lanes, mat, pl.init_carry(lanes), tb.n_steps)
     want, _ = pl.render_path_backward_loop_plain(tb, lanes, mat, le, tb.n_steps)
     torch.cuda.synchronize()
+    assert torch.equal(carry.f[0:3], fwd.f[0:3])
+    torch.testing.assert_close(got.double().sum((0, 1)), want.double().sum((0, 1)),
+                               rtol=1e-5, atol=0.0)
+    mag = want.abs().amax(-1)
+    big = mag > 1e-3 * float(mag.max())
+    assert float(((got - want).abs().amax(-1)[big] / mag[big]).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("route", ["dense", "bvh"])
+@pytest.mark.parametrize("k_cap", [None, 3, 0])
+@pytest.mark.parametrize("res", [(64, 64), (45, 37)], ids=["64x64", "45x37"])
+def test_grad_kernels_keep_their_rows_anywhere(dev, route, k_cap, res):
+    """path_loop_grad and path_loop_grad_bvh at 64x64, and at 45x37 (1665
+    lanes: the last block part empty), 8 spp, max_depth 12, a random
+    adjoint, with the wrapper's launch (None: the route's tap rows in
+    shared memory), or through kernels.grad_launch with 3 of them, or every
+    row in global scratch (0): per-channel sums within rtol 1e-5 and texels
+    within rtol 1e-4 of the plain backward (float atomics), the radiance
+    bit for bit the forward kernel's; the launch record holds the rows it
+    kept."""
+    s = _scene(dev) if route == "dense" else _bvh_scene(dev, "bigsphere", "path")
+    s.max_depth = 12
+    mat = _material(dev)
+    tb = pl.build_loop_tables(s._render_data("path"), s.camera, s._config(res, 8), 4)
+    lanes = pl.pixel_lanes(tb.res, tb.spp, dev)
+    le = torch.as_tensor(np.random.RandomState(5).rand(3, lanes.shape[1]).astype(np.float32),
+                         device=dev)
+    if k_cap is None:
+        got, carry = kernels.path_loop_grad(tb, lanes, mat, le, tb.n_steps)
+        plan = (kernels.path_loop_grad if route == "dense" else kernels.path_loop_grad_bvh).plan
+    else:
+        got, carry, _c, plan = kernels.grad_launch(kernels.load_library(), tb, lanes, mat, le,
+                                                   tb.n_steps, k_cap)
+    fwd = kernels.path_loop(tb, lanes, mat, pl.init_carry(lanes), tb.n_steps)
+    want, _ = pl.render_path_backward_loop_plain(tb, lanes, mat, le, tb.n_steps)
+    torch.cuda.synchronize()
+    if k_cap is None:
+        assert plan["k_near"] <= kernels.GRAD_NEAR_ROWS[route]
+        assert plan["k_near"] >= 1 or kernels.GRAD_NEAR_ROWS[route] == 0
+    else:
+        assert plan["k_near"] == k_cap
+    # the kernels' stack frame, which the forward path_loop kernel and the
+    # first gradient kernel have too (ptxas: 40 bytes, 0 bytes spilled): a
+    # register cap that spills would raise it
+    assert plan["local_bytes"] <= 40
     assert torch.equal(carry.f[0:3], fwd.f[0:3])
     torch.testing.assert_close(got.double().sum((0, 1)), want.double().sum((0, 1)),
                                rtol=1e-5, atol=0.0)
@@ -384,6 +431,57 @@ def test_sweep_variants_match_plain(dev, name):
             assert wrapper.launches == before + 1
             _assert_variant(got, want, mode)
             assert wrapper.counts.tolist() == [int(x) for x in work], (set_name, point)
+
+
+@pytest.mark.parametrize("integrator", ["direct", "path"])
+def test_emissive_sphere_past_shared_memory(dev, integrator):
+    """A uv sphere of 4512 emissive triangles over a floor (288,768 bytes of
+    light rows, past a block's shared memory) at 64x64, 8 spp by
+    accel="auto": the BVH kernels, their small tables in global memory, the
+    forward bit for bit against the plain walk, the gradient (a random
+    adjoint) at per-channel sums rtol 1e-5 and texel rtol 1e-4; the dense
+    route refuses the scene."""
+    s = zt.Scene([(tproc.make_uv_sphere(0.5, 48, 48), None, 4.0),
+                  (tproc.make_quad(size=2.0, y=-0.7), None, None)],
+                 integrator=integrator, device=dev)
+    s.camera = zt.Camera(fov=0.9, origin=(1.6, 0.6, 0.4), target=(0.0, -0.3, 0.0))
+    mat = _material(dev)
+    tb = pl.build_loop_tables(s._render_data(integrator), s.camera, s._config((64, 64), 8), 2)
+    assert tb.bvh is not None
+    small = kernels.pack_tables(tb).numel() - tb.scene.shape[0] * 31
+    assert not kernels.small_tables_shared(small)
+    lanes = pl.pixel_lanes(tb.res, tb.spp, dev)
+    le = torch.as_tensor(np.random.RandomState(3).rand(3, lanes.shape[1]).astype(np.float32),
+                         device=dev)
+    if integrator == "direct":
+        got = kernels.direct(tb, lanes, mat)
+        grad, _acc = kernels.direct_grad(tb, lanes, mat, le)
+        want = dr.render_direct_plain(tb, lanes, mat)
+        want_g, _acc = dr.render_direct_backward_plain(tb, lanes, mat, le)
+    else:
+        got = kernels.path_loop(tb, lanes, mat, pl.init_carry(lanes), tb.n_steps).f[0:3]
+        grad, _c = kernels.path_loop_grad(tb, lanes, mat, le, tb.n_steps)
+        want = pl.render_path_loop_plain(tb, lanes, mat, pl.init_carry(lanes), tb.n_steps).f[0:3]
+        want_g, _c = pl.render_path_backward_loop_plain(tb, lanes, mat, le, tb.n_steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and float(want.max()) > 0
+    torch.testing.assert_close(grad.double().sum((0, 1)), want_g.double().sum((0, 1)),
+                               rtol=1e-5, atol=0.0)
+    mag = want_g.abs().amax(-1)
+    big = mag > 1e-3 * float(mag.max())
+    assert float(((grad - want_g).abs().amax(-1)[big] / mag[big]).max()) <= 1e-4
+    s.accel = "bruteforce"
+    with pytest.raises(NotImplementedError, match="accel='auto' or 'bvh'"):
+        s.render(mat, res=(2, 2), spp=1)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 262147])
+def test_floor_probe_tail(dev, n):
+    """floor_probe's float4 body and scalar tail: a + b at lengths under,
+    at and past a float4, and a long one that is not a multiple of 4."""
+    g = torch.Generator().manual_seed(n)
+    a, b = (torch.rand(n, generator=g).to(dev) for _ in range(2))
+    assert torch.equal(kernels.floor_probe(a, b), a + b)
 
 
 def test_floor_probe_is_a_plus_b(dev):

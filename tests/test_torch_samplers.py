@@ -2,6 +2,8 @@
 bit for bit: the same uint32 hashes and permutations, and the same float32
 draws, from the same random (pixel, seed, sample index, dimension)."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,6 +68,18 @@ def test_pmj_point_matches_table_construction():
     tx, ty = tpmj.pmj_point(_t(set_idx), _t(index))
     np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
     np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+
+
+def test_bluenoise_copy_equals_jax_tables():
+    """The port's own blue-noise file holds the JAX package's textures: its
+    rows equal jpmj._tables()'s bn_rows, value for value, in the same
+    (res, n_tex) layout, read from no file of the JAX package."""
+    _pmj, jax_rows, _sets, _samples, n_tex, res = jpmj._tables()
+    rows, t_res, t_ntex = tpmj.bluenoise_rows()
+    assert (t_res, t_ntex) == (res, n_tex)
+    assert rows.dtype == np.float32
+    np.testing.assert_array_equal(rows, jax_rows.reshape(-1))
+    assert os.path.dirname(tpmj.BLUENOISE_PATH) == os.path.dirname(tpmj.__file__)
 
 
 def test_bluenoise_row_lookup():

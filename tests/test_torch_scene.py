@@ -2,6 +2,7 @@
 package's, and the port's independence from JAX."""
 
 import os
+import inspect
 import subprocess
 import sys
 
@@ -114,7 +115,14 @@ def test_port_imports_no_jax():
 
 
 def test_scene_requires_explicit_device():
-    with pytest.raises(TypeError):
+    """The CPU has to be asked for explicitly: a Scene built without a
+    device lives on the card (the default is "cuda"), so without a card it
+    fails in torch, as device="cuda" does."""
+    assert inspect.signature(zt.Scene).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert zt.Scene([(tproc.make_cornell_box(), None, None)]).device.type == "cuda"
+        return
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
         zt.Scene([(tproc.make_cornell_box(), None, None)])
 
 

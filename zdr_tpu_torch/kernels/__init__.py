@@ -16,13 +16,19 @@ scene table from shared memory, the BVH one (path_loop_bvh,
 path_loop_grad_bvh, direct_bvh, direct_grad_bvh) walks the escape-link BVH
 in global memory (csrc/trace.cuh) for scenes past shared memory. The
 wrappers pick it from the tables (LoopTables.bvh, built once per Scene),
-never as a fallback, and count its launches under its own name.
+never as a fallback, and count its launches under its own name. The BVH
+instantiations keep the light, light-instance, point and camera rows in
+shared memory where they fit a block and read them from global memory
+past that (small_tables_shared), a launch argument.
 
 Kernels:
   path_loop       the forward render of the path integrator (csrc/path_loop.cu);
                   plain version: integrators/path_loop.render_path_loop_plain
-  path_loop_grad  the PRB texture gradient of the same walk, with its
-                  per-sample replay and atomic scatter (csrc/path_loop_grad.cu);
+  path_loop_grad  the PRB texture gradient of the same walk: a sample's
+                  tap rows in shared memory (GRAD_NEAR_ROWS of the route),
+                  replayed by its lane, one vector atomic a tap
+                  (csrc/path_loop_grad.cu); `.plan` holds its last launch's
+                  near rows, block, registers and occupancy;
                   plain version: integrators/path_loop.render_path_backward_loop_plain
   sampler_probe   K fresh-sampler draws per lane, for bit-exactness checks;
                   plain version: samplers.sampler_probe_plain
@@ -110,10 +116,17 @@ HOST_SOURCES = ("path_loop_host.cpp", "direct_host.cpp", "accel_host.cpp",
                 "sweep_variants_host.cpp")
 HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 KINDS = {"lcg": 0, "pmj02bn": 1}
-# per-sample scratch rows of path_loop_grad (path_loop_step.cuh kTapPlanes):
+# the floats of a tap row of path_loop_grad (path_loop_step.cuh kRowPlanes):
 # the 16 tap planes less u_m (no merge) and flags (the replay runs at the
-# sample's end)
-GRAD_SCRATCH_PLANES = N_TAP_PLANES - 2
+# sample's end), with Q and S as bq, u0 and u3
+GRAD_ROW_PLANES = N_TAP_PLANES - 3
+# the most tap rows of a sample that the gradient kernels keep in shared
+# memory, by route (zdr_path_loop_grad_plan takes fewer where the tables
+# leave less), from studies/grad_split.py on an H100: the dense
+# kernel is fastest at 8 (the flagship's samples end by then but for 0.1%
+# of their rows); on the BVH route every row in shared memory costs the
+# walk's L1, and 0 is fastest
+GRAD_NEAR_ROWS = {"dense": 8, "bvh": 0}
 # dynamic shared memory a block may hold on sm_90 (227 KB): the kernels keep
 # their tables there (trace.cuh kGeomCols = GEOM_COLS: the direct kernels and
 # trace_interact keep only each triangle's geometry there, in rows of 12)
@@ -183,10 +196,10 @@ def _bind(lib, name, argtypes):
 
 
 # zdr_path_loop / zdr_path_loop_grad arguments: params, tables, tables_n,
-# bn, material, lanes, [le_grad,] f_in, i_in, f_out, i_out, [scratch,
-# grad,] n, n_steps
+# bn, material, lanes, [le_grad,] f_in, i_in, f_out, i_out, [far, grad,] n,
+# n_steps[, k_near]
 _LOOP_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I]
-_GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I]
+_GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I]
 # zdr_trace_interact: params, tables, tables_n, rays, active, f_out, i_out,
 # n, lite; zdr_direct: params, tables, tables_n, bn, material, lanes, acc,
 # tests, n; zdr_direct_grad: the same with le_grad after lanes and grad
@@ -196,12 +209,13 @@ _DIRECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _I]
 _DIRECT_GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I]
 # the BVH: box, link, geom, perm, n_nodes
 _BVH_ARGS = [_P, _P, _P, _P, _I]
-# zdr_path_loop_bvh: _LOOP_ARGS, the BVH, counts; zdr_path_loop_grad_bvh:
-# _GRAD_ARGS, the BVH, counts; zdr_direct_bvh: params, tables, tables_n,
-# bn, material, lanes, le_grad, acc, grad, the BVH, counts, n
-_LOOP_BVH_ARGS = _LOOP_ARGS + _BVH_ARGS + [_P]
-_GRAD_BVH_ARGS = _GRAD_ARGS + _BVH_ARGS + [_P]
-_DIRECT_BVH_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P] + _BVH_ARGS + [_P, _I]
+# the BVH instantiations take small_shared after tables_n: zdr_path_loop_bvh:
+# _LOOP_ARGS, the BVH, counts; zdr_path_loop_grad_bvh: _GRAD_ARGS, the BVH,
+# counts; zdr_direct_bvh: params, tables, tables_n, small_shared, bn,
+# material, lanes, le_grad, acc, grad, the BVH, counts, n
+_LOOP_BVH_ARGS = _LOOP_ARGS[:3] + [_I] + _LOOP_ARGS[3:] + _BVH_ARGS + [_P]
+_GRAD_BVH_ARGS = _GRAD_ARGS[:3] + [_I] + _GRAD_ARGS[3:] + _BVH_ARGS + [_P]
+_DIRECT_BVH_ARGS = [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P] + _BVH_ARGS + [_P, _I]
 # zdr_trace_closest: bvh_mode (0: dense; > 0: the BVH with that many slots
 # a leaf), geom, n_rows, box, link, perm, n_nodes, o, d,
 # t_min, t_max, t, u, v, prim, counts, n; zdr_trace_any: the same with occ
@@ -226,6 +240,7 @@ def load_library() -> types.SimpleNamespace:
         zdr_sampler_probe=_bind(fwd, "zdr_sampler_probe", [_P, _P, _P, _I, _I, _P, _P]),
         zdr_path_loop_grad=_bind(grad, "zdr_path_loop_grad", _GRAD_ARGS + [_P]),
         zdr_path_loop_grad_bvh=_bind(grad, "zdr_path_loop_grad_bvh", _GRAD_BVH_ARGS + [_P]),
+        zdr_path_loop_grad_plan=_bind(grad, "zdr_path_loop_grad_plan", [_I, _I, _I, _P]),
         zdr_trace_interact=_bind(direct_lib, "zdr_trace_interact", _TRACE_ARGS + [_P]),
         zdr_direct=_bind(direct_lib, "zdr_direct", _DIRECT_ARGS + [_P]),
         zdr_direct_grad=_bind(direct_lib, "zdr_direct_grad", _DIRECT_GRAD_ARGS + [_P]),
@@ -262,13 +277,12 @@ def load_host_library() -> types.SimpleNamespace:
         zdr_path_loop_host=_bind(lib, "zdr_path_loop_host", _LOOP_ARGS),
         zdr_sampler_probe_host=_bind(lib, "zdr_sampler_probe_host", [_P, _P, _P, _I, _I, _P]),
         zdr_path_loop_grad_host=_bind(lib, "zdr_path_loop_grad_host", _GRAD_ARGS),
-        # the forward when le_grad (7th) is null
+        # the forward when le_grad (8th) is null
         zdr_path_loop_bvh_host=_bind(lib, "zdr_path_loop_bvh_host", _GRAD_BVH_ARGS),
         zdr_trace_interact_host=_bind(direct_lib, "zdr_trace_interact_host", _TRACE_ARGS),
         zdr_direct_host=_bind(direct_lib, "zdr_direct_host",
                               [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I]),
-        zdr_direct_bvh_host=_bind(direct_lib, "zdr_direct_bvh_host",
-                                  [_P, _P, _I, _P, _P, _P, _P, _P, _P] + _BVH_ARGS + [_P, _I]),
+        zdr_direct_bvh_host=_bind(direct_lib, "zdr_direct_bvh_host", _DIRECT_BVH_ARGS),
         zdr_trace_closest_host=_bind(accel_lib, "zdr_trace_closest_host", _CLOSEST_ARGS),
         zdr_trace_any_host=_bind(accel_lib, "zdr_trace_any_host", _ANY_ARGS),
         zdr_sweep_variant_host=_bind(variants_lib, "zdr_sweep_variant_host",
@@ -322,23 +336,33 @@ def _on_card(dev: torch.device, name: str) -> bool:
 
 
 def check_table_fits(n_tris: int, n_floats: int, integrator: str) -> None:
-    """Raise NotImplementedError unless the shared-memory copy of the tables
-    (n_floats in all, of which n_tris triangle rows of SCENE_COLS) fits a
-    block: the path-loop kernels copy the tables whole, the direct kernels
-    and trace_interact with triangle rows of GEOM_COLS (direct_step.cuh
-    compact_size); the BVH instantiations copy no triangle row (n_tris 0)."""
+    """Raise NotImplementedError unless the dense route's shared-memory copy
+    of the tables (n_floats in all, of which n_tris triangle rows of
+    SCENE_COLS) fits a block: the path-loop kernels copy the tables whole,
+    the direct kernels and trace_interact with triangle rows of GEOM_COLS
+    (direct_step.cuh compact_size). The BVH route has no such limit."""
     cols = SCENE_COLS if integrator == "path" else GEOM_COLS
     if (n_floats - n_tris * (SCENE_COLS - cols)) * 4 > MAX_TABLE_BYTES:
+        most = (MAX_TABLE_BYTES // 4 - (n_floats - n_tris * SCENE_COLS)) // cols
         raise NotImplementedError(
-            f"{n_tris} triangles exceed the {integrator} kernels' shared-memory "
-            f"scene table ({MAX_TABLE_BYTES} bytes); build the Scene with "
-            "accel='auto' or 'bvh' for the BVH route (ROADMAP A13)"
+            f"{n_tris} triangles exceed the dense route of the {integrator} kernels, "
+            f"whose tables must fit {MAX_TABLE_BYTES} bytes of shared memory: at most "
+            f"{max(most, 0)} triangles with these lights; accel='auto' or 'bvh' walks the "
+            "BVH, which has no such limit (ROADMAP A13)"
         )
+
+
+def small_tables_shared(n_small: int) -> bool:
+    """Whether a BVH instantiation copies the n_small floats of light,
+    light-instance, point and camera rows into shared memory (they fit a
+    block) or reads them from global memory."""
+    return n_small * 4 <= MAX_TABLE_BYTES
 
 
 def _loop_inputs(tb: LoopTables, lanes, material, n_steps, dev, integrator):
     """Check what the path-loop ("path") and direct ("direct") kernels read
-    -> (N, packed tables, params)."""
+    -> (N, packed tables, params; for a BVH route, whether the small tables
+    go to shared memory)."""
     n = lanes.shape[1]
     _check(lanes, "lanes", torch.int32, (3, n), dev)
     if material.ndim != 3 or material.shape[2] != 4 or min(material.shape[:2]) < 2:
@@ -354,11 +378,10 @@ def _loop_inputs(tb: LoopTables, lanes, material, n_steps, dev, integrator):
     n_tris = tb.scene.shape[0]
     if tb.bvh is None:
         check_table_fits(n_tris, tables.numel(), integrator)
-    else:
-        check_table_fits(0, tables.numel() - n_tris * SCENE_COLS, integrator)
     if n_steps < 0 or n >= 2**31:
         raise ValueError("n_steps must be >= 0 and N < 2**31")
-    return n, tables, loop_params(tb, material)
+    shared = small_tables_shared(tables.numel() - n_tris * SCENE_COLS)
+    return n, tables, loop_params(tb, material), shared
 
 
 def _bvh_args(accel, dev) -> tuple:
@@ -412,7 +435,7 @@ def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
         return render_path_loop_plain(tb, lanes, material, carry, n_steps)
     if tb.bvh is not None:
         return path_loop_bvh(tb, lanes, material, carry, n_steps)
-    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
+    n, tables, params, _shared = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
     f_out, i_out = _carry_out(carry, n, dev)
     rc = load_library().zdr_path_loop(
         params, tables.data_ptr(), tables.numel(), _bn_ptr(tb),
@@ -434,11 +457,11 @@ def path_loop_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     dev = lanes.device
     if not _on_card(dev, "path_loop_bvh"):
         return render_path_loop_plain(tb, lanes, material, carry, n_steps)
-    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
+    n, tables, params, shared = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
     f_out, i_out = _carry_out(carry, n, dev)
     counts = _counts(dev)
     rc = load_library().zdr_path_loop_bvh(
-        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb),
+        params, tables.data_ptr(), tables.numel(), int(shared), _bn_ptr(tb),
         material.data_ptr(), lanes.data_ptr(), carry.f.data_ptr(), carry.i.data_ptr(),
         f_out.data_ptr(), i_out.data_ptr(), n, n_steps, *_bvh_args(tb.bvh, dev),
         counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
@@ -453,16 +476,51 @@ path_loop_bvh.launches = 0
 path_loop_bvh.counts = None
 
 
-def _grad_inputs(tb, lanes, material, le_grad, n_steps, dev):
-    """-> (N, tables, params, first carry, carry out f/i, scratch, grad)."""
-    n, tables, params = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
+def grad_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                le_grad: torch.Tensor, n_steps: int, k_cap=None):
+    """One launch of a build of csrc/path_loop_grad.cu (`lib`: load_library()'s
+    entries, or a build's of the same C entries), its dense or its BVH
+    kernel as tb.bvh says, on CUDA tensors, counting nothing: the gradient
+    wrappers, and the tests and studies of other row layouts. k_cap: the
+    most tap rows a sample in shared memory (GRAD_NEAR_ROWS of the route;
+    0 keeps them all in global scratch) -> (d_material, the final carry,
+    counts (the BVH kernel's) or None, the launch's plan)."""
+    dev = lanes.device
+    n, tables, params, shared = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
     _check(le_grad, "le_grad", torch.float32, (3, n), dev)
-    carry = init_carry(lanes)
-    # a sample takes at most max_depth steps: one scratch row per step
+    bvh = tb.bvh is not None
+    # what the kernel keeps in shared memory before the rows: the dense
+    # tables, or the BVH kernel's small tables where they fit
+    n_small = tables.numel() - tb.scene.shape[0] * SCENE_COLS
+    table_bytes = 4 * (n_small if shared else 0) if bvh else 4 * tables.numel()
+    # the rows of a sample: one a step, max_depth at most
     rows = max(tb.max_depth, 1)
-    scratch = torch.empty((rows, GRAD_SCRATCH_PLANES, n), dtype=torch.float32, device=dev)
-    return (n, tables, params, carry, torch.empty_like(carry.f), torch.empty_like(carry.i),
-            scratch, torch.zeros_like(material))
+    k_cap = min(GRAD_NEAR_ROWS["bvh" if bvh else "dense"] if k_cap is None else k_cap, rows)
+    info = (ctypes.c_int * 6)()
+    _raise_on(lib.zdr_path_loop_grad_plan(int(bvh), table_bytes, k_cap, info), "path_loop_grad")
+    plan = dict(zip(("k_near", "block", "registers", "blocks_per_sm", "smem_bytes",
+                     "local_bytes"), info))
+    carry = init_carry(lanes)
+    f_out, i_out = torch.empty_like(carry.f), torch.empty_like(carry.i)
+    far = torch.empty((rows - plan["k_near"], GRAD_ROW_PLANES, n), dtype=torch.float32,
+                      device=dev)
+    grad = torch.zeros_like(material)
+    if grad.data_ptr() % 16:
+        raise ValueError("the gradient must be 16-byte aligned for vector atomics")
+    args = (params, tables.data_ptr(), tables.numel()) + ((int(shared),) if bvh else ()) + (
+        _bn_ptr(tb), material.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(),
+        carry.f.data_ptr(), carry.i.data_ptr(), f_out.data_ptr(), i_out.data_ptr(),
+        far.data_ptr(), grad.data_ptr(), n, n_steps, plan["k_near"])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = None
+    if bvh:
+        counts = _counts(dev)
+        rc = lib.zdr_path_loop_grad_bvh(*args, *_bvh_args(tb.bvh, dev), counts.data_ptr(),
+                                        stream)
+    else:
+        rc = lib.zdr_path_loop_grad(*args, stream)
+    _raise_on(rc, "path_loop_grad_bvh" if bvh else "path_loop_grad")
+    return grad, Carry(f_out, i_out), counts, plan
 
 
 def path_loop_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
@@ -471,7 +529,8 @@ def path_loop_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     carry, given le_grad, the (3, N) float32 adjoint of each of a lane's
     samples -> (d_material (H, W, 4), the final carry, whose acc_* rows are
     the forward render's). With a BVH in the tables, path_loop_grad_bvh
-    runs.
+    runs. `.plan` holds the last launch's tap rows in shared memory, block,
+    registers and occupancy.
 
     On the card the float atomics sum the taps in an order that changes
     from run to run, so the gradient's last bits do too."""
@@ -480,20 +539,14 @@ def path_loop_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
         return render_path_backward_loop_plain(tb, lanes, material, le_grad, n_steps)
     if tb.bvh is not None:
         return path_loop_grad_bvh(tb, lanes, material, le_grad, n_steps)
-    n, tables, params, carry, f_out, i_out, scratch, grad = _grad_inputs(
-        tb, lanes, material, le_grad, n_steps, dev)
-    rc = load_library().zdr_path_loop_grad(
-        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb),
-        material.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(), carry.f.data_ptr(),
-        carry.i.data_ptr(), f_out.data_ptr(), i_out.data_ptr(), scratch.data_ptr(),
-        grad.data_ptr(), n, n_steps, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "path_loop_grad")
+    grad, carry, _c, path_loop_grad.plan = grad_launch(load_library(), tb, lanes, material,
+                                                       le_grad, n_steps)
     path_loop_grad.launches += 1
-    return grad, Carry(f_out, i_out)
+    return grad, carry
 
 
 path_loop_grad.launches = 0
+path_loop_grad.plan = None
 
 
 def path_loop_grad_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
@@ -502,24 +555,15 @@ def path_loop_grad_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tens
     dev = lanes.device
     if not _on_card(dev, "path_loop_grad_bvh"):
         return render_path_backward_loop_plain(tb, lanes, material, le_grad, n_steps)
-    n, tables, params, carry, f_out, i_out, scratch, grad = _grad_inputs(
-        tb, lanes, material, le_grad, n_steps, dev)
-    counts = _counts(dev)
-    rc = load_library().zdr_path_loop_grad_bvh(
-        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb),
-        material.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(), carry.f.data_ptr(),
-        carry.i.data_ptr(), f_out.data_ptr(), i_out.data_ptr(), scratch.data_ptr(),
-        grad.data_ptr(), n, n_steps, *_bvh_args(tb.bvh, dev), counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "path_loop_grad_bvh")
+    grad, carry, path_loop_grad_bvh.counts, path_loop_grad_bvh.plan = grad_launch(
+        load_library(), tb, lanes, material, le_grad, n_steps)
     path_loop_grad_bvh.launches += 1
-    path_loop_grad_bvh.counts = counts
-    return grad, Carry(f_out, i_out)
+    return grad, carry
 
 
 path_loop_grad_bvh.launches = 0
 path_loop_grad_bvh.counts = None
+path_loop_grad_bvh.plan = None
 
 
 def sampler_probe(kind: str, spp: int, lanes: torch.Tensor, k: int, bn) -> torch.Tensor:
@@ -595,7 +639,7 @@ def direct(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch
         return render_direct_plain(tb, lanes, material)
     if tb.bvh is not None:
         return direct_bvh(tb, lanes, material)
-    n, tables, params = _loop_inputs(tb, lanes, material, 0, dev, "direct")
+    n, tables, params, _shared = _loop_inputs(tb, lanes, material, 0, dev, "direct")
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
     counts = _counts(dev)
     rc = load_library().zdr_direct(
@@ -626,7 +670,7 @@ def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
         return render_direct_backward_plain(tb, lanes, material, le_grad)
     if tb.bvh is not None:
         return direct_grad_bvh(tb, lanes, material, le_grad)
-    n, tables, params = _loop_inputs(tb, lanes, material, 0, dev, "direct")
+    n, tables, params, _shared = _loop_inputs(tb, lanes, material, 0, dev, "direct")
     _check(le_grad, "le_grad", torch.float32, (3, n), dev)
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
     grad = torch.zeros_like(material)
@@ -648,7 +692,7 @@ direct_grad.tests = direct_grad.visits = None
 def _direct_bvh_launch(tb, lanes, material, le_grad, dev):
     """One launch of zdr_direct_bvh, forward (le_grad None) or tap mode ->
     (grad or None, acc, counts)."""
-    n, tables, params = _loop_inputs(tb, lanes, material, 0, dev, "direct")
+    n, tables, params, shared = _loop_inputs(tb, lanes, material, 0, dev, "direct")
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
     grad = None
     if le_grad is not None:
@@ -656,7 +700,8 @@ def _direct_bvh_launch(tb, lanes, material, le_grad, dev):
         grad = torch.zeros_like(material)
     counts = _counts(dev)
     rc = load_library().zdr_direct_bvh(
-        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
+        params, tables.data_ptr(), tables.numel(), int(shared), _bn_ptr(tb),
+        material.data_ptr(),
         lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
         None if grad is None else grad.data_ptr(), *_bvh_args(tb.bvh, dev),
         counts.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
@@ -873,7 +918,8 @@ aabb_sweep.counts = None
 
 
 def floor_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a + b over two (N,) float32 tensors: an empty, kernel-shaped launch."""
+    """a + b over two (N,) float32 tensors, 16-byte aligned: an empty,
+    kernel-shaped launch."""
     dev = a.device
     if not _on_card(dev, "floor_probe"):
         return floor_probe_plain(a, b)
@@ -881,6 +927,8 @@ def floor_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check(a, "a", torch.float32, (n,), dev)
     _check(b, "b", torch.float32, (n,), dev)
     out = torch.empty_like(a)
+    if (a.data_ptr() | b.data_ptr() | out.data_ptr()) % 16:
+        raise ValueError("floor_probe: a, b and out must be 16-byte aligned for float4 access")
     rc = load_library().zdr_floor_probe(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
                                         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "floor_probe")

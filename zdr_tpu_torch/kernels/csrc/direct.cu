@@ -106,22 +106,20 @@ __global__ void __launch_bounds__(kBlock, 4)
 }
 
 // The same samples with every sweep through the BVH; shared memory holds
-// the small tables only.
+// the small tables only, where they fit (small_shared).
 template <bool kGrad>
 __global__ void __launch_bounds__(kBlock, 4)
-    direct_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables,
+    direct_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables, int small_shared,
                       const float* __restrict__ bn, const float* __restrict__ material,
                       const int* __restrict__ lanes, const float* __restrict__ le_grad,
                       float* __restrict__ acc_out, float* grad, zdr::Bvh bvh,
                       unsigned long long* counts, int n) {
   extern __shared__ float smem[];
-  const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
-  for (int k = threadIdx.x; k < zdr::small_size(q); k += blockDim.x) smem[k] = small[k];
-  __syncthreads();
+  const float* small = zdr::load_small(smem, tables, q, small_shared);
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   zdr::TraceCount count = {0, 0};
   if (lane < n) {
-    zdr::Tables tb = zdr::bvh_tables(smem, tables, bn, material, q);
+    zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);
     zdr::LaneConst lc = zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane],
                                         q.seed, q);
     zdr::DirectTaps dt;
@@ -207,15 +205,18 @@ int zdr_direct_grad(const int* params, const float* tables, int tables_n, const 
 
 // zdr_direct (le_grad and grad null) and zdr_direct_grad through the BVH:
 // box (n_nodes, 6) float32, link (n_nodes, 2) int32, geom (slots, 12)
-// float32 rows in leaf order, perm (slots,) int32 global ids (-1 pads).
-int zdr_direct_bvh(const int* params, const float* tables, int tables_n, const float* bn,
+// float32 rows in leaf order, perm (slots,) int32 global ids (-1 pads);
+// small_shared 1 copies the small tables into shared memory, 0 reads them
+// from `tables`.
+int zdr_direct_bvh(const int* params, const float* tables, int tables_n, int small_shared,
+                   const float* bn,
                    const float* material, const int* lanes, const float* le_grad, float* acc,
                    float* grad, const float* box, const int* link, const float* geom,
                    const int* perm, int n_nodes, unsigned long long* counts, int n,
                    void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)zdr::small_size(q) * sizeof(float);
+  size_t smem = small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0;
   zdr::Bvh bvh{box, link, geom, perm, n_nodes};
   int grid = (n + kBlock - 1) / kBlock;
   int err;
@@ -223,12 +224,12 @@ int zdr_direct_bvh(const int* params, const float* tables, int tables_n, const f
     err = launch_config(direct_bvh_kernel<true>, smem);
     if (err) return err;
     direct_bvh_kernel<true><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-        q, tables, bn, material, lanes, le_grad, acc, grad, bvh, counts, n);
+        q, tables, small_shared, bn, material, lanes, le_grad, acc, grad, bvh, counts, n);
   } else {
     err = launch_config(direct_bvh_kernel<false>, smem);
     if (err) return err;
     direct_bvh_kernel<false><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-        q, tables, bn, material, lanes, nullptr, acc, nullptr, bvh, counts, n);
+        q, tables, small_shared, bn, material, lanes, nullptr, acc, nullptr, bvh, counts, n);
   }
   return (int)cudaGetLastError();
 }

@@ -78,8 +78,10 @@ int zdr_direct_host(const int* params, const float* tables, int tables_n, const 
 }
 
 // zdr_direct_bvh (direct.cu) without the stream; counts: tests and node
-// visits.
-int zdr_direct_bvh_host(const int* params, const float* tables, int tables_n, const float* bn,
+// visits; small_shared 0 reads the small tables where the packed tables
+// hold them, 1 from a copy.
+int zdr_direct_bvh_host(const int* params, const float* tables, int tables_n,
+                        int small_shared, const float* bn,
                         const float* material, const int* lanes, const float* le_grad,
                         float* acc, float* grad, const float* box, const int* link,
                         const float* geom, const int* perm, int n_nodes,
@@ -88,7 +90,7 @@ int zdr_direct_bvh_host(const int* params, const float* tables, int tables_n, co
   if (tables_n != zdr::tables_size(q)) return 1;
   const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
   std::vector<float> copy(small, small + zdr::small_size(q));
-  zdr::Tables tb = zdr::bvh_tables(copy.data(), tables, bn, material, q);
+  zdr::Tables tb = zdr::bvh_tables(small_shared ? copy.data() : small, tables, bn, material, q);
   zdr::BvhTrace tr{zdr::Bvh{box, link, geom, perm, n_nodes}};
   direct_lanes(tb, q, tr, lanes, le_grad, acc, grad, counts, n);
   return 0;

@@ -29,6 +29,17 @@ namespace zdr {
 // shade, miss); lite: add_emit3 (miss)
 constexpr int kTraceF = 14;
 
+// Add one tap channel into the gradient; a NaN tap is dropped (and a zero
+// one skipped: adding it changes nothing).
+ZDR_HD void splat_add(float* grad, int id, int c, float v) {
+  if (is_nan(v) || v == 0.0f) return;
+#ifdef __CUDA_ARCH__
+  atomicAdd(grad + 4L * id + c, v);
+#else
+  grad[4L * id + c] += v;
+#endif
+}
+
 // The direct kernels keep a compact copy of the tables in shared memory:
 // each triangle's 9 geometry floats (p0, e1, e2) in a row of kGeomCols
 // (trace.cuh), 16-byte aligned, then the light, light-instance, point and

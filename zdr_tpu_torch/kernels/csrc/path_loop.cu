@@ -20,8 +20,9 @@
 // the escape-link BVH in global memory (trace.cuh): the big-mesh route that
 // the JAX package took through path_fused.py's streamed sweeps, B5 in
 // _bounce (:132-135) and B6 in _stream_occ (:161-172). Only the light,
-// point and camera rows stay in shared memory; the kernel counts its tests
-// and node visits.
+// point and camera rows stay in shared memory, and only where they fit
+// (small_shared; past that they are read from global memory); the kernel
+// counts its tests and node visits.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false (see zdr_tpu_torch/kernels/__init__.py).
@@ -55,19 +56,18 @@ __global__ void __launch_bounds__(kBlock)
 
 __global__ void __launch_bounds__(kBlock)
     path_loop_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables,
-                         const float* __restrict__ bn, const float* __restrict__ material,
+                         int small_shared, const float* __restrict__ bn,
+                         const float* __restrict__ material,
                          const int* __restrict__ lanes, const float* __restrict__ f_in,
                          const int* __restrict__ i_in, float* __restrict__ f_out,
                          int* __restrict__ i_out, int n, int n_steps, zdr::Bvh bvh,
                          unsigned long long* counts) {
   extern __shared__ float smem[];
-  const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
-  for (int k = threadIdx.x; k < zdr::small_size(q); k += blockDim.x) smem[k] = small[k];
-  __syncthreads();
+  const float* small = zdr::load_small(smem, tables, q, small_shared);
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   zdr::TraceCount count = {0, 0};
   if (lane < n) {
-    zdr::Tables tb = zdr::bvh_tables(smem, tables, bn, material, q);
+    zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);
     zdr::LaneConst lc = zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane],
                                         q.seed, q);
     zdr::LaneState s;
@@ -115,21 +115,23 @@ int zdr_path_loop(const int* params, const float* tables, int tables_n, const fl
 // zdr_path_loop through the BVH: box (n_nodes, 6) float32, link (n_nodes, 2)
 // int32, geom (slots, 12) float32 rows in leaf order, perm (slots,) int32
 // global ids (-1 pads); counts: two uint64, to which the kernel adds its
-// ray-triangle tests and node visits.
-int zdr_path_loop_bvh(const int* params, const float* tables, int tables_n, const float* bn,
+// ray-triangle tests and node visits; small_shared 1 copies the small
+// tables into shared memory, 0 reads them from `tables`.
+int zdr_path_loop_bvh(const int* params, const float* tables, int tables_n, int small_shared,
+                      const float* bn,
                       const float* material, const int* lanes, const float* f_in,
                       const int* i_in, float* f_out, int* i_out, int n, int n_steps,
                       const float* box, const int* link, const float* geom, const int* perm,
                       int n_nodes, unsigned long long* counts, void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)zdr::small_size(q) * sizeof(float);
+  size_t smem = small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0;
   cudaError_t err = cudaFuncSetAttribute(
       path_loop_bvh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int grid = (n + kBlock - 1) / kBlock;
   path_loop_bvh_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      q, tables, bn, material, lanes, f_in, i_in, f_out, i_out, n, n_steps,
+      q, tables, small_shared, bn, material, lanes, f_in, i_in, f_out, i_out, n, n_steps,
       zdr::Bvh{box, link, geom, perm, n_nodes}, counts);
   return (int)cudaGetLastError();
 }

@@ -212,8 +212,8 @@ struct BvhTrace {
 };
 
 // The BVH route keeps only the small tables in shared memory (or a host
-// copy): light, light-instance, point and camera rows, the floats of the
-// packed tables after the (n_tris, 31) scene rows.
+// copy), where they fit: light, light-instance, point and camera rows, the
+// floats of the packed tables after the (n_tris, 31) scene rows.
 ZDR_HD int small_size(const LoopParams& q) { return tables_size(q) - q.n_tris * kSceneCols; }
 
 // The tables over a copy of the small tables; the hit triangle's attributes
@@ -233,6 +233,18 @@ ZDR_HD Tables bvh_tables(const float* small, const float* tables, const float* b
 }
 
 #ifdef __CUDACC__
+// The small tables of a BVH kernel: copied into the block's shared memory
+// when small_shared (they fit: kernels.small_tables_shared), else read from
+// global memory where the packed tables hold them -> where they are.
+__device__ inline const float* load_small(float* smem, const float* tables,
+                                          const LoopParams& q, int small_shared) {
+  const float* small = tables + (long)q.n_tris * kSceneCols;
+  if (!small_shared) return small;
+  for (int k = threadIdx.x; k < small_size(q); k += blockDim.x) smem[k] = small[k];
+  __syncthreads();
+  return smem;
+}
+
 // Sum each thread's count over its warp, one atomic a warp. Every thread of
 // the block reaches it (no early return before).
 __device__ inline void warp_add(unsigned long long* counter, unsigned long long local) {

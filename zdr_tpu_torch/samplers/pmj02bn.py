@@ -7,8 +7,9 @@ Port of zdr_tpu/samplers/pmj02bn.py (`PMJ02BNSamplerP2`). Per draw:
   * 2D: an Owen-scrambled Sobol' (0,2) point, computed procedurally, plus a
     2D blue-noise offset, fract-wrapped.
 
-The blue-noise textures are read from zdr_tpu/samplers/tables.npz by file
-path (reading the file imports nothing of the JAX package). A draw indexes
+The blue-noise textures are the port's own copy (bluenoise.npz beside this
+module) of the "bluenoise" array of zdr_tpu/samplers/tables.npz, the one
+array of that file the port reads. A draw indexes
 `bn_rows[(y * res + x) * n_tex + dim % n_tex]` directly; the value is the
 one the JAX package's per-lane cache holds. Only power-of-two spp is ported:
 the generic rejection-loop permutation is ROADMAP A4.
@@ -36,10 +37,7 @@ from .hashes import (
 )
 from .lcg import SALT
 
-TABLES_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "zdr_tpu", "samplers", "tables.npz",
-)
+BLUENOISE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bluenoise.npz")
 
 _PMJ_SET_SEEDS = (
     (822569775, 2137449171),
@@ -62,7 +60,7 @@ def bluenoise_rows() -> Tuple[np.ndarray, int, int]:
     """(bn_rows (res*res*n_tex,) float32, res, n_tex): every texture's value at
     one pixel in consecutive entries, the layout of pmj02bn._tables(). Read
     once per process; the array is read-only."""
-    with np.load(TABLES_PATH) as raw:
+    with np.load(BLUENOISE_PATH) as raw:
         bn = np.asarray(raw["bluenoise"], np.float32)  # (n_tex, res, res)
     n_tex, res = bn.shape[0], bn.shape[1]
     rows = np.ascontiguousarray(bn.transpose(1, 2, 0).reshape(-1))

@@ -9,10 +9,10 @@
     image = scene.render(material, res=(W, H), spp=64, seed=0)
     image[..., :3].sum().backward()                                # material.grad
 
-The device is explicit: the scene's tensors live there, the material must
-too, and a render runs there (on "cuda" the CUDA kernels: direct and, for
-the backward, direct_grad; path_loop and path_loop_grad for the path
-integrator; on "cpu" their plain versions). The render is differentiable in
+The scene's tensors live on its device ("cuda" unless the caller asks for
+"cpu"), the material must too, and a render runs there (on "cuda" the CUDA
+kernels: direct and, for the backward, direct_grad; path_loop and
+path_loop_grad for the path integrator; on "cpu" their plain versions). The render is differentiable in
 the material: the backward re-estimates the texture gradient at seed + 1
 (Path Replay Backprop for the path integrator).
 
@@ -63,7 +63,8 @@ class Scene:
         integrator: 'direct' (default) | 'path'.
         sampler: 'pmj02bn' (default) | 'lcg'.
         accel: 'auto' (default) | 'bruteforce' | 'pallas' | 'bvh' | 'stream'.
-        device: torch device of the scene and of every render.
+        device: torch device of the scene and of every render: the card
+            ("cuda", the default) or "cpu" for the plain versions.
     """
 
     def __init__(
@@ -73,7 +74,7 @@ class Scene:
         sampler: str = "pmj02bn",
         *,
         accel: str = "auto",
-        device,
+        device="cuda",
     ):
         if len(models) > MAX_INSTANCES:
             raise RuntimeError("exceeding maximum number of mesh instances")
