@@ -15,7 +15,9 @@ Phases, one line each; any failure raises and exits non-zero:
   6. the main path: the flagship cornell box (pmj02bn, 512x512, 64 spp,
      1024^2 material of 0.5, seed 0) through Scene.render, its launch
      counts, its image against one plain render, its time, and the time
-     of the kernel alone and of its plain version on the same tables;
+     of the kernel alone and of its plain version on the same tables; the
+     launch's shape, registers, local memory, blocks an SM, resident
+     threads and waves, and the bound of its counted work (_loop_bound);
   7. the gradient kernel at 128x128, 16 spp, a random 64^2 material and a
      random adjoint, with its launch's tap rows in shared memory and with
      every row in global scratch: against the plain backward (per-channel
@@ -103,7 +105,10 @@ minutes), and
 operations each or 40 for a Woop test, and BVH node visits and tile-box
 tests, SLAB_OPS each, counted in this run)
 at 67 TFLOP/s and its bytes (each input read once, each output written
-once) at 3.35 TB/s. The last line is {"ok": true, "device": {...}}.
+once) at 3.35 TB/s; for path_loop the bound of all its step's counted work
+(_loop_bound: FP32, INT32, the issue of both, bytes), with the tests-only
+bound beside it as "bound_tests_ms". The last line is {"ok": true,
+"device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -148,6 +153,34 @@ MT_OPS = 46
 # 6 differences and 6 products, 3 min and 3 max, 2 max and 2 min across the
 # axes, 2 products by the slack, 3 comparisons
 SLAB_OPS = 27
+# The path-loop step's work, counted from kernels/csrc/path_loop_step.cuh as
+# compiled (-fmad=false: every multiply and add an operation of its own; a
+# sqrt, division, sin or cos counted as one, the least it takes), for the
+# bound of path_loop (_loop_bound). Integer operations of the pmj02bn draws,
+# each 32-bit add, multiply, logic op, shift, rotate, compare, select or
+# conversion one: next1 = xxhash32_z 12 + permute_pow2 36 + the blue-noise
+# index 3 + a conversion + the dimension's increment; next2 = 107 where it
+# permutes (instance >= 5: its shift and compare 2, xxhash32_z 12,
+# permute_pow2 36, the mask 1, instance % 5 3, the seeds' selects 12, two
+# owen_rev of 10 (an add, 4 multiply-xors, a bit reversal), sobol2_vdc 12,
+# two blue-noise indices 6, two conversions, the increment) and 59 where it
+# does not (the first three of a sample: the camera's and its first step's
+# two).
+NEXT1_INT, NEXT2_INT, NEXT2_SET_INT = 53, 107, 59
+# FP32 operations of a step besides the sweeps (MT_OPS a test) and the
+# BSDF sample's branch: the bilinear fetch 49, the frame 32, two
+# projections 30, two ggx_sample_pdf 110, the MIS weights 6, to_world 15,
+# the bounce's test 7, the next origin 6, two ggx_brdf 150, roulette and
+# throughput 21, NEE and the radiance 21, the hit's interaction 67, the NEE
+# sample 50, the draws' float work 48; the BSDF sample: glossy (VNDF and
+# reflect) 104 or diffuse 10, as the lane's u_lobe says; a restart's
+# camera ray and accumulation 55.
+STEP_FP, GLOSSY_FP, DIFFUSE_FP, RESTART_FP = 612, 104, 10, 55
+# rates without FMA: one FP32 operation a lane a cycle (half the FMA peak),
+# INT32 at half that (64 INT32 lanes an SM against 128 FP32: the Hopper
+# white paper), and one warp instruction a cycle per SM quarter for both
+# (128 operations an SM a cycle: the issue slots)
+FP32_RATE, INT32_RATE, ISSUE_RATE = FP32_PEAK / 2, FP32_PEAK / 4, FP32_PEAK / 2
 
 
 def _drive_main(fn):
@@ -214,18 +247,20 @@ def _protocol(device, accel="bruteforce", integrator="direct", stacks=(16, 32)):
     return scene
 
 
-def _path_tests(tb, lanes, mat, stride=16):
-    """The ray-triangle tests of the path-loop kernels' walk, counted on
-    every `stride`-th lane with the plain step and scaled to all lanes:
-    each step a lane runs sweeps the whole table for its next hit, and a
-    shading lane's shadow sweep stops at its first hit."""
+def _path_work(tb, lanes, mat, stride=16):
+    """The work of the path-loop kernels' walk, counted on every
+    `stride`-th lane with the plain step and scaled to all lanes -> {tests:
+    ray-triangle tests (each step a lane runs sweeps the whole table for its
+    next hit, and a shading lane's shadow sweep stops at its first hit),
+    steps: the lanes' steps, restarts: the samples begun, glossy: steps
+    whose BSDF sample takes the glossy lobe}."""
     from zdr_tpu_torch.integrators import path_loop as pl
 
     sub = lanes[:, ::stride].contiguous()
     carry = pl.init_carry(sub)
     n_tris = tb.scene.shape[0]
     fi, ii = pl.F_IDX, pl.I_IDX
-    total = 0
+    work = dict(tests=0, steps=0, restarts=0, glossy=0)
     for _ in range(tb.n_steps):
         flying = carry.i[ii["in_flight"]] != 0
         run = (carry.i[ii["sample_idx"]] < sub[2]) | flying
@@ -237,9 +272,34 @@ def _path_tests(tb, lanes, mat, stride=16):
         ok, _u, _v, t = pl._mt_all(tb.scene, p, wl)
         hit = ok & (t > 1e-4) & (t < carry.f[fi["l_dist"]][shade][:, None])
         first = torch.where(hit.any(1), hit.int().argmax(1) + 1, n_tris)
-        total += int(run.sum()) * n_tris + int(first.sum())
+        work["tests"] += int(run.sum()) * n_tris + int(first.sum())
+        work["steps"] += int(run.sum())
+        work["glossy"] += int((run & (carry.f[fi["u_lobe"]] >= 0.5)).sum())
+        before = carry.i[ii["sample_idx"]].clone()
         carry = pl.loop_step(carry, tb, sub, mat)
-    return total * lanes.shape[1] / sub.shape[1]
+        # a lane restarts where it begins a sample: it ends in flight at a
+        # sample below its stop that it was not in flight at before
+        began = (carry.i[ii["in_flight"]] != 0) & ~(flying & (before == carry.i[ii["sample_idx"]]))
+        work["restarts"] += int((run & began).sum())
+    scale = lanes.shape[1] / sub.shape[1]
+    return {k: v * scale for k, v in work.items()}
+
+
+def _loop_bound(work, nbytes):
+    """The least time of a path-loop forward launch's counted work ->
+    (bound_ms, bound_by, {term: ms}): the larger of the FP32 operations
+    (the sweeps' tests and the steps', STEP_FP and the rest) at FP32_RATE,
+    the draws' integer operations at INT32_RATE, both together at
+    ISSUE_RATE, and the bytes at HBM_RATE."""
+    steps, restarts, glossy = work["steps"], work["restarts"], work["glossy"]
+    fp = (work["tests"] * MT_OPS + steps * STEP_FP + glossy * GLOSSY_FP
+          + (steps - glossy) * DIFFUSE_FP + restarts * RESTART_FP)
+    ints = (steps * 4 * NEXT1_INT + (steps - restarts) * 2 * NEXT2_INT
+            + restarts * 3 * NEXT2_SET_INT)
+    terms = {"fp32": fp / FP32_RATE * 1e3, "int32": ints / INT32_RATE * 1e3,
+             "issue": (fp + ints) / ISSUE_RATE * 1e3, "bytes": nbytes / HBM_RATE * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], "bytes" if by == "bytes" else "operations", terms
 
 
 def _material(seed, device, tex=TEX):
@@ -469,9 +529,13 @@ def phase_main(dev, smi):
         raise AssertionError(f"channel means {means.tolist()} vs plain {want_means.tolist()}")
     max_err = float((img[..., :3] - want).abs().max())
     n_samples = RES[0] * RES[1] * SPP
-    tests = _path_tests(tb, lanes, mat)
-    bound_ms, bound_by = _bound(tests, _nbytes(lanes, mat, carry0.f, carry0.i, carry0.f,
-                                               carry0.i, tb.scene, tb.bn))
+    work = _path_work(tb, lanes, mat)
+    tests = work["tests"]
+    nbytes = _nbytes(lanes, mat, carry0.f, carry0.i, carry0.f, carry0.i, tb.scene, tb.bn)
+    tests_ms, _by = _bound(tests, nbytes)
+    bound_ms, bound_by, terms = _loop_bound(work, nbytes)
+    plan = kernels.path_loop.plan
+    resident = plan["block"] * plan["blocks_per_sm"] * plan["sms"]
     print(f"[6 main] cornell box pmj02bn {RES[0]}x{RES[1]} {SPP} spp {TEX}^2 material via "
           f"Scene.render: {launches} path_loop launch(es), plain version not called; channel "
           f"means {[round(x, 6) for x in means.tolist()]} vs plain (rtol 1e-4), max abs diff "
@@ -479,11 +543,19 @@ def phase_main(dev, smi):
           f"(first {first_ms:.2f} ms) = {n_samples / ms / 1e3:.2f} M samples/s; kernel alone "
           f"{kernel_ms:.2f} ms (CUDA events, median of 5) = {n_samples / kernel_ms / 1e3:.2f} M "
           f"samples/s; plain {plain_ms:.2f} ms = {n_samples / plain_ms / 1e3:.3f} M samples/s; "
-          f"{tests:.4g} ray-triangle tests (every 16th lane, scaled) -> bound {bound_ms:.3f} ms "
-          f"({bound_by}); card {smi}", flush=True)
+          f"launch {plan['block']} threads a block (of up to {plan['max_block']}), "
+          f"{plan['registers']} registers, "
+          f"{plan['local_bytes']} bytes of local memory (stack and spills) a thread, "
+          f"{plan['blocks_per_sm']} blocks an SM, {resident} resident threads, "
+          f"{plan['waves']:.3f} waves ({lanes.shape[1]} lanes), {plan['rounds']} rounds; work "
+          f"(every 16th lane, scaled): {work['steps']:.4g} steps, {work['restarts']:.4g} "
+          f"samples, {tests:.4g} ray-triangle tests -> counted-work bound {bound_ms:.3f} ms "
+          f"({max(terms, key=terms.get)}: " + ", ".join(f"{k} {v:.3f}" for k, v in terms.items())
+          + f" ms), the tests' bound {tests_ms:.3f} ms; card {smi}", flush=True)
     return dict(launches=launches, max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
                 plain_shape=f"{RES[0]}x{RES[1]} {SPP} spp", bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, bound_terms_ms=terms,
+                bound_tests_ms=tests_ms, plan=plan)
 
 
 def _assert_grad_close(got, want, what):
@@ -580,7 +652,7 @@ def phase_main_grad(dev, smi):
     it_ms, it_runs = _median_ms(iteration)
     grad_ms, grad_runs = _event_ms(lambda: kernels.path_loop_grad(tb, lanes, m, le, tb.n_steps))
     n_samples = RES[0] * RES[1] * SPP
-    tests = _path_tests(tb, lanes, m)
+    tests = _path_work(tb, lanes, m)["tests"]
     carry0 = pl.init_carry(lanes)
     bound_ms, bound_by = _bound(tests, _nbytes(lanes, m, le, carry0.f, carry0.i, carry0.f,
                                                carry0.i, grad, tb.scene, tb.bn))
@@ -998,8 +1070,12 @@ def _bvh_main(scene, integrator, spp, tag, what, smi, reps=5):
         gms, _r = _event_ms(lambda: kernels.path_loop_grad(tb1, lanes, m, le, tb.n_steps), reps)
         gwork = kernels.path_loop_grad_bvh.counts.tolist()
         state = [carry0.f, carry0.i, carry0.f, carry0.i]
-        plan = kernels.path_loop_grad_bvh.plan
-        check += f"; {bwd} launch {_plan_note(plan)}"
+        lp = kernels.path_loop_bvh.plan
+        check += (f"; {fwd} launch {lp['block']} threads a block (of up to "
+                  f"{lp['max_block']}), {lp['registers']} registers, "
+                  f"{lp['local_bytes']} bytes of local memory a thread, {lp['blocks_per_sm']} "
+                  f"blocks an SM, {lp['waves']:.3f} waves, {lp['rounds']} rounds; {bwd} launch "
+                  f"{_plan_note(kernels.path_loop_grad_bvh.plan)}")
     a = tb.bvh
     tables = (lanes, m, tb.scene, tb.lights, tb.bn, a.geom, a.tri_perm, a.node_box, a.node_link)
     bound = _bound(work[0], _nbytes(*tables, *state), work[1])

@@ -93,6 +93,46 @@ def test_render_matches_plain(dev):
     assert float((diff.amax(-1) <= 1e-5).float().mean()) >= 0.999
 
 
+# ptxas's local memory a thread of the forward kernels, capped at 64
+# registers: a 32-byte stack frame and the spills (204 bytes stored dense,
+# 296 BVH, to L1); a heavier spill, which an edit of the shared step could
+# cause, fails here
+LOOP_LOCAL_BYTES = {"dense": 128, "bvh": 192}
+
+
+@pytest.mark.parametrize("route", ["dense", "bvh"])
+@pytest.mark.parametrize("res", [(45, 37), (64, 64)], ids=["45x37", "64x64"])
+def test_path_loop_every_launch_shape_matches_plain(dev, route, res):
+    """The route's forward kernel at every block it launches at (powers of
+    two from 32 to plan["max_block"], through kernels.loop_launch), at a
+    size whose last block is part-empty (45x37) and at one that blocks of
+    32 to 512 divide (64x64): each block's carry equals the launch's pick
+    bit for bit, and the pick's radiance and sample counts equal the plain
+    version's."""
+    s = _scene(dev) if route == "dense" else _bvh_scene(dev, "bigsphere", "path")
+    mat = _material(dev)
+    tb = pl.build_loop_tables(s._render_data("path"), s.camera, s._config(res, 8), 3)
+    assert (tb.bvh is not None) == (route == "bvh")
+    lanes = pl.pixel_lanes(tb.res, tb.spp, dev)
+    carry0 = pl.init_carry(lanes)
+    lib = kernels.load_library()
+    picked, _c, plan = kernels.loop_launch(lib, tb, lanes, mat, carry0, tb.n_steps)
+    assert plan["max_block"] == (512 if route == "dense" else 256)
+    assert plan["blocks"] == -(-lanes.shape[1] // plan["block"]) and plan["rounds"] >= 1
+    assert plan["registers"] <= 64 and plan["local_bytes"] <= LOOP_LOCAL_BYTES[route]
+    block = 32
+    while block <= plan["max_block"]:
+        got, _c, p = kernels.loop_launch(lib, tb, lanes, mat, carry0, tb.n_steps, block)
+        torch.cuda.synchronize()
+        assert p["block"] == block
+        assert torch.equal(got.f.view(torch.int32), picked.f.view(torch.int32)), block
+        assert torch.equal(got.i, picked.i), block
+        block *= 2
+    plain = pl.render_path_loop_plain(tb, lanes, mat, carry0, tb.n_steps)
+    assert torch.equal(picked.i[pl.I_IDX["sample_idx"]], plain.i[pl.I_IDX["sample_idx"]])
+    assert torch.equal(picked.f[0:3], plain.f[0:3])
+
+
 @pytest.mark.parametrize("kind", ["lcg", "pmj02bn"])
 def test_grad_kernel_matches_plain_backward(dev, kind):
     """64x64, 8 spp, a random adjoint: per-channel sums within rtol 1e-5,

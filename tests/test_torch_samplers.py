@@ -149,3 +149,52 @@ def test_non_pow2_pmj02bn_is_out_of_scope():
         make_sampler_xy("pmj02bn", px, px, 0, 12, 0)
     with pytest.raises(NotImplementedError, match="A4"):
         make_sampler_xy("corrmj", px, px, 0, 16, 0)
+
+
+@pytest.mark.parametrize("kind,spp,n_tex", [("pmj02bn", 16, 5), ("pmj02bn", 64, 12),
+                                            ("pmj02bn", 64, 16), ("lcg", 16, 0)])
+def test_host_build_of_kernel_sampler_matches_plain(kind, spp, n_tex):
+    """The kernels' sampler (csrc/path_loop_step.cuh: the hash's rounds over
+    the pixel once a lane, a mask for a power-of-two blue-noise count, a
+    product by 2^-k for / spp, the point seeds by selects, sobol2 as a sum
+    over supersets), built with g++, against the plain sampler bit for bit:
+    4096 random (pixel, seed, sample index) lanes, 12 next1 and 12 next2
+    draws each (dimensions 0 to 35), on a random blue-noise table of n_tex
+    textures (5 and 12: the modulo path)."""
+    from zdr_tpu_torch import kernels
+
+    rs = np.random.RandomState(spp + n_tex)
+    n, k, res = 4096, 12, 8
+    lanes = torch.as_tensor(np.stack([
+        rs.randint(0, 4096, n), rs.randint(0, 4096, n), rs.randint(-2**31, 2**31, n),
+        rs.randint(0, spp, n)]).astype(np.int32))
+    rows = torch.as_tensor(rs.rand(res * res * max(n_tex, 1)).astype(np.float32))
+    bn = (rows, res, n_tex) if kind == "pmj02bn" else None
+    out = torch.empty((3 * k, n), dtype=torch.float32)
+    params = kernels.pack_params(kind, spp, 0, bn_res=res if bn else 0, bn_ntex=n_tex)
+    rc = kernels.load_host_library().zdr_sampler_probe_host(
+        params, rows.data_ptr() if bn else None, lanes.data_ptr(), n, k, out.data_ptr())
+    assert rc == 0
+    np.testing.assert_array_equal(out.numpy(), sampler_probe_plain(kind, spp, lanes, k, bn).numpy())
+
+
+def test_host_build_of_kernel_sampler_covers_every_index():
+    """pmj02bn at spp 2^16, the most the kernels take, one pixel and seed,
+    every sample index: each draw's permuted index runs through all 2^16
+    values, so the kernels' sobol2_vdc (sobol2 as a sum over supersets) is
+    held against the plain vdc(sobol2(i)) at every index it can get, bit
+    for bit, through the g++ build's sampler."""
+    from zdr_tpu_torch import kernels
+
+    spp, n_tex, k, res = 65536, 12, 12, 8
+    idx = np.arange(spp)
+    lanes = torch.as_tensor(np.stack([np.full(spp, 1234), np.full(spp, 567),
+                                      np.full(spp, -98765), idx]).astype(np.int32))
+    rows = torch.as_tensor(np.random.RandomState(3).rand(res * res * n_tex).astype(np.float32))
+    out = torch.empty((3 * k, spp), dtype=torch.float32)
+    params = kernels.pack_params("pmj02bn", spp, 0, bn_res=res, bn_ntex=n_tex)
+    rc = kernels.load_host_library().zdr_sampler_probe_host(
+        params, rows.data_ptr(), lanes.data_ptr(), spp, k, out.data_ptr())
+    assert rc == 0
+    want = sampler_probe_plain("pmj02bn", spp, lanes, k, (rows, res, n_tex))
+    np.testing.assert_array_equal(out.numpy(), want.numpy())

@@ -22,7 +22,10 @@ shared memory where they fit a block and read them from global memory
 past that (small_tables_shared), a launch argument.
 
 Kernels:
-  path_loop       the forward render of the path integrator (csrc/path_loop.cu);
+  path_loop       the forward render of the path integrator (csrc/path_loop.cu),
+                  launched at the block it picks from the SM count and the
+                  build's occupancy (loop_launch); `.plan` holds its last
+                  launch's block, registers, occupancy and waves;
                   plain version: integrators/path_loop.render_path_loop_plain
   path_loop_grad  the PRB texture gradient of the same walk: a sample's
                   tap rows in shared memory (GRAD_NEAR_ROWS of the route),
@@ -235,8 +238,9 @@ def load_library() -> types.SimpleNamespace:
     fwd, grad, direct_lib, accel_lib, variants_lib = (
         ctypes.CDLL(p) for p in _compile(_nvcc(), NVCC_FLAGS, builds))
     return types.SimpleNamespace(
-        zdr_path_loop=_bind(fwd, "zdr_path_loop", _LOOP_ARGS + [_P]),
-        zdr_path_loop_bvh=_bind(fwd, "zdr_path_loop_bvh", _LOOP_BVH_ARGS + [_P]),
+        # the forward kernels take the block and the plan's ints before the stream
+        zdr_path_loop=_bind(fwd, "zdr_path_loop", _LOOP_ARGS + [_I, _P, _P]),
+        zdr_path_loop_bvh=_bind(fwd, "zdr_path_loop_bvh", _LOOP_BVH_ARGS + [_I, _P, _P]),
         zdr_sampler_probe=_bind(fwd, "zdr_sampler_probe", [_P, _P, _P, _I, _I, _P, _P]),
         zdr_path_loop_grad=_bind(grad, "zdr_path_loop_grad", _GRAD_ARGS + [_P]),
         zdr_path_loop_grad_bvh=_bind(grad, "zdr_path_loop_grad_bvh", _GRAD_BVH_ARGS + [_P]),
@@ -421,11 +425,50 @@ def _carry_out(carry: Carry, n: int, dev):
     return torch.empty_like(carry.f), torch.empty_like(carry.i)
 
 
+# what a forward launch reports of its plan (path_loop.cu's launch)
+LOOP_PLAN = ("block", "max_block", "registers", "local_bytes", "blocks_per_sm", "sms",
+             "blocks", "rounds")
+
+
+def loop_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                carry: Carry, n_steps: int, block: int = 0):
+    """One launch of a build of csrc/path_loop.cu (`lib`: load_library()'s
+    entries, or a build's of the same C entries), its dense or its BVH
+    kernel as tb.bvh says, on CUDA tensors, counting nothing: the forward
+    wrappers, and the tests and studies of other blocks. block: threads a
+    block, a power of two from 32 up to the kernel's largest (0: the
+    launch's pick, the fewest rounds of resident blocks, then the largest
+    block that gives every SM a block) -> (the new carry, counts (the BVH
+    kernel's) or None, the launch's plan: LOOP_PLAN's fields, and the
+    waves, lanes over resident threads)."""
+    dev = lanes.device
+    n, tables, params, shared = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
+    f_out, i_out = _carry_out(carry, n, dev)
+    info = (ctypes.c_int * len(LOOP_PLAN))()
+    bvh = tb.bvh is not None
+    args = (params, tables.data_ptr(), tables.numel()) + ((int(shared),) if bvh else ()) + (
+        _bn_ptr(tb), material.data_ptr(), lanes.data_ptr(), carry.f.data_ptr(),
+        carry.i.data_ptr(), f_out.data_ptr(), i_out.data_ptr(), n, n_steps)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = None
+    if bvh:
+        counts = _counts(dev)
+        rc = lib.zdr_path_loop_bvh(*args, *_bvh_args(tb.bvh, dev), counts.data_ptr(), block,
+                                   info, stream)
+    else:
+        rc = lib.zdr_path_loop(*args, block, info, stream)
+    _raise_on(rc, "path_loop_bvh" if bvh else "path_loop")
+    plan = dict(zip(LOOP_PLAN, info))
+    plan["waves"] = n / (plan["block"] * plan["blocks_per_sm"] * plan["sms"])
+    return Carry(f_out, i_out), counts, plan
+
+
 def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
               carry: Carry, n_steps: int) -> Carry:
     """Run every lane of `carry` for up to n_steps steps -> the new carry.
     lanes: (3, N) int32 px, py, stop; material: (H, W, 4). With a BVH in
-    the tables, path_loop_bvh runs.
+    the tables, path_loop_bvh runs. `.plan` holds the last launch's block,
+    registers, occupancy and waves.
 
     On the card a lane stops once its samples are done; the plain version
     idles it, which changes only its sampler state (acc_* and sample_idx
@@ -435,19 +478,13 @@ def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
         return render_path_loop_plain(tb, lanes, material, carry, n_steps)
     if tb.bvh is not None:
         return path_loop_bvh(tb, lanes, material, carry, n_steps)
-    n, tables, params, _shared = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
-    f_out, i_out = _carry_out(carry, n, dev)
-    rc = load_library().zdr_path_loop(
-        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb),
-        material.data_ptr(), lanes.data_ptr(), carry.f.data_ptr(), carry.i.data_ptr(),
-        f_out.data_ptr(), i_out.data_ptr(), n, n_steps, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "path_loop")
+    out, _c, path_loop.plan = loop_launch(load_library(), tb, lanes, material, carry, n_steps)
     path_loop.launches += 1
-    return Carry(f_out, i_out)
+    return out
 
 
 path_loop.launches = 0
+path_loop.plan = None
 
 
 def path_loop_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
@@ -457,23 +494,15 @@ def path_loop_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     dev = lanes.device
     if not _on_card(dev, "path_loop_bvh"):
         return render_path_loop_plain(tb, lanes, material, carry, n_steps)
-    n, tables, params, shared = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
-    f_out, i_out = _carry_out(carry, n, dev)
-    counts = _counts(dev)
-    rc = load_library().zdr_path_loop_bvh(
-        params, tables.data_ptr(), tables.numel(), int(shared), _bn_ptr(tb),
-        material.data_ptr(), lanes.data_ptr(), carry.f.data_ptr(), carry.i.data_ptr(),
-        f_out.data_ptr(), i_out.data_ptr(), n, n_steps, *_bvh_args(tb.bvh, dev),
-        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "path_loop_bvh")
+    out, path_loop_bvh.counts, path_loop_bvh.plan = loop_launch(
+        load_library(), tb, lanes, material, carry, n_steps)
     path_loop_bvh.launches += 1
-    path_loop_bvh.counts = counts
-    return Carry(f_out, i_out)
+    return out
 
 
 path_loop_bvh.launches = 0
 path_loop_bvh.counts = None
+path_loop_bvh.plan = None
 
 
 def grad_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
