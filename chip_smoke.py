@@ -7,7 +7,9 @@ Phases, one line each; any failure raises and exits non-zero:
   1. the device: a CUDA card is required; its name and power limit as
      nvidia-smi prints them;
   2. the build: nvcc compiles zdr_tpu_torch/kernels/csrc/ for sm_90a into
-     zdr_tpu_torch/kernels/_build/;
+     zdr_tpu_torch/kernels/_build/; ptxas's registers, local bytes (stack
+     frame) and spill bytes of the four BVH megakernels (ptxas_bvh), also
+     under "ptxas" in their records;
   3. the sampler probe kernel, bit for bit against the plain sampler;
   4. one path-loop kernel step (n_steps=1) against loop_step at 128x128,
      from the first carry and after 5 steps;
@@ -63,7 +65,8 @@ Phases, one line each; any failure raises and exits non-zero:
      called; both BVH kernels against their plain walks on the main path's
      own inputs at every 64th lane for the first CHECK_SAMPLES samples
      (phase 10's and phase 7's bars); the iteration's median, Scene.render's
-     and each kernel's alone, with its counted tests and node visits;
+     and each kernel's alone, with its counted tests and node visits (a
+     visit tests both children's boxes: VISIT_OPS);
  14. the sweep variants (the counterparts of the TPU measurement kernels
      under tools/): on the protocol's 962 triangles and 262,144 rays of
      each set (the camera's coherent primaries, incoherent bounce-like
@@ -102,8 +105,8 @@ events, "plain_ms" its plain version by the host clock (on the inputs of
 "plain_shape", a subset of the main path's where the full width would take
 minutes), and
 "bound_ms" the larger of the kernel's FP32 work (ray-triangle tests, 46
-operations each or 40 for a Woop test, and BVH node visits and tile-box
-tests, SLAB_OPS each, counted in this run)
+operations each or 40 for a Woop test, BVH node visits, VISIT_OPS each, and
+tile-box tests, SLAB_OPS each, counted in this run)
 at 67 TFLOP/s and its bytes (each input read once, each output written
 once) at 3.35 TB/s; for path_loop the bound of all its step's counted work
 (_loop_bound: FP32, INT32, the issue of both, bytes), with the tests-only
@@ -115,6 +118,7 @@ Imports nothing of JAX.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -153,6 +157,10 @@ MT_OPS = 46
 # 6 differences and 6 products, 3 min and 3 max, 2 max and 2 min across the
 # axes, 2 products by the slack, 3 comparisons
 SLAB_OPS = 27
+# FP32 operations of one node visit of the ordered walk (trace.cuh
+# bvh_walk): both children's slab tests and the comparison of their entry
+# distances
+VISIT_OPS = 2 * SLAB_OPS + 1
 # The path-loop step's work, counted from kernels/csrc/path_loop_step.cuh as
 # compiled (-fmad=false: every multiply and add an operation of its own; a
 # sqrt, division, sin or cos counted as one, the least it takes), for the
@@ -196,11 +204,12 @@ def _drive_main(fn):
     return out, counts
 
 
-def _bound(tests, nbytes, visits=0, ops=MT_OPS):
+def _bound(tests, nbytes, visits=0, ops=MT_OPS, visit_ops=VISIT_OPS):
     """-> (bound_ms, bound_by): the larger of the tests' (`ops` each) and
-    node visits' or box tests' FP32 operations at the FP32 peak and the
-    bytes at the memory rate."""
-    t_ops = (tests * ops + visits * SLAB_OPS) / FP32_PEAK * 1e3
+    node visits' (`visit_ops` each; SLAB_OPS for the sweep variants' tile-box
+    tests) FP32 operations at the FP32 peak and the bytes at the memory
+    rate."""
+    t_ops = (tests * ops + visits * visit_ops) / FP32_PEAK * 1e3
     t_bytes = nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -325,15 +334,51 @@ def phase_device():
     return name, smi
 
 
+# the four BVH megakernels by a piece of their mangled entry names
+BVH_ENTRIES = {"direct_bvh": "direct_bvh_kernelILb0", "direct_grad_bvh": "direct_bvh_kernelILb1",
+               "path_loop_bvh": "path_loop_bvh_kernel",
+               "path_loop_grad_bvh": "path_loop_grad_bvh_kernel"}
+
+
+def ptxas_bvh(log):
+    """ptxas -v's report -> {BVH megakernel: {registers, local_bytes (its
+    stack frame), spill_stores, spill_loads}}."""
+    out, entry, props = {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", ln)
+        if m and props:
+            out.setdefault(props, {}).update(zip(("local_bytes", "spill_stores", "spill_loads"),
+                                                 map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return {name: out[e] for name, key in BVH_ENTRIES.items() for e in out if key in e}
+
+
 def phase_build():
+    """Phase 2 -> the BVH megakernels' ptxas report (ptxas_bvh)."""
     from zdr_tpu_torch import kernels
 
     t0 = time.perf_counter()
     kernels.load_library()
-    regs = [ln.strip() for ln in kernels.build_info["log"].splitlines()
+    log = kernels.build_info["log"]
+    regs = [ln.strip() for ln in log.splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln]
+    bvh = ptxas_bvh(log)
+    if sorted(bvh) != sorted(BVH_ENTRIES):
+        raise AssertionError(f"ptxas reported {sorted(bvh)} of the BVH megakernels")
     print(f"[2 build] nvcc sm_90a {time.perf_counter() - t0:.2f} s into "
-          f"{os.path.relpath(kernels.BUILD_DIR, ROOT)}; ptxas: {' | '.join(regs)}", flush=True)
+          f"{os.path.relpath(kernels.BUILD_DIR, ROOT)}; the BVH megakernels' registers, local "
+          f"bytes (stack frame) and spill bytes: {json.dumps(bvh)}; ptxas: {' | '.join(regs)}",
+          flush=True)
+    return bvh
 
 
 def _event_ms(fn, reps=5):
@@ -955,9 +1000,10 @@ def phase_trace_bvh(dev, smi):
                                      f"{[int(x) for x in work]}")
             ms, _runs = _event_ms(kern)
             outs = 16 * n if kname == "trace_closest" else 4 * n
-            bound = _bound(counts[0], _nbytes(o, d, t_max, t_max, acc.geom, acc.tri_perm,
-                                              acc.node_box, acc.node_link) + outs, counts[1])
-            notes.append(f"{kname} {method} {name} ({acc.num_triangles} tris): kernel {ms:.3f} ms, "
+            bound = _bound(counts[0], _nbytes(o, d, t_max, t_max, acc.geom, acc.nodes) + outs,
+                           counts[1])
+            deep = f", BVH {acc.depth} deep" if acc.is_bvh else ""
+            notes.append(f"{kname} {method} {name} ({acc.num_triangles} tris{deep}): kernel {ms:.3f} ms, "
                          f"plain {plain_ms:.1f} ms, {counts[0] / n:.1f} tests and {counts[1] / n:.1f} "
                          f"visits a ray, bound {bound[0]:.4f} ms ({bound[1]})")
             if name == "big mesh":
@@ -1027,6 +1073,7 @@ def _bvh_main(scene, integrator, spp, tag, what, smi, reps=5):
     alone, with its counted tests and node visits -> the two kernels'
     records."""
     from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.accel.bvh import MAX_DEPTH
     from zdr_tpu_torch.integrators import path_loop as pl
 
     fwd, bwd = BVH_KERNELS[integrator]
@@ -1077,12 +1124,13 @@ def _bvh_main(scene, integrator, spp, tag, what, smi, reps=5):
                   f"blocks an SM, {lp['waves']:.3f} waves, {lp['rounds']} rounds; {bwd} launch "
                   f"{_plan_note(kernels.path_loop_grad_bvh.plan)}")
     a = tb.bvh
-    tables = (lanes, m, tb.scene, tb.lights, tb.bn, a.geom, a.tri_perm, a.node_box, a.node_link)
+    tables = (lanes, m, tb.scene, tb.lights, tb.bn, a.geom, a.nodes)
     bound = _bound(work[0], _nbytes(*tables, *state), work[1])
     gbound = _bound(gwork[0], _nbytes(*tables, le, m, *state), gwork[1])
     n_samples = RES[0] * RES[1] * spp
     print(f"[{tag}] {what}, {integrator}: {tb.scene.shape[0]} tris, BVH of "
-          f"{a.node_box.shape[0]} nodes, pmj02bn {RES[0]}x{RES[1]} {spp} spp {TEX}^2 "
+          f"{a.nodes.shape[0]} nodes (leaf {a.leaf_size}, {a.depth} deep of the walk's "
+          f"{MAX_DEPTH}), pmj02bn {RES[0]}x{RES[1]} {spp} spp {TEX}^2 "
           f"material of 0.5, loss = image[..., :3].sum(), loss.backward(): 1 {fwd} and 1 "
           f"{bwd} launch, no dense kernel, no plain version; loss "
           f"{float(loss.detach()):.4f}, |g|max {float(grad.abs().max()):.4e}; {check}; "
@@ -1177,7 +1225,7 @@ def phase_bigmesh(dev, smi):
 # products and 3 sums each), three 3-dots (5 each), the division and the
 # negation, two scale-and-adds and u + v
 WOOP_OPS = 40
-# the BVH leaf widths phase 14 walks (production's is accel/bvh.LEAF_SIZE)
+# the BVH leaf widths phase 14 walks (production's is accel/build.BVH_LEAF)
 LEAF_WIDTHS = (2, 4, 8, 16)
 # the B9 measurement kernels, on no main path
 VARIANTS = ("sweep_variant", "woop_sweep", "aabb_sweep", "floor_probe")
@@ -1191,10 +1239,12 @@ def _same(got, want):
     return len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def _variant_run(what, wrapper, call, want, work, ops, nbytes, n, floor_ms, exact=True):
-    """One grid point of a sweep variant: bit for bit against its plain
-    version with equal counts (not `exact`, the epilogue modes: ints equal,
-    floats at phase 9's bar), then timed -> (ms, bound, its line)."""
+def _variant_run(what, wrapper, call, want, work, ops, nbytes, n, floor_ms, exact=True,
+                 visit_ops=SLAB_OPS):
+    """One grid point of a sweep variant (or a walk at a leaf width, whose
+    visits cost visit_ops): bit for bit against its plain version with
+    equal counts (not `exact`, the epilogue modes: ints equal, floats at
+    phase 9's bar), then timed -> (ms, bound, its line)."""
     got = call()
     torch.cuda.synchronize()
     counts = wrapper.counts.tolist()
@@ -1212,7 +1262,7 @@ def _variant_run(what, wrapper, call, want, work, ops, nbytes, n, floor_ms, exac
     if counts != [int(x) for x in work]:
         raise AssertionError(f"{what}: counts {counts} vs plain {[int(x) for x in work]}")
     ms, _runs = _event_ms(call, VARIANT_REPS)
-    bound = _bound(counts[0], nbytes, counts[1], ops)
+    bound = _bound(counts[0], nbytes, counts[1], ops, visit_ops)
     boxes = f" + {counts[1] / n:.2f} box tests" if counts[1] else ""
     line = (f"{what}: {ms:.4f} ms, {counts[0] / n:.1f} tests{boxes} a ray, bound "
             f"{bound[0]:.4f} ms ({bound[1]}), {ms / floor_ms:.1f}x floor_probe's time a call")
@@ -1374,11 +1424,13 @@ def phase_variants(dev, smi):
                 want, work = plain()
                 want = want if kname == "closest" else (want,)
                 ms, bnd, _line = _variant_run(f"trace_{kname} leaf {leaf} {name}", wrapper, call,
-                                              want, work, MT_OPS, 0, n, floor_ms)
+                                              want, work, MT_OPS, 0, n, floor_ms,
+                                              visit_ops=VISIT_OPS)
                 tests, visits = (int(x) for x in work)
                 parts.append(f"{kname} {ms:.4f} ms, {tests / n:.1f} tests + {visits / n:.1f} "
                              f"visits a ray")
-            lines.append(f"leaf {leaf} ({bvh.node_box.shape[0]} nodes): " + ", ".join(parts))
+            lines.append(f"leaf {leaf} ({bvh.nodes.shape[0]} nodes, {bvh.depth} deep): "
+                         + ", ".join(parts))
         print(f"[14 leaf width] {name} ({sc._data.meta.num_tris} tris), {n} random rays, "
               f"trace_closest / trace_any through the BVH built at each leaf width, bit for bit "
               f"against the plain walk with equal counts: " + "; ".join(lines), flush=True)
@@ -1406,12 +1458,14 @@ def phase_crossover(dev, smi):
     for integrator, stacks_list in CROSS_STACKS.items():
         table = []
         for stacks in stacks_list:
-            ms, img, grad = {}, {}, {}
+            ms, img, grad, depth = {}, {}, {}, None
             for accel in ("bruteforce", "bvh"):
                 sc = (_flagship(dev, integrator, accel) if stacks is None
                       else _protocol(dev, accel, integrator, stacks))
-                if (sc._render_data(integrator).accel is not None) != (accel == "bvh"):
+                acc = sc._render_data(integrator).accel
+                if (acc is not None) != (accel == "bvh"):
                     raise AssertionError(f"crossover: accel={accel!r} took the other route")
+                depth = acc.depth if acc is not None else depth
                 mat = torch.full((TEX, TEX, 4), 0.5, dtype=torch.float32,
                                  device=dev).requires_grad_()
                 # the first iteration, kept, is the warm-up of the timed five
@@ -1427,7 +1481,7 @@ def phase_crossover(dev, smi):
                                      f"differs from the dense one in {bad} pixels")
             _g_err, g_worst = _assert_grad_close(grad["bvh"], grad["bruteforce"],
                                                  f"crossover {integrator} {n_tris} tris")
-            table.append((n_tris, ms["bruteforce"], ms["bvh"], g_worst))
+            table.append((n_tris, ms["bruteforce"], ms["bvh"], g_worst, depth))
         # the smallest size from which the BVH is faster at every larger size,
         # and where the two times meet, linearly between it and the size before
         k = len(table)
@@ -1438,13 +1492,13 @@ def phase_crossover(dev, smi):
         elif k == 0:
             verdict = "the BVH is faster at every size"
         else:
-            (n0, d0, b0, _w), (n1, d1, b1, _w) = table[k - 1], table[k]
+            (n0, d0, b0, _w, _h), (n1, d1, b1, _w, _h) = table[k - 1], table[k]
             meet = n0 + (d0 - b0) * (n1 - n0) / ((b1 - b0) - (d1 - d0))
             verdict = (f"the BVH is faster from {n1} triangles on; the times meet at "
                        f"{meet:.1f} triangles")
         found[integrator] = table[k][0] if k < len(table) else None
-        rows = "; ".join(f"{t} tris: dense {a:.2f} ms, BVH {b:.2f} ms ({a / b:.2f}x), gradient "
-                         f"worst texel {w:.2e}" for t, a, b, w in table)
+        rows = "; ".join(f"{t} tris: dense {a:.2f} ms, BVH ({h} deep) {b:.2f} ms ({a / b:.2f}x), "
+                         f"gradient worst texel {w:.2e}" for t, a, b, w, h in table)
         print(f"[15 crossover] {integrator}, pmj02bn {RES[0]}x{RES[1]} {SPP} spp {TEX}^2 "
               f"material of 0.5, iteration median of 5, images bit for bit and gradients at "
               f"phase 7's bars: {rows}; {verdict} (accel/build.DENSE_MAX_TRIS[{integrator!r}] "
@@ -1467,7 +1521,7 @@ def main():
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    timed("2", phase_build)
+    ptxas = timed("2", phase_build)
     probe_run = timed("3", phase_sampler_probe, dev)
     timed("4", phase_step, dev)
     timed("5", phase_render, dev)
@@ -1488,6 +1542,8 @@ def main():
     # accel="auto" (phase 11), the big mesh's beside it (phase 13)
     for k in BVH_KERNELS["direct"]:
         big[k] = dict(auto[k], big_mesh=big[k])
+    for k in BVH_ENTRIES:
+        big[k]["ptxas"] = ptxas[k]
     # the probes, the standalone traces and the sweep variants are on no
     # main path: what the main-path calls launched of them
     probe_run["launches"] = sum(c["sampler_probe"] for c in MAIN_COUNTS)

@@ -18,7 +18,6 @@ from zdr_tpu.accel import build_accel as jax_build_accel
 from zdr_tpu.accel import trace_any as jax_trace_any
 from zdr_tpu.accel import trace_closest as jax_trace_closest
 from zdr_tpu.accel.bvh import build_bvh as jax_build_bvh
-from zdr_tpu.accel.bvh import to_stackless as jax_to_stackless
 from zdr_tpu.accel.native import build_bvh_native as jax_build_bvh_native
 from zdr_tpu.geometry.mesh import build_geometry as jax_build_geometry
 from zdr_tpu.geometry.procedural import make_quad, make_uv_sphere
@@ -26,7 +25,9 @@ from zdr_tpu.geometry.procedural import make_quad, make_uv_sphere
 from zdr_tpu_torch import convert, kernels
 from zdr_tpu_torch.accel import Accel, build_accel, trace_any, trace_closest
 from zdr_tpu_torch.accel import bvh as tbvh
-from zdr_tpu_torch.accel.build import DENSE_MAX_TRIS
+from zdr_tpu_torch.accel import variants as tv
+from zdr_tpu_torch.accel.build import BVH_LEAF, DENSE_MAX_TRIS
+from zdr_tpu_torch.accel.types import ID_COL
 from zdr_tpu_torch.accel import native as tnative
 from zdr_tpu_torch.accel import trace as ttrace
 from zdr_tpu_torch.geometry import procedural as tproc
@@ -102,10 +103,8 @@ def _host_trace(accel: Accel, o, d, t_min, t_max, closest: bool):
     t_lo = torch.full((n,), float(t_min)) if np.ndim(t_min) == 0 else torch.as_tensor(t_min)
     t_hi = torch.full((n,), float(t_max)) if np.ndim(t_max) == 0 else torch.as_tensor(t_max)
     counts = torch.zeros((2,), dtype=torch.int64)
-    bvh = accel.is_bvh
-    mode = (accel.leaf_slots if bvh else 0, accel.geom.data_ptr(), accel.geom.shape[0],
-            accel.node_box.data_ptr() if bvh else None, accel.node_link.data_ptr() if bvh else None,
-            accel.tri_perm.data_ptr() if bvh else None, accel.node_box.shape[0])
+    mode = (int(accel.is_bvh), accel.geom.data_ptr(), accel.geom.shape[0],
+            accel.nodes.data_ptr() if accel.is_bvh else None, accel.nodes.shape[0])
     args = (o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr())
     if closest:
         t, u, v = torch.empty(n), torch.empty(n), torch.empty(n)
@@ -145,43 +144,63 @@ def _port_any(route, scene):
 
 @pytest.mark.parametrize("scene", list(SCENES))
 def test_bvh_build_matches_jax(scene):
-    """The Python median-split build, the native binned-SAH build, the
-    escape-link threading and build_accel("bvh")'s tables equal JAX's, array
-    for array; the links are int32 where JAX packs their bits in float32."""
+    """The Python median-split build and the native binned-SAH build equal
+    JAX's, array for array; build_accel("bvh") lays out JAX's binary tree
+    for the ordered walk: each internal node's two child boxes are JAX's
+    nodes' boxes, each leaf's rows JAX's leaf's triangles without its pads,
+    in JAX's slot order, with their ids (tests/test_torch_walk.py follows
+    every node)."""
     v = _vertices(_jax_geom(scene))
     for mine, theirs in ((tbvh.build_bvh(*v), jax_build_bvh(*v)),
-                         (tnative.build_bvh_native(*v, tbvh.LEAF_SIZE),
-                          jax_build_bvh_native(*v, tbvh.LEAF_SIZE))):
+                         (tnative.build_bvh_native(*v, BVH_LEAF),
+                          jax_build_bvh_native(*v, BVH_LEAF))):
         for a, b in zip(mine, theirs):
             np.testing.assert_array_equal(a, b)
-        np.testing.assert_array_equal(tbvh.to_stackless(mine).node_packed,
-                                      jax_to_stackless(theirs).node_packed)
-    ja = jax_build_accel(_jax_geom(scene), "bvh")
+    ja = jax_build_bvh_native(*v, BVH_LEAF)
     ta = _port_accel(scene, "bvh")
-    packed = np.asarray(ja.node_packed)
-    np.testing.assert_array_equal(ta.node_box.numpy(), packed[:, 0:6])
-    np.testing.assert_array_equal(ta.node_link.numpy(), packed[:, 6:8].view(np.int32))
-    np.testing.assert_array_equal(ta.tri_perm.numpy(), np.asarray(ja.tri_perm))
-    np.testing.assert_array_equal(
-        ta.geom[:, 0:9].numpy(),
-        np.concatenate([np.asarray(ja.p0), np.asarray(ja.e1), np.asarray(ja.e2)], axis=1))
-    assert (ta.tri_perm.numpy() == -1).any() and ta.geom.shape[0] % tbvh.LEAF_SIZE == 0
+    internal = ~np.asarray(ja.node_is_leaf)
+    assert ta.nodes.shape[0] == int(internal.sum())
+    # the root's children, and every child box among JAX's node boxes
+    root = ta.nodes[0].numpy()
+    for k, child in enumerate((ja.node_left[0], ja.node_right[0])):
+        np.testing.assert_array_equal(root[6 * k:6 * k + 3], ja.node_lo[child])
+        np.testing.assert_array_equal(root[6 * k + 3:6 * k + 6], ja.node_hi[child])
+    jax_boxes = {tuple(np.concatenate([lo, hi]).tolist())
+                 for lo, hi in zip(ja.node_lo[1:], ja.node_hi[1:])}
+    port_boxes = {tuple(b) for b in ta.nodes[:, 0:12].reshape(-1, 6).tolist()}
+    assert port_boxes == jax_boxes
+    np.testing.assert_array_equal(np.sort(ta.tri_perm.numpy()), np.arange(ta.num_triangles))
+    np.testing.assert_array_equal(ta.geom.view(torch.int32)[:, ID_COL].numpy(),
+                                  ta.tri_perm.numpy())
+    jp = jax_build_accel(_jax_geom(scene), "bvh")
+    rows = np.concatenate([np.asarray(jp.p0), np.asarray(jp.e1), np.asarray(jp.e2)], axis=1)
+    jperm = np.asarray(jp.tri_perm)
+    by_id = dict(zip(jperm[jperm >= 0].tolist(), rows[jperm >= 0]))
+    np.testing.assert_array_equal(ta.geom[:, 0:9].numpy(),
+                                  np.stack([by_id[g] for g in ta.tri_perm.tolist()]))
+    assert ta.geom.shape[0] == ta.num_triangles and ta.leaf_size == BVH_LEAF
 
 
 @pytest.mark.parametrize("method", ["bruteforce", "bvh"])
 def test_accel_from_jax_equals_the_ports_build(method):
     """convert.accel_from_jax carries JAX's Accel across: the same tables as
-    the port's own build_accel."""
+    the port's own build of the same tree (build_accel's, or for a BVH
+    variants.leaf_accel's at JAX's leaf width, accel/bvh.LEAF_SIZE)."""
     ja = jax_build_accel(_jax_geom("sphere960"), method)
     arrays = {k: np.asarray(getattr(ja, k)) for k in ("p0", "e1", "e2", "tri_perm", "tri_inst")}
     arrays["method"] = ja.method
     if method == "bvh":
         arrays["node_packed"] = np.asarray(ja.node_packed)
     got = convert.accel_from_jax(arrays, "cpu")
-    want = _port_accel("sphere960", "bvh" if method == "bvh" else "dense")
+    want = (tv.leaf_accel(_port_geom("sphere960"), tbvh.LEAF_SIZE) if method == "bvh"
+            else _port_accel("sphere960", "dense"))
     assert got.method == want.method
-    for k in ("geom", "tri_perm", "tri_inst", "node_box", "node_link"):
+    for k in ("tri_perm", "tri_inst"):
         assert torch.equal(getattr(got, k), getattr(want, k)), k
+    # bit for bit: the nodes' references and the rows' ids are int32 bits
+    for k in ("geom", "nodes"):
+        assert torch.equal(getattr(got, k).view(torch.int32), getattr(want, k).view(torch.int32)), k
+    assert (got.leaf_size, got.depth) == (want.leaf_size, want.depth)
     stream = jax_build_accel(_jax_geom("sphere960"), "stream")
     with pytest.raises(ValueError, match="stream"):
         convert.accel_from_jax({**arrays, "method": stream.method}, "cpu")
@@ -260,7 +279,7 @@ def test_host_build_matches_plain_bit_for_bit(mode):
         # the walk tests a few leaves a ray and visits far fewer nodes than
         # the tree holds
         assert 0 < counts[0] < n * n_tris // 20
-        assert 0 < counts[1] < n * acc.node_box.shape[0] // 10
+        assert 0 < counts[1] < n * acc.nodes.shape[0] // 10
         assert any_counts[0] < counts[0] and any_counts[1] < counts[1]
 
 
@@ -286,7 +305,7 @@ def test_equal_nearest_hits_take_the_smallest_id():
                                                  0.0, 1e30, True)
         np.testing.assert_array_equal(prim.numpy(), want)
         if mode == "bvh":
-            assert counts[0] > 256 * tbvh.LEAF_SIZE  # several leaves a ray
+            assert counts[0] > 256 * BVH_LEAF  # several leaves a ray
 
 
 def test_wrappers_run_the_plain_versions_on_cpu_tensors():

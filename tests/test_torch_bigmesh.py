@@ -1,5 +1,5 @@
 """The port's big-mesh route (Scene(accel=...) past the kernels' shared
-memory: every sweep an escape-link BVH walk) against its dense route and
+memory: every sweep an ordered BVH walk) against its dense route and
 against the JAX package's big-mesh route, the streamed sweeps B5/B6 of
 direct_fused.py / path_fused.py in Pallas interpret mode, forced on a small
 sphere by patching pallas_bounce.FUSED_MAX_TRIS to 64 inside the test, as
@@ -149,8 +149,7 @@ def _host_bvh(tb, lanes, mat, le_grad, integrator, small_shared=True,
     n = lanes.shape[1]
     tables, params = kernels.pack_tables(tb), kernels.loop_params(tb, mat)
     a = tb.bvh
-    bvh = (a.node_box.data_ptr(), a.node_link.data_ptr(), a.geom.data_ptr(),
-           a.tri_perm.data_ptr(), a.node_box.shape[0])
+    bvh = kernels.bvh_args(a, torch.device("cpu"))
     counts = torch.zeros((2,), dtype=torch.int64)
     grad = torch.zeros_like(mat)
     le = None if le_grad is None else le_grad.data_ptr()

@@ -15,6 +15,7 @@ import torch
 
 import zdr_tpu_torch as zt
 from zdr_tpu_torch import kernels
+from zdr_tpu_torch.accel import bvh as tbvh
 from zdr_tpu_torch.geometry import procedural as tproc
 from zdr_tpu_torch.geometry.procedural import make_cornell_box, make_cornell_light
 from zdr_tpu_torch.integrators import bounce
@@ -93,11 +94,14 @@ def test_render_matches_plain(dev):
     assert float((diff.amax(-1) <= 1e-5).float().mean()) >= 0.999
 
 
+# the BVH walk's stack in local memory: trace.cuh kStackDepth entries of 4
+# bytes, in every BVH kernel's stack frame
+WALK_STACK_BYTES = 4 * tbvh.MAX_DEPTH
 # ptxas's local memory a thread of the forward kernels, capped at 64
 # registers: a 32-byte stack frame and the spills (204 bytes stored dense,
-# 296 BVH, to L1); a heavier spill, which an edit of the shared step could
-# cause, fails here
-LOOP_LOCAL_BYTES = {"dense": 128, "bvh": 192}
+# 304 BVH, to L1), and on the BVH route the walk's stack; a heavier spill,
+# which an edit of the shared step could cause, fails here
+LOOP_LOCAL_BYTES = {"dense": 128, "bvh": 192 + WALK_STACK_BYTES}
 
 
 @pytest.mark.parametrize("route", ["dense", "bvh"])
@@ -193,9 +197,9 @@ def test_grad_kernels_keep_their_rows_anywhere(dev, route, k_cap, res):
     else:
         assert plan["k_near"] == k_cap
     # the kernels' stack frame, which the forward path_loop kernel and the
-    # first gradient kernel have too (ptxas: 40 bytes, 0 bytes spilled): a
-    # register cap that spills would raise it
-    assert plan["local_bytes"] <= 40
+    # first gradient kernel have too (ptxas: 40 bytes, 0 bytes spilled), and
+    # the BVH walk's stack: a register cap that spills would raise it
+    assert plan["local_bytes"] <= 40 + (WALK_STACK_BYTES if route == "bvh" else 0)
     assert torch.equal(carry.f[0:3], fwd.f[0:3])
     torch.testing.assert_close(got.double().sum((0, 1)), want.double().sum((0, 1)),
                                rtol=1e-5, atol=0.0)

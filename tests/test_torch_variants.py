@@ -27,7 +27,7 @@ from zdr_tpu_torch import kernels
 from zdr_tpu_torch.accel import build_accel
 from zdr_tpu_torch.accel import trace as ttrace
 from zdr_tpu_torch.accel import variants as tv
-from zdr_tpu_torch.accel.bvh import LEAF_SIZE
+from zdr_tpu_torch.accel.build import BVH_LEAF
 from zdr_tpu_torch.accel.woop import tile_boxes, woop_rows
 from zdr_tpu_torch.geometry import procedural as tproc
 from zdr_tpu_torch.integrators.bounce import trace_interact_plain
@@ -301,9 +301,8 @@ def _host_walk(acc, o, d, t_min, t_max, closest):
     n = o.shape[0]
     t_lo, t_hi = torch.full((n,), t_min), t_max.contiguous()
     counts = torch.zeros((2,), dtype=torch.int64)
-    mode = (acc.leaf_slots, acc.geom.data_ptr(), acc.geom.shape[0], acc.node_box.data_ptr(),
-            acc.node_link.data_ptr(), acc.tri_perm.data_ptr(), acc.node_box.shape[0],
-            o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr())
+    nodes, geom, m, rows = kernels.bvh_args(acc, torch.device("cpu"))
+    mode = (1, geom, rows, nodes, m, o.data_ptr(), d.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr())
     if closest:
         t, u, v = torch.empty(n), torch.empty(n), torch.empty(n)
         prim = torch.empty(n, dtype=torch.int32)
@@ -318,16 +317,17 @@ def _host_walk(acc, o, d, t_min, t_max, closest):
 @pytest.mark.parametrize("leaf", [2, 4, 8, 16])
 def test_leaf_width_trees_walk_to_the_dense_hits(port, leaf):
     """The leaf-width measurement's trees (variants.leaf_accel): the walk
-    reads the width from the tree's shapes, and the plain walk and its g++
-    build find the dense sweep's hits bit for bit on every ray set, with
-    equal counts; at LEAF_SIZE the tree is build_accel's."""
+    reads each leaf's count from its reference, and the plain walk and its
+    g++ build find the dense sweep's hits bit for bit on every ray set, with
+    equal counts; at BVH_LEAF the tree is build_accel's."""
     geom = port["scene"]._data.geom
     acc = tv.leaf_accel(geom, leaf)
-    assert acc.leaf_slots == leaf
-    if leaf == LEAF_SIZE:
+    assert acc.leaf_size == leaf
+    if leaf == BVH_LEAF:
         prod = build_accel(geom, "bvh")
-        for k in ("geom", "tri_perm", "node_box", "node_link"):
-            assert torch.equal(getattr(acc, k), getattr(prod, k))
+        assert torch.equal(acc.tri_perm, prod.tri_perm)
+        for k in ("geom", "nodes"):  # bit for bit: they hold int32 bits
+            assert torch.equal(getattr(acc, k).view(torch.int32), getattr(prod, k).view(torch.int32))
     for name, (rays, act) in port["rays"].items():
         o, d = rays[0:3].T.contiguous(), rays[3:6].T.contiguous()
         for mode in SET_MODES[name]:

@@ -1,4 +1,4 @@
-"""Ray-triangle intersection: the dense sweep and the escape-link BVH
+"""Ray-triangle intersection: the dense sweep and the BVH, walked in order
 (port of zdr_tpu/accel)."""
 
 from .build import build_accel

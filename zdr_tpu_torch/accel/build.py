@@ -3,9 +3,10 @@
 Methods, by the JAX package's names:
   "bruteforce", "pallas"   the dense sweep: every ray against every
                            triangle, from the kernels' shared-memory tables;
-  "bvh", "stream"          the escape-link BVH (the native binned-SAH
-                           build): on the card the BVH is the big-mesh
-                           trace, so "stream" builds it too;
+  "bvh", "stream"          the BVH (the native binned-SAH build) in the
+                           ordered walk's layout (bvh.to_child_nodes): on
+                           the card the BVH is the big-mesh trace, so
+                           "stream" builds it too;
   "auto"                   dense below DENSE_MAX_TRIS["direct"] triangles
                            while the direct kernels hold the triangle rows
                            in shared memory (kernels.check_table_fits), else
@@ -21,9 +22,9 @@ import torch
 
 from ..geometry.mesh import Geometry
 from ..integrators.scene_tables import SCENE_COLS
-from .bvh import LEAF_SIZE, to_stackless
+from .bvh import NODE_COLS, to_child_nodes
 from .native import build_bvh_native
-from .types import GEOM_COLS, Accel
+from .types import GEOM_COLS, ID_COL, Accel
 
 METHODS = ("auto", "bruteforce", "pallas", "bvh", "stream")
 
@@ -31,14 +32,24 @@ METHODS = ("auto", "bruteforce", "pallas", "bvh", "stream")
 # triangles than this, a route, and walks the BVH from there: the crossover
 # of the iteration (Scene.render + loss.backward(), pmj02bn, 512x512, 64 spp,
 # 1024^2 material of 0.5) of chip_smoke.py phase 15, dense vs BVH, on an
-# NVIDIA H100 80GB HBM3 at 700.00 W. Direct, dense / BVH ms: 12 triangles
-# 13.86 / 16.22, 26: 18.47 / 21.44, 50: 23.00 / 24.20, 122: 40.24 / 30.65,
-# 226: 66.28 / 34.50, 962: 250.06 / 48.74, 4762: 2246.91 / 63.71. Path: 12
-# triangles 51.29 / 62.31, 26: 29.06 / 35.38, 50: 39.91 / 45.27, 122: 72.07
-# / 54.55, 226: 119.17 / 62.42, 962: 1184.84 / 79.96, 1850: 2245.45 / 88.23.
-# The times meet between 50 and 122 triangles: at 58 (direct) and 67 (path)
-# by linear interpolation.
-DENSE_MAX_TRIS = {"direct": 58, "path": 67}
+# NVIDIA H100 80GB HBM3 at 700.00 W, with the ordered BVH walk at leaf 4.
+# Direct, dense / BVH ms: 12 triangles 11.74 / 13.42, 26: 15.78 / 15.43,
+# 50: 21.27 / 18.52, 122: 40.53 / 25.61, 226: 65.69 / 26.97, 962: 250.31 /
+# 30.68, 4762: 2251.05 / 41.72. Path: 12 triangles 33.32 / 41.93, 26: 22.48
+# / 21.46, 50: 31.18 / 24.74, 122: 56.26 / 33.09, 226: 95.41 / 36.21, 962:
+# 691.21 / 42.45, 1850: 1306.06 / 46.78. The times meet between 12 and 26
+# triangles: at 23.6 (direct) and 24.5 (path) by linear interpolation.
+DENSE_MAX_TRIS = {"direct": 24, "path": 25}
+# the BVH's triangles a leaf at most: JAX's tree is built at 8
+# (accel/bvh.LEAF_SIZE), the port's at 4, the fastest of 2, 4 and 8 for the
+# four BVH kernels by studies/walk_split.py on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (direct_bvh / direct_grad_bvh ms on the reference's protocol and
+# on the big mesh, path_loop_bvh / path_loop_grad_bvh on the big mesh; the
+# walk with a skip on pop, which measured slower and went: PERF.md):
+# leaf 2 47.95 / 60.97, 25.05 / 29.06, 33.41 / 41.12; leaf 4 47.60 /
+# 59.96, 23.99 / 27.98, 31.71 / 39.67; leaf 8 49.02 / 61.97, 24.68 /
+# 27.99, 33.05 / 39.78.
+BVH_LEAF = 4
 
 
 def dense_route(n_tris: int, n_floats: int, integrator: str) -> bool:
@@ -98,26 +109,26 @@ def build_accel(geom: Geometry, method: str = "auto") -> Accel:
             geom=torch.as_tensor(_rows(v0, v1, v2), device=dev),
             tri_perm=torch.arange(n, dtype=torch.int32, device=dev),
             tri_inst=geom.tri_inst,
-            node_box=torch.zeros((0, 6), dtype=torch.float32, device=dev),
-            node_link=torch.zeros((0, 2), dtype=torch.int32, device=dev),
+            nodes=torch.zeros((0, NODE_COLS), dtype=torch.float32, device=dev),
         )
-    return pack_bvh(geom, build_bvh_native(v0, v1, v2, LEAF_SIZE))
+    return pack_bvh(geom, build_bvh_native(v0, v1, v2, BVH_LEAF))
 
 
 def pack_bvh(geom: Geometry, b) -> Accel:
-    """The escape-link "bvh" Accel of `geom` over `b`, its tree as
-    build_bvh_native returns it, at any leaf width."""
+    """The "bvh" Accel of `geom` over `b`, its binary tree as
+    build_bvh_native returns it, at any leaf width: the ordered walk's
+    layout, built once per Scene. Raises if the tree is deeper than the
+    walk's stack (to_child_nodes)."""
+    cn = to_child_nodes(b)
+    rows = _rows(*_vertices(geom))[cn.tri_perm]
+    rows[:, ID_COL] = cn.tri_perm.view(np.float32)
     dev = geom.positions.device
-    packed = to_stackless(b).node_packed
-    perm = b.tri_perm
-    safe = np.maximum(perm, 0)
-    rows = np.where(perm[:, None] >= 0, _rows(*_vertices(geom))[safe], 0.0).astype(np.float32)
     return Accel(
         method="bvh",
         geom=torch.as_tensor(rows, device=dev),
-        tri_perm=torch.as_tensor(perm, device=dev),
+        tri_perm=torch.as_tensor(cn.tri_perm, device=dev),
         tri_inst=geom.tri_inst,
-        node_box=torch.as_tensor(np.ascontiguousarray(packed[:, 0:6]), device=dev),
-        node_link=torch.as_tensor(np.ascontiguousarray(packed[:, 6:8]).view(np.int32),
-                                  device=dev),
+        nodes=torch.as_tensor(cn.nodes, device=dev),
+        leaf_size=cn.leaf_size,
+        depth=cn.depth,
     )

@@ -2,18 +2,19 @@
 
 Replaces the reference's external OptiX BVH (luisa.Accel, render.py:74,109).
 Build runs once per scene on host; the output is a flat node array plus a
-triangle permutation. The port traverses it with the escape-link walk of
-accel/trace.py (plain version) and kernels/csrc/trace.cuh (the kernels).
-The packed node rows of `to_stackless` keep JAX's layout, links as float
-bit patterns; accel/build.py splits them into float boxes and int32 links.
+triangle permutation, the same binary tree as JAX's. The port does not
+walk it as JAX does (its escape-link threading, to_stackless): it derives
+the child-box layout of `to_child_nodes`, which the ordered walk of
+accel/trace.py (plain version) and kernels/csrc/trace.cuh (the kernels)
+traverse, near child first, the far child on a short stack.
 
 Design (from the TPU traversal, kept so that both packages build one tree):
   * Fixed leaf size LEAF: every leaf owns exactly LEAF consecutive slots in
-    the reordered triangle array (padded with degenerate triangles). Leaf
-    processing is then a fixed-shape gather + LEAF Möller–Trumbore tests per
-    lane per step — no data-dependent shapes anywhere.
-  * Median split on the largest centroid axis (cheap, balanced); SAH binning
-    can slot in later without changing the traversal.
+    the reordered triangle array (padded with -1). The TPU's leaf step was
+    then a fixed-shape gather; to_child_nodes drops the pads, and a leaf
+    keeps its first row and its count.
+  * Median split on the largest centroid axis (cheap, balanced); the native
+    builder (native.py) splits by binned SAH.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from typing import NamedTuple
 import numpy as np
 
 LEAF_SIZE = 8
-MAX_STACK = 64
 
 
 class BVHArrays(NamedTuple):
@@ -93,51 +93,81 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, leaf_size: int = L
     )
 
 
-class StacklessArrays(NamedTuple):
-    """Escape-link (threaded) BVH for the stackless TPU traversal.
-
-    Nodes are reordered to DFS preorder (left child first), so the "hit"
-    successor of an internal node is implicitly node+1 and the "miss" /
-    after-leaf successor is the escape link. One packed (M, 8) f32 row per
-    node keeps a node visit to a single row-gather on TPU:
-        [lo.xyz, hi.xyz, bitcast(escape), bitcast(is_leaf ? tri_start+1 : 0)]
-    """
-
-    node_packed: np.ndarray  # (M, 8) float32
-    tri_perm: np.ndarray  # same as BVHArrays.tri_perm
+# the deepest tree the ordered walk takes: internal nodes on a root-to-leaf
+# path, each of which may push one entry on the walk's stack
+# (kernels/csrc/trace.cuh kStackDepth); JAX's ordered walk's MAX_STACK
+MAX_DEPTH = 64
+# a leaf child's reference: ~(first row << COUNT_BITS | count - 1), so a
+# leaf holds 1 to 2**COUNT_BITS rows (trace.cuh kCountBits)
+COUNT_BITS = 4
+NODE_COLS = 16
 
 
-def to_stackless(b: BVHArrays) -> StacklessArrays:
-    """Reorder any BVHArrays into DFS preorder and thread escape links."""
+class ChildNodes(NamedTuple):
+    """The ordered walk's layout of a binary BVH: internal nodes only, each a
+    row of NODE_COLS float32 that holds both children (Aila and Laine,
+    "Understanding the efficiency of ray traversal on GPUs", HPG 2009), so
+    that one visit is four 16-byte loads and tests both child boxes:
+        [lo0 xyz, hi0 xyz, lo1 xyz, hi1 xyz, bits(ref0), bits(ref1), 0, 0]
+    A child's reference is its row (>= 0) when it is internal, and
+    ~(first << COUNT_BITS | count - 1) when it is a leaf of `count` rows of
+    the leaf-ordered triangles from `first`. Rows are numbered in DFS
+    preorder, left child first, and leaves' triangles in the same order, so
+    a subtree's rows and triangles are contiguous. A tree whose root is a
+    leaf has no rows: its triangles are the root's one leaf."""
+
+    nodes: np.ndarray  # (M, NODE_COLS) float32
+    tri_perm: np.ndarray  # (S,) int32: leaf-ordered slot -> global id, no pads
+    depth: int  # the most internal nodes on a root-to-leaf path
+    leaf_size: int  # the build's slots a leaf, the most rows a leaf holds
+
+
+def leaf_ref(first, count):
+    """A leaf child's reference (works on numpy arrays too)."""
+    return ~((first << COUNT_BITS) | (count - 1))
+
+
+def to_child_nodes(b: BVHArrays) -> ChildNodes:
+    """Derive the ordered walk's layout from a binary tree as build_bvh and
+    build_bvh_native return it (any node order, leaves padded with -1).
+    Raises if the tree is deeper than the walk's stack (MAX_DEPTH): every
+    Accel of this layout comes through here."""
     m = b.node_lo.shape[0]
-    order = np.empty(m, np.int32)  # new id -> old id
-    nxt = 0
-    stack = [0]
+    leaf = b.node_is_leaf
+    leaf_size = int(b.node_right[leaf].max())
+    if leaf_size > 1 << COUNT_BITS:
+        raise ValueError(f"leaves of {leaf_size} slots pass the {1 << COUNT_BITS} a leaf "
+                         f"reference holds")
+    new_id = np.full(m, -1, np.int64)
+    first = np.zeros(m, np.int64)
+    count = np.zeros(m, np.int64)
+    order, perm = [], []
+    depth = 0
+    stack = [(0, 0)]
     while stack:  # DFS preorder, left child first
-        old = stack.pop()
-        order[nxt] = old
-        nxt += 1
-        if not b.node_is_leaf[old]:
-            stack.append(int(b.node_right[old]))
-            stack.append(int(b.node_left[old]))
-    old2new = np.empty(m, np.int32)
-    old2new[order] = np.arange(m, dtype=np.int32)
-    # preorder => each subtree occupies a contiguous id range; a reverse
-    # sweep accumulates subtree sizes, and escape = id just past my subtree
-    size = np.ones(m, np.int64)
-    for new in range(m - 1, -1, -1):
-        old = order[new]
-        if not b.node_is_leaf[old]:
-            size[new] = (
-                1 + size[old2new[b.node_left[old]]] + size[old2new[b.node_right[old]]]
-            )
-    escape = np.arange(m, dtype=np.int64) + size
-    packed = np.zeros((m, 8), np.float32)
-    packed[:, 0:3] = b.node_lo[order]
-    packed[:, 3:6] = b.node_hi[order]
-    packed[:, 6] = escape.astype(np.int32).view(np.float32)
-    leafw = np.where(
-        b.node_is_leaf[order], b.node_left[order].astype(np.int32) + 1, 0
-    ).astype(np.int32)
-    packed[:, 7] = leafw.view(np.float32)
-    return StacklessArrays(node_packed=packed, tri_perm=b.tri_perm)
+        old, d = stack.pop()
+        if leaf[old]:
+            slots = b.tri_perm[b.node_left[old]:b.node_left[old] + b.node_right[old]]
+            real = slots[slots >= 0]
+            if real.size == 0:
+                raise ValueError(f"leaf {old} holds no triangle")
+            first[old], count[old] = len(perm), real.size
+            perm.extend(real.tolist())
+            continue
+        new_id[old] = len(order)
+        order.append(old)
+        depth = max(depth, d + 1)
+        stack.append((int(b.node_right[old]), d + 1))
+        stack.append((int(b.node_left[old]), d + 1))
+    if depth > MAX_DEPTH:
+        raise ValueError(f"the BVH is {depth} internal nodes deep; the walk's stack holds "
+                         f"{MAX_DEPTH} (accel/bvh.MAX_DEPTH, trace.cuh kStackDepth)")
+    order = np.asarray(order, np.int64)
+    nodes = np.zeros((order.size, NODE_COLS), np.float32)
+    refs = np.where(leaf, leaf_ref(first, count), new_id).astype(np.int32)
+    for k, child in enumerate((b.node_left[order], b.node_right[order])):
+        nodes[:, 6 * k:6 * k + 3] = b.node_lo[child]
+        nodes[:, 6 * k + 3:6 * k + 6] = b.node_hi[child]
+        nodes[:, 12 + k] = refs[child].view(np.float32)
+    return ChildNodes(nodes=nodes, tri_perm=np.asarray(perm, np.int32), depth=depth,
+                      leaf_size=leaf_size)

@@ -5,11 +5,14 @@ Port of zdr_tpu/accel/trace.py's public API (`trace_closest`, `trace_any`,
   dense_closest / dense_any   every ray against every triangle, in chunks
                               of rays (the plain version of the dense mode
                               of kernels/csrc/accel.cu, B7/B8's counterpart);
-  bvh_closest / bvh_any       the escape-link walk (`_bvh_stackless`,
-                              :240-352) for all rays at once, one node visit
-                              per ray a step, a lane idling once its walk is
-                              done (the plain version of the walk in
-                              kernels/csrc/trace.cuh, B5/B6's counterpart).
+  bvh_closest / bvh_any       the ordered walk of the child-box layout
+                              (accel/bvh.to_child_nodes) for all rays at
+                              once, each with a stack of its own, as JAX's
+                              `_bvh_loop` (:143-237) keeps one a lane: one
+                              node visit or one leaf per ray a step, a lane
+                              idling once its walk is done (the plain
+                              version of the walk in kernels/csrc/trace.cuh,
+                              B5/B6's counterpart).
 Both take and return tuples of (N,) tensors; t_min and t_max are (N,)
 tensors. Each also returns its work: (ray-triangle tests, node visits), as
 int64 tensors, counted as the kernels count them.
@@ -20,8 +23,9 @@ sweep takes the first of equal t in global order, which is that id. The
 BVH walk compares (t, id) pairs, so it finds the same triangle whatever the
 order of its visits; JAX's walk breaks ties across leaves by visit order
 instead (:331-341), which only a ray through a shared edge can tell apart.
-The box test admits a node whose near distance is <= the best t so far,
-with far and t_max widened by SLAB_SLACK: without it a hit on a box's face
+The box test admits a child whose near distance is <= the best t so far,
+with far and t_max widened by SLAB_SLACK: without the slack a hit on a
+box's face
 (a ray through a flat quad's corner, at 1 pixel of the protocol's 512x512
 render) rounded out of the box, and the walk lost a hit that the dense
 sweep finds. The two modes give the same hits.
@@ -32,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..vec import vcross, vdot, vsub
+from .bvh import COUNT_BITS, MAX_DEPTH, leaf_ref
 from .types import Hit
 
 BIG = 1e30  # the t of a miss, and _safe_inv's reciprocal of a tiny component
@@ -41,9 +46,9 @@ SLAB_SLACK = 1.0 + 2.0**-20
 # rays per chunk times triangles, so that a dense sweep's (N, T) planes stay
 # small
 _CHUNK_ELEMS = 1 << 22
-# node visits per walk step between checks that every lane is done (each
-# check synchronises with the device)
-_VISITS_PER_CHECK = 8
+# walk steps between checks that every lane is done (each check
+# synchronises with the device)
+_STEPS_PER_CHECK = 8
 
 
 def chunks(n: int, n_tris: int):
@@ -138,31 +143,38 @@ def safe_inv(d):
     return tuple(out)
 
 
-def aabb_hit(o, inv, box, t_min, t_max):
+def slab(o, inv, lo, hi, t_min, t_max):
     """The slab test (JAX's _aabb_hit, widened by SLAB_SLACK) of each ray
-    against its row of `box` (N, 6) -> hit (near <= far', far' >= t_min,
-    near <= t_max', with far' = far * SLAB_SLACK and t_max' likewise)."""
+    against its box, lo and hi (N, 3) -> (hit: near <= far', far' >= t_min,
+    near <= t_max', with far' = far * SLAB_SLACK and t_max' likewise; the
+    ray's entry distance near)."""
     near = far = None
     for k in range(3):
-        t0 = (box[:, k] - o[k]) * inv[k]
-        t1 = (box[:, 3 + k] - o[k]) * inv[k]
-        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
-        near = lo if near is None else torch.maximum(near, lo)
-        far = hi if far is None else torch.minimum(far, hi)
+        t0 = (lo[:, k] - o[k]) * inv[k]
+        t1 = (hi[:, k] - o[k]) * inv[k]
+        a, b = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        near = a if near is None else torch.maximum(near, a)
+        far = b if far is None else torch.minimum(far, b)
     far = far * SLAB_SLACK
-    return (near <= far) & (far >= t_min) & (near <= t_max * SLAB_SLACK)
+    return (near <= far) & (far >= t_min) & (near <= t_max * SLAB_SLACK), near
+
+
+def aabb_hit(o, inv, box, t_min, t_max):
+    """slab's hit against each ray's row of `box` (N, 6): lo xyz, hi xyz."""
+    return slab(o, inv, box[:, 0:3], box[:, 3:6], t_min, t_max)[0]
 
 
 def _walk(accel, o, d, t_min, t_max, closest: bool):
-    """The escape-link walk of every ray: at a node whose box the ray hits,
-    go down (id + 1), or test a leaf's leaf_slots and leave it by its
-    escape link; at a node it misses, take the escape link. The walk of a
-    ray ends past the last node (or, for any-hit, at its first hit)."""
+    """The ordered walk of every ray (trace.cuh bvh_walk): at an internal
+    node, test both child boxes; go to the one hit, or to the nearer of two
+    (the first on a tie) and push the other; at a leaf, test its rows; at a
+    node with no child hit and after a leaf, pop the stack. The walk of a
+    ray ends on an empty stack (or, for any-hit, at its first hit). A step
+    pops the stack of a ray that left a node or a leaf the step before,
+    then visits a node or tests a leaf."""
     n = o[0].shape[0]
     dev = o[0].device
-    m = accel.node_box.shape[0]
     inv = safe_inv(d)
-    node = torch.zeros((n,), dtype=torch.int64, device=dev)
     best_t = t_max.clone()
     prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
     bu = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -170,26 +182,60 @@ def _walk(accel, o, d, t_min, t_max, closest: bool):
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
     tests = torch.zeros((), dtype=torch.int64, device=dev)
     visits = torch.zeros((), dtype=torch.int64, device=dev)
-    slots = torch.arange(accel.leaf_slots, device=dev)
+    n_rows = accel.geom.shape[0]
+    m = accel.nodes.shape[0]
+    # the root: row 0, or the one leaf of a tree without internal nodes
+    root = 0 if m else int(leaf_ref(0, n_rows))
+    ref = torch.full((n,), root, dtype=torch.int64, device=dev)
+    live = torch.full((n,), n_rows > 0, dtype=torch.bool, device=dev)
+    popping = torch.zeros((n,), dtype=torch.bool, device=dev)
+    stack = torch.zeros((n, MAX_DEPTH), dtype=torch.int64, device=dev)
+    sp = torch.zeros((n,), dtype=torch.int64, device=dev)
+    nodes = accel.nodes if m else torch.zeros((1, accel.nodes.shape[1]), device=dev)
+    refs = accel.node_refs.long() if m else torch.zeros((1, 2), dtype=torch.int64, device=dev)
+    slots = torch.arange(max(accel.leaf_size, n_rows if not m else 1), device=dev)
     big_id = torch.iinfo(torch.int32).max
-    while m and bool((node < m).any()):
-        for _ in range(_VISITS_PER_CHECK):
-            live = node < m
-            cur = torch.clamp(node, max=m - 1)
-            link = accel.node_link[cur]
-            esc, leafw = link[:, 0].to(torch.int64), link[:, 1]
-            hit = aabb_hit(o, inv, accel.node_box[cur], t_min, best_t if closest else t_max) & live
-            is_leaf = leafw > 0
-            at_leaf = hit & is_leaf
-            slot = torch.clamp(leafw.to(torch.int64) - 1, min=0)[:, None] + slots[None, :]
+    while bool(live.any()):
+        for _ in range(_STEPS_PER_CHECK):
+            # the pops: a ray's walk ends on an empty stack
+            live = live & ~(popping & (sp == 0))
+            pop = live & popping
+            top = torch.clamp(sp - 1, min=0)[:, None]
+            ref = torch.where(pop, stack.gather(1, top)[:, 0], ref)
+            sp = sp - pop.long()
+
+            # an internal node: both child boxes
+            inner = live & (ref >= 0)
+            node = torch.where(inner, ref, 0)
+            row = nodes[node]
+            t_hi = best_t if closest else t_max
+            h0, n0 = slab(o, inv, row[:, 0:3], row[:, 3:6], t_min, t_hi)
+            h1, n1 = slab(o, inv, row[:, 6:9], row[:, 9:12], t_min, t_hi)
+            h0, h1 = h0 & inner, h1 & inner
+            visits = visits + inner.sum()
+            r0, r1 = refs[node, 0], refs[node, 1]
+            both = h0 & h1
+            swap = n1 < n0
+            # a push writes below MAX_DEPTH (to_child_nodes bounds the tree's
+            # depth); the clamp keeps in range the column of a lane that does
+            # not push, whose stack may be full
+            col = torch.clamp(sp, max=MAX_DEPTH - 1)[:, None]
+            stack.scatter_(1, col, torch.where(both, torch.where(swap, r0, r1),
+                                               stack.gather(1, col)[:, 0])[:, None])
+            sp = sp + both.long()
+            nxt = torch.where(both, torch.where(swap, r1, r0), torch.where(h0, r0, r1))
+
+            # a leaf: its rows [first, first + count)
+            at_leaf = live & (ref < 0)
+            e = torch.where(at_leaf, ~ref, 0)
+            first, count = e >> COUNT_BITS, (e & ((1 << COUNT_BITS) - 1)) + 1
+            real = at_leaf[:, None] & (slots[None, :] < count[:, None])
+            slot = torch.clamp(first[:, None] + slots[None, :], max=max(n_rows - 1, 0))
             gid = accel.tri_perm[slot]
-            real = at_leaf[:, None] & (gid >= 0)
             p0, e1, e2 = _row_cols(accel.geom, slot)
             ok, u, v, t = mt(p0, e1, e2, tuple(x[:, None] for x in o),
                              tuple(x[:, None] for x in d))
             ok = ok & real & (t > t_min[:, None])
-            visits = visits + live.sum()
-            nxt = torch.where(hit & ~is_leaf, node + 1, esc)
             if closest:
                 tests = tests + real.sum()
                 # the leaf's least (t, id), then against the best so far
@@ -206,12 +252,13 @@ def _walk(accel, o, d, t_min, t_max, closest: bool):
             else:
                 ok = ok & (t < t_max[:, None])
                 found = ok.any(dim=1)
-                # a walk stops at its first hit, in slot order
-                first = ok.to(torch.int8).argmax(dim=1) + 1
-                tests = tests + torch.where(found, first, real.sum(dim=1)).sum()
+                # a walk stops at its first hit, in row order
+                first_hit = ok.to(torch.int8).argmax(dim=1) + 1
+                tests = tests + torch.where(found, first_hit, real.sum(dim=1)).sum()
                 occ = occ | found
-                nxt = torch.where(found, m, nxt)
-            node = torch.where(live, nxt, node)
+                live = live & ~found
+            ref = torch.where(inner & (h0 | h1), nxt, ref)
+            popping = (inner & ~(h0 | h1)) | at_leaf
     work = (tests.cpu(), visits.cpu())
     if closest:
         return (best_t, prim, bu, bv), work

@@ -1,9 +1,12 @@
 """Accel and Hit: the intersection structure and a batch of hit records.
 
-Port of zdr_tpu/accel/types.py. `Accel` holds tensors on one device. The
-node links are int32 tensors, not float bit patterns as in JAX's packed
-rows (bvh.to_stackless): an index stored in a float slot is a denormal, and
-integers stay integers end to end.
+Port of zdr_tpu/accel/types.py. `Accel` holds tensors on one device. A
+BVH's nodes are rows of 16 float32 whose last four hold int32 bits (the
+children's references), and a BVH's geometry rows hold their triangle's
+global id as int32 bits in column 9, so that the kernels read a node and a
+triangle with 16-byte loads alone. Those bits are only copied, never used in
+float arithmetic (some are denormals); `node_refs` reads the references
+back as integers.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 GEOM_COLS = 12  # a triangle's row: p0, e1, e2 and 3 floats of padding (48 bytes)
+ID_COL = 9  # a BVH's rows: the global triangle id's int32 bits (trace.cuh load_row)
 
 
 class Hit(NamedTuple):
@@ -35,35 +39,31 @@ class Accel:
     """Triangles ready for intersection, with the BVH where there is one.
 
     method "bruteforce" / "pallas": the dense sweep; `geom` holds the rows in
-    global triangle order and there are no nodes. method "bvh": the
-    escape-link BVH; `geom` holds the rows in leaf order, leaf_slots a leaf
-    (accel/bvh.LEAF_SIZE for build_accel's trees), padded with zero rows
-    whose `tri_perm` is -1.
+    global triangle order and there are no nodes. method "bvh": the BVH in
+    the ordered walk's layout (bvh.to_child_nodes): `nodes` its internal
+    nodes, each with both children's boxes and references, `geom` the rows
+    in leaf order, no pads, each with its global id's bits in column
+    ID_COL.
     """
 
     method: str
     geom: torch.Tensor  # (S, GEOM_COLS) float32 rows, in accel order
-    tri_perm: torch.Tensor  # (S,) int32: accel slot -> global triangle id, -1 = pad
+    tri_perm: torch.Tensor  # (S,) int32: accel slot -> global triangle id
     tri_inst: torch.Tensor  # (T,) int64: instance of each global triangle id
-    node_box: torch.Tensor  # (M, 6) float32: lo xyz, hi xyz, DFS preorder
-    # (M, 2) int32: escape (the node after this subtree), and for a leaf its
-    # first slot + 1 (0 for an internal node, whose next node is id + 1)
-    node_link: torch.Tensor
+    # (M, NODE_COLS) float32: lo0 xyz hi0 xyz lo1 xyz hi1 xyz, the children's
+    # references' int32 bits, 0, 0; DFS preorder (bvh.ChildNodes)
+    nodes: torch.Tensor
+    leaf_size: int = 0  # the most rows a leaf holds (0: no BVH)
+    depth: int = 0  # the most internal nodes on a root-to-leaf path (bvh.MAX_DEPTH at most)
 
     @property
     def is_bvh(self) -> bool:
         return self.method == "bvh"
 
     @property
-    def leaf_slots(self) -> int:
-        """A BVH's slots a leaf, from its shapes alone: its M nodes form a
-        binary tree, whose (M + 1) / 2 leaves own the same number of the S
-        slots each (build_bvh_native's layout)."""
-        leaves = (self.node_box.shape[0] + 1) // 2
-        slots, rem = divmod(self.geom.shape[0], leaves)
-        if rem:
-            raise ValueError(f"{self.geom.shape[0]} slots do not split into {leaves} leaves")
-        return slots
+    def node_refs(self) -> torch.Tensor:
+        """(M, 2) int32: each node's children's references."""
+        return self.nodes.view(torch.int32)[:, 12:14]
 
     @property
     def num_triangles(self) -> int:

@@ -192,9 +192,9 @@ def floor_probe_plain(a, b):
 
 
 def leaf_accel(geom, leaf):
-    """The escape-link BVH of `geom` with `leaf` slots a leaf, built as
-    build_accel builds production's (accel/bvh.LEAF_SIZE, JAX's tree): the
-    trace kernels and the plain walk read the width from its shapes."""
+    """The BVH of `geom` with `leaf` slots a leaf, built as build_accel
+    builds production's (accel/build.BVH_LEAF): the walks read each leaf's
+    count from its reference."""
     return pack_bvh(geom, build_bvh_native(*_vertices(geom), leaf))
 
 

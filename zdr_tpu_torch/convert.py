@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .accel.types import GEOM_COLS, Accel
+from .accel.bvh import NODE_COLS, BVHArrays, to_child_nodes
+from .accel.types import GEOM_COLS, ID_COL, Accel
 from .geometry.mesh import geometry_from_numpy
 from .scenedata import LightMeta, SceneData
 
@@ -95,22 +96,46 @@ def accel_from_jax(arrays: dict, device) -> Accel:
     """The port's Accel from the numpy arrays of a JAX Accel: "p0", "e1",
     "e2" (S, 3), "tri_perm" (S,), "tri_inst" (T,), "method", and for
     method "bvh" its "node_packed" (M, 8) rows, whose escape and leaf slots
-    hold int32 bits in float32 (zdr_tpu/accel/bvh.py::to_stackless)."""
+    hold int32 bits in float32 (zdr_tpu/accel/bvh.py::to_stackless). The
+    escape-link tree is read back as the binary tree it threads and laid out
+    for the ordered walk (accel/bvh.to_child_nodes), as build_accel does,
+    which raises on a tree deeper than the walk's stack."""
     method = str(arrays["method"])
     if method not in ("bruteforce", "pallas", "bvh"):
         raise ValueError(f"no port Accel for a JAX {method!r} accel (no tree to carry)")
     rows = np.zeros((np.asarray(arrays["p0"]).shape[0], GEOM_COLS), np.float32)
     for k, name in enumerate(("p0", "e1", "e2")):
         rows[:, 3 * k:3 * k + 3] = np.asarray(arrays[name], np.float32)
-    if method == "bvh":
-        packed = np.ascontiguousarray(np.asarray(arrays["node_packed"], np.float32))
-        box, link = packed[:, 0:6], packed[:, 6:8].view(np.int32)
-    else:
-        box, link = np.zeros((0, 6), np.float32), np.zeros((0, 2), np.int32)
+    perm = np.asarray(arrays["tri_perm"], np.int32)
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype), device=device)
 
-    return Accel(method=method, geom=t(rows, np.float32),
-                 tri_perm=t(arrays["tri_perm"], np.int32), tri_inst=t(arrays["tri_inst"], np.int64),
-                 node_box=t(box, np.float32), node_link=t(link, np.int32))
+    tri_inst = t(arrays["tri_inst"], np.int64)
+    if method != "bvh":
+        return Accel(method=method, geom=t(rows, np.float32), tri_perm=t(perm, np.int32),
+                     tri_inst=tri_inst, nodes=t(np.zeros((0, NODE_COLS)), np.float32))
+    cn = to_child_nodes(_tree_of(np.asarray(arrays["node_packed"], np.float32), perm))
+    by_id = np.zeros((tri_inst.shape[0], GEOM_COLS), np.float32)
+    by_id[perm[perm >= 0]] = rows[perm >= 0]
+    rows = by_id[cn.tri_perm]
+    rows[:, ID_COL] = cn.tri_perm.view(np.float32)
+    return Accel(method="bvh", geom=t(rows, np.float32), tri_perm=t(cn.tri_perm, np.int32),
+                 tri_inst=tri_inst, nodes=t(cn.nodes, np.float32), leaf_size=cn.leaf_size,
+                 depth=cn.depth)
+
+
+def _tree_of(packed: np.ndarray, perm: np.ndarray) -> BVHArrays:
+    """The binary tree that JAX's escape-link rows thread: in DFS preorder an
+    internal node's left child is the next row and its right child the left
+    child's escape; a leaf's slots start at its second link less 1."""
+    packed = np.ascontiguousarray(packed)
+    m = packed.shape[0]
+    escape, leafw = packed[:, 6].view(np.int32), packed[:, 7].view(np.int32)
+    is_leaf = leafw > 0
+    leaf_size = perm.shape[0] // int(is_leaf.sum())
+    ids = np.arange(m, dtype=np.int32)
+    left = np.where(is_leaf, leafw - 1, ids + 1).astype(np.int32)
+    right = np.where(is_leaf, leaf_size, escape[np.minimum(ids + 1, m - 1)]).astype(np.int32)
+    return BVHArrays(node_lo=packed[:, 0:3].copy(), node_hi=packed[:, 3:6].copy(),
+                     node_left=left, node_right=right, node_is_leaf=is_leaf, tri_perm=perm)

@@ -16,7 +16,7 @@ kernels' planes, without the (rows, 512) tiling. They are the plain
 versions of the per-lane code in kernels/csrc/direct_step.cuh (which runs
 the same steps inside the direct kernels) and of the trace_interact kernel.
 The sweeps are brute force, O(T) per ray, or, given a BVH (the big-mesh
-route, where the JAX package streamed B5/B6), the escape-link walk of
+route, where the JAX package streamed B5/B6), the ordered walk of
 accel/trace.py.
 """
 

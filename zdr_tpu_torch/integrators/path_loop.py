@@ -22,7 +22,7 @@ check compares them with the kernels.
 
 The closest-hit and occlusion sweeps are brute force, O(T) per ray, over the
 triangle table, or, when the tables carry a BVH (LoopTables.bvh, the big-mesh
-route), the escape-link walk of accel/trace.py that the BVH kernels run.
+route), the ordered walk of accel/trace.py that the BVH kernels run.
 """
 
 from __future__ import annotations

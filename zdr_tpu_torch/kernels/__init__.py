@@ -13,8 +13,9 @@ error, and counts its launches in `.launches`; any other device raises.
 
 The four megakernels have two instantiations each: the dense one sweeps the
 scene table from shared memory, the BVH one (path_loop_bvh,
-path_loop_grad_bvh, direct_bvh, direct_grad_bvh) walks the escape-link BVH
-in global memory (csrc/trace.cuh) for scenes past shared memory. The
+path_loop_grad_bvh, direct_bvh, direct_grad_bvh) walks the BVH in order,
+near child first with a short stack, over child-box nodes in global memory
+(csrc/trace.cuh, accel/bvh.to_child_nodes) for scenes past shared memory. The
 wrappers pick it from the tables (LoopTables.bvh, built once per Scene),
 never as a fallback, and count its launches under its own name. The BVH
 instantiations keep the light, light-instance, point and camera rows in
@@ -100,6 +101,7 @@ from ..accel.variants import (
     sweep_variant_plain,
     woop_sweep_plain,
 )
+from ..accel.bvh import COUNT_BITS, NODE_COLS
 from ..accel.types import GEOM_COLS
 from ..integrators.scene_tables import SCENE_COLS
 from ..samplers import sampler_probe_plain
@@ -134,8 +136,9 @@ GRAD_NEAR_ROWS = {"dense": 8, "bvh": 0}
 # their tables there (trace.cuh kGeomCols = GEOM_COLS: the direct kernels and
 # trace_interact keep only each triangle's geometry there, in rows of 12)
 MAX_TABLE_BYTES = 232448
-# what the last build did: seconds, and the compiler's report (registers,
-# spills) — empty when the library was already built
+# what the last build did: seconds (0 when every library was already
+# built), and the compiler's report of the libraries (registers, spills),
+# kept beside each library as <library>.log
 build_info = {"seconds": 0.0, "log": ""}
 
 
@@ -159,7 +162,9 @@ def _library_path(compiler, flags, sources, stem) -> str:
 def _compile(compiler, flags, builds) -> list:
     """Compile each (sources, stem) of `builds` into BUILD_DIR, unless a
     library of the same sources and flags is there, all compilers running
-    at once -> the libraries' paths."""
+    at once -> the libraries' paths. build_info gets the seconds and the
+    compilers' reports, read back from BUILD_DIR for a library built
+    before."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     outs, running = [], []
@@ -172,18 +177,22 @@ def _compile(compiler, flags, builds) -> list:
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True)
             running.append((cmd, proc, tmp, out))
-    logs = []
     for cmd, proc, tmp, out in running:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             for _c, other, _t, _o in running:
                 other.kill()
             raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{log}")
+        with open(f"{out}.log", "w") as fh:
+            fh.write(log)
         os.replace(tmp, out)
-        logs.append(log)
-    if running:
-        build_info["seconds"] = time.perf_counter() - t0
-        build_info["log"] = "".join(logs)
+    build_info["seconds"] = time.perf_counter() - t0 if running else 0.0
+    logs = []
+    for out in outs:
+        if os.path.exists(f"{out}.log"):
+            with open(f"{out}.log") as fh:
+                logs.append(fh.read())
+    build_info["log"] = "".join(logs)
     return outs
 
 
@@ -210,8 +219,8 @@ _GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I]
 _TRACE_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _I]
 _DIRECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _I]
 _DIRECT_GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I]
-# the BVH: box, link, geom, perm, n_nodes
-_BVH_ARGS = [_P, _P, _P, _P, _I]
+# the BVH: nodes, geom, n_nodes, n_rows
+_BVH_ARGS = [_P, _P, _I, _I]
 # the BVH instantiations take small_shared after tables_n: zdr_path_loop_bvh:
 # _LOOP_ARGS, the BVH, counts; zdr_path_loop_grad_bvh: _GRAD_ARGS, the BVH,
 # counts; zdr_direct_bvh: params, tables, tables_n, small_shared, bn,
@@ -219,12 +228,11 @@ _BVH_ARGS = [_P, _P, _P, _P, _I]
 _LOOP_BVH_ARGS = _LOOP_ARGS[:3] + [_I] + _LOOP_ARGS[3:] + _BVH_ARGS + [_P]
 _GRAD_BVH_ARGS = _GRAD_ARGS[:3] + [_I] + _GRAD_ARGS[3:] + _BVH_ARGS + [_P]
 _DIRECT_BVH_ARGS = [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P] + _BVH_ARGS + [_P, _I]
-# zdr_trace_closest: bvh_mode (0: dense; > 0: the BVH with that many slots
-# a leaf), geom, n_rows, box, link, perm, n_nodes, o, d,
-# t_min, t_max, t, u, v, prim, counts, n; zdr_trace_any: the same with occ
-# in place of t, u, v, prim
-_CLOSEST_ARGS = [_I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I]
-_ANY_ARGS = [_I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I]
+# zdr_trace_closest: bvh_mode (0: dense; 1: the BVH), geom, n_rows, nodes,
+# n_nodes, o, d, t_min, t_max, t, u, v, prim, counts, n; zdr_trace_any: the
+# same with occ in place of t, u, v, prim
+_CLOSEST_ARGS = [_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I]
+_ANY_ARGS = [_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I]
 # zdr_sweep_variant: mode, tile, r, woop, cull, rows, geom, table, boxes,
 # n_tris, rays, active, f_out, i_out, counts, n (the host build: without r)
 _VARIANT_HOST_ARGS = [_I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I]
@@ -388,20 +396,20 @@ def _loop_inputs(tb: LoopTables, lanes, material, n_steps, dev, integrator):
     return n, tables, loop_params(tb, material), shared
 
 
-def _bvh_args(accel, dev) -> tuple:
-    """Check an Accel's BVH -> the kernels' arguments box, link, geom, perm,
-    n_nodes."""
+def bvh_args(accel, dev) -> tuple:
+    """Check an Accel's BVH -> the kernels' arguments nodes, geom, n_nodes,
+    n_rows (csrc/trace.cuh Bvh)."""
     if not accel.is_bvh:
         raise ValueError(f"a BVH instantiation needs a 'bvh' Accel, got {accel.method!r}")
-    m, slots = accel.node_box.shape[0], accel.geom.shape[0]
-    _check(accel.node_box, "node_box", torch.float32, (m, 6), dev)
-    _check(accel.node_link, "node_link", torch.int32, (m, 2), dev)
-    _check(accel.geom, "geom", torch.float32, (slots, GEOM_COLS), dev)
-    _check(accel.tri_perm, "tri_perm", torch.int32, (slots,), dev)
-    if accel.geom.data_ptr() % 16:
-        raise ValueError("the BVH's geometry rows must be 16-byte aligned for float4 loads")
-    return (accel.node_box.data_ptr(), accel.node_link.data_ptr(), accel.geom.data_ptr(),
-            accel.tri_perm.data_ptr(), m)
+    m, rows = accel.nodes.shape[0], accel.geom.shape[0]
+    _check(accel.nodes, "nodes", torch.float32, (m, NODE_COLS), dev)
+    _check(accel.geom, "geom", torch.float32, (rows, GEOM_COLS), dev)
+    if accel.geom.data_ptr() % 16 or accel.nodes.data_ptr() % 16:
+        raise ValueError("the BVH's nodes and rows must be 16-byte aligned for float4 loads")
+    if not (m or 0 < rows <= 1 << COUNT_BITS):
+        raise ValueError(f"a BVH without internal nodes holds 1 to {1 << COUNT_BITS} rows, "
+                         f"not {rows}")
+    return accel.nodes.data_ptr(), accel.geom.data_ptr(), m, rows
 
 
 def _counts(dev) -> torch.Tensor:
@@ -453,7 +461,7 @@ def loop_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor
     counts = None
     if bvh:
         counts = _counts(dev)
-        rc = lib.zdr_path_loop_bvh(*args, *_bvh_args(tb.bvh, dev), counts.data_ptr(), block,
+        rc = lib.zdr_path_loop_bvh(*args, *bvh_args(tb.bvh, dev), counts.data_ptr(), block,
                                    info, stream)
     else:
         rc = lib.zdr_path_loop(*args, block, info, stream)
@@ -533,9 +541,7 @@ def grad_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor
     f_out, i_out = torch.empty_like(carry.f), torch.empty_like(carry.i)
     far = torch.empty((rows - plan["k_near"], GRAD_ROW_PLANES, n), dtype=torch.float32,
                       device=dev)
-    grad = torch.zeros_like(material)
-    if grad.data_ptr() % 16:
-        raise ValueError("the gradient must be 16-byte aligned for vector atomics")
+    grad = _tap_grad(material)
     args = (params, tables.data_ptr(), tables.numel()) + ((int(shared),) if bvh else ()) + (
         _bn_ptr(tb), material.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(),
         carry.f.data_ptr(), carry.i.data_ptr(), f_out.data_ptr(), i_out.data_ptr(),
@@ -544,7 +550,7 @@ def grad_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor
     counts = None
     if bvh:
         counts = _counts(dev)
-        rc = lib.zdr_path_loop_grad_bvh(*args, *_bvh_args(tb.bvh, dev), counts.data_ptr(),
+        rc = lib.zdr_path_loop_grad_bvh(*args, *bvh_args(tb.bvh, dev), counts.data_ptr(),
                                         stream)
     else:
         rc = lib.zdr_path_loop_grad(*args, stream)
@@ -692,8 +698,9 @@ def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     (H, W, 4), the (3, N) radiance sums of the same samples, as direct's).
     With a BVH in the tables, direct_grad_bvh runs.
 
-    On the card the float atomics sum the taps in an order that changes
-    from run to run, so the gradient's last bits do too."""
+    On the card each tap is one float4 atomic; the atomics sum the taps in
+    an order that changes from run to run, so the gradient's last bits do
+    too."""
     dev = lanes.device
     if not _on_card(dev, "direct_grad"):
         return render_direct_backward_plain(tb, lanes, material, le_grad)
@@ -702,7 +709,7 @@ def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     n, tables, params, _shared = _loop_inputs(tb, lanes, material, 0, dev, "direct")
     _check(le_grad, "le_grad", torch.float32, (3, n), dev)
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
-    grad = torch.zeros_like(material)
+    grad = _tap_grad(material)
     counts = _counts(dev)
     rc = load_library().zdr_direct_grad(
         params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
@@ -718,6 +725,15 @@ direct_grad.launches = 0
 direct_grad.tests = direct_grad.visits = None
 
 
+def _tap_grad(material):
+    """A zeroed gradient of `material`'s shape for a tap kernel's vector
+    atomics (one float4 a texel), checked 16-byte aligned."""
+    grad = torch.zeros_like(material)
+    if grad.data_ptr() % 16:
+        raise ValueError("the gradient must be 16-byte aligned for vector atomics")
+    return grad
+
+
 def _direct_bvh_launch(tb, lanes, material, le_grad, dev):
     """One launch of zdr_direct_bvh, forward (le_grad None) or tap mode ->
     (grad or None, acc, counts)."""
@@ -726,13 +742,13 @@ def _direct_bvh_launch(tb, lanes, material, le_grad, dev):
     grad = None
     if le_grad is not None:
         _check(le_grad, "le_grad", torch.float32, (3, n), dev)
-        grad = torch.zeros_like(material)
+        grad = _tap_grad(material)
     counts = _counts(dev)
     rc = load_library().zdr_direct_bvh(
         params, tables.data_ptr(), tables.numel(), int(shared), _bn_ptr(tb),
         material.data_ptr(),
         lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
-        None if grad is None else grad.data_ptr(), *_bvh_args(tb.bvh, dev),
+        None if grad is None else grad.data_ptr(), *bvh_args(tb.bvh, dev),
         counts.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "direct_bvh" if le_grad is None else "direct_grad_bvh")
     return grad, acc, counts
@@ -771,8 +787,8 @@ direct_grad_bvh.counts = None
 
 def _trace_inputs(accel, o, d, t_min, t_max):
     """Check a trace's rays -> (n, dev, t_min and t_max as (n,) float32,
-    the mode's arguments bvh_mode (0: dense, else the slots a leaf), geom,
-    n_rows, box, link, perm, n_nodes)."""
+    the mode's arguments bvh_mode (0: dense, 1: the BVH), geom, n_rows,
+    nodes, n_nodes)."""
     n, dev = o.shape[0], o.device
     _check(o, "o", torch.float32, (n, 3), dev)
     _check(d, "d", torch.float32, (n, 3), dev)
@@ -783,13 +799,13 @@ def _trace_inputs(accel, o, d, t_min, t_max):
     if n >= 2**31:
         raise ValueError("N < 2**31")
     if accel.is_bvh:
-        box, link, geom, perm, m = _bvh_args(accel, dev)
-        mode = (accel.leaf_slots, geom, accel.geom.shape[0], box, link, perm, m)
+        nodes, geom, m, rows = bvh_args(accel, dev)
+        mode = (1, geom, rows, nodes, m)
     else:
         _check(accel.geom, "geom", torch.float32, (accel.geom.shape[0], GEOM_COLS), dev)
         if accel.geom.data_ptr() % 16:
             raise ValueError("the geometry rows must be 16-byte aligned for float4 loads")
-        mode = (0, accel.geom.data_ptr(), accel.geom.shape[0], None, None, None, 0)
+        mode = (0, accel.geom.data_ptr(), accel.geom.shape[0], None, 0)
     return n, dev, t_lo, t_hi, mode
 
 

@@ -11,7 +11,7 @@
 //           16-byte loads, so any T fits; every warp then reads the same row
 //           at once (a broadcast). The any-hit block stops once all its rays
 //           are occluded.
-//   bvh     one thread per ray walks the escape-link BVH (trace.cuh) in
+//   bvh     one thread per ray walks the BVH in order (trace.cuh) in
 //           global memory through the read-only path: replaces the
 //           HBM-streamed sweeps zdr_tpu/integrators/pallas_stream.py::
 //           _stream_closest_kernel (:392) and ::_stream_any_kernel (:507),
@@ -21,8 +21,7 @@
 // ray-triangle test; the walk is dependent loads (a node, then its leaf's
 // rows) and the divergence of rays that visit different nodes. Both count
 // their ray-triangle tests and node visits into a two-element uint64 counter.
-// This first kernel is simple and right; an ordered walk with a short stack,
-// wider nodes and ray sorting are later work.
+// Wider nodes and ray sorting are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false (see zdr_tpu_torch/kernels/__init__.py).
@@ -99,29 +98,23 @@ __global__ void __launch_bounds__(kBlock)
   zdr::warp_add(counts, tests);
 }
 
-// leaf_slots: the tree's slots a leaf, read at run time (accel/bvh.py's
-// LEAF_SIZE, or another width for the leaf-width measurement); the
-// megakernels' walks keep the constant kLeafSize
 template <bool kClosest>
 __global__ void __launch_bounds__(kBlock)
-    bvh_kernel(zdr::Bvh bvh, int leaf_slots, Rays r, float* __restrict__ t_out,
-               float* __restrict__ u_out, float* __restrict__ v_out,
-               int* __restrict__ prim_out, int* __restrict__ occ_out,
-               unsigned long long* counts) {
+    bvh_kernel(zdr::Bvh bvh, Rays r, float* __restrict__ t_out, float* __restrict__ u_out,
+               float* __restrict__ v_out, int* __restrict__ prim_out,
+               int* __restrict__ occ_out, unsigned long long* counts) {
   long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   zdr::TraceCount count = {0, 0};
   if (i < r.n) {
     zdr::V3 o = ray_vec(r.o, i), d = ray_vec(r.d, i);
     if (kClosest) {
       float best_t = r.t_max[i], bu = 0.0f, bv = 0.0f;
-      prim_out[i] = zdr::bvh_closest(bvh, o, d, r.t_min[i], best_t, bu, bv, &count,
-                                      leaf_slots);
+      prim_out[i] = zdr::bvh_closest(bvh, o, d, r.t_min[i], best_t, bu, bv, &count);
       t_out[i] = best_t;
       u_out[i] = bu;
       v_out[i] = bv;
     } else {
-      occ_out[i] =
-          zdr::bvh_any(bvh, o, d, r.t_min[i], r.t_max[i], &count, leaf_slots) ? 1 : 0;
+      occ_out[i] = zdr::bvh_any(bvh, o, d, r.t_min[i], r.t_max[i], &count) ? 1 : 0;
     }
   }
   zdr::warp_add(counts, count.tests);
@@ -129,14 +122,14 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 template <bool kClosest>
-int launch(int bvh_mode, const float* geom, int n_rows, const float* box, const int* link,
-           const int* perm, int n_nodes, Rays r, float* t, float* u, float* v, int* prim,
-           int* occ, unsigned long long* counts, void* stream) {
+int launch(int bvh_mode, const float* geom, int n_rows, const float* nodes, int n_nodes,
+           Rays r, float* t, float* u, float* v, int* prim, int* occ,
+           unsigned long long* counts, void* stream) {
   int grid = (r.n + kBlock - 1) / kBlock;
   if (grid == 0) return 0;
   if (bvh_mode)
     bvh_kernel<kClosest><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        zdr::Bvh{box, link, geom, perm, n_nodes}, bvh_mode, r, t, u, v, prim, occ, counts);
+        zdr::Bvh{nodes, geom, n_nodes, n_rows}, r, t, u, v, prim, occ, counts);
   else
     dense_kernel<kClosest><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
         geom, n_rows, r, t, u, v, prim, occ, counts);
@@ -147,30 +140,28 @@ int launch(int bvh_mode, const float* geom, int n_rows, const float* box, const 
 
 extern "C" {
 
-// bvh_mode 0: geom (n_rows, 12) float32 rows in global order; > 0: the BVH
-// with that many slots a leaf (trace.cuh Bvh: box (n_nodes, 6), link
-// (n_nodes, 2) int32, geom rows in leaf order, perm (n_rows,) int32). o, d:
-// (n, 3) float32; t_min, t_max: (n,) float32. Out: t (t_max on a miss),
-// u, v (0 on a miss) float32, prim int32 (-1 on a miss); counts: two
-// uint64, to which the kernel adds its ray-triangle tests and node visits. Returns the CUDA error of the launch.
-int zdr_trace_closest(int bvh_mode, const float* geom, int n_rows, const float* box,
-                      const int* link, const int* perm, int n_nodes, const float* o,
-                      const float* d, const float* t_min, const float* t_max, float* t,
-                      float* u, float* v, int* prim, unsigned long long* counts, int n,
-                      void* stream) {
-  return launch<true>(bvh_mode, geom, n_rows, box, link, perm, n_nodes,
-                      Rays{o, d, t_min, t_max, n}, t, u, v, prim, nullptr, counts, stream);
+// bvh_mode 0: geom (n_rows, 12) float32 rows in global order; 1: the BVH
+// (trace.cuh Bvh: nodes (n_nodes, 16), geom rows in leaf order, each with
+// its global id in float 9). o, d: (n, 3) float32; t_min, t_max: (n,)
+// float32. Out: t (t_max on a miss), u, v (0 on a miss) float32, prim int32
+// (-1 on a miss); counts: two uint64, to which the kernel adds its
+// ray-triangle tests and node visits. Returns the CUDA error of the launch.
+int zdr_trace_closest(int bvh_mode, const float* geom, int n_rows, const float* nodes,
+                      int n_nodes, const float* o, const float* d, const float* t_min,
+                      const float* t_max, float* t, float* u, float* v, int* prim,
+                      unsigned long long* counts, int n, void* stream) {
+  return launch<true>(bvh_mode, geom, n_rows, nodes, n_nodes, Rays{o, d, t_min, t_max, n}, t,
+                      u, v, prim, nullptr, counts, stream);
 }
 
 // As zdr_trace_closest; out: occ (n,) int32, 1 where a triangle is hit at t
 // in (t_min, t_max).
-int zdr_trace_any(int bvh_mode, const float* geom, int n_rows, const float* box,
-                  const int* link, const int* perm, int n_nodes, const float* o, const float* d,
-                  const float* t_min, const float* t_max, int* occ, unsigned long long* counts,
-                  int n, void* stream) {
-  return launch<false>(bvh_mode, geom, n_rows, box, link, perm, n_nodes,
-                       Rays{o, d, t_min, t_max, n}, nullptr, nullptr, nullptr, nullptr, occ,
-                       counts, stream);
+int zdr_trace_any(int bvh_mode, const float* geom, int n_rows, const float* nodes,
+                  int n_nodes, const float* o, const float* d, const float* t_min,
+                  const float* t_max, int* occ, unsigned long long* counts, int n,
+                  void* stream) {
+  return launch<false>(bvh_mode, geom, n_rows, nodes, n_nodes, Rays{o, d, t_min, t_max, n},
+                       nullptr, nullptr, nullptr, nullptr, occ, counts, stream);
 }
 
 }  // extern "C"

@@ -9,8 +9,9 @@
 //                 + GGX shade + bounce sample, and the bounce ray's closest
 //                 hit (direct_step.cuh), accumulated in registers.
 //   direct_grad   the same samples (the caller passes seed + 1) in tap mode:
-//                 each sample's four gradient channels go with float atomics
-//                 into the (H*W, 4) gradient at its stochastic corner. The
+//                 each sample's four gradient channels go with one 16-byte
+//                 float4 atomic (sm_90) into the (H*W, 4) gradient at its
+//                 stochastic corner, as path_loop_grad's taps do. The
 //                 TPU gathered them in a splat buffer and flushed it
 //                 (direct_fused.py:300-345); direct has one tap a sample, so
 //                 it is added where it is made.
@@ -36,15 +37,19 @@
 // bounce lookup are later work.
 //
 // The BVH instantiations (direct_bvh_kernel<false> / <true>, both behind
-// zdr_direct_bvh) run the same samples with every sweep an escape-link
-// walk of the BVH in global memory (trace.cuh), read through the read-only
-// path: they replace the big-mesh chain of direct_fused.py, B5's closest
+// zdr_direct_bvh) run the same samples with every sweep an ordered walk of
+// the BVH in global memory (trace.cuh: child-box nodes, near child first,
+// a short stack), read through the read-only path: they replace the
+// big-mesh chain of direct_fused.py, B5's closest
 // sweep on the primary ray (:139-142) and B6's occlusion for the shadow
 // (:197-200) and the bounce's emitter lookup. Shared memory keeps only the
 // light, point and camera rows; the tree (50,880 triangles: 2.4 MB of rows,
-// ~0.4 MB of nodes) lies in HBM and mostly in the 50 MB L2. What bounds them
+// ~0.5 MB of nodes) lies in HBM and mostly in the 50 MB L2. What bounds them
 // is the walk's dependent loads and its divergence, not FP32 work: the
-// kernels count their node visits beside their tests.
+// kernels count their node visits beside their tests. They stay at 64
+// registers and 256 threads: 128, 80 and 48 registers, and blocks of 128
+// and 512, measured slower, or no faster on the protocol and the big mesh
+// at once (studies/walk_split.py; PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false (see zdr_tpu_torch/kernels/__init__.py).
@@ -204,20 +209,19 @@ int zdr_direct_grad(const int* params, const float* tables, int tables_n, const 
 }
 
 // zdr_direct (le_grad and grad null) and zdr_direct_grad through the BVH:
-// box (n_nodes, 6) float32, link (n_nodes, 2) int32, geom (slots, 12)
-// float32 rows in leaf order, perm (slots,) int32 global ids (-1 pads);
-// small_shared 1 copies the small tables into shared memory, 0 reads them
-// from `tables`.
+// nodes (n_nodes, 16) float32, geom (n_rows, 12) float32 rows in leaf order,
+// each with its global id in float 9 (trace.cuh Bvh); small_shared 1 copies
+// the small tables into shared memory, 0 reads them from `tables`.
 int zdr_direct_bvh(const int* params, const float* tables, int tables_n, int small_shared,
                    const float* bn,
                    const float* material, const int* lanes, const float* le_grad, float* acc,
-                   float* grad, const float* box, const int* link, const float* geom,
-                   const int* perm, int n_nodes, unsigned long long* counts, int n,
+                   float* grad, const float* nodes, const float* geom, int n_nodes,
+                   int n_rows, unsigned long long* counts, int n,
                    void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
   size_t smem = small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0;
-  zdr::Bvh bvh{box, link, geom, perm, n_nodes};
+  zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
   int grid = (n + kBlock - 1) / kBlock;
   int err;
   if (le_grad) {

@@ -83,15 +83,15 @@ int zdr_direct_host(const int* params, const float* tables, int tables_n, const 
 int zdr_direct_bvh_host(const int* params, const float* tables, int tables_n,
                         int small_shared, const float* bn,
                         const float* material, const int* lanes, const float* le_grad,
-                        float* acc, float* grad, const float* box, const int* link,
-                        const float* geom, const int* perm, int n_nodes,
+                        float* acc, float* grad, const float* nodes, const float* geom,
+                        int n_nodes, int n_rows,
                         unsigned long long* counts, int n) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return 1;
   const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
   std::vector<float> copy(small, small + zdr::small_size(q));
   zdr::Tables tb = zdr::bvh_tables(small_shared ? copy.data() : small, tables, bn, material, q);
-  zdr::BvhTrace tr{zdr::Bvh{box, link, geom, perm, n_nodes}};
+  zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
   direct_lanes(tb, q, tr, lanes, le_grad, acc, grad, counts, n);
   return 0;
 }

@@ -29,17 +29,6 @@ namespace zdr {
 // shade, miss); lite: add_emit3 (miss)
 constexpr int kTraceF = 14;
 
-// Add one tap channel into the gradient; a NaN tap is dropped (and a zero
-// one skipped: adding it changes nothing).
-ZDR_HD void splat_add(float* grad, int id, int c, float v) {
-  if (is_nan(v) || v == 0.0f) return;
-#ifdef __CUDA_ARCH__
-  atomicAdd(grad + 4L * id + c, v);
-#else
-  grad[4L * id + c] += v;
-#endif
-}
-
 // The direct kernels keep a compact copy of the tables in shared memory:
 // each triangle's 9 geometry floats (p0, e1, e2) in a row of kGeomCols
 // (trace.cuh), 16-byte aligned, then the light, light-instance, point and
@@ -207,12 +196,13 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
                ggx_spec_droughness(wo_local, wll, rough) +
            (ctb[0] * wiz + ctb[1] * wiz + ctb[2] * wiz) *
                ggx_spec_droughness(wo_local, wil, rough);
-    // the stochastic single-corner splat (pallas_bounce.py:1305-1336); the
-    // salt follows the sample's 9 draws (direct_fused.py:260)
+    // the stochastic single-corner splat (pallas_bounce.py:1305-1336), one
+    // vector atomic (path_loop_step.cuh splat_add4: a NaN channel adds 0);
+    // the salt follows the sample's 9 draws (direct_fused.py:260)
     if (nee_ok || bounce_ok) {
       int id = splat_id(hit.ux, hit.uy, lcg_to_unit_float(sampler_salt(sc, smp)), q.tex_h,
                         q.tex_w);
-      for (int c = 0; c < 4; ++c) splat_add(dt->grad, id, c, g[c]);
+      splat_add4(dt->grad, id, g[0], g[1], g[2], g[3]);
     }
   }
   return rad;

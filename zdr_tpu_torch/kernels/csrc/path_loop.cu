@@ -42,7 +42,7 @@
 // is the next redesign's.
 //
 // path_loop_bvh_kernel is the same walk with its two sweeps a step through
-// the escape-link BVH in global memory (trace.cuh): the big-mesh route that
+// the ordered BVH walk in global memory (trace.cuh): the big-mesh route that
 // the JAX package took through path_fused.py's streamed sweeps, B5 in
 // _bounce (:132-135) and B6 in _stream_occ (:161-172). Only the light,
 // point and camera rows stay in shared memory, and only where they fit
@@ -179,22 +179,21 @@ int zdr_path_loop(const int* params, const float* tables, int tables_n, const fl
                 args, stream);
 }
 
-// zdr_path_loop through the BVH: box (n_nodes, 6) float32, link (n_nodes, 2)
-// int32, geom (slots, 12) float32 rows in leaf order, perm (slots,) int32
-// global ids (-1 pads); counts: two uint64, to which the kernel adds its
+// zdr_path_loop through the BVH: nodes (n_nodes, 16) float32, geom (n_rows,
+// 12) float32 rows in leaf order, each with its global id in float 9
+// (trace.cuh Bvh); counts: two uint64, to which the kernel adds its
 // ray-triangle tests and node visits; small_shared 1 copies the small
 // tables into shared memory, 0 reads them from `tables`.
 int zdr_path_loop_bvh(const int* params, const float* tables, int tables_n, int small_shared,
                       const float* bn,
                       const float* material, const int* lanes, const float* f_in,
                       const int* i_in, float* f_out, int* i_out, int n, int n_steps,
-                      const float* box, const int* link, const float* geom, const int* perm,
-                      int n_nodes, unsigned long long* counts, int block, int* plan,
+                      const float* nodes, const float* geom, int n_nodes, int n_rows, unsigned long long* counts, int block, int* plan,
                       void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
   int smem = small_shared ? zdr::small_size(q) * (int)sizeof(float) : 0;
-  zdr::Bvh bvh{box, link, geom, perm, n_nodes};
+  zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
   void* args[] = {&q,    &tables, &small_shared, &bn,      &material, &lanes, &f_in,
                   &i_in, &f_out,  &i_out,        &n,       &n_steps,  &bvh,   &counts};
   return launch((const void*)path_loop_bvh_kernel, n, smem, block, plan, args, stream);

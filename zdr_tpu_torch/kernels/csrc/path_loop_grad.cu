@@ -37,7 +37,7 @@
 // gradient's last bits do too.
 //
 // path_loop_grad_bvh_kernel is the same walk with its sweeps through the
-// escape-link BVH in global memory (trace.cuh), as path_loop.cu's
+// ordered BVH walk in global memory (trace.cuh), as path_loop.cu's
 // path_loop_bvh_kernel: the big-mesh route of the JAX package's path_fused
 // backward (B5 and B6 in place of the sweeps), with the small tables in
 // shared memory where they fit (small_shared) and read from global memory
@@ -223,8 +223,8 @@ int zdr_path_loop_grad_bvh(const int* params, const float* tables, int tables_n,
                            int small_shared, const float* bn, const float* material,
                            const int* lanes, const float* le_grad, const float* f_in,
                            const int* i_in, float* f_out, int* i_out, float* far,
-                           float* grad, int n, int n_steps, int k_near, const float* box,
-                           const int* link, const float* geom, const int* perm, int n_nodes,
+                           float* grad, int n, int n_steps, int k_near, const float* nodes,
+                           const float* geom, int n_nodes, int n_rows,
                            unsigned long long* counts, void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
@@ -235,7 +235,7 @@ int zdr_path_loop_grad_bvh(const int* params, const float* tables, int tables_n,
   int grid = (n + kBlock - 1) / kBlock;
   path_loop_grad_bvh_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
       q, tables, small_shared, bn, material, lanes, le_grad, f_in, i_in, f_out, i_out, far,
-      grad, n, n_steps, k_near, zdr::Bvh{box, link, geom, perm, n_nodes}, counts);
+      grad, n, n_steps, k_near, zdr::Bvh{nodes, geom, n_nodes, n_rows}, counts);
   return (int)cudaGetLastError();
 }
 

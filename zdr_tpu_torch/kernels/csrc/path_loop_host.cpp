@@ -86,15 +86,15 @@ int zdr_path_loop_bvh_host(const int* params, const float* tables, int tables_n,
                            int small_shared, const float* bn, const float* material,
                            const int* lanes, const float* le_grad, const float* f_in,
                            const int* i_in, float* f_out, int* i_out, float* far, float* grad,
-                           int n, int n_steps, int k_near, const float* box, const int* link,
-                           const float* geom, const int* perm, int n_nodes,
+                           int n, int n_steps, int k_near, const float* nodes, const float* geom,
+                           int n_nodes, int n_rows,
                            unsigned long long* counts) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q) || k_near < 0) return 1;
   const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
   std::vector<float> copy(small, small + zdr::small_size(q));
   zdr::Tables tb = zdr::bvh_tables(small_shared ? copy.data() : small, tables, bn, material, q);
-  zdr::BvhTrace tr{zdr::Bvh{box, link, geom, perm, n_nodes}};
+  zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
   zdr::TraceCount c = {0, 0};
   std::vector<float> near(le_grad ? (size_t)k_near * zdr::kRowPlanes * n : 0);
   for (long lane = 0; lane < n; ++lane) {

@@ -99,15 +99,25 @@ ZDR_HD void sweep_row(SweepRay& s, const float* row, int id) {
   }
 }
 
-// Whether an open ray's slab test (trace.cuh aabb_hit, the BVH walk's) hits
-// a tile's box, capped by the best t so far (closest) or t_max (any): the
-// cull of pallas_bounce.py::_mxu_sweep_row's tile_need (:678-698). A tile
-// whose box no ray of a warp hits holds no hit that ray keeps.
+// Whether an open ray's slab test (trace.cuh slab, the BVH walk's) hits a
+// tile's box (6 floats lo xyz hi xyz in global memory, read through the
+// read-only path), capped by the best t so far (closest) or t_max (any):
+// the cull of pallas_bounce.py::_mxu_sweep_row's tile_need (:678-698). A
+// tile whose box no ray of a warp hits holds no hit that ray keeps.
 ZDR_HD bool tile_need(SweepRay& s, const float* box) {
   if (!s.open()) return false;
   s.box_tests += 1;
   V3 inv = v3(safe_inv(s.d.x), safe_inv(s.d.y), safe_inv(s.d.z));
-  return aabb_hit(s.o, inv, box, s.t_min, s.best_t);
+  float b[6];
+  for (int k = 0; k < 6; ++k) {
+#ifdef __CUDA_ARCH__
+    b[k] = __ldg(box + k);
+#else
+    b[k] = box[k];
+#endif
+  }
+  float near;
+  return slab(s.o, inv, v3(b[0], b[1], b[2]), v3(b[3], b[4], b[5]), s.t_min, s.best_t, near);
 }
 
 // A hit found before the epilogue, handed to closest_interact as its

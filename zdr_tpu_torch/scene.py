@@ -18,7 +18,7 @@ the material: the backward re-estimates the texture gradient at seed + 1
 
 `accel` picks the route of the sweeps (JAX's names): "bruteforce" or
 "pallas", the dense sweep over the kernels' shared-memory scene table;
-"bvh" or "stream", the escape-link BVH in device memory (the big-mesh
+"bvh" or "stream", the BVH in device memory (the big-mesh
 route); "auto" (the default), dense below the integrator's measured
 crossover (accel/build.DENSE_MAX_TRIS) while its kernels hold the table in
 shared memory, else the BVH. The BVH is built once per Scene, at
