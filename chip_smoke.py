@@ -8,8 +8,9 @@ Phases, one line each; any failure raises and exits non-zero:
      nvidia-smi prints them;
   2. the build: nvcc compiles zdr_tpu_torch/kernels/csrc/ for sm_90a into
      zdr_tpu_torch/kernels/_build/; ptxas's registers, local bytes (stack
-     frame) and spill bytes of the four BVH megakernels (ptxas_bvh), also
-     under "ptxas" in their records;
+     frame) and spill bytes of the four BVH megakernels and the dense
+     direct kernels' instantiations (ptxas_bvh), also under "ptxas" in
+     their records;
   3. the sampler probe kernel, bit for bit against the plain sampler;
   4. one path-loop kernel step (n_steps=1) against loop_step at 128x128,
      from the first carry and after 5 steps;
@@ -49,9 +50,15 @@ Phases, one line each; any failure raises and exits non-zero:
      own inputs at every 64th lane (direct at phase 10's bar; direct_grad,
      with the iteration's adjoint on those lanes and 0 elsewhere, at phase
      7's bars); the iteration's median, Scene.render's and each kernel's
-     alone (CUDA events); then the same for the cornell box at 512x512, 64
-     spp; then the protocol by the route accel="auto" takes, the BVH, as
-     phase 13 drives the big mesh;
+     alone (CUDA events), its launch's block, and the bound of its counted
+     work (_direct_bound) beside its tests-only bound (the early out's
+     tests counted up to the place each leaves, by the plain model of it on
+     every 256th lane, whose count must equal the kernel's there:
+     _early_work); then the same for
+     the cornell box at 512x512, 64 spp (the protocol's kernels sweep with
+     the early out, the cornell box's without: each instantiation
+     runs on a main path); then the protocol by the route accel="auto"
+     takes, the BVH, as phase 13 drives the big mesh;
  12. the trace kernels, trace_closest and trace_any (per-ray t_max), on
      262,144 random rays: the dense sweep over the 962-triangle protocol
      scene, the BVH over it and over the big mesh (50,882 triangles); each
@@ -81,7 +88,7 @@ Phases, one line each; any failure raises and exits non-zero:
      then trace_closest / trace_any through BVHs of leaf width 2, 4, 8 and
      16 on the protocol scene and the big mesh;
  15. the dense-vs-BVH crossover: each integrator's iteration (pmj02bn,
-     512x512, 64 spp, 1024^2 material) at seven or eight scene sizes from the
+     512x512, 64 spp, 1024^2 material) at eight or nine scene sizes from the
      cornell box to the largest its dense kernels hold, by both routes: the
      images equal bit for bit, the gradients at phase 7's bars, the times
      beside accel/build.DENSE_MAX_TRIS, which they set;
@@ -108,9 +115,13 @@ minutes), and
 operations each or 40 for a Woop test, BVH node visits, VISIT_OPS each, and
 tile-box tests, SLAB_OPS each, counted in this run)
 at 67 TFLOP/s and its bytes (each input read once, each output written
-once) at 3.35 TB/s; for path_loop the bound of all its step's counted work
-(_loop_bound: FP32, INT32, the issue of both, bytes), with the tests-only
-bound beside it as "bound_tests_ms". The last line is {"ok": true,
+once) at 3.35 TB/s; for path_loop, direct and direct_grad the bound of all
+their counted work (_loop_bound, _direct_bound: FP32, INT32, the issue of
+both, bytes), with the tests-only bound beside it as "bound_tests_ms" (for
+direct and direct_grad, a test of the sweep with the early out counted up to
+the place it leaves, EARLY_OPS, "test_ops" a test on average, and the
+cornell box's numbers under "cornell_box"). The
+last line is {"ok": true,
 "device": {...}}.
 Imports nothing of JAX.
 """
@@ -152,6 +163,13 @@ FP32_PEAK, HBM_RATE = 67e12, 3.35e12
 # kernels/csrc/path_loop_step.cuh): 2 cross products, 4 dot products, 3
 # scalings, a reciprocal, a difference and u + v
 MT_OPS = 46
+# FP32 operations of a test of the compact sweep's early out (mt_early in
+# kernels/csrc/direct_step.cuh), counted as MT_OPS is, up to each place a
+# test may leave: u's numerator (a cross product, 2 dot products, the
+# difference) and its two bounds; then v's and t's numerators (a cross
+# product, 2 dot products) and their four bounds; then the division's
+# reciprocal, 3 scalings and u + v
+EARLY_OPS = (24, 24 + 23, 24 + 23 + 5)
 # FP32 operations of one node visit's slab test (aabb_hit in
 # kernels/csrc/trace.cuh; the reciprocal direction is computed once a ray):
 # 6 differences and 6 products, 3 min and 3 max, 2 max and 2 min across the
@@ -184,6 +202,21 @@ NEXT1_INT, NEXT2_INT, NEXT2_SET_INT = 53, 107, 59
 # reflect) 104 or diffuse 10, as the lane's u_lobe says; a restart's
 # camera ray and accumulation 55.
 STEP_FP, GLOSSY_FP, DIFFUSE_FP, RESTART_FP = 612, 104, 10, 55
+# A direct sample's work besides its sweeps, counted from
+# kernels/csrc/direct_step.cuh as compiled, as STEP_FP is (_direct_bound):
+# FP32: the camera ray and the clamped accumulation 64, the hit's
+# interaction 67, the bilinear fetch 49, the NEE sample 50, the frame 32,
+# two projections 30, two ggx_sample_pdf 110, the BSDF sample's diffuse
+# branch 10 (the least of its two), to_world 15, the bounce's test 7, the
+# next origin 6, the MIS weights 6, two ggx_brdf 150, NEE's term, beta and
+# the radiance 21, the draws' float work 48 (the bounce's interaction,
+# which only a bouncing lane runs, is left out); the tap mode adds the taps'
+# cotangents 24, their channels 25, two ggx_spec_droughness 80 and the
+# splat corner 20. INT32: a sample's draws, three next1 and three next2
+# that do not permute (the first nine dimensions), and the tap mode's salt
+# (xxhash32_4, 20).
+DIRECT_FP, DIRECT_TAP_FP = 665, 149
+DIRECT_INT, DIRECT_TAP_INT = 3 * NEXT1_INT + 3 * NEXT2_SET_INT, 20
 # rates without FMA: one FP32 operation a lane a cycle (half the FMA peak),
 # INT32 at half that (64 INT32 lanes an SM against 128 FP32: the Hopper
 # white paper), and one warp instruction a cycle per SM quarter for both
@@ -294,6 +327,72 @@ def _path_work(tb, lanes, mat, stride=16):
     return {k: v * scale for k, v in work.items()}
 
 
+def _early_work(tb, lanes, mat, stride=4 * CHECK_STRIDE):
+    """The early out's tests by the place they leave (accel/trace.py
+    early_stages), counted on every `stride`-th lane over the rays that the
+    plain direct samples sweep as the kernel does (each primary ray, a
+    shading lane's shadow ray, a bouncing lane's bounce ray) -> ((3,) int64
+    tests: left after u's numerator, after v's and t's, at the division;
+    the lanes (3, N'))."""
+    from zdr_tpu_torch.accel.trace import early_stages
+    from zdr_tpu_torch.integrators import bounce
+    from zdr_tpu_torch.integrators import direct as dr
+    from zdr_tpu_torch.integrators.path_loop import T_MAX
+
+    sub = lanes[:, ::stride].contiguous()
+    stages = torch.zeros(3, dtype=torch.int64, device=lanes.device)
+    shading = []
+    trace, shade, occluded = dr.trace_interact_plain, dr.shade_plain, bounce.occluded_plain
+
+    def counted_trace(scene, rays, lite=False, bvh=None):
+        act = rays[7] != 0
+        o, d = tuple(x[act] for x in rays[0:3]), tuple(x[act] for x in rays[3:6])
+        stages.add_(early_stages(scene, o, d, torch.full_like(o[0], T_MAX)))
+        return trace(scene, rays, lite, bvh)
+
+    def counted_shade(scene, ray, *args, **kw):
+        shading[:] = [ray[12] != 0]
+        return shade(scene, ray, *args, **kw)
+
+    def counted_occluded(scene, p, wi, dist, bvh=None):
+        m = shading[0]
+        stages.add_(early_stages(scene, tuple(x[m] for x in p), tuple(x[m] for x in wi),
+                                 dist[m], any_hit=True))
+        return occluded(scene, p, wi, dist, bvh)
+
+    dr.trace_interact_plain, dr.shade_plain = counted_trace, counted_shade
+    bounce.occluded_plain = counted_occluded
+    try:
+        dr.render_direct_plain(tb, sub, mat)
+    finally:
+        dr.trace_interact_plain, dr.shade_plain, bounce.occluded_plain = trace, shade, occluded
+    return stages.cpu(), sub
+
+
+def _test_ops(stages=None):
+    """FP32 operations of a dense direct kernel's test: MT_OPS, or for the
+    sweep with the early out the mean of EARLY_OPS over the places that
+    `stages` (_early_work's counts) says its tests leave."""
+    if stages is None:
+        return MT_OPS
+    return sum(n * ops for n, ops in zip(stages.tolist(), EARLY_OPS)) / int(stages.sum())
+
+
+def _direct_bound(tests, samples, nbytes, grad=False, test_ops=MT_OPS):
+    """The least time of a dense direct launch's counted work -> (bound_ms,
+    bound_by, {term: ms}): the larger of its FP32 operations (the kernel's
+    counted tests, `test_ops` each (_test_ops), and DIRECT_FP a sample,
+    with the taps' DIRECT_TAP_FP in tap mode) at FP32_RATE, the draws'
+    integer operations at INT32_RATE, both together at ISSUE_RATE, and the
+    bytes at HBM_RATE."""
+    fp = tests * test_ops + samples * (DIRECT_FP + (DIRECT_TAP_FP if grad else 0))
+    ints = samples * (DIRECT_INT + (DIRECT_TAP_INT if grad else 0))
+    terms = {"fp32": fp / FP32_RATE * 1e3, "int32": ints / INT32_RATE * 1e3,
+             "issue": (fp + ints) / ISSUE_RATE * 1e3, "bytes": nbytes / HBM_RATE * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], "bytes" if by == "bytes" else "operations", terms
+
+
 def _loop_bound(work, nbytes):
     """The least time of a path-loop forward launch's counted work ->
     (bound_ms, bound_by, {term: ms}): the larger of the FP32 operations
@@ -338,11 +437,17 @@ def phase_device():
 BVH_ENTRIES = {"direct_bvh": "direct_bvh_kernelILb0", "direct_grad_bvh": "direct_bvh_kernelILb1",
                "path_loop_bvh": "path_loop_bvh_kernel",
                "path_loop_grad_bvh": "path_loop_grad_bvh_kernel"}
+# the dense direct kernels' instantiations (direct_kernel<kGrad, kEarly>):
+# the sweeps without and with the early out
+DIRECT_ENTRIES = {"direct": "direct_kernelILb0ELb0E", "direct_early": "direct_kernelILb0ELb1E",
+                  "direct_grad": "direct_kernelILb1ELb0E",
+                  "direct_grad_early": "direct_kernelILb1ELb1E"}
+PTXAS_ENTRIES = {**BVH_ENTRIES, **DIRECT_ENTRIES}
 
 
 def ptxas_bvh(log):
-    """ptxas -v's report -> {BVH megakernel: {registers, local_bytes (its
-    stack frame), spill_stores, spill_loads}}."""
+    """ptxas -v's report -> {kernel of PTXAS_ENTRIES: {registers,
+    local_bytes (its stack frame), spill_stores, spill_loads}}."""
     out, entry, props = {}, None, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -359,11 +464,12 @@ def ptxas_bvh(log):
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
             out.setdefault(entry, {})["registers"] = int(m.group(1))
-    return {name: out[e] for name, key in BVH_ENTRIES.items() for e in out if key in e}
+    return {name: out[e] for name, key in PTXAS_ENTRIES.items() for e in out if key in e}
 
 
 def phase_build():
-    """Phase 2 -> the BVH megakernels' ptxas report (ptxas_bvh)."""
+    """Phase 2 -> the BVH megakernels' and the dense direct kernels' ptxas
+    report (ptxas_bvh)."""
     from zdr_tpu_torch import kernels
 
     t0 = time.perf_counter()
@@ -371,14 +477,14 @@ def phase_build():
     log = kernels.build_info["log"]
     regs = [ln.strip() for ln in log.splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln]
-    bvh = ptxas_bvh(log)
-    if sorted(bvh) != sorted(BVH_ENTRIES):
-        raise AssertionError(f"ptxas reported {sorted(bvh)} of the BVH megakernels")
+    report = ptxas_bvh(log)
+    if sorted(report) != sorted(PTXAS_ENTRIES):
+        raise AssertionError(f"ptxas reported {sorted(report)} of {sorted(PTXAS_ENTRIES)}")
     print(f"[2 build] nvcc sm_90a {time.perf_counter() - t0:.2f} s into "
-          f"{os.path.relpath(kernels.BUILD_DIR, ROOT)}; the BVH megakernels' registers, local "
-          f"bytes (stack frame) and spill bytes: {json.dumps(bvh)}; ptxas: {' | '.join(regs)}",
-          flush=True)
-    return bvh
+          f"{os.path.relpath(kernels.BUILD_DIR, ROOT)}; the BVH megakernels' and the dense "
+          f"direct kernels' registers, local bytes (stack frame) and spill bytes: "
+          f"{json.dumps(report)}; ptxas: {' | '.join(regs)}", flush=True)
+    return report
 
 
 def _event_ms(fn, reps=5):
@@ -892,13 +998,36 @@ def _direct_main(scene, res, spp, what, smi, reps):
     render_ms, render_runs = _median_ms(lambda: scene.render(m, res=res, spp=spp, seed=0), reps)
     le = torch.full((3, lanes.shape[1]), 1.0 / spp, device=dev)
     ms, _r = _event_ms(lambda: kernels.direct(tb, lanes, m), reps)
-    tests = int(kernels.direct.tests)
+    tests, plan = int(kernels.direct.tests), kernels.direct.plan
     gms, _r = _event_ms(lambda: kernels.direct_grad(tb, lanes, m, le), reps)
     gtests = int(kernels.direct_grad.tests)
     acc = torch.empty((3, lanes.shape[1]), device=dev)
-    bound = _bound(tests, _nbytes(lanes, m, acc, tb.scene, tb.lights, tb.bn))
-    gbound = _bound(gtests, _nbytes(lanes, m, le, acc, m, tb.scene, tb.lights, tb.bn))
     n_samples = res[0] * res[1] * spp
+    nbytes = _nbytes(lanes, m, acc, tb.scene, tb.lights, tb.bn)
+    gnbytes = _nbytes(lanes, m, le, acc, m, tb.scene, tb.lights, tb.bn)
+    stages, sub_tests, stage_note = None, None, ""
+    if plan["early"]:
+        # the early out's tests by the place they leave, on a stride of the
+        # same lanes, which must be the kernel's tests of those lanes
+        stages, early_sub = _early_work(tb, lanes, m)
+        kernels.direct(tb, early_sub, m)
+        sub_tests = int(kernels.direct.tests)
+        if int(stages.sum()) != sub_tests:
+            raise AssertionError(f"{what}: the early out's stages count {int(stages.sum())} "
+                                 f"tests on every {4 * CHECK_STRIDE}th lane, the kernel "
+                                 f"{sub_tests}")
+        shares = (stages.double() / stages.sum()).tolist()
+        stage_note = (f", at every {4 * CHECK_STRIDE}th lane {shares[0]:.4f} of them leave "
+                      f"after u's numerator, {shares[1]:.4f} after v's and t's, "
+                      f"{shares[2]:.4f} reach the division (the kernel's count of those "
+                      f"lanes, {sub_tests}, equal): {_test_ops(stages):.2f} FP32 operations "
+                      f"a test")
+    test_ops = _test_ops(stages)
+    bound = _direct_bound(tests, n_samples, nbytes, test_ops=test_ops)
+    gbound = _direct_bound(gtests, n_samples, gnbytes, grad=True, test_ops=test_ops)
+    bound_tests = _bound(tests, nbytes, ops=test_ops)[0]
+    gbound_tests = _bound(gtests, gnbytes, ops=test_ops)[0]
+    sweep = "with the early out" if plan["early"] else "without the early out"
     print(f"[11 main-direct] {what}: {tb.scene.shape[0]} tris, pmj02bn {res[0]}x{res[1]} {spp} "
           f"spp {TEX}^2 material of 0.5, loss = image[..., :3].sum(), loss.backward(): "
           f"{launches[0]} direct and {launches[1]} direct_grad launch(es), no plain version "
@@ -906,11 +1035,20 @@ def _direct_main(scene, res, spp, what, smi, reps):
           f"{float(grad.abs().max()):.4e}; {check}; iteration median {it_ms:.2f} ms of "
           f"{[round(t, 2) for t in it_runs]} (first {first_ms:.2f} ms); Scene.render median "
           f"{render_ms:.2f} ms of {[round(t, 2) for t in render_runs]}; direct alone "
-          f"{ms:.2f} ms = {n_samples / ms / 1e3:.2f} M samples/s, {tests:.4g} ray-triangle "
-          f"tests -> bound {bound[0]:.3f} ms ({bound[1]}); direct_grad alone {gms:.2f} ms, "
-          f"{gtests:.4g} tests -> bound {gbound[0]:.3f} ms ({gbound[1]}); plain versions not "
-          f"run at full width; card {smi}", flush=True)
+          f"{ms:.3f} ms = {n_samples / ms / 1e3:.2f} M samples/s ({sweep}, block "
+          f"{plan['block']}, {plan['registers']} registers, {plan['blocks_per_sm']} blocks an "
+          f"SM, {plan['waves']:.3f} waves), {tests:.4g} ray-triangle tests{stage_note} -> "
+          f"counted-work "
+          f"bound {bound[0]:.3f} ms ({bound[1]}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in bound[2].items())
+          + f"), tests only {bound_tests:.3f} ms; direct_grad alone {gms:.3f} ms, {gtests:.4g} "
+          f"tests -> bound {gbound[0]:.3f} ms ({gbound[1]}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in gbound[2].items())
+          + f"), tests only {gbound_tests:.3f} ms; plain versions not run at full width; card "
+          f"{smi}", flush=True)
     return dict(launches=launches, ms=ms, gms=gms, bound=bound, gbound=gbound,
+                bound_tests=bound_tests, gbound_tests=gbound_tests, early=plan["early"],
+                stages=None if stages is None else stages.tolist(), test_ops=test_ops,
                 err=float((got - want).abs().max() / spp), g_err=g_err, plain_ms=plain_ms,
                 gplain_ms=gplain_ms,
                 plain_shape=f"every {CHECK_STRIDE}th lane of {res[0]}x{res[1]}, {spp} spp")
@@ -933,6 +1071,10 @@ def phase_main_direct(dev, smi):
     proto = _direct_main(_protocol(dev), RES, PROTOCOL_SPP,
                          "the reference's protocol (sphere + quad light)", smi, reps=3)
     cbox = _direct_main(_flagship(dev, "direct"), RES, SPP, "cornell box", smi, reps=5)
+    if proto["early"] == cbox["early"]:
+        raise AssertionError("phase 11: the protocol and the cornell box took the same sweep; "
+                             "each instantiation must run on a main path")
+    proto["cornell_box"] = cbox
     for k in ("err", "g_err"):
         proto[k] = max(proto[k], cbox[k])
     auto = _bvh_main(_protocol(dev, accel="auto"), "direct", PROTOCOL_SPP,
@@ -1439,11 +1581,13 @@ def phase_variants(dev, smi):
 
 # phase 15's scenes, by sphere stacks (None: the cornell box, 12 triangles)
 # over the protocol's quad light: 26, 50, 122, 226 and 962 (the protocol's)
-# triangles; for direct 3970 (where a route disagreement once showed in the
-# gradient alone); and the largest that each integrator's dense kernels hold
-# in shared memory (kernels.check_table_fits): 4762 direct, 1850 path
+# triangles; for direct 38, between the sizes where its routes meet, 3970
+# (where a route disagreement once showed in the gradient alone); and the
+# largest that each integrator's dense kernels hold in shared memory
+# (kernels.check_table_fits): 4762 direct, 1850 path
 _SMALL_STACKS = (None, (3, 6), (4, 8), (6, 12), (8, 16), (16, 32))
-CROSS_STACKS = {"direct": _SMALL_STACKS + ((32, 64), (36, 68)),
+CROSS_STACKS = {"direct": _SMALL_STACKS[:2] + ((4, 6),) + _SMALL_STACKS[2:] + ((32, 64),
+                                                                              (36, 68)),
                 "path": _SMALL_STACKS + ((22, 44),)}
 
 
@@ -1504,6 +1648,25 @@ def phase_crossover(dev, smi):
               f"phase 7's bars: {rows}; {verdict} (accel/build.DENSE_MAX_TRIS[{integrator!r}] "
               f"= {DENSE_MAX_TRIS[integrator]}); card {smi}", flush=True)
     return found
+
+
+def _direct_extra(proto, g, ptxas):
+    """The dense direct kernels' record beyond the contract's keys: the
+    counted-work bound's terms and the tests-only bound on the protocol,
+    the cornell box's numbers beside them, each instantiation's ptxas."""
+    cbox = proto["cornell_box"]
+    name = "direct_grad" if g else "direct"
+    return {
+        "bound_terms_ms": proto[f"{g}bound"][2], "bound_tests_ms": proto[f"{g}bound_tests"],
+        "test_ops": proto["test_ops"], "early_stages": proto["stages"],
+        "cornell_box": {"launches": cbox["launches"][1 if g else 0], "ms": cbox[f"{g}ms"],
+                        "plain_ms": cbox[f"{g}plain_ms"], "plain_shape": cbox["plain_shape"],
+                        "bound_ms": cbox[f"{g}bound"][0], "bound_by": cbox[f"{g}bound"][1],
+                        "bound_terms_ms": cbox[f"{g}bound"][2],
+                        "bound_tests_ms": cbox[f"{g}bound_tests"],
+                        "test_ops": cbox["test_ops"]},
+        "ptxas": {k: v for k, v in ptxas.items() if k in (name, f"{name}_early")},
+    }
 
 
 def main():
@@ -1586,6 +1749,7 @@ def main():
         "launches": proto["launches"][0], "max_abs_err": max(check["err"], proto["err"]),
         "ms": proto["ms"], "plain_ms": proto["plain_ms"], "plain_shape": proto["plain_shape"],
         "bound_ms": proto["bound"][0], "bound_by": proto["bound"][1], "library_ms": None,
+        **_direct_extra(proto, "", ptxas),
     }, {
         "name": "direct_grad",
         "route": "cuda",
@@ -1594,6 +1758,7 @@ def main():
         "launches": proto["launches"][1], "max_abs_err": max(check["g_err"], proto["g_err"]),
         "ms": proto["gms"], "plain_ms": proto["gplain_ms"], "plain_shape": proto["plain_shape"],
         "bound_ms": proto["gbound"][0], "bound_by": proto["gbound"][1], "library_ms": None,
+        **_direct_extra(proto, "g", ptxas),
     }, {
         "name": "trace_closest",
         "route": "cuda",

@@ -375,8 +375,12 @@ def _host_trace(table, rays, lite):
     return (*f_out[0:11].unbind(0), i_out[0], *f_out[11:14].unbind(0), i_out[1])
 
 
-def _host_direct(tb, lanes, mat, le_grad=None):
-    """zdr_direct_host -> (acc (3, N), grad or None, ray-triangle tests)."""
+def _host_direct(tb, lanes, mat, le_grad=None, early=None):
+    """zdr_direct_host, the sweeps with the early out or without
+    (None: kernels.direct_early's rule) -> (acc (3, N), grad or None,
+    ray-triangle tests)."""
+    if early is None:
+        early = kernels.direct_early(tb.scene.shape[0])
     lib = kernels.load_host_library()
     n = lanes.shape[1]
     acc = torch.empty((3, n))
@@ -386,7 +390,7 @@ def _host_direct(tb, lanes, mat, le_grad=None):
     rc = lib.zdr_direct_host(
         kernels.loop_params(tb, mat), tables.data_ptr(), tables.numel(), tb.bn.data_ptr(),
         mat.data_ptr(), lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(),
-        acc.data_ptr(), grad.data_ptr(), tests.data_ptr(), n)
+        acc.data_ptr(), grad.data_ptr(), tests.data_ptr(), n, int(early))
     assert rc == 0
     return acc, (None if le_grad is None else grad), int(tests)
 
@@ -400,13 +404,15 @@ def test_host_trace_interact_matches_plain(lite):
                    [x.numpy() for x in trace_interact_plain(table, rays, lite)], atol=1e-6)
 
 
+@pytest.mark.parametrize("early", [False, True], ids=["sweep", "early"])
 @pytest.mark.parametrize("sampler,name", [("pmj02bn", "cbox"), ("lcg", "sphere")])
-def test_host_direct_matches_plain(sampler, name):
+def test_host_direct_matches_plain(sampler, name, early):
     """24x24, 8 spp, roughness in [0.5, 0.9], a random adjoint: the render
     within mean abs diff 1e-6 and 99% of pixels within 1e-5 (glibc's
     sinf and torch's differ by ulps), the gradient within max|a - b| /
     max|a| < 1e-5, the tap mode's radiance equal to the forward's, and
-    the test count between the bounds of the sweeps."""
+    the test count between the bounds of the sweeps; with and without the
+    sweeps' early out (direct_step.cuh CompactSweep)."""
     s = _port_scene(name, sampler)
     mat = _material(seed=6)
     mat[..., 3] = np.random.RandomState(7).uniform(0.5, 0.9, mat.shape[:2])
@@ -414,7 +420,7 @@ def test_host_direct_matches_plain(sampler, name):
     tb = pl.build_loop_tables(s._data, s.camera, s._config((24, 24), 8), 11)
     lanes = pl.pixel_lanes(tb.res, tb.spp, "cpu")
     le = torch.as_tensor(np.random.RandomState(8).rand(3, lanes.shape[1]).astype(np.float32))
-    acc, _g, tests = _host_direct(tb, lanes, mat)
+    acc, _g, tests = _host_direct(tb, lanes, mat, early=early)
     want = dr.render_direct_plain(tb, lanes, mat)
     diff = (acc - want).abs().max(dim=0).values / tb.spp
     assert float(diff.mean()) <= 1e-6
@@ -422,7 +428,7 @@ def test_host_direct_matches_plain(sampler, name):
     t = tb.scene.shape[0]
     n_samples = lanes.shape[1] * tb.spp
     assert n_samples * t <= tests <= 3 * n_samples * t
-    g_acc, grad, g_tests = _host_direct(tb, lanes, mat, le)
+    g_acc, grad, g_tests = _host_direct(tb, lanes, mat, le, early)
     assert torch.equal(g_acc, acc) and g_tests == tests
     want_g, want_acc = dr.render_direct_backward_plain(tb, lanes, mat, le)
     assert torch.equal(want_acc, want)

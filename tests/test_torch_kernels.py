@@ -305,6 +305,47 @@ def test_direct_grad_matches_plain_backward(dev, name):
     assert float(((got - want).abs().amax(-1)[big] / mag[big]).max()) <= 1e-4
 
 
+@pytest.mark.parametrize("name", ["cbox", "sphere"])
+@pytest.mark.parametrize("early", [False, True], ids=["sweep", "early"])
+def test_direct_sweeps_match_plain_at_every_block(dev, name, early):
+    """Each instantiation of the dense direct kernels (the sweeps without
+    and with the early out; kernels.direct_early picks the first for
+    the cornell box, the second for the 962-triangle sphere) at every block
+    the launch takes, 48x48, 8 spp: the forward at test_direct_matches_plain's
+    bars, bit for bit the other instantiation's, with the same tests; the
+    tap mode at test_direct_grad_matches_plain_backward's bars, its radiance
+    the forward's."""
+    s = _direct_scene(dev, name)
+    mat = _material(dev)
+    tb = pl.build_loop_tables(s._data, s.camera, s._config((48, 48), 8), 4)
+    lanes = pl.pixel_lanes(tb.res, tb.spp, dev)
+    le = torch.as_tensor(np.random.RandomState(5).rand(3, lanes.shape[1]).astype(np.float32),
+                         device=dev)
+    lib = kernels.load_library()
+    want = dr.render_direct_plain(tb, lanes, mat)
+    want_g, _acc = dr.render_direct_backward_plain(tb, lanes, mat, le)
+    other = kernels.direct_launch(lib, tb, lanes, mat, early=not early)
+    block, largest = 32, 32
+    while block <= largest:
+        _g, got, counts, plan = kernels.direct_launch(lib, tb, lanes, mat, block=block,
+                                                      early=early)
+        grad, acc, _c, _p = kernels.direct_launch(lib, tb, lanes, mat, le, block, early)
+        torch.cuda.synchronize()
+        assert plan["block"] == block and plan["early"] == early
+        diff = (got - want).abs().amax(0) / 8
+        assert float(diff.mean()) <= 1e-6
+        assert float((diff <= 1e-5).float().mean()) >= 0.999
+        assert torch.equal(got, other[1]) and torch.equal(counts, other[2])
+        assert torch.equal(acc, got)
+        torch.testing.assert_close(grad.double().sum((0, 1)), want_g.double().sum((0, 1)),
+                                   rtol=1e-5, atol=0.0)
+        mag = want_g.abs().amax(-1)
+        big = mag > 1e-3 * float(mag.max())
+        assert float(((grad - want_g).abs().amax(-1)[big] / mag[big]).max()) <= 1e-4
+        largest = plan["max_block"]
+        block *= 2
+
+
 def test_scene_direct_backward_launches_the_direct_kernels(dev):
     """The default integrator: render + backward launch direct and
     direct_grad once each and no plain version."""

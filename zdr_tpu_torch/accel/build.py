@@ -33,13 +33,16 @@ METHODS = ("auto", "bruteforce", "pallas", "bvh", "stream")
 # of the iteration (Scene.render + loss.backward(), pmj02bn, 512x512, 64 spp,
 # 1024^2 material of 0.5) of chip_smoke.py phase 15, dense vs BVH, on an
 # NVIDIA H100 80GB HBM3 at 700.00 W, with the ordered BVH walk at leaf 4.
-# Direct, dense / BVH ms: 12 triangles 11.74 / 13.42, 26: 15.78 / 15.43,
-# 50: 21.27 / 18.52, 122: 40.53 / 25.61, 226: 65.69 / 26.97, 962: 250.31 /
-# 30.68, 4762: 2251.05 / 41.72. Path: 12 triangles 33.32 / 41.93, 26: 22.48
-# / 21.46, 50: 31.18 / 24.74, 122: 56.26 / 33.09, 226: 95.41 / 36.21, 962:
-# 691.21 / 42.45, 1850: 1306.06 / 46.78. The times meet between 12 and 26
-# triangles: at 23.6 (direct) and 24.5 (path) by linear interpolation.
-DENSE_MAX_TRIS = {"direct": 24, "path": 25}
+# Direct (the dense kernels' compact sweep), dense / BVH ms in three runs:
+# 12 triangles 10.07 / 11.67, 10.91 / 12.14 and 10.04 / 12.98; 26: 13.76 /
+# 14.65, 13.70 / 14.28 and 14.41 / 14.82; 38: 15.38 / 14.54, 16.46 / 16.52
+# and 17.24 / 15.53; 50: 17.54 / 15.79, 18.59 / 16.66 and 18.30 / 17.30;
+# 962: 198.49 / 27.61 (the first); the times meet at 32.2, 38.4 and 28.3
+# triangles by linear interpolation (33: the ceiling of their mean). Path:
+# 12 triangles 33.32 / 41.93, 26: 22.48 / 21.46, 50: 31.18 / 24.74, 122:
+# 56.26 / 33.09, 226: 95.41 / 36.21, 962: 691.21 / 42.45, 1850: 1306.06 /
+# 46.78; they meet at 24.5.
+DENSE_MAX_TRIS = {"direct": 33, "path": 25}
 # the BVH's triangles a leaf at most: JAX's tree is built at 8
 # (accel/bvh.LEAF_SIZE), the port's at 4, the fastest of 2, 4 and 8 for the
 # four BVH kernels by studies/walk_split.py on an NVIDIA H100 80GB HBM3 at

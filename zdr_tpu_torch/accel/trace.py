@@ -130,6 +130,74 @@ def dense_any(rows, o, d, t_min, t_max, test=mt_rows):
     return occ, (tests.cpu(), torch.zeros((), dtype=torch.int64))
 
 
+# the early out of the direct kernels' compact sweep
+# (kernels/csrc/direct_step.cuh mt_early): its bounds on a numerator over
+# |a|, in float32 as the kernels hold them
+EARLY_UNDER = -(2.0**-60)
+EARLY_OVER = 1.0 + 2.0**-20
+EARLY_OVER2 = 1.0 + 2.0**-19
+EARLY_T_FLOOR = 2.0**-80
+EARLY_SHADOW_LO = float(torch.tensor(1e-4) * torch.tensor(1.0 - 2.0**-20))
+
+
+def early_planes(rows, o, d, t_max, any_hit: bool = False):
+    """The compact sweep's early out (direct_step.cuh CompactSweep) for
+    every ray over the rows of `rows` (T, >= 9) in the sweep's order: the
+    closest sweep at t in (0, t_max), whose bound on t narrows at each hit,
+    or the shadow sweep at t in (1e-4, t_max), which stops at its first
+    hit. Yields, a chunk of rays at a time, (N', T) bool planes: tested
+    (the tests the sweep makes), hit (the rows it takes as its hits: each
+    nearer than the last, or the first), left1 (a test that leaves after
+    u's numerator) and left2 (after v's and t's, where not left1)."""
+    n, n_tris = o[0].shape[0], rows.shape[0]
+    lo = EARLY_SHADOW_LO if any_hit else EARLY_UNDER
+    t_min = 1e-4 if any_hit else 0.0
+    p0, e1, e2 = (tuple(x[None, :] for x in c) for c in _row_cols(rows))
+    for sl in chunks(n, n_tris):
+        oc, dc = tuple(x[sl, None] for x in o), tuple(x[sl, None] for x in d)
+        tm = t_max[sl, None]
+        ok, _u, _v, t = mt(p0, e1, e2, oc, dc)
+        valid = ok & (t > t_min) & (t < tm)
+        if any_hit:
+            # a ray's tests up to and including its first hit
+            first = torch.where(valid.any(1), valid.to(torch.int8).argmax(1), n_tris)
+            cols = torch.arange(n_tris, device=rows.device)[None, :]
+            tested, hit, best = cols <= first[:, None], cols == first[:, None], tm
+        else:
+            # t_max at each test: the nearest hit among the rows before it
+            near = torch.cummin(torch.where(valid, t, torch.inf), dim=1).values
+            before = torch.cat([torch.full_like(near[:, :1], torch.inf), near[:, :-1]], 1)
+            best = torch.minimum(before, tm)
+            tested, hit = torch.ones_like(valid), valid & (t < best)
+        hi = torch.clamp_min(best * EARLY_OVER, EARLY_T_FLOOR)
+        h = vcross(dc, e2)
+        a = vdot(e1, h)
+        sv = vsub(oc, p0)
+        s = vdot(sv, h)
+        aa = torch.abs(a)
+        neg = a < 0.0
+        under, over = aa * EARLY_UNDER, aa * EARLY_OVER
+        sa = torch.where(neg, -s, s)
+        left1 = ~(aa > 1e-12) | (sa < under) | (sa > over)
+        qv = vcross(sv, e1)
+        ra = torch.where(neg, -vdot(dc, qv), vdot(dc, qv))
+        ta = torch.where(neg, -vdot(e2, qv), vdot(e2, qv))
+        left2 = ~left1 & ((ra < under) | (ra > over) | (sa + ra > aa * EARLY_OVER2)
+                          | (ta < aa * lo) | (ta > aa * hi))
+        yield tested, hit, left1, left2
+
+
+def early_stages(rows, o, d, t_max, any_hit: bool = False):
+    """early_planes' tests by where they leave -> (3,) int64 counts: after
+    u's numerator, after v's and t's, at the division. Their sum is
+    dense_closest's or dense_any's test count."""
+    out = torch.zeros(3, dtype=torch.int64, device=rows.device)
+    for tested, _hit, left1, left2 in early_planes(rows, o, d, t_max, any_hit):
+        out += torch.stack([(tested & left1).sum(), (tested & left2).sum(),
+                            (tested & ~left1 & ~left2).sum()])
+    return out
+
+
 # -------------------------------------------------------------------- BVH
 
 

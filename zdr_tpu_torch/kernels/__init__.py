@@ -40,10 +40,14 @@ Kernels:
                   (csrc/direct.cu), for checks; plain version:
                   integrators/bounce.trace_interact_plain
   direct          the forward render of the direct integrator
-                  (csrc/direct.cu); plain version:
+                  (csrc/direct.cu): its dense kernel sweeps with the
+                  early out where accel="auto" would walk the BVH
+                  (direct_early), one instantiation each, and the launch
+                  picks its block (direct_launch); `.plan` holds the last
+                  launch's; plain version:
                   integrators/direct.render_direct_plain
   direct_grad     its texture gradient, one atomic tap a sample
-                  (csrc/direct.cu); plain version:
+                  (csrc/direct.cu), likewise; plain version:
                   integrators/direct.render_direct_backward_plain
   trace_closest   closest hit of a ray batch, dense or through the BVH
   trace_any       any hit of a ray batch, likewise (csrc/accel.cu); plain
@@ -101,6 +105,7 @@ from ..accel.variants import (
     sweep_variant_plain,
     woop_sweep_plain,
 )
+from ..accel.build import DENSE_MAX_TRIS
 from ..accel.bvh import COUNT_BITS, NODE_COLS
 from ..accel.types import GEOM_COLS
 from ..integrators.scene_tables import SCENE_COLS
@@ -111,7 +116,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 CUDA_SOURCES = ("path_loop.cu", "path_loop_grad.cu", "direct.cu", "accel.cu",
                 "sweep_variants.cu")
-HEADERS = ("path_loop_step.cuh", "direct_step.cuh", "trace.cuh", "sweep_variants.cuh")
+HEADERS = ("path_loop_step.cuh", "direct_step.cuh", "trace.cuh", "sweep_variants.cuh",
+           "launch.cuh")
 # -fmad=false and no fast math: the kernel rounds as its plain version does
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -213,12 +219,11 @@ def _bind(lib, name, argtypes):
 _LOOP_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I]
 _GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I]
 # zdr_trace_interact: params, tables, tables_n, rays, active, f_out, i_out,
-# n, lite; zdr_direct: params, tables, tables_n, bn, material, lanes, acc,
-# tests, n; zdr_direct_grad: the same with le_grad after lanes and grad
-# after acc
+# n, lite; zdr_direct (and its host build): params, tables, tables_n, bn,
+# material, lanes, le_grad (null: the forward), acc, grad, counts, n,
+# early; the card's then block and plan
 _TRACE_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _I]
-_DIRECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _I]
-_DIRECT_GRAD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I]
+_DIRECT_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I]
 # the BVH: nodes, geom, n_nodes, n_rows
 _BVH_ARGS = [_P, _P, _I, _I]
 # the BVH instantiations take small_shared after tables_n: zdr_path_loop_bvh:
@@ -254,8 +259,7 @@ def load_library() -> types.SimpleNamespace:
         zdr_path_loop_grad_bvh=_bind(grad, "zdr_path_loop_grad_bvh", _GRAD_BVH_ARGS + [_P]),
         zdr_path_loop_grad_plan=_bind(grad, "zdr_path_loop_grad_plan", [_I, _I, _I, _P]),
         zdr_trace_interact=_bind(direct_lib, "zdr_trace_interact", _TRACE_ARGS + [_P]),
-        zdr_direct=_bind(direct_lib, "zdr_direct", _DIRECT_ARGS + [_P]),
-        zdr_direct_grad=_bind(direct_lib, "zdr_direct_grad", _DIRECT_GRAD_ARGS + [_P]),
+        zdr_direct=_bind(direct_lib, "zdr_direct", _DIRECT_ARGS + [_I, _P, _P]),
         zdr_direct_bvh=_bind(direct_lib, "zdr_direct_bvh", _DIRECT_BVH_ARGS + [_P]),
         zdr_trace_closest=_bind(accel_lib, "zdr_trace_closest", _CLOSEST_ARGS + [_P]),
         zdr_trace_any=_bind(accel_lib, "zdr_trace_any", _ANY_ARGS + [_P]),
@@ -292,8 +296,9 @@ def load_host_library() -> types.SimpleNamespace:
         # the forward when le_grad (8th) is null
         zdr_path_loop_bvh_host=_bind(lib, "zdr_path_loop_bvh_host", _GRAD_BVH_ARGS),
         zdr_trace_interact_host=_bind(direct_lib, "zdr_trace_interact_host", _TRACE_ARGS),
-        zdr_direct_host=_bind(direct_lib, "zdr_direct_host",
-                              [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I]),
+        zdr_direct_host=_bind(direct_lib, "zdr_direct_host", _DIRECT_ARGS),
+        # rows, n_tris, rays, n, any, sweep, f_out, i_out, counts
+        zdr_sweep_host=_bind(direct_lib, "zdr_sweep_host", [_P, _I, _P, _I, _I, _I, _P, _P, _P]),
         zdr_direct_bvh_host=_bind(direct_lib, "zdr_direct_bvh_host", _DIRECT_BVH_ARGS),
         zdr_trace_closest_host=_bind(accel_lib, "zdr_trace_closest_host", _CLOSEST_ARGS),
         zdr_trace_any_host=_bind(accel_lib, "zdr_trace_any_host", _ANY_ARGS),
@@ -664,24 +669,63 @@ def trace_interact(scene: torch.Tensor, rays, lite: bool = False):
 trace_interact.launches = 0
 
 
+def direct_early(n_tris: int) -> bool:
+    """Whether the dense direct kernels sweep a scene of n_tris triangles
+    with the early out (csrc/direct_step.cuh CompactSweep<true>) rather
+    than without it: where accel="auto" would walk the BVH, from
+    accel/build.DENSE_MAX_TRIS["direct"] triangles on, so only a forced
+    dense route takes it. The early out's bounds cost more than the tests
+    they skip on the dense route's own scenes and pay past them
+    (studies/direct_split.py; PERF.md)."""
+    return n_tris >= DENSE_MAX_TRIS["direct"]
+
+
+def direct_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                  le_grad=None, block: int = 0, early=None):
+    """One launch of a build of csrc/direct.cu's dense kernel (`lib`:
+    load_library()'s entries, or a build's of the same C entry), forward
+    (le_grad None) or tap mode, on CUDA tensors, counting nothing: the
+    direct wrappers, and the tests and studies of other blocks and sweeps.
+    block: threads a block, a power of two from 32 up to the kernel's
+    largest (0: the launch's pick, as loop_launch's); early: the sweeps
+    with the early out or without (None: direct_early's rule) ->
+    (grad or None, acc, counts, the launch's plan: LOOP_PLAN's fields, the
+    waves and early)."""
+    dev = lanes.device
+    if early is None:
+        early = direct_early(tb.scene.shape[0])
+    n, tables, params, _shared = _loop_inputs(tb, lanes, material, 0, dev, "direct")
+    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
+    grad = None
+    if le_grad is not None:
+        _check(le_grad, "le_grad", torch.float32, (3, n), dev)
+        grad = _tap_grad(material)
+    counts = _counts(dev)
+    info = (ctypes.c_int * len(LOOP_PLAN))()
+    rc = lib.zdr_direct(
+        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
+        lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
+        None if grad is None else grad.data_ptr(), counts.data_ptr(), n, int(early), block,
+        info, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "direct" if le_grad is None else "direct_grad")
+    plan = dict(zip(LOOP_PLAN, info))
+    plan["waves"] = n / (plan["block"] * plan["blocks_per_sm"] * plan["sms"])
+    plan["early"] = bool(early)
+    return grad, acc, counts, plan
+
+
 def direct(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch.Tensor:
     """Every lane's samples 0 .. stop-1 of the direct integrator -> the
     (3, N) float32 sums of their clamped radiances. lanes: (3, N) int32
     px, py, stop; material: (H, W, 4). With a BVH in the tables, direct_bvh
-    runs."""
+    runs. `.plan` holds the last launch's block, registers, occupancy and
+    waves."""
     dev = lanes.device
     if not _on_card(dev, "direct"):
         return render_direct_plain(tb, lanes, material)
     if tb.bvh is not None:
         return direct_bvh(tb, lanes, material)
-    n, tables, params, _shared = _loop_inputs(tb, lanes, material, 0, dev, "direct")
-    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
-    counts = _counts(dev)
-    rc = load_library().zdr_direct(
-        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
-        lanes.data_ptr(), acc.data_ptr(), counts.data_ptr(), n,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "direct")
+    _g, acc, counts, direct.plan = direct_launch(load_library(), tb, lanes, material)
     direct.launches += 1
     direct.tests, direct.visits = counts[0], counts[1]
     return acc
@@ -689,6 +733,7 @@ def direct(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch
 
 direct.launches = 0
 direct.tests = direct.visits = None
+direct.plan = None
 
 
 def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
@@ -696,7 +741,7 @@ def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     """Texture gradient of every lane's direct samples, given le_grad, the
     (3, N) float32 adjoint of each of a lane's samples -> (d_material
     (H, W, 4), the (3, N) radiance sums of the same samples, as direct's).
-    With a BVH in the tables, direct_grad_bvh runs.
+    With a BVH in the tables, direct_grad_bvh runs. `.plan` as direct's.
 
     On the card each tap is one float4 atomic; the atomics sum the taps in
     an order that changes from run to run, so the gradient's last bits do
@@ -706,16 +751,8 @@ def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
         return render_direct_backward_plain(tb, lanes, material, le_grad)
     if tb.bvh is not None:
         return direct_grad_bvh(tb, lanes, material, le_grad)
-    n, tables, params, _shared = _loop_inputs(tb, lanes, material, 0, dev, "direct")
-    _check(le_grad, "le_grad", torch.float32, (3, n), dev)
-    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
-    grad = _tap_grad(material)
-    counts = _counts(dev)
-    rc = load_library().zdr_direct_grad(
-        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
-        lanes.data_ptr(), le_grad.data_ptr(), acc.data_ptr(), grad.data_ptr(),
-        counts.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "direct_grad")
+    grad, acc, counts, direct_grad.plan = direct_launch(load_library(), tb, lanes, material,
+                                                        le_grad)
     direct_grad.launches += 1
     direct_grad.tests, direct_grad.visits = counts[0], counts[1]
     return grad, acc
@@ -723,6 +760,7 @@ def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
 
 direct_grad.launches = 0
 direct_grad.tests = direct_grad.visits = None
+direct_grad.plan = None
 
 
 def _tap_grad(material):

@@ -19,22 +19,31 @@
 // The TPU ran each kernel once a sample over (rows, 512) planes and kept
 // the planes between them in HBM; here nothing of a sample leaves the thread.
 //
-// What bounds them on an H100: the brute-force sweeps, FP32 arithmetic from
-// a scene table in shared memory, 3 sweeps a sample (the shadow sweep stops
-// at its first hit, the bounce sweep runs only for a ray that goes on).
-// At ~46 FP32 operations a ray-triangle test, a 962-triangle scene at 512^2
-// and 256 spp is at most ~9e12 operations a render: ~0.13 s at 67 TFLOP/s.
-// Every warp reads the same triangle at once (a shared-memory broadcast).
-// Shared memory holds only what the sweeps read, 9 floats a triangle in rows
-// of 12 (46 KB for 962 triangles; the full 31-float rows would take 119 KB
-// and allow one 8-warp block an SM), plus the light and camera rows; the
-// hit triangle's 22 attributes come from the full table in global memory,
-// twice a sample. Registers then bound the resident warps: the direct
-// kernels are held to 64 registers, 4 blocks (32 warps) an SM. Its time
-// against the first version's (full rows in shared memory), on the protocol
-// on an H100 80GB HBM3 at 700 W, is in PERF.md (chip_smoke.py, phase 11).
-// This first kernel is simple and right; lane sorting and an emissive-first
-// bounce lookup are later work.
+// What bounds them on an H100, measured (studies/direct_split.py, builds
+// that each differ in one thing; PERF.md): the issue of their FP32 work.
+// Shared memory holds only what the sweeps read, 9 floats a triangle in
+// rows of 12 (46 KB for 962 triangles), which the compiler reads with two
+// 16-byte LDS and one LDS a test, plus the light and camera rows; the hit
+// triangle's 22 attributes come from the full table in global memory (1-2%
+// of the time). On the reference's protocol (962 triangles) the three
+// sweeps were ~89% of `direct`, one test ~130 issue slots a warp; on the
+// cornell box (12) ~35%, beside the sampler's ~12%. Each sweep is
+// direct_step.cuh's CompactSweep (4-6% faster on the cornell box than
+// DenseSweep<kGeomCols> over the same rows, which spilled more). On a
+// scene that accel="auto" sends to the BVH (kernels.direct_early: from
+// accel/build.DENSE_MAX_TRIS["direct"] triangles on), which reaches the
+// dense kernels only where the caller forces the dense route, a lane
+// leaves a test once its bounds show a miss, and a warp skips the rest of
+// the test where all its lanes do (the early out: the protocol's kernels
+// ~20% faster; at 12-26 triangles its bounds cost up to 7% more than they
+// skip). The hits, the tie rule and the test counts are DenseSweep's. The
+// kernels are held to 64 registers (80, 128 and 48 measured slower on one
+// scene or both); the launch picks the block (launch.cuh): 512 threads at
+// 512x512 (7% faster than 256 on the cornell box; 2% slower on the
+// protocol, whose blocks take 43-225 ms, so that SMs idle 10-13% of the
+// span, but a 256-thread cap halved the resident threads of a table past
+// 114 KB). Their atomics cost 0-3%. An emissive-first bounce lookup and
+// lane sorting are later work.
 //
 // The BVH instantiations (direct_bvh_kernel<false> / <true>, both behind
 // zdr_direct_bvh) run the same samples with every sweep an ordered walk of
@@ -56,10 +65,14 @@
 #include <cuda_runtime.h>
 
 #include "direct_step.cuh"
+#include "launch.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;
+// the dense kernels' largest block: the launch picks theirs (launch), at 64
+// registers (__launch_bounds__(kMaxBlock, 2))
+constexpr int kMaxBlock = 512;
 
 // The compact copy of the first n floats of the tables (compact_at).
 __device__ void load_compact(float* smem, const float* __restrict__ tables,
@@ -80,8 +93,8 @@ __global__ void __launch_bounds__(kBlock)
   zdr::trace_interact_lane(tb, q, rays, active, f_out, i_out, lane, n, lite != 0);
 }
 
-template <bool kGrad>
-__global__ void __launch_bounds__(kBlock, 4)
+template <bool kGrad, bool kEarly>
+__global__ void __launch_bounds__(kMaxBlock, 2)
     direct_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                   const float* __restrict__ bn, const float* __restrict__ material,
                   const int* __restrict__ lanes, const float* __restrict__ le_grad,
@@ -102,7 +115,7 @@ __global__ void __launch_bounds__(kBlock, 4)
       dt.lg[2] = le_grad[2L * n + lane];
       dt.grad = grad;
     }
-    zdr::V3 acc = zdr::direct_lane<kGrad>(tb, q, lc, &dt, count);
+    zdr::V3 acc = zdr::direct_lane<kGrad>(tb, q, lc, &dt, count, zdr::CompactSweep<kEarly>());
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -173,42 +186,32 @@ int zdr_trace_interact(const int* params, const float* tables, int tables_n,
 }
 
 // As zdr_path_loop (path_loop.cu) for the tables; lanes: (3, n) int32 px,
-// py, spp; acc: (3, n) float32, each lane's sum of clamped radiances;
-// counts: two uint64, to which the kernel adds its ray-triangle tests and
-// its BVH node visits (none in the dense sweep).
+// py, spp; le_grad: null for the forward, or (3, n) float32, each lane's
+// per-sample adjoint, for the tap mode; acc: (3, n) float32, each lane's sum
+// of clamped radiances; grad: (tex_h * tex_w, 4) float32, zeroed by the
+// caller, to which the tap mode adds (null for the forward); counts: two
+// uint64, to which the kernel adds its ray-triangle tests and its BVH node
+// visits (none in the dense sweep); early: the sweeps with the early out
+// (1) or without (0); block and plan: as launch.cuh's (block 0: the
+// plan's pick; plan: 8 ints, written). Returns the CUDA error of the launch (0
+// when it was accepted).
 int zdr_direct(const int* params, const float* tables, int tables_n, const float* bn,
-               const float* material, const int* lanes, float* acc,
-               unsigned long long* counts, int n, void* stream) {
+               const float* material, const int* lanes, const float* le_grad, float* acc,
+               float* grad, unsigned long long* counts, int n, int early, int block,
+               int* plan, void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)zdr::compact_size(q) * sizeof(float);
-  int err = launch_config(direct_kernel<false>, smem);
-  if (err) return err;
-  int grid = (n + kBlock - 1) / kBlock;
-  direct_kernel<false><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      q, tables, tables_n, bn, material, lanes, nullptr, acc, nullptr, counts, n);
-  return (int)cudaGetLastError();
+  int smem = zdr::compact_size(q) * (int)sizeof(float);
+  void* args[] = {&q,       &tables, &tables_n, &bn,     &material, &lanes,
+                  &le_grad, &acc,    &grad,     &counts, &n};
+  const void* fn = le_grad ? (early ? (const void*)direct_kernel<true, true>
+                                    : (const void*)direct_kernel<true, false>)
+                          : (early ? (const void*)direct_kernel<false, true>
+                                   : (const void*)direct_kernel<false, false>);
+  return zdr::launch(fn, n, smem, block, plan, args, stream);
 }
 
-// As zdr_direct, plus le_grad: (3, n) float32, each lane's per-sample
-// adjoint; grad: (tex_h * tex_w, 4) float32, zeroed by the caller, to which
-// the kernel adds.
-int zdr_direct_grad(const int* params, const float* tables, int tables_n, const float* bn,
-                    const float* material, const int* lanes, const float* le_grad,
-                    float* acc, float* grad, unsigned long long* counts, int n,
-                    void* stream) {
-  zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)zdr::compact_size(q) * sizeof(float);
-  int err = launch_config(direct_kernel<true>, smem);
-  if (err) return err;
-  int grid = (n + kBlock - 1) / kBlock;
-  direct_kernel<true><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      q, tables, tables_n, bn, material, lanes, le_grad, acc, grad, counts, n);
-  return (int)cudaGetLastError();
-}
-
-// zdr_direct (le_grad and grad null) and zdr_direct_grad through the BVH:
+// zdr_direct (block and plan aside) through the BVH:
 // nodes (n_nodes, 16) float32, geom (n_rows, 12) float32 rows in leaf order,
 // each with its global id in float 9 (trace.cuh Bvh); small_shared 1 copies
 // the small tables into shared memory, 0 reads them from `tables`.

@@ -64,16 +64,52 @@ int zdr_trace_interact_host(const int* params, const float* tables, int tables_n
   return 0;
 }
 
-// zdr_direct and zdr_direct_grad (direct.cu) without the stream; le_grad
+// One sweep a ray over n_tris rows of kGeomCols floats: the direct
+// kernels' CompactSweep without the early out (early 0) or with it (1),
+// closest hit (any 0) or the shadow test (any 1). rays: (7, n) float32 o3
+// d3 and t_max (the closest sweep's best t coming in, the shadow sweep's
+// dist); f_out: (3, n) t, u, v (t_max, 0, 0 on a miss; closest only);
+// i_out: (n,) the hit triangle (-1: none) or the occlusion; counts: one
+// uint64, the tests.
+int zdr_sweep_host(const float* rows, int n_tris, const float* rays, int n, int any, int early,
+                   float* f_out, int* i_out, unsigned long long* counts) {
+  zdr::LoopParams q{};
+  q.n_tris = n_tris;
+  zdr::Tables tb{};
+  tb.scene = rows;
+  zdr::TraceCount c = {0, 0};
+  for (long k = 0; k < n; ++k) {
+    zdr::V3 o = zdr::v3(rays[k], rays[n + k], rays[2L * n + k]);
+    zdr::V3 d = zdr::v3(rays[3L * n + k], rays[4L * n + k], rays[5L * n + k]);
+    float t = rays[6L * n + k], u = 0.0f, v = 0.0f;
+    if (any) {
+      i_out[k] = early ? zdr::CompactSweep<true>().any(tb, q, o, d, t, &c)
+                       : zdr::CompactSweep<false>().any(tb, q, o, d, t, &c);
+      continue;
+    }
+    i_out[k] = early ? zdr::CompactSweep<true>().closest(tb, q, o, d, t, u, v, &c)
+                     : zdr::CompactSweep<false>().closest(tb, q, o, d, t, u, v, &c);
+    f_out[k] = t;
+    f_out[n + k] = u;
+    f_out[2L * n + k] = v;
+  }
+  counts[0] += c.tests;
+  return 0;
+}
+
+// zdr_direct (direct.cu) without the stream, the block and the plan; le_grad
 // and grad are null for the forward; counts: one uint64, the tests.
 int zdr_direct_host(const int* params, const float* tables, int tables_n, const float* bn,
                     const float* material, const int* lanes, const float* le_grad,
-                    float* acc, float* grad, unsigned long long* counts, int n) {
+                    float* acc, float* grad, unsigned long long* counts, int n, int early) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return 1;
   std::vector<float> small = compact(tables, q, zdr::compact_size(q));
   zdr::Tables tb = zdr::compact_tables(small.data(), tables, bn, material, q);
-  direct_lanes(tb, q, zdr::DenseSweep<zdr::kGeomCols>(), lanes, le_grad, acc, grad, counts, n);
+  if (early)
+    direct_lanes(tb, q, zdr::CompactSweep<true>(), lanes, le_grad, acc, grad, counts, n);
+  else
+    direct_lanes(tb, q, zdr::CompactSweep<false>(), lanes, le_grad, acc, grad, counts, n);
   return 0;
 }
 

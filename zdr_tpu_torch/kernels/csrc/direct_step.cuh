@@ -14,10 +14,12 @@
 // On the TPU those are three kernels a sample with their planes in HBM
 // between them; here one thread keeps the whole sample in registers.
 //
-// The sweeps, the interaction, the light selection, the GGX and ONB helpers,
-// the sampler and the roughness derivative are path_loop_step.cuh's own,
+// The interaction, the light selection, the GGX and ONB helpers, the
+// sampler and the roughness derivative are path_loop_step.cuh's own,
 // included, not copies: the same formulas in the same operand order as the
-// plain PyTorch version (integrators/bounce.py, integrators/direct.py).
+// plain PyTorch version (integrators/bounce.py, integrators/direct.py). The
+// sweeps are the compact sweep below (CompactSweep: DenseSweep's tests in
+// that order, with an exact early out), or trace.cuh's BVH.
 // Build it as that header says (no FMA contraction, no fast math).
 #pragma once
 
@@ -65,12 +67,132 @@ ZDR_HD Tables compact_tables(const float* compact, const float* tables, const fl
   return t;
 }
 
+// ------------------------------------------------------- the compact sweep
+//
+// The direct kernels' sweeps over the compact rows (tb.scene, kGeomCols
+// floats a row, in shared memory on the card): the tests, hits, tie rule
+// and counts of DenseSweep<kGeomCols> (path_loop_step.cuh), with or without
+// (kEarly) an exact early out. mt_hit's terms up to u's numerator s =
+// dot(sv, h) are computed first; a lane whose bounds on them show a miss
+// leaves the test there, and after v's and t's numerators the same, before
+// the division. Every lane of a warp tests the same triangle at once, so a
+// warp whose lanes all leave skips the rest of the test. A miss is shown
+// only where the rounding of u = (1/a) s (and of v, u + v, t) cannot turn it
+// into a hit (mt_early), so the exact test decides every triangle that the
+// early out does not leave, and a triangle left counts as a test. The
+// branch is each lane's own: a warp vote (__all_sync over __activemask())
+// measured slower. A row is three shared-memory loads (two of 16 bytes), as
+// the compiler already read DenseSweep's.
+
+// the early out's bounds on a numerator over |a|: below kUnder u, v or t
+// rounds below 0 (-2^-60, exact: |a| > 1e-12 keeps |a| * 2^-60 normal);
+// above kOver (1 + 2^-20) u or v rounds above 1, and u + v above 1 where
+// the numerators' sum passes kOver2 (1 + 2^-19); t's upper bound is its
+// t_max widened by kOver and at least kTFloor (2^-80), so that |a| times it
+// stays normal
+constexpr float kUnder = -0x1p-60f;
+constexpr float kOver = 1.00000095367431640625f;
+constexpr float kOver2 = 1.0000019073486328125f;
+constexpr float kTFloor = 0x1p-80f;
+// t's lower bound for the shadow sweep's t > 1e-4: 1e-4 narrowed by 2^-20
+constexpr float kShadowLo = 1e-4f * 0.99999904632568359375f;
+
+// mt_hit of row `tri` at t in (t_min, t_max), with the early out where
+// kEarly (without it the compiler drops the bounds): lo and hi bound
+// t's numerator over |a| (kUnder for t_min = 0, kShadowLo for 1e-4; hi =
+// t_cut(t_max)) -> whether the row is hit there, with t, u, v.
+// Each bound's margin covers the roundings of 1/|a| (2^-22 where it is
+// subnormal), of the product, of |a| times the bound and of the sum (2^-24
+// each): a numerator past its bound puts u, v, u + v or t strictly past the
+// bound of mt_hit's test, and NaN passes no bound. A negative a negates u's,
+// v's and t's numerators' signs, so they are compared with their signs
+// folded into |a|'s.
+template <bool kEarly>
+ZDR_HD bool mt_early(const float* tri, V3 o, V3 d, float t_min, float t_max, float lo,
+                     float hi, float& t, float& u, float& v) {
+  V3 p0 = v3(tri[0], tri[1], tri[2]);
+  V3 e1 = v3(tri[3], tri[4], tri[5]);
+  V3 e2 = v3(tri[6], tri[7], tri[8]);
+  V3 h = vcross(d, e2);
+  float a = vdot(e1, h);
+  V3 sv = vsub(o, p0);
+  float s = vdot(sv, h);
+  float aa = fabsf(a);
+  bool neg = a < 0.0f;
+  float under = aa * kUnder, over = aa * kOver;
+  float sa = neg ? -s : s;
+  bool out = !(aa > 1e-12f) || sa < under || sa > over;
+  if (kEarly && out) return false;
+  V3 qv = vcross(sv, e1);
+  float rq = vdot(d, qv);
+  float tq = vdot(e2, qv);
+  float ra = neg ? -rq : rq;
+  float ta = neg ? -tq : tq;
+  out = out || ra < under || ra > over || sa + ra > aa * kOver2 || ta < aa * lo ||
+        ta > aa * hi;
+  if (kEarly && out) return false;
+  // mt_hit's f, u, v, t where |a| > 1e-12; below it the test fails either way
+  float f = 1.0f / a;
+  u = f * s;
+  v = f * rq;
+  t = f * tq;
+  return aa > 1e-12f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > t_min &&
+         t < t_max;
+}
+
+// The early out's upper bound on t's numerator over |a| for t < t_max.
+ZDR_HD float t_cut(float t_max) { return fmaxf(t_max * kOver, kTFloor); }
+
+// DenseSweep<kGeomCols>'s sweeps (the same interface) over the compact rows,
+// with the early out where kEarly.
+template <bool kEarly>
+struct CompactSweep {
+  static constexpr bool kBvh = false;
+
+  // Any triangle hit at t in (1e-4, dist); the sweep stops at the first.
+  ZDR_HD bool any(const Tables& tb, const LoopParams& q, V3 p, V3 wi, float dist,
+                  TraceCount* c) const {
+    float hi = t_cut(dist);
+    for (int ti = 0; ti < q.n_tris; ++ti) {
+      float t, u, v;
+      if (mt_early<kEarly>(tb.scene + ti * kGeomCols, p, wi, 1e-4f, dist, kShadowLo, hi, t, u,
+                           v)) {
+        if (c) c->tests += (unsigned long long)(ti + 1);
+        return true;
+      }
+    }
+    if (c) c->tests += (unsigned long long)q.n_tris;
+    return false;
+  }
+
+  // The nearest hit at t in (0, best_t), the first of equal nearest
+  // triangles -> its id (-1: none).
+  ZDR_HD int closest(const Tables& tb, const LoopParams& q, V3 o, V3 d, float& best_t,
+                     float& bu, float& bv, TraceCount* c) const {
+    int prim = -1;
+    float hi = t_cut(best_t);
+    for (int ti = 0; ti < q.n_tris; ++ti) {
+      float t, u, v;
+      if (mt_early<kEarly>(tb.scene + ti * kGeomCols, o, d, 0.0f, best_t, kUnder, hi, t, u,
+                           v)) {
+        best_t = t;
+        bu = u;
+        bv = v;
+        prim = ti;
+        hi = t_cut(best_t);
+      }
+    }
+    if (c) c->tests += (unsigned long long)q.n_tris;
+    return prim;
+  }
+};
+
 // B3 for ray `lane` of the (7, n) float planes o3 d3 pdf_prev and the (n,)
 // active flags, over compact tables: closest hit, interaction and
 // emitter-hit MIS (pallas_bounce.py:474-534). Every ray sweeps the whole
 // table, as in the TPU kernel: its outputs are defined for inactive rays too.
 // The hit comes from `tr` (the sweep variants hand in a hit found before).
-template <class Tracer = DenseSweep<kGeomCols>>
+template <class Tracer = CompactSweep<true>>
 ZDR_HD void trace_interact_lane(const Tables& tb, const LoopParams& q, const float* rays,
                                 const int* active, float* f_out, int* i_out, long lane,
                                 long n, bool lite, const Tracer& tr = Tracer()) {
@@ -104,9 +226,9 @@ struct DirectTaps {
 
 // Sample `sample_idx` of a lane -> its radiance (before the clamp).
 // kGrad: also adds the sample's texture gradient, one tap at one texel.
-// The sweeps go through `tr` (the dense sweep over the compact rows, or
-// trace.cuh's BVH) and add their work to `cnt`.
-template <bool kGrad = false, class Tracer = DenseSweep<kGeomCols>>
+// The sweeps go through `tr` (the compact sweep, or trace.cuh's BVH) and
+// add their work to `cnt`.
+template <bool kGrad = false, class Tracer = CompactSweep<true>>
 ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                         uint32_t sample_idx, const DirectTaps* dt, TraceCount& cnt,
                         const Tracer& tr = Tracer()) {
@@ -210,7 +332,7 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
 
 // A lane's samples 0 .. stop-1, accumulated with the clamp-and-NaN rule of
 // direct_fused.py:283-286 -> the sum of its clamped radiances.
-template <bool kGrad = false, class Tracer = DenseSweep<kGeomCols>>
+template <bool kGrad = false, class Tracer = CompactSweep<true>>
 ZDR_HD V3 direct_lane(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                       const DirectTaps* dt, TraceCount& cnt, const Tracer& tr = Tracer()) {
   V3 acc = v3(0.0f, 0.0f, 0.0f);

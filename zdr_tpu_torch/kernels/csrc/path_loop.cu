@@ -53,6 +53,7 @@
 //        -Xcompiler -fPIC -fmad=false (see zdr_tpu_torch/kernels/__init__.py).
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
 #include "trace.cuh"
 
 namespace {
@@ -114,50 +115,6 @@ __global__ void sampler_probe_kernel(zdr::LoopParams q, const float* __restrict_
                           (uint32_t)lanes[3L * n + lane], k, out, lane, n);
 }
 
-constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may hold
-
-// Plan and launch fn over n lanes with smem bytes of dynamic shared memory.
-// block: threads a block, a power of two from 32 up to fn's largest (its
-// __launch_bounds__), or 0 to pick one of them: those of the fewest rounds,
-// ceil(blocks / (resident blocks an SM x SMs)); in one round, those of the
-// fewest lanes on the busiest SM, ceil(blocks / SMs) x block, so a small
-// render spreads over the SMs; and of them the largest block (a block's
-// neighbouring pixels share texels in L1). plan (8 ints): the block,
-// fn's largest block, registers a thread, local memory a thread (bytes),
-// resident blocks an SM, SMs, blocks, rounds. -> the CUDA error
-// (cudaErrorInvalidValue for another block, or tables past a block).
-int launch(const void* fn, int n, int smem, int block, int* plan, void** args, void* stream) {
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  plan[0] = 0;
-  long best_busiest = 0;
-  for (int b = 32; b <= attr.maxThreadsPerBlock; b *= 2) {
-    if (block && b != block) continue;
-    int occ = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, b, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (occ < 1) continue;
-    int blocks = (n + b - 1) / b;
-    int rounds = (blocks + occ * sms - 1) / (occ * sms);
-    long busiest = rounds == 1 ? (long)((blocks + sms - 1) / sms) * b : 0;
-    if (plan[0] && (rounds > plan[7] || (rounds == plan[7] && busiest > best_busiest))) continue;
-    best_busiest = busiest;
-    const int row[8] = {b, attr.maxThreadsPerBlock, attr.numRegs, (int)attr.localSizeBytes,
-                        occ, sms, blocks, rounds};
-    for (int j = 0; j < 8; ++j) plan[j] = row[j];
-  }
-  if (!plan[0]) return (int)cudaErrorInvalidValue;
-  err = cudaLaunchKernel(fn, dim3(plan[6]), dim3(plan[0]), args, smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -175,8 +132,8 @@ int zdr_path_loop(const int* params, const float* tables, int tables_n, const fl
   if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
   void* args[] = {&q,     &tables, &tables_n, &bn,  &material, &lanes, &f_in,
                   &i_in,  &f_out,  &i_out,    &n,   &n_steps};
-  return launch((const void*)path_loop_kernel, n, tables_n * (int)sizeof(float), block, plan,
-                args, stream);
+  return zdr::launch((const void*)path_loop_kernel, n, tables_n * (int)sizeof(float), block,
+                     plan, args, stream);
 }
 
 // zdr_path_loop through the BVH: nodes (n_nodes, 16) float32, geom (n_rows,
@@ -196,7 +153,7 @@ int zdr_path_loop_bvh(const int* params, const float* tables, int tables_n, int 
   zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
   void* args[] = {&q,    &tables, &small_shared, &bn,      &material, &lanes, &f_in,
                   &i_in, &f_out,  &i_out,        &n,       &n_steps,  &bvh,   &counts};
-  return launch((const void*)path_loop_bvh_kernel, n, smem, block, plan, args, stream);
+  return zdr::launch((const void*)path_loop_bvh_kernel, n, smem, block, plan, args, stream);
 }
 
 // lanes: (4, n) int32 px, py, seed, sample_idx; out: (3k, n) float32, for
