@@ -8,9 +8,9 @@ Phases, one line each; any failure raises and exits non-zero:
      nvidia-smi prints them;
   2. the build: nvcc compiles zdr_tpu_torch/kernels/csrc/ for sm_90a into
      zdr_tpu_torch/kernels/_build/; ptxas's registers, local bytes (stack
-     frame) and spill bytes of the four BVH megakernels and the dense
-     direct kernels' instantiations (ptxas_bvh), also under "ptxas" in
-     their records;
+     frame) and spill bytes of the BVH megakernels, the dense direct
+     kernels' instantiations (with and without the envmap) and the
+     collocated kernels (ptxas_bvh), also under "ptxas" in their records;
   3. the sampler probe kernel, bit for bit against the plain sampler;
   4. one path-loop kernel step (n_steps=1) against loop_step at 128x128,
      from the first carry and after 5 steps;
@@ -95,7 +95,27 @@ Phases, one line each; any failure raises and exits non-zero:
  16. a scene past a block's shared memory in light rows alone (a uv sphere
      of 4512 emissive triangles over a floor) at 128x128, 16 spp by
      accel="auto", both integrators: the BVH kernels with the small tables
-     in global memory, against the plain walks at every 8th lane.
+     in global memory, against the plain walks at every 8th lane;
+ 17. the collocated integrator (_slice_main): its main path, the big-mesh
+     bench's sphere (tools/bench_bigmesh.py: 160 x 160, 50,880 triangles,
+     its camera) at 512x512, 64 spp, 1024^2 material of 0.5, through
+     Scene.render + loss.backward() by accel="auto" (the BVH:
+     collocated_bvh, collocated_grad_bvh); then tools/gen_golden.py's
+     960-triangle sphere by the dense route (collocated, collocated_grad)
+     and by the BVH, the two images equal bit for bit; each drive: one
+     launch of each of its two kernels and of no other, no plain version
+     called, both kernels against their plain versions on its own inputs
+     at every 64th lane (the dense route over all samples, the BVH over the
+     first CHECK_SAMPLES), the forward bit for bit, the gradient at phase
+     7's bars, and timed;
+ 18. the direct integrator under an envmap: apps/example.py's full-size
+     iteration (the 960-triangle sphere under make_test_envmap(256, 512),
+     its camera, 512x512, 64 spp, a 512^2 material of 0.5) by accel="auto"
+     (direct_env_bvh, direct_grad_env_bvh) and by "bruteforce" (direct_env,
+     direct_grad_env, the early out), as phase 17 drives them, the images
+     equal bit for bit; then the dense env instantiation without the early
+     out on the cornell box under the same envmap (128x128, 16 spp), bit
+     for bit against its plain version and its gradient at phase 7's bars.
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
@@ -104,8 +124,13 @@ path (every count is set to 0 just before each main-path call and read
 just after: phase 6 for path_loop, 8 for path_loop_grad, 11's protocol by
 the dense route for direct and direct_grad and by accel="auto" for
 direct_bvh and direct_grad_bvh, whose big-mesh numbers of phase 13 stand
-under "big_mesh", 13 for the path BVH kernels; for the probes, the
-standalone traces and the sweep variants, the sum over all of them),
+under "big_mesh", 13 for the path BVH kernels, 17's big mesh for
+collocated_bvh and collocated_grad_bvh (the golden sphere's under
+"golden_sphere") and its golden sphere by the dense route for collocated
+and collocated_grad, 18's example by each route for the env kernels; for
+the probes, the standalone traces and the sweep variants, the sum over all
+of them; trace_interact's "body_launches" counts, by kernel, the launches of
+phases 17-18's main paths, each of which runs B3's body a sample),
 "max_abs_err" the largest difference from the plain version over the
 kernel's checks, "ms" the kernel alone at the main path's shapes by CUDA
 events, "plain_ms" its plain version by the host clock (on the inputs of
@@ -147,7 +172,9 @@ CHECK_STRIDE = 64
 KERNELS = ("sampler_probe", "path_loop", "path_loop_grad", "trace_interact", "direct",
            "direct_grad", "trace_closest", "trace_any", "path_loop_bvh", "path_loop_grad_bvh",
            "direct_bvh", "direct_grad_bvh", "sweep_variant", "woop_sweep", "aabb_sweep",
-           "floor_probe")
+           "floor_probe", "collocated", "collocated_grad", "collocated_bvh",
+           "collocated_grad_bvh", "direct_env", "direct_grad_env", "direct_env_bvh",
+           "direct_grad_env_bvh")
 # the dense instantiations of the four megakernels
 DENSE = ("path_loop", "path_loop_grad", "direct", "direct_grad")
 # phases 11 and 13 hold the BVH kernels against their plain walks on the
@@ -217,6 +244,21 @@ STEP_FP, GLOSSY_FP, DIFFUSE_FP, RESTART_FP = 612, 104, 10, 55
 # (xxhash32_4, 20).
 DIRECT_FP, DIRECT_TAP_FP = 665, 149
 DIRECT_INT, DIRECT_TAP_INT = 3 * NEXT1_INT + 3 * NEXT2_SET_INT, 20
+# FP32 operations of the env's light sample in nee_select<true>
+# (kernels/csrc/path_loop_step.cuh, counted as DIRECT_FP is): two alias draws
+# 24, the sample's uv 4, its pdf 8, env_uv_to_direction 9 and the bilinear
+# fetch env_fetch 40; the samples whose light selection takes the env run it
+# (the share n_env / (n_env + n_point + n_mesh)); a miss's env_miss_add (66)
+# is not counted, so the bound is below the work there
+ENV_NEE_FP = 85
+# A collocated sample's work besides its sweep (collocated_step.cuh, counted
+# as DIRECT_FP is): FP32: the camera ray and the clamped accumulation 64, the
+# hit's interaction 67, the bilinear fetch 49, the frame 32, a projection 15,
+# ggx_brdf 75, 1/t^2 and the radiance 7; the tap mode adds the cotangents 3,
+# the channels 12, ggx_spec_droughness 40 and the splat corner 20. INT32: the
+# camera's next2 (no permutation) and the tap mode's salt.
+COLLOCATED_FP, COLLOCATED_TAP_FP = 309, 75
+COLLOCATED_INT, COLLOCATED_TAP_INT = NEXT2_SET_INT, 20
 # rates without FMA: one FP32 operation a lane a cycle (half the FMA peak),
 # INT32 at half that (64 INT32 lanes an SM against 128 FP32: the Hopper
 # white paper), and one warp instruction a cycle per SM quarter for both
@@ -378,15 +420,29 @@ def _test_ops(stages=None):
     return sum(n * ops for n, ops in zip(stages.tolist(), EARLY_OPS)) / int(stages.sum())
 
 
-def _direct_bound(tests, samples, nbytes, grad=False, test_ops=MT_OPS):
+def _direct_bound(tests, samples, nbytes, grad=False, test_ops=MT_OPS, env_samples=0):
     """The least time of a dense direct launch's counted work -> (bound_ms,
     bound_by, {term: ms}): the larger of its FP32 operations (the kernel's
     counted tests, `test_ops` each (_test_ops), and DIRECT_FP a sample,
-    with the taps' DIRECT_TAP_FP in tap mode) at FP32_RATE, the draws'
-    integer operations at INT32_RATE, both together at ISSUE_RATE, and the
-    bytes at HBM_RATE."""
-    fp = tests * test_ops + samples * (DIRECT_FP + (DIRECT_TAP_FP if grad else 0))
+    with the taps' DIRECT_TAP_FP in tap mode, and ENV_NEE_FP for each of
+    env_samples, the samples whose light selection takes the env) at
+    FP32_RATE, the draws' integer operations at INT32_RATE, both together at
+    ISSUE_RATE, and the bytes at HBM_RATE."""
+    fp = (tests * test_ops + samples * (DIRECT_FP + (DIRECT_TAP_FP if grad else 0))
+          + env_samples * ENV_NEE_FP)
     ints = samples * (DIRECT_INT + (DIRECT_TAP_INT if grad else 0))
+    terms = {"fp32": fp / FP32_RATE * 1e3, "int32": ints / INT32_RATE * 1e3,
+             "issue": (fp + ints) / ISSUE_RATE * 1e3, "bytes": nbytes / HBM_RATE * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], "bytes" if by == "bytes" else "operations", terms
+
+
+def _collocated_bound(tests, samples, nbytes, grad=False):
+    """The least time of a dense collocated launch's counted work, as
+    _direct_bound's: its tests at MT_OPS, COLLOCATED_FP a sample (and the
+    taps' COLLOCATED_TAP_FP), the camera's integer draws."""
+    fp = tests * MT_OPS + samples * (COLLOCATED_FP + (COLLOCATED_TAP_FP if grad else 0))
+    ints = samples * (COLLOCATED_INT + (COLLOCATED_TAP_INT if grad else 0))
     terms = {"fp32": fp / FP32_RATE * 1e3, "int32": ints / INT32_RATE * 1e3,
              "issue": (fp + ints) / ISSUE_RATE * 1e3, "bytes": nbytes / HBM_RATE * 1e3}
     by = max(terms, key=terms.get)
@@ -434,14 +490,27 @@ def phase_device():
 
 
 # the four BVH megakernels by a piece of their mangled entry names
-BVH_ENTRIES = {"direct_bvh": "direct_bvh_kernelILb0", "direct_grad_bvh": "direct_bvh_kernelILb1",
+BVH_ENTRIES = {"direct_bvh": "direct_bvh_kernelILb0ELb0E",
+               "direct_grad_bvh": "direct_bvh_kernelILb1ELb0E",
                "path_loop_bvh": "path_loop_bvh_kernel",
-               "path_loop_grad_bvh": "path_loop_grad_bvh_kernel"}
-# the dense direct kernels' instantiations (direct_kernel<kGrad, kEarly>):
-# the sweeps without and with the early out
-DIRECT_ENTRIES = {"direct": "direct_kernelILb0ELb0E", "direct_early": "direct_kernelILb0ELb1E",
-                  "direct_grad": "direct_kernelILb1ELb0E",
-                  "direct_grad_early": "direct_kernelILb1ELb1E"}
+               "path_loop_grad_bvh": "path_loop_grad_bvh_kernel",
+               "direct_env_bvh": "direct_bvh_kernelILb0ELb1E",
+               "direct_grad_env_bvh": "direct_bvh_kernelILb1ELb1E",
+               "collocated_bvh": "collocated_bvh_kernelILb0E",
+               "collocated_grad_bvh": "collocated_bvh_kernelILb1E"}
+# the dense direct kernels' instantiations (direct_kernel<kGrad, kEarly,
+# kEnv>): the sweeps without and with the early out, without and with the
+# envmap; the dense collocated kernels
+DIRECT_ENTRIES = {"direct": "direct_kernelILb0ELb0ELb0E",
+                  "direct_early": "direct_kernelILb0ELb1ELb0E",
+                  "direct_grad": "direct_kernelILb1ELb0ELb0E",
+                  "direct_grad_early": "direct_kernelILb1ELb1ELb0E",
+                  "direct_env": "direct_kernelILb0ELb0ELb1E",
+                  "direct_env_early": "direct_kernelILb0ELb1ELb1E",
+                  "direct_grad_env": "direct_kernelILb1ELb0ELb1E",
+                  "direct_grad_env_early": "direct_kernelILb1ELb1ELb1E",
+                  "collocated": "collocated_kernelILb0E",
+                  "collocated_grad": "collocated_kernelILb1E"}
 PTXAS_ENTRIES = {**BVH_ENTRIES, **DIRECT_ENTRIES}
 
 
@@ -929,11 +998,11 @@ def phase_direct(dev):
 
 
 def _plain_calls():
-    from zdr_tpu_torch.integrators import bounce, direct as dr
+    from zdr_tpu_torch.integrators import bounce, collocated as co, direct as dr
 
     return (dr.direct_sample_plain.calls, dr.render_direct_plain.calls,
             dr.render_direct_backward_plain.calls, bounce.trace_interact_plain.calls,
-            bounce.shade_plain.calls)
+            bounce.shade_plain.calls, co.collocated_sample_plain.calls)
 
 
 def _direct_main(scene, res, spp, what, smi, reps):
@@ -1159,12 +1228,12 @@ def phase_trace_bvh(dev, smi):
     return records
 
 
-def _bvh_check(tb, tb1, mat, integrator, what, stride=None):
+def _bvh_check(tb, tb1, mat, integrator, what, stride=None, exact=False):
     """Both BVH kernels against their plain walks on the main path's own
     inputs (its tables at seed 0 and 1, its material, the adjoint 1 / spp)
     at every `stride`-th lane (CHECK_STRIDE), the first CHECK_SAMPLES
-    samples of each -> (forward max abs diff a sample, gradient max abs
-    diff, a note)."""
+    samples of each, the forward bit for bit where `exact` -> (forward max
+    abs diff a sample, gradient max abs diff, a note)."""
     from zdr_tpu_torch import kernels
     from zdr_tpu_torch.integrators import direct as dr
     from zdr_tpu_torch.integrators import path_loop as pl
@@ -1179,6 +1248,14 @@ def _bvh_check(tb, tb1, mat, integrator, what, stride=None):
         ggot, _acc = kernels.direct_grad(tb1, sub, mat, le)
         (gwant, _acc), gplain_ms = _sync_ms(
             lambda: dr.render_direct_backward_plain(tb1, sub, mat, le))
+    elif integrator == "collocated":
+        from zdr_tpu_torch.integrators import collocated as co
+
+        got = kernels.collocated(tb, sub, mat)
+        want, plain_ms = _sync_ms(lambda: co.render_collocated_plain(tb, sub, mat))
+        ggot, _acc = kernels.collocated_grad(tb1, sub, mat, le)
+        (gwant, _acc), gplain_ms = _sync_ms(
+            lambda: co.render_collocated_backward_plain(tb1, sub, mat, le))
     else:
         got = kernels.path_loop(tb, sub, mat, pl.init_carry(sub), tb.n_steps).f[0:3]
         plain, plain_ms = _sync_ms(lambda: pl.render_path_loop_plain(
@@ -1193,6 +1270,9 @@ def _bvh_check(tb, tb1, mat, integrator, what, stride=None):
     if not (mean <= 1e-6 and within >= 0.999):
         raise AssertionError(f"{what} {integrator}: kernel vs plain mean abs diff {mean:.3e}, "
                              f"{within:.4%} within 1e-5")
+    if exact and not torch.equal(got, want):
+        raise AssertionError(f"{what} {integrator}: {int((got != want).any(0).sum())} lanes "
+                             f"differ from the plain walk (bit for bit expected)")
     g_err, g_worst = _assert_grad_close(ggot, gwant, f"{what} {integrator} gradient")
     note = (f"at every {stride}th lane, the first {CHECK_SAMPLES} samples "
             f"({sub.shape[1]} lanes): forward vs plain mean abs diff {mean:.3e}, bit-identical "
@@ -1650,6 +1730,262 @@ def phase_crossover(dev, smi):
     return found
 
 
+# the kernels of phases 17 and 18 by slice and route: forward, gradient
+SLICE_KERNELS = {("collocated", "dense"): ("collocated", "collocated_grad"),
+                 ("collocated", "bvh"): ("collocated_bvh", "collocated_grad_bvh"),
+                 ("direct", "dense"): ("direct_env", "direct_grad_env"),
+                 ("direct", "bvh"): ("direct_env_bvh", "direct_grad_env_bvh")}
+
+
+def _golden_sphere(device, integrator, accel):
+    """tools/gen_golden.py's uv sphere (16 x 32, 960 triangles) and sphere
+    camera."""
+    import zdr_tpu_torch as zt
+    from zdr_tpu_torch.geometry.procedural import make_uv_sphere
+
+    scene = zt.Scene([(make_uv_sphere(0.5), None, None)], integrator=integrator, accel=accel,
+                     device=device)
+    scene.camera = zt.Camera(fov=0.8, origin=(1.2, 0.2, 0.0), target=(0.0, 0.0, 0.0))
+    return scene
+
+
+def _example(device):
+    """apps/example.py's scene: the 960-triangle uv sphere under
+    make_test_envmap(256, 512), the direct integrator, its camera."""
+    import zdr_tpu_torch as zt
+    from zdr_tpu_torch.envmap import make_test_envmap
+    from zdr_tpu_torch.geometry.procedural import make_uv_sphere
+
+    scene = zt.Scene([(make_uv_sphere(0.5), None, None)], integrator="direct", device=device)
+    scene.add_envmap(make_test_envmap(256, 512))
+    scene.camera = zt.Camera(fov=50 / 180 * 3.1415926, origin=(1.0, 0.0, 0.0),
+                             target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0))
+    return scene
+
+
+def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
+    """One main path of phases 17-18, Scene.render + loss.backward() of
+    `scene` (pmj02bn, `res`, `spp`, a tex^2 material of 0.5) by the route
+    its accel takes: one launch of each of its two kernels (SLICE_KERNELS)
+    and of no other, no plain version called; both kernels against their
+    plain versions on the main path's own inputs at every CHECK_STRIDE-th
+    lane (the dense kernels over all the samples, the BVH kernels over the
+    first CHECK_SAMPLES), the forward bit for bit and the gradient at phase
+    7's bars; the iteration's median, Scene.render's and each kernel's
+    alone, with its counted work and bound -> (the two kernels' records, the
+    image rendered at seed 0)."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import collocated as co
+    from zdr_tpu_torch.integrators import direct as dr
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    integrator, dev = scene.integrator, scene.device
+    data = scene._render_data(integrator)
+    route = "bvh" if data.accel is not None else "dense"
+    fwd, bwd = SLICE_KERNELS[integrator, route]
+    mat = torch.full((tex, tex, 4), 0.5, dtype=torch.float32, device=dev).requires_grad_()
+    iteration = _iteration(scene, mat, res, spp)
+    plain = _plain_calls()
+    (loss, first_ms), counts = _drive_main(lambda: _sync_ms(iteration))
+    others = {k: v for k, v in counts.items() if v and k not in (fwd, bwd)}
+    if (counts[fwd], counts[bwd]) != (1, 1) or others:
+        raise AssertionError(f"{what}: launches {counts}; expected one of {fwd} and {bwd} and "
+                             f"no other")
+    if _plain_calls() != plain:
+        raise AssertionError(f"{what}: the iteration ran a plain version")
+    grad = mat.grad.detach()
+    if not (bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+            and math.isfinite(float(loss.detach()))):
+        raise AssertionError(f"{what}: non-finite or zero loss or gradient")
+
+    m = mat.detach()
+    tb = pl.build_loop_tables(data, scene.camera, scene._config(res, spp), 0)
+    tb1 = pl.build_loop_tables(data, scene.camera, scene._config(res, spp), 1)
+    lanes = pl.pixel_lanes(res, spp, dev)
+    fkern, gkern = (kernels.collocated, kernels.collocated_grad) if integrator == "collocated" \
+        else (kernels.direct, kernels.direct_grad)
+    if route == "bvh":
+        err, g_err, plain_ms, gplain_ms, check = _bvh_check(tb, tb1, m, integrator, what,
+                                                            exact=True)
+        shape = (f"every {CHECK_STRIDE}th lane of {res[0]}x{res[1]}, the first "
+                 f"{CHECK_SAMPLES} of {spp} samples")
+    else:
+        fplain, gplain = (co.render_collocated_plain, co.render_collocated_backward_plain) \
+            if integrator == "collocated" \
+            else (dr.render_direct_plain, dr.render_direct_backward_plain)
+        sub = lanes[:, ::CHECK_STRIDE].contiguous()
+        got = fkern(tb, lanes, m)[:, ::CHECK_STRIDE]
+        want, plain_ms = _sync_ms(lambda: fplain(tb, sub, m))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: {fwd} vs plain at every {CHECK_STRIDE}th lane: "
+                                 f"{int((got != want).any(0).sum())} lanes differ")
+        le_sub = torch.zeros((3, lanes.shape[1]), device=dev)
+        le_sub[:, ::CHECK_STRIDE] = 1.0 / spp
+        ggot, _acc = gkern(tb1, lanes, m, le_sub)
+        (gwant, _acc), gplain_ms = _sync_ms(
+            lambda: gplain(tb1, sub, m, le_sub[:, ::CHECK_STRIDE].contiguous()))
+        g_err, g_worst = _assert_grad_close(ggot, gwant, f"{what}: {bwd}")
+        err = 0.0
+        shape = f"every {CHECK_STRIDE}th lane of {res[0]}x{res[1]}, {spp} spp"
+        check = (f"at every {CHECK_STRIDE}th lane ({sub.shape[1]} lanes x {spp} spp) {fwd} "
+                 f"equals its plain version bit for bit, plain {plain_ms:.1f} ms; {bwd} vs plain "
+                 f"worst texel rel err {g_worst:.3e} (rtol 1e-4), max abs diff {g_err:.3e}, "
+                 f"plain {gplain_ms:.1f} ms")
+
+    it_ms, it_runs = _median_ms(iteration, reps)
+    image = scene.render(m, res=res, spp=spp, seed=0)
+    render_ms, _r = _median_ms(lambda: scene.render(m, res=res, spp=spp, seed=0), reps)
+    le = torch.full((3, lanes.shape[1]), 1.0 / spp, device=dev)
+    ms, _r = _event_ms(lambda: fkern(tb, lanes, m), reps)
+    fk, gk = getattr(kernels, fwd), getattr(kernels, bwd)
+    gms, _r = _event_ms(lambda: gkern(tb1, lanes, m, le), reps)
+    acc = torch.empty((3, lanes.shape[1]), device=dev)
+    n_samples = res[0] * res[1] * spp
+    tables = [lanes, m, tb.scene, tb.lights, tb.bn]
+    if tb.env is not None:
+        tables += [tb.env.texture, tb.env.alias_prob, tb.env.alias_idx, tb.env.pdf]
+    if route == "bvh":
+        tables += [tb.bvh.geom, tb.bvh.nodes]
+        work, gwork = fk.counts.tolist(), gk.counts.tolist()
+        bound = _bound(work[0], _nbytes(*tables, acc), work[1])
+        gbound = _bound(gwork[0], _nbytes(*tables, le, acc, m), gwork[1])
+        work_note = (f"{work[0]:.4g} tests and {work[1]:.4g} node visits ({work[0] / n_samples:.2f}"
+                     f" and {work[1] / n_samples:.2f} a sample)")
+        extra, gextra = dict(tests=work[0], visits=work[1]), dict(tests=gwork[0], visits=gwork[1])
+    else:
+        tests, gtests, plan = int(fk.tests), int(gk.tests), fk.plan
+        if integrator == "collocated":
+            bound = _collocated_bound(tests, n_samples, _nbytes(*tables, acc))
+            gbound = _collocated_bound(gtests, n_samples, _nbytes(*tables, le, acc, m), True)
+            test_ops, stage_note = MT_OPS, ""
+        else:
+            stages, stage_note = None, ""
+            if plan["early"]:
+                stages, early_sub = _early_work(tb, lanes, m)
+                kernels.direct(tb, early_sub, m)
+                if int(stages.sum()) != int(fk.tests):
+                    raise AssertionError(f"{what}: the early out's stages count "
+                                         f"{int(stages.sum())} tests, the kernel {int(fk.tests)}")
+                shares = (stages.double() / stages.sum()).tolist()
+                stage_note = (f", {shares[0]:.4f} of them leave after u's numerator, "
+                              f"{shares[1]:.4f} after v's and t's, {shares[2]:.4f} reach the "
+                              f"division")
+                fk.tests = tests
+            test_ops = _test_ops(stages)
+            meta = scene._data.meta
+            env_samples = n_samples * meta.n_env / meta.n_total
+            bound = _direct_bound(tests, n_samples, _nbytes(*tables, acc), test_ops=test_ops,
+                                  env_samples=env_samples)
+            gbound = _direct_bound(gtests, n_samples, _nbytes(*tables, le, acc, m), True,
+                                   test_ops, env_samples)
+        work_note = (f"{tests:.4g} tests ({tests / n_samples:.1f} a sample){stage_note}, "
+                     f"{test_ops:.2f} FP32 operations a test, block {plan['block']}, "
+                     f"{plan['registers']} registers, {plan['waves']:.3f} waves")
+        extra = dict(tests=tests, test_ops=test_ops, bound_terms_ms=bound[2])
+        gextra = dict(tests=gtests, test_ops=test_ops, bound_terms_ms=gbound[2])
+    print(f"[{tag}] {what}: {tb.scene.shape[0]} tris, {route}, pmj02bn {res[0]}x{res[1]} {spp} "
+          f"spp, {tex}^2 material of 0.5, loss = image[..., :3].sum(), loss.backward(): 1 {fwd} "
+          f"and 1 {bwd} launch, no other kernel, no plain version; loss "
+          f"{float(loss.detach()):.4f}, |g|max {float(grad.abs().max()):.4e}; {check}; "
+          f"iteration median {it_ms:.2f} ms of {[round(t, 2) for t in it_runs]} (first "
+          f"{first_ms:.2f} ms); Scene.render median {render_ms:.2f} ms; {fwd} alone {ms:.3f} ms "
+          f"= {n_samples / ms / 1e3:.2f} M samples/s, {work_note} -> bound {bound[0]:.3f} ms "
+          f"({bound[1]}); {bwd} alone {gms:.3f} ms -> bound {gbound[0]:.3f} ms ({gbound[1]}); "
+          f"card {smi}", flush=True)
+    return {fwd: dict(launches=counts[fwd], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      plain_shape=shape, bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                      iteration_ms=it_ms, render_ms=render_ms, **extra),
+            bwd: dict(launches=counts[bwd], max_abs_err=g_err, ms=gms, plain_ms=gplain_ms,
+                      plain_shape=shape, bound_ms=gbound[0], bound_by=gbound[1],
+                      library_ms=None, **gextra)}, image
+
+
+def phase_collocated(dev, smi):
+    """Phase 17: the collocated integrator. The main path: the big-mesh
+    bench's sphere (tools/bench_bigmesh.py:27-29: 160 x 160, 50,880
+    triangles, its camera) at 512x512, 64 spp with a 1024^2 material, by
+    accel="auto" (the BVH); then the golden sphere (960 triangles) by the
+    dense route and by the BVH, whose images must be equal bit for bit
+    (_slice_main each) -> the four kernels' records (the BVH ones of the big
+    mesh, the golden sphere's beside them)."""
+    import zdr_tpu_torch as zt
+    from zdr_tpu_torch.geometry.procedural import make_uv_sphere
+
+    big = zt.Scene([(make_uv_sphere(0.5, n_lat=160, n_lon=160), None, None)],
+                   integrator="collocated", device=dev)
+    big.camera = zt.Camera(fov=0.8, origin=(1.5, 0.2, 0.0), target=(0.0, 0.0, 0.0))
+    if big._data.meta.num_tris != 50880:
+        raise AssertionError("the big-mesh sphere is not 50,880 triangles")
+    records, _img = _slice_main(big, RES, SPP, TEX, "17 collocated", "the big mesh", smi)
+    golden = _golden_sphere(dev, "collocated", "bruteforce")
+    dense, img_dense = _slice_main(golden, RES, SPP, TEX, "17 collocated",
+                                   "the golden sphere, dense", smi)
+    golden.accel = "auto"
+    bvh, img_bvh = _slice_main(golden, RES, SPP, TEX, "17 collocated",
+                               "the golden sphere, accel='auto'", smi)
+    if not torch.equal(img_dense, img_bvh):
+        raise AssertionError(f"collocated golden sphere: the dense and BVH images differ in "
+                             f"{int((img_dense != img_bvh).any(-1).sum())} pixels")
+    print(f"[17 collocated] the golden sphere's images by the dense route and by the BVH are "
+          f"equal bit for bit", flush=True)
+    records.update(dense)
+    for k, v in bvh.items():
+        records[k]["golden_sphere"] = v
+    return records
+
+
+def phase_env(dev, smi):
+    """Phase 18: the direct integrator under an envmap. The main path:
+    apps/example.py's full-size iteration (_example: 512x512, 64 spp, a
+    512^2 material) by accel="auto" (the BVH) and by "bruteforce" (the dense
+    env instantiation with the early out) (_slice_main each); then the
+    dense instantiation without the early out, the cornell box under the
+    same envmap at 128x128, 16 spp, against its plain version (phase 10's
+    check) -> the four kernels' records."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import direct as dr
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    scene = _example(dev)
+    records, img_bvh = _slice_main(scene, RES, SPP, 512, "18 env", "apps/example.py", smi)
+    scene.accel = "bruteforce"
+    dense, img_dense = _slice_main(scene, RES, SPP, 512, "18 env",
+                                   "apps/example.py, accel='bruteforce'", smi)
+    if not torch.equal(img_dense, img_bvh):
+        raise AssertionError(f"example: the dense and BVH images differ in "
+                             f"{int((img_dense != img_bvh).any(-1).sum())} pixels")
+    records.update(dense)
+
+    from zdr_tpu_torch.envmap import make_test_envmap
+
+    box = _flagship(dev, "direct")
+    box.add_envmap(make_test_envmap(256, 512))
+    res, spp = (128, 128), 16
+    tb = pl.build_loop_tables(box._data, box.camera, box._config(res, spp), 5)
+    lanes = pl.pixel_lanes(res, spp, dev)
+    mat = _material(3, dev, tex=64)
+    got = kernels.direct(tb, lanes, mat)
+    if kernels.direct_env.plan["early"]:
+        raise AssertionError("the cornell box under the envmap took the early out")
+    want = dr.render_direct_plain(tb, lanes, mat)
+    le = torch.as_tensor(np.random.RandomState(3).rand(3, lanes.shape[1]).astype(np.float32),
+                         device=dev)
+    grad, acc = kernels.direct_grad(tb, lanes, mat, le)
+    want_g, _acc = dr.render_direct_backward_plain(tb, lanes, mat, le)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(acc, got)):
+        raise AssertionError("direct_env without the early out differs from its plain version")
+    g_err, g_worst = _assert_grad_close(grad, want_g, "direct_grad_env cornell box")
+    records["direct_grad_env"]["max_abs_err"] = max(records["direct_grad_env"]["max_abs_err"],
+                                                    g_err)
+    print(f"[18 env] the example's images by the dense route and by the BVH are equal bit for "
+          f"bit; the cornell box under the same envmap ({tb.scene.shape[0]} tris, the dense "
+          f"env instantiation without the early out) 128x128 16 spp: direct_env equals its "
+          f"plain version bit for bit, direct_grad_env worst texel rel err {g_worst:.3e} (rtol "
+          f"1e-4), its radiance equal to direct_env's", flush=True)
+    return records
+
+
 def _direct_extra(proto, g, ptxas):
     """The dense direct kernels' record beyond the contract's keys: the
     counted-work bound's terms and the tests-only bound on the protocol,
@@ -1699,23 +2035,37 @@ def main():
     variants = timed("14", phase_variants, dev, smi)
     timed("15", phase_crossover, dev, smi)
     timed("16", phase_emissive, dev, smi)
+    coll = timed("17", phase_collocated, dev, smi)
+    env = timed("18", phase_env, dev, smi)
     print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     # direct_bvh and direct_grad_bvh report the protocol's main path by
     # accel="auto" (phase 11), the big mesh's beside it (phase 13)
     for k in BVH_KERNELS["direct"]:
         big[k] = dict(auto[k], big_mesh=big[k])
-    for k in BVH_ENTRIES:
+    for k in (*BVH_KERNELS["direct"], *BVH_KERNELS["path"]):
         big[k]["ptxas"] = ptxas[k]
     # the probes, the standalone traces and the sweep variants are on no
     # main path: what the main-path calls launched of them
     probe_run["launches"] = sum(c["sampler_probe"] for c in MAIN_COUNTS)
     trace_run["launches"] = sum(c["trace_interact"] for c in MAIN_COUNTS)
+    # B3's body (closest_interact) runs inside the megakernels: its launches
+    # on the main paths of phases 17-18, by the kernel it runs in
+    trace_run["body_launches"] = {k: sum(c[k] for c in MAIN_COUNTS)
+                                  for k in ("collocated", "collocated_grad", "collocated_bvh",
+                                            "collocated_grad_bvh", "direct_env",
+                                            "direct_grad_env", "direct_env_bvh",
+                                            "direct_grad_env_bvh")}
     for k in ("trace_closest", "trace_any"):
         traces[k]["launches"] = sum(c[k] for c in MAIN_COUNTS)
     for k in VARIANTS:
         variants[k]["launches"] = sum(c[k] for c in MAIN_COUNTS)
     direct_src = "zdr_tpu_torch/kernels/csrc/direct.cu"
+    coll_src = "zdr_tpu_torch/kernels/csrc/collocated.cu"
+    for pair in SLICE_KERNELS.values():
+        for kname in pair:
+            rec = coll.get(kname) or env[kname]
+            rec["ptxas"] = {e: v for e, v in ptxas.items() if e in (kname, f"{kname}_early")}
     variants_src = "zdr_tpu_torch/kernels/csrc/sweep_variants.cu"
     record = {"kernels": [{
         "name": "sampler_probe",
@@ -1828,6 +2178,60 @@ def main():
         "source": variants_src,
         "replaces": "tools/profile_chunk.py:161",
         **variants["floor_probe"],
+    }, {
+        "name": "collocated",
+        "route": "cuda",
+        "source": coll_src,
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:474 (collocated_fused.py:148-210)",
+        **coll["collocated"],
+    }, {
+        "name": "collocated_grad",
+        "route": "cuda",
+        "source": coll_src,
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:474 + collocated_fused.py:243 "
+                    "(the shade's VJP and the stochastic splat)",
+        **coll["collocated_grad"],
+    }, {
+        "name": "collocated_bvh",
+        "route": "cuda",
+        "source": coll_src,
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:474 with pallas_stream.py:392 "
+                    "(collocated_fused.py:148-210)",
+        **coll["collocated_bvh"],
+    }, {
+        "name": "collocated_grad_bvh",
+        "route": "cuda",
+        "source": coll_src,
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:474 with pallas_stream.py:392 + "
+                    "collocated_fused.py:243",
+        **coll["collocated_grad_bvh"],
+    }, {
+        "name": "direct_env",
+        "route": "cuda",
+        "source": direct_src,
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:474 + :917 with the env glue of "
+                    "direct_fused.py:151-156, :242-251 (fused_glue.py:178-381)",
+        **env["direct_env"],
+    }, {
+        "name": "direct_grad_env",
+        "route": "cuda",
+        "source": direct_src,
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:917 (want_grad) with the env glue",
+        **env["direct_grad_env"],
+    }, {
+        "name": "direct_env_bvh",
+        "route": "cuda",
+        "source": direct_src,
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:917 with pallas_stream.py:392 + :507 "
+                    "and the env glue (direct_fused.py:139-251)",
+        **env["direct_env_bvh"],
+    }, {
+        "name": "direct_grad_env_bvh",
+        "route": "cuda",
+        "source": direct_src,
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:917 (want_grad) with "
+                    "pallas_stream.py:392 + :507 and the env glue",
+        **env["direct_grad_env_bvh"],
     }]}
     for entry in record["kernels"]:
         for v in entry.values():

@@ -95,7 +95,7 @@ ZDR_HD void study_next2(const SamplerCtx& c, Sampler& s, float& ux, float& uy) {
 }
 
 """.replace("ZERO", ZERO_U)
-NEE = "ZDR_HD Nee nee_select("
+NEE = "template <bool kEnv = false>\nZDR_HD Nee nee_select("
 SAMPLER2X = [
     (STEP, NEE, DRAW2 + NEE),
     (STEP, "float u_sel = next1(c, s);", "float u_sel = study_next1(c, s);"),

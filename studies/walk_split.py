@@ -359,9 +359,18 @@ def ptxas_report(log):
     named = {}
     for mangled, vals in out.items():
         for key, name in ENTRIES.items():
-            if key in mangled and not ("direct_kernel" in key and "bvh" in mangled):
+            if (key in mangled and not ("direct_kernel" in key and "bvh" in mangled)
+                    and not _env_instantiation(mangled)):
                 named[name] = vals
     return named
+
+
+def _env_instantiation(mangled):
+    """Whether a direct kernel's mangled name is an envmap instantiation
+    (its last flag, kEnv, set), which sources from before the envmap lack."""
+    m = re.search(r"direct_kernelI((?:Lb[01]E){3})", mangled) or re.search(
+        r"direct_bvh_kernelI((?:Lb[01]E){2})", mangled)
+    return bool(m) and m.group(1).endswith("Lb1E")
 
 
 def build_all():

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 the path loop's (path_loop, path_loop_grad, sampler_probe), the direct
-integrator's (trace_interact, direct, direct_grad), the trace kernels
+integrator's (trace_interact, direct, direct_grad, and their envmap
+instantiations), the collocated integrator's (collocated, collocated_grad,
+dense and BVH), the trace kernels
 (trace_closest, trace_any, dense and BVH), the megakernels' BVH
 instantiations on scenes past shared memory (in triangle rows, or in
 light rows alone), the gradient kernels' tap rows at every split between
@@ -576,3 +578,70 @@ def test_floor_probe_is_a_plus_b(dev):
     before = kernels.floor_probe.launches
     assert torch.equal(kernels.floor_probe(a, b), a + b)
     assert kernels.floor_probe.launches == before + 1
+
+
+def _slice_scene(dev, integrator, name, accel):
+    """The collocated or envmap scenes of the new kernels: the cornell box,
+    or tools/gen_golden.py's 960-triangle sphere and its camera; the direct
+    integrator's under make_test_envmap(64, 128)."""
+    from zdr_tpu_torch.envmap import make_test_envmap
+
+    if name == "cbox":
+        s = _scene(dev)
+        s.integrator, s.accel = integrator, accel
+    else:
+        s = zt.Scene([(tproc.make_uv_sphere(0.5), None, None)], integrator=integrator,
+                     accel=accel, device=dev)
+        s.camera = zt.Camera(fov=0.8, origin=(1.2, 0.2, 0.0), target=(0.0, 0.0, 0.0))
+    if integrator == "direct":
+        s.add_envmap(make_test_envmap(64, 128))
+    return s
+
+
+# the kernels of each (integrator, scene, accel): forward, gradient
+SLICE_CASES = {
+    ("collocated", "cbox", "auto"): ("collocated", "collocated_grad"),
+    ("collocated", "sphere", "bruteforce"): ("collocated", "collocated_grad"),
+    ("collocated", "sphere", "auto"): ("collocated_bvh", "collocated_grad_bvh"),
+    ("direct", "cbox", "auto"): ("direct_env", "direct_grad_env"),
+    ("direct", "sphere", "bruteforce"): ("direct_env", "direct_grad_env"),
+    ("direct", "sphere", "auto"): ("direct_env_bvh", "direct_grad_env_bvh"),
+}
+
+
+@pytest.mark.parametrize("case", list(SLICE_CASES), ids=lambda c: "-".join(c))
+def test_collocated_and_env_kernels_match_plain(dev, case):
+    """The collocated kernels and the direct kernels' envmap instantiations
+    (dense without and with the early out, BVH) at 64x64, 8 spp, a random
+    adjoint: the forward bit for bit its plain version; the gradient's
+    per-channel sums within rtol 1e-5 and texels past 1e-3 of the largest
+    within rtol 1e-4 of it (float atomics); the tap mode's radiance equal to
+    the forward's; one launch of each of the case's kernels."""
+    from zdr_tpu_torch.integrators import collocated as co
+
+    integrator, name, accel = case
+    fwd, bwd = SLICE_CASES[case]
+    s = _slice_scene(dev, integrator, name, accel)
+    mat = _material(dev)
+    tb = pl.build_loop_tables(s._render_data(integrator), s.camera, s._config((64, 64), 8), 3)
+    lanes = pl.pixel_lanes(tb.res, tb.spp, dev)
+    le = torch.as_tensor(np.random.RandomState(2).rand(3, lanes.shape[1]).astype(np.float32),
+                         device=dev)
+    fk, gk = (kernels.collocated, kernels.collocated_grad) if integrator == "collocated" \
+        else (kernels.direct, kernels.direct_grad)
+    fp, gp = (co.render_collocated_plain, co.render_collocated_backward_plain) \
+        if integrator == "collocated" else (dr.render_direct_plain, dr.render_direct_backward_plain)
+    before = (getattr(kernels, fwd).launches, getattr(kernels, bwd).launches)
+    got = fk(tb, lanes, mat)
+    grad, acc = gk(tb, lanes, mat, le)
+    assert (getattr(kernels, fwd).launches, getattr(kernels, bwd).launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fp(tb, lanes, mat)
+    want_g, _acc = gp(tb, lanes, mat, le)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(acc, got)
+    torch.testing.assert_close(grad.double().sum((0, 1)), want_g.double().sum((0, 1)),
+                               rtol=1e-5, atol=0.0)
+    mag = want_g.abs().amax(-1)
+    big = mag > 1e-3 * float(mag.max())
+    assert float(((grad - want_g).abs().amax(-1)[big] / mag[big]).max()) <= 1e-4

@@ -42,7 +42,9 @@ METHODS = ("auto", "bruteforce", "pallas", "bvh", "stream")
 # 12 triangles 33.32 / 41.93, 26: 22.48 / 21.46, 50: 31.18 / 24.74, 122:
 # 56.26 / 33.09, 226: 95.41 / 36.21, 962: 691.21 / 42.45, 1850: 1306.06 /
 # 46.78; they meet at 24.5.
-DENSE_MAX_TRIS = {"direct": 33, "path": 25}
+# Collocated (one sweep a sample, the direct kernels' compact rows and
+# sweep): not measured yet, it takes the direct kernels' switch.
+DENSE_MAX_TRIS = {"direct": 33, "path": 25, "collocated": 33}
 # the BVH's triangles a leaf at most: JAX's tree is built at 8
 # (accel/bvh.LEAF_SIZE), the port's at 4, the fastest of 2, 4 and 8 for the
 # four BVH kernels by studies/walk_split.py on an NVIDIA H100 80GB HBM3 at

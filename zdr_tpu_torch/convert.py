@@ -12,6 +12,7 @@ import torch
 
 from .accel.bvh import NODE_COLS, BVHArrays, to_child_nodes
 from .accel.types import GEOM_COLS, ID_COL, Accel
+from .envmap import EnvMap
 from .geometry.mesh import geometry_from_numpy
 from .scenedata import LightMeta, SceneData
 
@@ -19,6 +20,9 @@ GEOMETRY_KEYS = (
     "positions", "uvs", "normals", "triangles", "tri_inst",
     "inst_tri_offset", "inst_tri_count",
 )
+# the environment map's arrays (the fields of JAX's envmap.EnvMap), by key
+ENV_KEYS = {"env_texture": "texture", "env_alias_prob": "alias_prob",
+            "env_alias_idx": "alias_idx", "env_pdf": "pdf"}
 
 
 def material_from_numpy(mat, device) -> torch.Tensor:
@@ -39,7 +43,10 @@ def scene_from_numpy(arrays: dict, meta, device) -> SceneData:
     Args:
         arrays: GEOMETRY_KEYS plus "emission" (I, 3), "point_pos" (P, 3),
             "point_intensity" (P, 3) and "point_count" (); point lights past
-            point_count are ignored.
+            point_count are ignored. With meta's n_env 1, also the envmap's
+            ENV_KEYS: "env_texture" (H, W, 4), "env_alias_prob" and
+            "env_alias_idx" (256 + 256 * 512,), "env_pdf" (256 * 512,),
+            the arrays of JAX's SceneData.env.
         meta: an object or dict with FusedMeta's fields (n_lights,
             light_tri_ids, light_offsets, light_tcs, num_tris, n_env,
             n_point).
@@ -48,8 +55,9 @@ def scene_from_numpy(arrays: dict, meta, device) -> SceneData:
     def field(k):
         return meta[k] if isinstance(meta, dict) else getattr(meta, k)
 
-    if int(field("n_env")) != 0:
-        raise NotImplementedError("envmap: ROADMAP A11")
+    n_env = int(field("n_env"))
+    if n_env not in (0, 1):
+        raise ValueError(f"a scene has 0 or 1 envmaps, not {n_env}")
     n_point = int(arrays["point_count"])
     light_meta = LightMeta(
         n_lights=int(field("n_lights")),
@@ -57,7 +65,7 @@ def scene_from_numpy(arrays: dict, meta, device) -> SceneData:
         light_offsets=tuple(int(x) for x in field("light_offsets")),
         light_tcs=tuple(int(x) for x in field("light_tcs")),
         num_tris=int(field("num_tris")),
-        n_env=0,
+        n_env=n_env,
         n_point=n_point,
     )
     if int(field("n_point")) != n_point:
@@ -66,12 +74,19 @@ def scene_from_numpy(arrays: dict, meta, device) -> SceneData:
     def f32(k):
         return torch.as_tensor(np.array(arrays[k], np.float32).reshape(-1, 3), device=device)
 
+    env = None
+    if n_env:
+        types = {"alias_idx": np.int32}
+        env = EnvMap(**{f: torch.as_tensor(np.array(arrays[k], types.get(f, np.float32)),
+                                           device=device)
+                        for k, f in ENV_KEYS.items()})
     return SceneData(
         geom=geometry_from_numpy({k: arrays[k] for k in GEOMETRY_KEYS}, device),
         emission=f32("emission"),
         meta=light_meta,
         point_pos=f32("point_pos")[:n_point],
         point_intensity=f32("point_intensity")[:n_point],
+        env=env,
     )
 
 
@@ -83,6 +98,9 @@ def scene_to_numpy(data: SceneData):
     arrays["point_pos"] = data.point_pos.cpu().numpy()
     arrays["point_intensity"] = data.point_intensity.cpu().numpy()
     arrays["point_count"] = np.asarray(data.meta.n_point, np.int32)
+    if data.env is not None:
+        for k, f in ENV_KEYS.items():
+            arrays[k] = getattr(data.env, f).cpu().numpy()
     m = data.meta
     meta = dict(
         n_lights=m.n_lights, light_tri_ids=m.light_tri_ids,

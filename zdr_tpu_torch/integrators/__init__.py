@@ -1,1 +1,2 @@
-"""Integrators of the port: the path loop (forward) and its render wrapper."""
+"""Integrators of the port: the path loop, the direct and collocated
+integrators, and the render wrapper."""

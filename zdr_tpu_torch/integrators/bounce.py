@@ -51,18 +51,22 @@ def trace_interact_plain(scene: torch.Tensor, rays, lite: bool = False, bvh=None
     (shade and miss int32), or with lite their last 4. Given `bvh`, the hit
     is the BVH walk's."""
     trace_interact_plain.calls += 1
-    o, d = rays[0:3], rays[3:6]
-    if bvh is not None:
-        hit = closest_hit(scene, o, d, bvh)
-    else:
-        parts = []
-        for sl in chunks(o[0].shape[0], scene.shape[0]):
-            parts.append(closest_hit(scene, [x[sl] for x in o], [x[sl] for x in d]))
-        hit = tuple(torch.cat(x) for x in zip(*parts))
-    return interact_planes(scene, rays, hit, lite)
+    return interact_planes(scene, rays, closest_hit_plain(scene, rays[0:3], rays[3:6], bvh),
+                           lite)
 
 
 trace_interact_plain.calls = 0
+
+
+def closest_hit_plain(scene: torch.Tensor, o, d, bvh=None):
+    """path_loop.closest_hit of every ray, in chunks of rays over the
+    scene rows, or through `bvh` -> (best_t, u, v, prim)."""
+    if bvh is not None:
+        return closest_hit(scene, o, d, bvh)
+    parts = []
+    for sl in chunks(o[0].shape[0], scene.shape[0]):
+        parts.append(closest_hit(scene, [x[sl] for x in o], [x[sl] for x in d]))
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
 def interact_planes(scene: torch.Tensor, rays, hit, lite: bool = False):

@@ -15,6 +15,11 @@ of a lane (`direct_sample_plain`, `_one_sample` :124-268) runs, in order:
   5. the lite trace_interact on the bounce ray: its MIS-weighted emitter;
      radiance = shade's radiance + beta_next * that emitter.
 
+Under an environment light (LoopTables.env, direct_fused.py:151-156,
+:242-251) a miss of the primary ray adds the env at MIS against no BSDF pdf,
+the light selection may choose it (its shadow ray then runs to 1e30), and a
+miss of the bounce ray adds it MIS-weighted against the BSDF pdf.
+
 The backward replays each sample at seed + 1 and feeds shade's gradient
 taps with le_rem = the sample's whole radiance (:259-268), one tap a
 sample, added without a splat merge (:320-325).
@@ -32,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from ..camera import camera_ray
+from ..envmap import env_miss_add
 from ..samplers.hashes import lcg_to_unit_float
 from ..texture import read_bilinear, scatter_add4
 from ..vec import div
@@ -67,6 +73,9 @@ def direct_sample_plain(tb: LoopTables, lanes, material, sample_idx: int, le_gra
     ones_i = torch.ones((n,), dtype=torch.int32, device=dev)
     k1 = trace_interact_plain(tb.scene, (*o, *d, big, ones_i), bvh=tb.bvh)
     p, uv, ns, ng, shade, ae = k1[0:3], k1[3:5], k1[5:8], k1[8:11], k1[11], k1[12:15]
+    if tb.env is not None:
+        em = env_miss_add(tb.env, d, big, k1[15] != 0, tb.inv_n_lights)
+        ae = tuple(ae[c] + em[c] for c in range(3))
     mat = read_bilinear(material, uv[0], uv[1])
     (wl, l_dist, l_pdf, lev), smp = nee_select(tb, p, smp)
     u_lobe, smp = smp.next1()
@@ -80,6 +89,9 @@ def direct_sample_plain(tb: LoopTables, lanes, material, sample_idx: int, le_gra
     k2 = shade_plain(tb.scene, ray, nee, draws, RR_DEPTH, MAX_DEPTH, h, w,
                      want_occ=le_grad is not None, bvh=tb.bvh)
     bae = trace_interact_plain(tb.scene, (*k2[7:13], k2[6], k2[13]), lite=True, bvh=tb.bvh)
+    if tb.env is not None:
+        em = env_miss_add(tb.env, k2[10:13], k2[6], bae[3] != 0, tb.inv_n_lights)
+        bae = tuple(bae[c] + em[c] for c in range(3))
     rad = tuple(k2[c] + k2[3 + c] * bae[c] for c in range(3))
     if le_grad is None:
         return rad

@@ -35,6 +35,7 @@ import torch
 from ..accel.trace import bvh_any, bvh_closest, mt
 from ..accel.types import Accel
 from ..camera import camera_const, camera_ray
+from ..envmap import EnvMap, sample_envmap
 from ..microfacet import (
     ggx_brdf,
     ggx_sample,
@@ -124,6 +125,20 @@ class LoopTables:
     # the scene's BVH: the sweeps walk it, and the kernels' wrappers launch
     # their BVH instantiations; None: the dense sweeps over `scene`
     bvh: Optional[Accel] = None
+    # the environment light, the first of the light selection's choices
+    # (n_env 1), and the kernels' wrappers launch their env instantiations;
+    # None: no env
+    env: Optional[EnvMap] = None
+
+    @property
+    def n_env(self) -> int:
+        return 0 if self.env is None else 1
+
+    @property
+    def inv_n_lights(self) -> float:
+        """1 / the light selection's choices (at least 1): the factor of
+        an env sample's and an env miss's pdf."""
+        return 1.0 / max(self.n_env + self.n_point + self.n_mesh, 1)
 
     @property
     def n_steps(self) -> int:
@@ -156,6 +171,7 @@ def build_loop_tables(data, camera, cfg, seed: int) -> LoopTables:
         bn_res=res,
         bn_ntex=n_tex,
         bvh=data.accel if data.accel is not None and data.accel.is_bvh else None,
+        env=data.env,
     )
 
 
@@ -269,16 +285,20 @@ def closest_interact(scene, o, d, pdf_prev, active, bvh=None):
 # ------------------------------------------------------------ NEE select
 
 def nee_select(tb: LoopTables, p, smp):
-    """Light choice over point then mesh lights and a point on it
-    (pallas_loop.py:270) -> ((wi3, dist, pdf, ev3), smp)."""
+    """Light choice, uniform over the env (first), the point lights and
+    the mesh lights, and a sample of the chosen one (pallas_loop.py:270;
+    with the env, fused_glue.sample_light_planes :289-381) -> ((wi3, dist,
+    pdf, ev3), smp)."""
     u_sel, smp = smp.next1()
     u_prim, smp = smp.next1()
     (u2a, u2b), smp = smp.next2_xy()
 
-    n_point, n_mesh = tb.n_point, tb.n_mesh
-    n_i = n_point + n_mesh
+    n_env, n_point, n_mesh = tb.n_env, tb.n_point, tb.n_mesh
+    n_i = n_env + n_point + n_mesh
     n = float(max(n_i, 1))
     idx = torch.clamp((u_sel * n).to(torch.int32), 0, max(n_i - 1, 0))
+    # the choice among the point and mesh lights
+    pidx = idx - n_env
 
     zero = torch.zeros_like(u_sel)
     wi = (zero, zero, zero + 1.0)
@@ -287,7 +307,7 @@ def nee_select(tb: LoopTables, p, smp):
     ev = (zero, zero, zero)
 
     if n_mesh > 0:
-        mesh_idx = torch.clamp(idx - n_point, 0, max(n_mesh - 1, 0)).to(torch.int64)
+        mesh_idx = torch.clamp(pidx - n_point, 0, max(n_mesh - 1, 0)).to(torch.int64)
         off = tb.light_inst[mesh_idx, 0]
         tc = tb.light_inst[mesh_idx, 1]
         prim_local = torch.minimum(
@@ -316,18 +336,28 @@ def nee_select(tb: LoopTables, p, smp):
         wi, dist, pdf, ev = m_wi, m_dist, m_pdf, m_ev
 
     if n_point > 0:
-        pt = tb.points[torch.clamp(idx, 0, n_point - 1).to(torch.int64)].unbind(1)
+        pt = tb.points[torch.clamp(pidx, 0, n_point - 1).to(torch.int64)].unbind(1)
         dv = vsub(pt[0:3], p)
         sqr = vdot(dv, dv)
         inv_len = 1.0 / torch.clamp_min(torch.sqrt(sqr), 1e-20)
         p_wi = vscale(dv, inv_len)
         p_pdf = div(sqr, n)
         p_dist = 0.9999 * torch.sqrt(sqr)
-        is_point = idx < n_point
+        is_point = (pidx >= 0) & (pidx < n_point)
         wi = tuple(torch.where(is_point, p_wi[k], wi[k]) for k in range(3))
         dist = torch.where(is_point, p_dist, dist)
         pdf = torch.where(is_point, p_pdf, pdf)
         ev = tuple(torch.where(is_point, pt[3 + k], ev[k]) for k in range(3))
+
+    if n_env > 0:
+        # u2b picks the sample map's row, u2a its column; the shadow ray has
+        # no end
+        e_wi, e_dist, e_pdf, e_ev = sample_envmap(tb.env, u2a, u2b, tb.inv_n_lights)
+        is_env = idx < n_env
+        wi = tuple(torch.where(is_env, e_wi[k], wi[k]) for k in range(3))
+        dist = torch.where(is_env, e_dist, dist)
+        pdf = torch.where(is_env, e_pdf, pdf)
+        ev = tuple(torch.where(is_env, e_ev[k], ev[k]) for k in range(3))
 
     return (wi, dist, pdf, ev), smp
 

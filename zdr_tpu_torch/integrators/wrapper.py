@@ -1,13 +1,14 @@
 """Render settings, the forward render, the texture gradient and the
 autograd bridge between them (port of zdr_tpu/integrators/wrapper.py:34-116,
-134-220, 299-385: the path loop's route and the direct integrator's fused
-route).
+134-220, 299-385: the path loop's route and the direct and collocated
+integrators' fused routes).
 
 The port renders all spp in one call: the sampler is keyed by the absolute
 sample index, so the JAX package's spp windows give the same image.
 `RenderFunction` makes the render differentiable in the material: its
 backward re-estimates the gradient at seed + 1 with the per-sample adjoint
-d_image / spp (on the card the path_loop_grad or direct_grad kernel).
+d_image / spp (on the card the path_loop_grad, direct_grad or
+collocated_grad kernel).
 Everything outside the port's scope raises NotImplementedError naming the
 ROADMAP item that ports it.
 """
@@ -47,17 +48,18 @@ class RenderConfig:
 
 def check_scope(cfg: RenderConfig, material: torch.Tensor, data) -> None:
     """Raise NotImplementedError for what the port does not render yet."""
-    if cfg.integrator == "collocated":
-        raise NotImplementedError("collocated integrator: ROADMAP A12")
-    if cfg.integrator not in ("path", "direct"):
+    if cfg.integrator not in ("path", "direct", "collocated"):
         raise ValueError(f"unknown integrator: {cfg.integrator!r}")
     if cfg.integrator == "direct" and not cfg.use_mis:
         raise NotImplementedError(
             "direct integrator with use_mis=False (the JAX package's unfused "
             "direct.py): ROADMAP A10"
         )
-    if data.meta.n_env:
-        raise NotImplementedError("envmap: ROADMAP A11")
+    if data.meta.n_env and cfg.integrator == "path":
+        raise NotImplementedError(
+            "envmap with the path integrator (the env in the path kernels, "
+            "path_loop and path_loop_grad): ROADMAP A11"
+        )
     if not cfg.bilinear or min(material.shape[0], material.shape[1]) < 2:
         raise NotImplementedError(
             "render without the bilinear fetch (nearest filtering, or a "
@@ -86,12 +88,14 @@ def check_scope(cfg: RenderConfig, material: torch.Tensor, data) -> None:
 
 def render_forward(data, material: torch.Tensor, camera, seed: int, cfg: RenderConfig) -> torch.Tensor:
     """Forward render -> (H, W, 4) image (mean radiance, alpha = 1)."""
+    from .collocated import render_collocated
     from .direct import render_direct
     from .path_loop import render_path_loop
 
     check_scope(cfg, material, data)
     w, h = cfg.res
-    render = render_direct if cfg.integrator == "direct" else render_path_loop
+    render = {"direct": render_direct, "collocated": render_collocated,
+              "path": render_path_loop}[cfg.integrator]
     rgb = render(data, material, camera, seed, cfg).reshape(h, w, 3)
     alpha = torch.ones((h, w, 1), dtype=torch.float32, device=rgb.device)
     return torch.cat([rgb, alpha], dim=-1)
@@ -102,6 +106,7 @@ def render_grad(data, material: torch.Tensor, camera, seed: int, d_image: torch.
     """Gradient estimator (wrapper.py:299-323): replay the samples at this
     seed with d_image[..., :3] / spp as every sample's adjoint (NaN -> 0)
     -> d_material (H_tex, W_tex, 4)."""
+    from .collocated import render_collocated_backward
     from .direct import render_direct_backward
     from .path_loop import render_path_backward_loop
 
@@ -109,8 +114,8 @@ def render_grad(data, material: torch.Tensor, camera, seed: int, d_image: torch.
     w, h = cfg.res
     le_grad = div(d_image[..., :3].reshape(h * w, 3), float(cfg.spp))
     le_grad = torch.where(torch.isnan(le_grad), 0.0, le_grad)
-    backward = (render_direct_backward if cfg.integrator == "direct"
-                else render_path_backward_loop)
+    backward = {"direct": render_direct_backward, "collocated": render_collocated_backward,
+                "path": render_path_backward_loop}[cfg.integrator]
     return backward(data, material, camera, seed, cfg, le_grad.T.contiguous())
 
 

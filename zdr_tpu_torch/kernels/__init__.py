@@ -11,9 +11,10 @@ CUDA device it checks its tensors, allocates its outputs with torch.empty,
 launches on the current stream without synchronising, raises on a launch
 error, and counts its launches in `.launches`; any other device raises.
 
-The four megakernels have two instantiations each: the dense one sweeps the
+The megakernels have two instantiations each: the dense one sweeps the
 scene table from shared memory, the BVH one (path_loop_bvh,
-path_loop_grad_bvh, direct_bvh, direct_grad_bvh) walks the BVH in order,
+path_loop_grad_bvh, direct_bvh, direct_grad_bvh, direct_env_bvh,
+direct_grad_env_bvh, collocated_bvh, collocated_grad_bvh) walks the BVH in order,
 near child first with a short stack, over child-box nodes in global memory
 (csrc/trace.cuh, accel/bvh.to_child_nodes) for scenes past shared memory. The
 wrappers pick it from the tables (LoopTables.bvh, built once per Scene),
@@ -49,6 +50,20 @@ Kernels:
   direct_grad     its texture gradient, one atomic tap a sample
                   (csrc/direct.cu), likewise; plain version:
                   integrators/direct.render_direct_backward_plain
+  direct_env, direct_grad_env
+                  the same under an environment light (LoopTables.env):
+                  the kernels' env instantiations, their tables in global
+                  memory (not in the shared-memory tables, whose limit they
+                  leave as it is); direct and direct_grad launch them when
+                  the tables carry an env; the same plain versions
+  collocated      the forward render of the collocated integrator
+                  (csrc/collocated.cu, the dense sweep without the early
+                  out, the block picked at launch; `.plan` as direct's);
+                  plain version:
+                  integrators/collocated.render_collocated_plain
+  collocated_grad its texture gradient, one atomic tap a sample, likewise;
+                  plain version:
+                  integrators/collocated.render_collocated_backward_plain
   trace_closest   closest hit of a ray batch, dense or through the BVH
   trace_any       any hit of a ray batch, likewise (csrc/accel.cu); plain
                   versions: accel/trace.trace_closest_plain, trace_any_plain
@@ -97,6 +112,11 @@ from ..integrators.path_loop import (
 )
 from ..integrators.bounce import trace_interact_plain
 from ..integrators.direct import render_direct_backward_plain, render_direct_plain
+from ..integrators.collocated import (
+    render_collocated_backward_plain,
+    render_collocated_plain,
+)
+from ..envmap import SAMPLE_MAP_H, SAMPLE_MAP_W
 from ..accel.trace import trace_any_plain, trace_closest_plain
 from ..accel.variants import (
     MODES,
@@ -115,16 +135,16 @@ from ..samplers.hashes import next_pow2_mask
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 CUDA_SOURCES = ("path_loop.cu", "path_loop_grad.cu", "direct.cu", "accel.cu",
-                "sweep_variants.cu")
+                "sweep_variants.cu", "collocated.cu")
 HEADERS = ("path_loop_step.cuh", "direct_step.cuh", "trace.cuh", "sweep_variants.cuh",
-           "launch.cuh")
+           "launch.cuh", "collocated_step.cuh")
 # -fmad=false and no fast math: the kernel rounds as its plain version does
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 HOST_SOURCES = ("path_loop_host.cpp", "direct_host.cpp", "accel_host.cpp",
-                "sweep_variants_host.cpp")
+                "sweep_variants_host.cpp", "collocated_host.cpp")
 HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 KINDS = {"lcg": 0, "pmj02bn": 1}
 # the floats of a tap row of path_loop_grad (path_loop_step.cuh kRowPlanes):
@@ -233,6 +253,15 @@ _BVH_ARGS = [_P, _P, _I, _I]
 _LOOP_BVH_ARGS = _LOOP_ARGS[:3] + [_I] + _LOOP_ARGS[3:] + _BVH_ARGS + [_P]
 _GRAD_BVH_ARGS = _GRAD_ARGS[:3] + [_I] + _GRAD_ARGS[3:] + _BVH_ARGS + [_P]
 _DIRECT_BVH_ARGS = [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P] + _BVH_ARGS + [_P, _I]
+# an envmap: texture, h, w, alias probabilities, alias indices, pdf; the env
+# entries take it after _DIRECT_ARGS (zdr_direct_env, then block and plan)
+# or _DIRECT_BVH_ARGS (zdr_direct_env_bvh), the host build after
+# _DIRECT_ARGS, then _BVH_ARGS (null nodes and no rows: the dense sweep)
+_ENV_ARGS = [_P, _I, _I, _P, _P, _P]
+# zdr_collocated: _DIRECT_ARGS without early, then block and plan;
+# zdr_collocated_bvh: _DIRECT_BVH_ARGS; the host build: _DIRECT_ARGS
+# without early, then _BVH_ARGS
+_COLLOCATED_ARGS = _DIRECT_ARGS[:11]
 # zdr_trace_closest: bvh_mode (0: dense; 1: the BVH), geom, n_rows, nodes,
 # n_nodes, o, d, t_min, t_max, t, u, v, prim, counts, n; zdr_trace_any: the
 # same with occ in place of t, u, v, prim
@@ -248,7 +277,7 @@ _VARIANT_ARGS = _VARIANT_HOST_ARGS[:2] + [_I] + _VARIANT_HOST_ARGS[2:]
 def load_library() -> types.SimpleNamespace:
     """Build (if needed) and load the CUDA libraries -> their entries."""
     builds = [((src,), f"libzdr_{src.split('.')[0]}") for src in CUDA_SOURCES]
-    fwd, grad, direct_lib, accel_lib, variants_lib = (
+    fwd, grad, direct_lib, accel_lib, variants_lib, coll_lib = (
         ctypes.CDLL(p) for p in _compile(_nvcc(), NVCC_FLAGS, builds))
     return types.SimpleNamespace(
         # the forward kernels take the block and the plan's ints before the stream
@@ -261,6 +290,12 @@ def load_library() -> types.SimpleNamespace:
         zdr_trace_interact=_bind(direct_lib, "zdr_trace_interact", _TRACE_ARGS + [_P]),
         zdr_direct=_bind(direct_lib, "zdr_direct", _DIRECT_ARGS + [_I, _P, _P]),
         zdr_direct_bvh=_bind(direct_lib, "zdr_direct_bvh", _DIRECT_BVH_ARGS + [_P]),
+        zdr_direct_env=_bind(direct_lib, "zdr_direct_env",
+                             _DIRECT_ARGS + _ENV_ARGS + [_I, _P, _P]),
+        zdr_direct_env_bvh=_bind(direct_lib, "zdr_direct_env_bvh",
+                                 _DIRECT_BVH_ARGS + _ENV_ARGS + [_P]),
+        zdr_collocated=_bind(coll_lib, "zdr_collocated", _COLLOCATED_ARGS + [_I, _P, _P]),
+        zdr_collocated_bvh=_bind(coll_lib, "zdr_collocated_bvh", _DIRECT_BVH_ARGS + [_P]),
         zdr_trace_closest=_bind(accel_lib, "zdr_trace_closest", _CLOSEST_ARGS + [_P]),
         zdr_trace_any=_bind(accel_lib, "zdr_trace_any", _ANY_ARGS + [_P]),
         zdr_sweep_variant=_bind(variants_lib, "zdr_sweep_variant", _VARIANT_ARGS + [_P]),
@@ -287,7 +322,7 @@ def load_host_library() -> types.SimpleNamespace:
     """Build (if needed) and load the g++ build of the same per-lane code,
     for tests that run the kernels' code without a card."""
     builds = [((src,), f"libzdr_{src.split('.')[0]}") for src in HOST_SOURCES]
-    lib, direct_lib, accel_lib, variants_lib = (
+    lib, direct_lib, accel_lib, variants_lib, coll_lib = (
         ctypes.CDLL(p) for p in _compile("g++", HOST_FLAGS, builds))
     return types.SimpleNamespace(
         zdr_path_loop_host=_bind(lib, "zdr_path_loop_host", _LOOP_ARGS),
@@ -300,6 +335,10 @@ def load_host_library() -> types.SimpleNamespace:
         # rows, n_tris, rays, n, any, sweep, f_out, i_out, counts
         zdr_sweep_host=_bind(direct_lib, "zdr_sweep_host", [_P, _I, _P, _I, _I, _I, _P, _P, _P]),
         zdr_direct_bvh_host=_bind(direct_lib, "zdr_direct_bvh_host", _DIRECT_BVH_ARGS),
+        zdr_direct_env_host=_bind(direct_lib, "zdr_direct_env_host",
+                                  _DIRECT_ARGS + _ENV_ARGS + _BVH_ARGS),
+        zdr_collocated_host=_bind(coll_lib, "zdr_collocated_host",
+                                  _COLLOCATED_ARGS + _BVH_ARGS),
         zdr_trace_closest_host=_bind(accel_lib, "zdr_trace_closest_host", _CLOSEST_ARGS),
         zdr_trace_any_host=_bind(accel_lib, "zdr_trace_any_host", _ANY_ARGS),
         zdr_sweep_variant_host=_bind(variants_lib, "zdr_sweep_variant_host",
@@ -309,12 +348,12 @@ def load_host_library() -> types.SimpleNamespace:
 
 def pack_params(kind: str, spp: int, seed: int, *, res=(1, 1), use_tent=True,
                 rr_depth=0, max_depth=0, counts=(0, 0, 0, 0), tex=(0, 0),
-                bn_res=0, bn_ntex=0):
+                bn_res=0, bn_ntex=0, n_env=0):
     """The kernel's integer parameters (path_loop_step.cuh LoopParams)."""
     seed &= 0xFFFFFFFF
     vals = [KINDS[kind], spp, next_pow2_mask(spp), seed - (seed >> 31 << 32),
             res[0], res[1], int(use_tent), rr_depth, max_depth, *counts, *tex,
-            bn_res, bn_ntex]
+            bn_res, bn_ntex, n_env]
     return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -324,7 +363,7 @@ def loop_params(tb: LoopTables, material: torch.Tensor):
         tb.kind, tb.spp, tb.seed, res=tb.res, use_tent=tb.use_tent,
         rr_depth=tb.rr_depth, max_depth=tb.max_depth, counts=counts,
         tex=(material.shape[0], material.shape[1]), bn_res=tb.bn_res,
-        bn_ntex=tb.bn_ntex,
+        bn_ntex=tb.bn_ntex, n_env=tb.n_env,
     )
 
 
@@ -669,6 +708,24 @@ def trace_interact(scene: torch.Tensor, rays, lite: bool = False):
 trace_interact.launches = 0
 
 
+def env_args(env, dev) -> tuple:
+    """Check an EnvMap's tensors -> the env entries' arguments texture, h,
+    w, alias probabilities, alias indices, pdf (path_loop_step.cuh
+    EnvTables): read through the read-only path, the texture by float4."""
+    h, w = env.texture.shape[0], env.texture.shape[1]
+    if h < 2:
+        raise ValueError(f"an envmap needs 2 rows or more, got {h}")
+    n_alias = SAMPLE_MAP_H + SAMPLE_MAP_H * SAMPLE_MAP_W
+    _check(env.texture, "env texture", torch.float32, (h, w, 4), dev)
+    _check(env.alias_prob, "env alias_prob", torch.float32, (n_alias,), dev)
+    _check(env.alias_idx, "env alias_idx", torch.int32, (n_alias,), dev)
+    _check(env.pdf, "env pdf", torch.float32, (SAMPLE_MAP_H * SAMPLE_MAP_W,), dev)
+    if env.texture.data_ptr() % 16:
+        raise ValueError("the env texture must be 16-byte aligned for float4 loads")
+    return (env.texture.data_ptr(), h, w, env.alias_prob.data_ptr(), env.alias_idx.data_ptr(),
+            env.pdf.data_ptr())
+
+
 def direct_early(n_tris: int) -> bool:
     """Whether the dense direct kernels sweep a scene of n_tris triangles
     with the early out (csrc/direct_step.cuh CompactSweep<true>) rather
@@ -684,7 +741,8 @@ def direct_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tens
                   le_grad=None, block: int = 0, early=None):
     """One launch of a build of csrc/direct.cu's dense kernel (`lib`:
     load_library()'s entries, or a build's of the same C entry), forward
-    (le_grad None) or tap mode, on CUDA tensors, counting nothing: the
+    (le_grad None) or tap mode, under tb.env where the tables carry one (the
+    env instantiations), on CUDA tensors, counting nothing: the
     direct wrappers, and the tests and studies of other blocks and sweeps.
     block: threads a block, a power of two from 32 up to the kernel's
     largest (0: the launch's pick, as loop_launch's); early: the sweeps
@@ -702,12 +760,17 @@ def direct_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tens
         grad = _tap_grad(material)
     counts = _counts(dev)
     info = (ctypes.c_int * len(LOOP_PLAN))()
-    rc = lib.zdr_direct(
-        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
-        lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
-        None if grad is None else grad.data_ptr(), counts.data_ptr(), n, int(early), block,
-        info, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "direct" if le_grad is None else "direct_grad")
+    head = (params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
+            lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
+            None if grad is None else grad.data_ptr(), counts.data_ptr(), n, int(early))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    name = "direct" if le_grad is None else "direct_grad"
+    if tb.env is not None:
+        rc = lib.zdr_direct_env(*head, *env_args(tb.env, dev), block, info, stream)
+        name += "_env"
+    else:
+        rc = lib.zdr_direct(*head, block, info, stream)
+    _raise_on(rc, name)
     plan = dict(zip(LOOP_PLAN, info))
     plan["waves"] = n / (plan["block"] * plan["blocks_per_sm"] * plan["sms"])
     plan["early"] = bool(early)
@@ -718,11 +781,13 @@ def direct(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch
     """Every lane's samples 0 .. stop-1 of the direct integrator -> the
     (3, N) float32 sums of their clamped radiances. lanes: (3, N) int32
     px, py, stop; material: (H, W, 4). With a BVH in the tables, direct_bvh
-    runs. `.plan` holds the last launch's block, registers, occupancy and
-    waves."""
+    runs, with an env direct_env (or direct_env_bvh). `.plan` holds the last
+    launch's block, registers, occupancy and waves."""
     dev = lanes.device
     if not _on_card(dev, "direct"):
         return render_direct_plain(tb, lanes, material)
+    if tb.env is not None:
+        return direct_env(tb, lanes, material)
     if tb.bvh is not None:
         return direct_bvh(tb, lanes, material)
     _g, acc, counts, direct.plan = direct_launch(load_library(), tb, lanes, material)
@@ -741,7 +806,8 @@ def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     """Texture gradient of every lane's direct samples, given le_grad, the
     (3, N) float32 adjoint of each of a lane's samples -> (d_material
     (H, W, 4), the (3, N) radiance sums of the same samples, as direct's).
-    With a BVH in the tables, direct_grad_bvh runs. `.plan` as direct's.
+    With a BVH in the tables, direct_grad_bvh runs, with an env
+    direct_grad_env (or direct_grad_env_bvh). `.plan` as direct's.
 
     On the card each tap is one float4 atomic; the atomics sum the taps in
     an order that changes from run to run, so the gradient's last bits do
@@ -749,6 +815,8 @@ def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     dev = lanes.device
     if not _on_card(dev, "direct_grad"):
         return render_direct_backward_plain(tb, lanes, material, le_grad)
+    if tb.env is not None:
+        return direct_grad_env(tb, lanes, material, le_grad)
     if tb.bvh is not None:
         return direct_grad_bvh(tb, lanes, material, le_grad)
     grad, acc, counts, direct_grad.plan = direct_launch(load_library(), tb, lanes, material,
@@ -773,8 +841,8 @@ def _tap_grad(material):
 
 
 def _direct_bvh_launch(tb, lanes, material, le_grad, dev):
-    """One launch of zdr_direct_bvh, forward (le_grad None) or tap mode ->
-    (grad or None, acc, counts)."""
+    """One launch of zdr_direct_bvh (zdr_direct_env_bvh under tb.env),
+    forward (le_grad None) or tap mode -> (grad or None, acc, counts)."""
     n, tables, params, shared = _loop_inputs(tb, lanes, material, 0, dev, "direct")
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
     grad = None
@@ -782,13 +850,19 @@ def _direct_bvh_launch(tb, lanes, material, le_grad, dev):
         _check(le_grad, "le_grad", torch.float32, (3, n), dev)
         grad = _tap_grad(material)
     counts = _counts(dev)
-    rc = load_library().zdr_direct_bvh(
-        params, tables.data_ptr(), tables.numel(), int(shared), _bn_ptr(tb),
-        material.data_ptr(),
-        lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
-        None if grad is None else grad.data_ptr(), *bvh_args(tb.bvh, dev),
-        counts.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "direct_bvh" if le_grad is None else "direct_grad_bvh")
+    head = (params, tables.data_ptr(), tables.numel(), int(shared), _bn_ptr(tb),
+            material.data_ptr(), lanes.data_ptr(),
+            None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
+            None if grad is None else grad.data_ptr(), *bvh_args(tb.bvh, dev),
+            counts.data_ptr(), n)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = load_library()
+    if tb.env is not None:
+        rc = lib.zdr_direct_env_bvh(*head, *env_args(tb.env, dev), stream)
+        _raise_on(rc, "direct_env_bvh" if le_grad is None else "direct_grad_env_bvh")
+    else:
+        rc = lib.zdr_direct_bvh(*head, stream)
+        _raise_on(rc, "direct_bvh" if le_grad is None else "direct_grad_bvh")
     return grad, acc, counts
 
 
@@ -821,6 +895,203 @@ def direct_grad_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
 
 direct_grad_bvh.launches = 0
 direct_grad_bvh.counts = None
+
+
+def direct_env(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch.Tensor:
+    """direct under the environment light of tb.env: the dense kernel's env
+    instantiation, or with a BVH in the tables direct_env_bvh (the plain
+    version the same: render_direct_plain reads the env the tables carry)."""
+    dev = lanes.device
+    if not _on_card(dev, "direct_env"):
+        return render_direct_plain(tb, lanes, material)
+    if tb.env is None:
+        raise ValueError("direct_env needs tables with an env")
+    if tb.bvh is not None:
+        return direct_env_bvh(tb, lanes, material)
+    _g, acc, counts, direct_env.plan = direct_launch(load_library(), tb, lanes, material)
+    direct_env.launches += 1
+    direct_env.tests, direct_env.visits = counts[0], counts[1]
+    return acc
+
+
+direct_env.launches = 0
+direct_env.tests = direct_env.visits = None
+direct_env.plan = None
+
+
+def direct_grad_env(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                    le_grad: torch.Tensor):
+    """direct_grad under the environment light of tb.env, as direct_env."""
+    dev = lanes.device
+    if not _on_card(dev, "direct_grad_env"):
+        return render_direct_backward_plain(tb, lanes, material, le_grad)
+    if tb.env is None:
+        raise ValueError("direct_grad_env needs tables with an env")
+    if tb.bvh is not None:
+        return direct_grad_env_bvh(tb, lanes, material, le_grad)
+    grad, acc, counts, direct_grad_env.plan = direct_launch(load_library(), tb, lanes,
+                                                            material, le_grad)
+    direct_grad_env.launches += 1
+    direct_grad_env.tests, direct_grad_env.visits = counts[0], counts[1]
+    return grad, acc
+
+
+direct_grad_env.launches = 0
+direct_grad_env.tests = direct_grad_env.visits = None
+direct_grad_env.plan = None
+
+
+def direct_env_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch.Tensor:
+    """direct_env through the BVH of tb.bvh."""
+    dev = lanes.device
+    if not _on_card(dev, "direct_env_bvh"):
+        return render_direct_plain(tb, lanes, material)
+    _grad, acc, counts = _direct_bvh_launch(tb, lanes, material, None, dev)
+    direct_env_bvh.launches += 1
+    direct_env_bvh.counts = counts
+    return acc
+
+
+direct_env_bvh.launches = 0
+direct_env_bvh.counts = None
+
+
+def direct_grad_env_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                        le_grad: torch.Tensor):
+    """direct_grad_env through the BVH of tb.bvh."""
+    dev = lanes.device
+    if not _on_card(dev, "direct_grad_env_bvh"):
+        return render_direct_backward_plain(tb, lanes, material, le_grad)
+    grad, acc, counts = _direct_bvh_launch(tb, lanes, material, le_grad, dev)
+    direct_grad_env_bvh.launches += 1
+    direct_grad_env_bvh.counts = counts
+    return grad, acc
+
+
+direct_grad_env_bvh.launches = 0
+direct_grad_env_bvh.counts = None
+
+
+def _collocated_launch(tb, lanes, material, le_grad, dev):
+    """One launch of zdr_collocated, forward (le_grad None) or tap mode, at
+    the block the launch picks -> (grad or None, acc, counts, the launch's
+    plan: LOOP_PLAN's fields and the waves)."""
+    n, tables, params, _shared = _loop_inputs(tb, lanes, material, 0, dev, "collocated")
+    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
+    grad = None
+    if le_grad is not None:
+        _check(le_grad, "le_grad", torch.float32, (3, n), dev)
+        grad = _tap_grad(material)
+    counts = _counts(dev)
+    info = (ctypes.c_int * len(LOOP_PLAN))()
+    rc = load_library().zdr_collocated(
+        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
+        lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
+        None if grad is None else grad.data_ptr(), counts.data_ptr(), n, 0, info,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "collocated" if le_grad is None else "collocated_grad")
+    plan = dict(zip(LOOP_PLAN, info))
+    plan["waves"] = n / (plan["block"] * plan["blocks_per_sm"] * plan["sms"])
+    return grad, acc, counts, plan
+
+
+def _collocated_bvh_launch(tb, lanes, material, le_grad, dev):
+    """One launch of zdr_collocated_bvh, forward (le_grad None) or tap mode
+    -> (grad or None, acc, counts)."""
+    n, tables, params, shared = _loop_inputs(tb, lanes, material, 0, dev, "collocated")
+    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
+    grad = None
+    if le_grad is not None:
+        _check(le_grad, "le_grad", torch.float32, (3, n), dev)
+        grad = _tap_grad(material)
+    counts = _counts(dev)
+    rc = load_library().zdr_collocated_bvh(
+        params, tables.data_ptr(), tables.numel(), int(shared), _bn_ptr(tb),
+        material.data_ptr(), lanes.data_ptr(),
+        None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
+        None if grad is None else grad.data_ptr(), *bvh_args(tb.bvh, dev), counts.data_ptr(),
+        n, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "collocated_bvh" if le_grad is None else "collocated_grad_bvh")
+    return grad, acc, counts
+
+
+def collocated(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch.Tensor:
+    """Every lane's samples 0 .. stop-1 of the collocated integrator -> the
+    (3, N) float32 sums of their clamped radiances. lanes: (3, N) int32 px,
+    py, stop; material: (H, W, 4). With a BVH in the tables,
+    collocated_bvh runs. `.plan` holds the last launch's block, registers,
+    occupancy and waves; `.tests` its ray-triangle tests."""
+    dev = lanes.device
+    if not _on_card(dev, "collocated"):
+        return render_collocated_plain(tb, lanes, material)
+    if tb.bvh is not None:
+        return collocated_bvh(tb, lanes, material)
+    _g, acc, counts, collocated.plan = _collocated_launch(tb, lanes, material, None, dev)
+    collocated.launches += 1
+    collocated.tests = counts[0]
+    return acc
+
+
+collocated.launches = 0
+collocated.tests = None
+collocated.plan = None
+
+
+def collocated_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                    le_grad: torch.Tensor):
+    """Texture gradient of every lane's collocated samples, given le_grad,
+    the (3, N) float32 adjoint of each of a lane's samples -> (d_material
+    (H, W, 4), the (3, N) radiance sums of the same samples). With a BVH in
+    the tables, collocated_grad_bvh runs. `.plan` as collocated's.
+
+    On the card each tap is one float4 atomic, summed in an order that
+    changes from run to run."""
+    dev = lanes.device
+    if not _on_card(dev, "collocated_grad"):
+        return render_collocated_backward_plain(tb, lanes, material, le_grad)
+    if tb.bvh is not None:
+        return collocated_grad_bvh(tb, lanes, material, le_grad)
+    grad, acc, counts, collocated_grad.plan = _collocated_launch(tb, lanes, material, le_grad,
+                                                                 dev)
+    collocated_grad.launches += 1
+    collocated_grad.tests = counts[0]
+    return grad, acc
+
+
+collocated_grad.launches = 0
+collocated_grad.tests = None
+collocated_grad.plan = None
+
+
+def collocated_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch.Tensor:
+    """collocated through the BVH of tb.bvh; `.counts`: tests, node visits."""
+    dev = lanes.device
+    if not _on_card(dev, "collocated_bvh"):
+        return render_collocated_plain(tb, lanes, material)
+    _grad, acc, counts = _collocated_bvh_launch(tb, lanes, material, None, dev)
+    collocated_bvh.launches += 1
+    collocated_bvh.counts = counts
+    return acc
+
+
+collocated_bvh.launches = 0
+collocated_bvh.counts = None
+
+
+def collocated_grad_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                        le_grad: torch.Tensor):
+    """collocated_grad through the BVH of tb.bvh."""
+    dev = lanes.device
+    if not _on_card(dev, "collocated_grad_bvh"):
+        return render_collocated_backward_plain(tb, lanes, material, le_grad)
+    grad, acc, counts = _collocated_bvh_launch(tb, lanes, material, le_grad, dev)
+    collocated_grad_bvh.launches += 1
+    collocated_grad_bvh.counts = counts
+    return grad, acc
+
+
+collocated_grad_bvh.launches = 0
+collocated_grad_bvh.counts = None
 
 
 def _trace_inputs(accel, o, d, t_min, t_max):

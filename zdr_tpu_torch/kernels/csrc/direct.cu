@@ -74,34 +74,27 @@ constexpr int kBlock = 256;
 // registers (__launch_bounds__(kMaxBlock, 2))
 constexpr int kMaxBlock = 512;
 
-// The compact copy of the first n floats of the tables (compact_at).
-__device__ void load_compact(float* smem, const float* __restrict__ tables,
-                             const zdr::LoopParams& q, int n) {
-  for (int k = threadIdx.x; k < n; k += blockDim.x) smem[k] = zdr::compact_at(tables, q, k);
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kBlock)
     trace_interact_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                           const float* __restrict__ rays, const int* __restrict__ active,
                           float* __restrict__ f_out, int* __restrict__ i_out, int n, int lite) {
   extern __shared__ float smem[];
-  load_compact(smem, tables, q, q.n_tris * zdr::kGeomCols);
+  zdr::load_compact(smem, tables, q, q.n_tris * zdr::kGeomCols);
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   zdr::Tables tb = zdr::compact_tables(smem, tables, nullptr, nullptr, q);
   zdr::trace_interact_lane(tb, q, rays, active, f_out, i_out, lane, n, lite != 0);
 }
 
-template <bool kGrad, bool kEarly>
+template <bool kGrad, bool kEarly, bool kEnv>
 __global__ void __launch_bounds__(kMaxBlock, 2)
     direct_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                   const float* __restrict__ bn, const float* __restrict__ material,
                   const int* __restrict__ lanes, const float* __restrict__ le_grad,
                   float* __restrict__ acc_out, float* grad, unsigned long long* counts,
-                  int n) {
+                  int n, zdr::EnvTables env) {
   extern __shared__ float smem[];
-  load_compact(smem, tables, q, zdr::compact_size(q));
+  zdr::load_compact(smem, tables, q, zdr::compact_size(q));
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   zdr::TraceCount count = {0, 0};
   if (lane < n) {
@@ -115,7 +108,8 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
       dt.lg[2] = le_grad[2L * n + lane];
       dt.grad = grad;
     }
-    zdr::V3 acc = zdr::direct_lane<kGrad>(tb, q, lc, &dt, count, zdr::CompactSweep<kEarly>());
+    zdr::V3 acc = zdr::direct_lane<kGrad, kEnv>(tb, q, lc, &dt, count,
+                                                zdr::CompactSweep<kEarly>(), &env);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -125,13 +119,13 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
 
 // The same samples with every sweep through the BVH; shared memory holds
 // the small tables only, where they fit (small_shared).
-template <bool kGrad>
+template <bool kGrad, bool kEnv>
 __global__ void __launch_bounds__(kBlock, 4)
     direct_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables, int small_shared,
                       const float* __restrict__ bn, const float* __restrict__ material,
                       const int* __restrict__ lanes, const float* __restrict__ le_grad,
                       float* __restrict__ acc_out, float* grad, zdr::Bvh bvh,
-                      unsigned long long* counts, int n) {
+                      unsigned long long* counts, int n, zdr::EnvTables env) {
   extern __shared__ float smem[];
   const float* small = zdr::load_small(smem, tables, q, small_shared);
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -148,7 +142,7 @@ __global__ void __launch_bounds__(kBlock, 4)
       dt.grad = grad;
     }
     zdr::BvhTrace tr{bvh};
-    zdr::V3 acc = zdr::direct_lane<kGrad>(tb, q, lc, &dt, count, tr);
+    zdr::V3 acc = zdr::direct_lane<kGrad, kEnv>(tb, q, lc, &dt, count, tr, &env);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -163,11 +157,66 @@ int launch_config(K kernel, size_t smem) {
                                    (int)smem);
 }
 
+// The env tables of a launch: none (every pointer null), or the texture
+// (env_h, env_w, 4) float32, the alias probabilities and indices
+// (kEnvMapH + kEnvMapH * kEnvMapW) float32 / int32 and the pdf (kEnvMapH *
+// kEnvMapW) float32, with the light selection's 1/n from the params.
+zdr::EnvTables env_tables(const zdr::LoopParams& q, const float* tex, int h, int w,
+                          const float* prob, const int* alias, const float* pdf) {
+  int n_i = q.n_env + q.n_point + q.n_mesh;
+  return zdr::EnvTables{tex, prob, alias, pdf, h, w, (float)(1.0 / (double)(n_i > 1 ? n_i : 1))};
+}
+
+// One launch of the dense direct kernel, forward or tap mode (le_grad
+// set), with or without the early out and the env.
+int direct_dense(const int* params, const float* tables, int tables_n, const float* bn,
+                 const float* material, const int* lanes, const float* le_grad, float* acc,
+                 float* grad, unsigned long long* counts, int n, int early, zdr::EnvTables env,
+                 bool with_env, int block, int* plan, void* stream) {
+  zdr::LoopParams q = zdr::params_from(params);
+  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
+  int smem = zdr::compact_size(q) * (int)sizeof(float);
+  void* args[] = {&q,       &tables, &tables_n, &bn,     &material, &lanes,
+                  &le_grad, &acc,    &grad,     &counts, &n,        &env};
+  const void* fn;
+  if (with_env)
+    fn = le_grad ? (early ? (const void*)direct_kernel<true, true, true>
+                          : (const void*)direct_kernel<true, false, true>)
+                 : (early ? (const void*)direct_kernel<false, true, true>
+                          : (const void*)direct_kernel<false, false, true>);
+  else
+    fn = le_grad ? (early ? (const void*)direct_kernel<true, true, false>
+                          : (const void*)direct_kernel<true, false, false>)
+                 : (early ? (const void*)direct_kernel<false, true, false>
+                          : (const void*)direct_kernel<false, false, false>);
+  return zdr::launch(fn, n, smem, block, plan, args, stream);
+}
+
+// One launch of the direct BVH kernel, likewise.
+int direct_bvh(const int* params, const float* tables, int tables_n, int small_shared,
+               const float* bn, const float* material, const int* lanes, const float* le_grad,
+               float* acc, float* grad, const float* nodes, const float* geom, int n_nodes,
+               int n_rows, unsigned long long* counts, int n, zdr::EnvTables env,
+               bool with_env, void* stream) {
+  zdr::LoopParams q = zdr::params_from(params);
+  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
+  size_t smem = small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0;
+  zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
+  int grid = (n + kBlock - 1) / kBlock;
+  auto fn = le_grad ? (with_env ? direct_bvh_kernel<true, true> : direct_bvh_kernel<true, false>)
+                    : (with_env ? direct_bvh_kernel<false, true> : direct_bvh_kernel<false, false>);
+  int err = launch_config(fn, smem);
+  if (err) return err;
+  fn<<<grid, kBlock, smem, (cudaStream_t)stream>>>(q, tables, small_shared, bn, material, lanes,
+                                                   le_grad, acc, grad, bvh, counts, n, env);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// params: the 17 ints of zdr::LoopParams (only n_tris is read); tables: the
+// params: the 18 ints of zdr::LoopParams (only n_tris is read); tables: the
 // (n_tris, 31) scene table; rays: (7, n) float32 o3 d3 pdf_prev; active:
 // (n,) int32; f_out / i_out: (14, n) / (2, n), or (3, n) / (1, n) when lite.
 // Returns the CUDA error of the launch (0 when it was accepted).
@@ -199,16 +248,8 @@ int zdr_direct(const int* params, const float* tables, int tables_n, const float
                const float* material, const int* lanes, const float* le_grad, float* acc,
                float* grad, unsigned long long* counts, int n, int early, int block,
                int* plan, void* stream) {
-  zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
-  int smem = zdr::compact_size(q) * (int)sizeof(float);
-  void* args[] = {&q,       &tables, &tables_n, &bn,     &material, &lanes,
-                  &le_grad, &acc,    &grad,     &counts, &n};
-  const void* fn = le_grad ? (early ? (const void*)direct_kernel<true, true>
-                                    : (const void*)direct_kernel<true, false>)
-                          : (early ? (const void*)direct_kernel<false, true>
-                                   : (const void*)direct_kernel<false, false>);
-  return zdr::launch(fn, n, smem, block, plan, args, stream);
+  return direct_dense(params, tables, tables_n, bn, material, lanes, le_grad, acc, grad, counts,
+                      n, early, zdr::EnvTables{}, false, block, plan, stream);
 }
 
 // zdr_direct (block and plan aside) through the BVH:
@@ -221,24 +262,42 @@ int zdr_direct_bvh(const int* params, const float* tables, int tables_n, int sma
                    float* grad, const float* nodes, const float* geom, int n_nodes,
                    int n_rows, unsigned long long* counts, int n,
                    void* stream) {
+  return direct_bvh(params, tables, tables_n, small_shared, bn, material, lanes, le_grad, acc,
+                    grad, nodes, geom, n_nodes, n_rows, counts, n, zdr::EnvTables{}, false,
+                    stream);
+}
+
+// zdr_direct under an environment light: the params' n_env is 1, and
+// env_tex (env_h, env_w, 4), env_prob, env_alias and env_pdf are the
+// envmap's tables (zdr_tpu_torch/envmap.py EnvMap), read through the
+// read-only path.
+int zdr_direct_env(const int* params, const float* tables, int tables_n, const float* bn,
+                   const float* material, const int* lanes, const float* le_grad, float* acc,
+                   float* grad, unsigned long long* counts, int n, int early,
+                   const float* env_tex, int env_h, int env_w, const float* env_prob,
+                   const int* env_alias, const float* env_pdf, int block, int* plan,
+                   void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
-  size_t smem = small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0;
-  zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
-  int grid = (n + kBlock - 1) / kBlock;
-  int err;
-  if (le_grad) {
-    err = launch_config(direct_bvh_kernel<true>, smem);
-    if (err) return err;
-    direct_bvh_kernel<true><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-        q, tables, small_shared, bn, material, lanes, le_grad, acc, grad, bvh, counts, n);
-  } else {
-    err = launch_config(direct_bvh_kernel<false>, smem);
-    if (err) return err;
-    direct_bvh_kernel<false><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-        q, tables, small_shared, bn, material, lanes, nullptr, acc, nullptr, bvh, counts, n);
-  }
-  return (int)cudaGetLastError();
+  if (q.n_env != 1 || !env_tex || env_h < 2 || env_w < 1) return (int)cudaErrorInvalidValue;
+  return direct_dense(params, tables, tables_n, bn, material, lanes, le_grad, acc, grad, counts,
+                      n, early,
+                      env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf), true,
+                      block, plan, stream);
+}
+
+// zdr_direct_bvh under an environment light, as zdr_direct_env.
+int zdr_direct_env_bvh(const int* params, const float* tables, int tables_n, int small_shared,
+                       const float* bn, const float* material, const int* lanes,
+                       const float* le_grad, float* acc, float* grad, const float* nodes,
+                       const float* geom, int n_nodes, int n_rows, unsigned long long* counts,
+                       int n, const float* env_tex, int env_h, int env_w, const float* env_prob,
+                       const int* env_alias, const float* env_pdf, void* stream) {
+  zdr::LoopParams q = zdr::params_from(params);
+  if (q.n_env != 1 || !env_tex || env_h < 2 || env_w < 1) return (int)cudaErrorInvalidValue;
+  return direct_bvh(params, tables, tables_n, small_shared, bn, material, lanes, le_grad, acc,
+                    grad, nodes, geom, n_nodes, n_rows, counts, n,
+                    env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf), true,
+                    stream);
 }
 
 }  // extern "C"

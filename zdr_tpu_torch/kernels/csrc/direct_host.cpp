@@ -20,10 +20,10 @@ std::vector<float> compact(const float* tables, const zdr::LoopParams& q, int n)
   return out;
 }
 
-template <class Tracer>
+template <class Tracer, bool kEnv = false>
 void direct_lanes(const zdr::Tables& tb, const zdr::LoopParams& q, const Tracer& tr,
                   const int* lanes, const float* le_grad, float* acc, float* grad,
-                  unsigned long long* counts, int n) {
+                  unsigned long long* counts, int n, const zdr::EnvTables* env = nullptr) {
   zdr::TraceCount c = {0, 0};
   for (long lane = 0; lane < n; ++lane) {
     zdr::LaneConst lc =
@@ -35,9 +35,9 @@ void direct_lanes(const zdr::Tables& tb, const zdr::LoopParams& q, const Tracer&
       dt.lg[1] = le_grad[n + lane];
       dt.lg[2] = le_grad[2L * n + lane];
       dt.grad = grad;
-      a = zdr::direct_lane<true>(tb, q, lc, &dt, c, tr);
+      a = zdr::direct_lane<true, kEnv>(tb, q, lc, &dt, c, tr, env);
     } else {
-      a = zdr::direct_lane<false>(tb, q, lc, nullptr, c, tr);
+      a = zdr::direct_lane<false, kEnv>(tb, q, lc, nullptr, c, tr, env);
     }
     acc[lane] = a.x;
     acc[n + lane] = a.y;
@@ -129,6 +129,40 @@ int zdr_direct_bvh_host(const int* params, const float* tables, int tables_n,
   zdr::Tables tb = zdr::bvh_tables(small_shared ? copy.data() : small, tables, bn, material, q);
   zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
   direct_lanes(tb, q, tr, lanes, le_grad, acc, grad, counts, n);
+  return 0;
+}
+
+// zdr_direct_env (direct.cu) without the stream, the block and the plan,
+// or, with nodes set, zdr_direct_env_bvh without the stream and with the
+// small tables where the packed tables hold them: the direct samples under
+// the environment light of env_tex (env_h, env_w, 4), env_prob, env_alias
+// and env_pdf; counts: tests and node visits.
+int zdr_direct_env_host(const int* params, const float* tables, int tables_n, const float* bn,
+                        const float* material, const int* lanes, const float* le_grad,
+                        float* acc, float* grad, unsigned long long* counts, int n, int early,
+                        const float* env_tex, int env_h, int env_w, const float* env_prob,
+                        const int* env_alias, const float* env_pdf, const float* nodes,
+                        const float* geom, int n_nodes, int n_rows) {
+  zdr::LoopParams q = zdr::params_from(params);
+  if (tables_n != zdr::tables_size(q) || q.n_env != 1) return 1;
+  int n_i = q.n_env + q.n_point + q.n_mesh;
+  zdr::EnvTables env{env_tex, env_prob, env_alias, env_pdf, env_h, env_w,
+                     (float)(1.0 / (double)(n_i > 1 ? n_i : 1))};
+  if (nodes || n_rows) {
+    const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
+    zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);
+    zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
+    direct_lanes<zdr::BvhTrace, true>(tb, q, tr, lanes, le_grad, acc, grad, counts, n, &env);
+    return 0;
+  }
+  std::vector<float> small = compact(tables, q, zdr::compact_size(q));
+  zdr::Tables tb = zdr::compact_tables(small.data(), tables, bn, material, q);
+  if (early)
+    direct_lanes<zdr::CompactSweep<true>, true>(tb, q, zdr::CompactSweep<true>(), lanes,
+                                                le_grad, acc, grad, counts, n, &env);
+  else
+    direct_lanes<zdr::CompactSweep<false>, true>(tb, q, zdr::CompactSweep<false>(), lanes,
+                                                 le_grad, acc, grad, counts, n, &env);
   return 0;
 }
 

@@ -67,6 +67,16 @@ ZDR_HD Tables compact_tables(const float* compact, const float* tables, const fl
   return t;
 }
 
+#ifdef __CUDACC__
+// The compact copy of the first n floats of the tables (compact_at) in the
+// block's shared memory.
+__device__ inline void load_compact(float* smem, const float* __restrict__ tables,
+                                    const LoopParams& q, int n) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) smem[k] = compact_at(tables, q, k);
+  __syncthreads();
+}
+#endif
+
 // ------------------------------------------------------- the compact sweep
 //
 // The direct kernels' sweeps over the compact rows (tb.scene, kGeomCols
@@ -226,12 +236,17 @@ struct DirectTaps {
 
 // Sample `sample_idx` of a lane -> its radiance (before the clamp).
 // kGrad: also adds the sample's texture gradient, one tap at one texel.
+// kEnv: under the environment light `env` (direct_fused.py:151-156,
+// :242-251): a miss of the primary ray adds it at MIS against no BSDF pdf,
+// NEE may choose it (its shadow ray has no end), and a miss of the bounce
+// ray adds it MIS-weighted against the BSDF pdf. The gradient needs no term
+// of its own: the taps read the env through nee.ev and rad - rk.
 // The sweeps go through `tr` (the compact sweep, or trace.cuh's BVH) and
 // add their work to `cnt`.
-template <bool kGrad = false, class Tracer = CompactSweep<true>>
+template <bool kGrad = false, bool kEnv = false, class Tracer = CompactSweep<true>>
 ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                         uint32_t sample_idx, const DirectTaps* dt, TraceCount& cnt,
-                        const Tracer& tr = Tracer()) {
+                        const Tracer& tr = Tracer(), const EnvTables* env = nullptr) {
   SamplerCtx sc;
   sc.q = &q;
   sc.lc = &lc;
@@ -247,12 +262,15 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
 
   // B3 on the primary ray: no BSDF pdf, every lane active
   Hit hit = closest_interact(tb, q, o, d, kPdfNone, true, tr, &cnt);
+  if constexpr (kEnv) {
+    if (hit.miss) hit.ae = vadd(hit.ae, env_miss_add(*env, d, kPdfNone));
+  }
 
   // the glue: material, NEE's 4 draws, the BSDF's 3 (no roulette draw)
   V3 dif;
   float rough;
   read_bilinear(tb.material, q.tex_h, q.tex_w, hit.ux, hit.uy, dif, rough);
-  Nee nee = nee_select(tb, q, sc, smp, hit.p);
+  Nee nee = nee_select<kEnv>(tb, q, sc, smp, hit.p, env);
   float u_lobe = next1(sc, smp);
   float ub0, ub1;
   next2(sc, smp, ub0, ub1);
@@ -292,7 +310,13 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
   // the lite B3 on the bounce ray: its MIS-weighted emitter. A ray that
   // does not go on adds nothing, so its sweep is skipped.
   V3 bae = v3(0.0f, 0.0f, 0.0f);
-  if (bounce_ok) bae = closest_interact(tb, q, next_o, wi, pdf_bounce, true, tr, &cnt).ae;
+  if (bounce_ok) {
+    Hit bh = closest_interact(tb, q, next_o, wi, pdf_bounce, true, tr, &cnt);
+    bae = bh.ae;
+    if constexpr (kEnv) {
+      if (bh.miss) bae = vadd(bae, env_miss_add(*env, wi, pdf_bounce));
+    }
+  }
   V3 rad = v3(rk.x + beta_next.x * bae.x, rk.y + beta_next.y * bae.y,
               rk.z + beta_next.z * bae.z);
 
@@ -332,12 +356,13 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
 
 // A lane's samples 0 .. stop-1, accumulated with the clamp-and-NaN rule of
 // direct_fused.py:283-286 -> the sum of its clamped radiances.
-template <bool kGrad = false, class Tracer = CompactSweep<true>>
+template <bool kGrad = false, bool kEnv = false, class Tracer = CompactSweep<true>>
 ZDR_HD V3 direct_lane(const Tables& tb, const LoopParams& q, const LaneConst& lc,
-                      const DirectTaps* dt, TraceCount& cnt, const Tracer& tr = Tracer()) {
+                      const DirectTaps* dt, TraceCount& cnt, const Tracer& tr = Tracer(),
+                      const EnvTables* env = nullptr) {
   V3 acc = v3(0.0f, 0.0f, 0.0f);
   for (int s = 0; s < lc.stop; ++s) {
-    V3 rad = direct_sample<kGrad>(tb, q, lc, (uint32_t)s, dt, cnt, tr);
+    V3 rad = direct_sample<kGrad, kEnv>(tb, q, lc, (uint32_t)s, dt, cnt, tr, env);
     if (!(is_nan(rad.x) || is_nan(rad.y) || is_nan(rad.z)))
       acc = v3(acc.x + jclip(rad.x, 0.0f, kRadianceClamp),
                acc.y + jclip(rad.y, 0.0f, kRadianceClamp),

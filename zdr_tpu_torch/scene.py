@@ -11,10 +11,13 @@
 
 The scene's tensors live on its device ("cuda" unless the caller asks for
 "cpu"), the material must too, and a render runs there (on "cuda" the CUDA
-kernels: direct and, for the backward, direct_grad; path_loop and
-path_loop_grad for the path integrator; on "cpu" their plain versions). The render is differentiable in
-the material: the backward re-estimates the texture gradient at seed + 1
-(Path Replay Backprop for the path integrator).
+kernels: direct and, for the backward, direct_grad; collocated and
+collocated_grad for the collocated integrator; path_loop and path_loop_grad
+for the path integrator; on "cpu" their plain versions). The render is
+differentiable in the material: the backward re-estimates the texture
+gradient at seed + 1 (Path Replay Backprop for the path integrator).
+add_envmap lights the scene with an environment map (the direct
+integrator; the path kernels do not read it yet, ROADMAP A11).
 
 `accel` picks the route of the sweeps (JAX's names): "bruteforce" or
 "pallas", the dense sweep over the kernels' shared-memory scene table;
@@ -37,6 +40,7 @@ import torch
 
 from .accel.build import METHODS, build_accel, dense_route
 from .dtypes import default_camera
+from .envmap import build_envmap
 from .geometry.load_obj import ObjMesh
 from .geometry.mesh import build_geometry
 from .integrators.scene_tables import scene_table, table_floats
@@ -60,7 +64,7 @@ class Scene:
     Args:
         models: list of (obj_file_or_ObjMesh, transform_4x4_or_None,
             emission_or_None). Emission > 0 marks an instance as an area light.
-        integrator: 'direct' (default) | 'path'.
+        integrator: 'direct' (default) | 'collocated' | 'path'.
         sampler: 'pmj02bn' (default) | 'lcg'.
         accel: 'auto' (default) | 'bruteforce' | 'pallas' | 'bvh' | 'stream'.
         device: torch device of the scene and of every render: the card
@@ -139,7 +143,7 @@ class Scene:
             self._data,
             emission=torch.as_tensor(np.stack(self.emissions), device=self.device),
             meta=build_light_meta(self._data.geom, self._light_insts(),
-                                  self._data.meta.n_point),
+                                  self._data.meta.n_point, self._data.meta.n_env),
         )
         # the scene rows carry the emission and the light count; the BVH stays
         self._data.table = scene_table(self._data)
@@ -165,7 +169,26 @@ class Scene:
         self._data.table = scene_table(self._data)
 
     def add_envmap(self, img, compensate_mis: bool = True) -> None:
-        raise NotImplementedError("envmap: ROADMAP A11")
+        """Light the scene with an equirect environment map (JAX
+        scene.py:219-245): its sampling tables are built once, here.
+
+        Args:
+            img: (H, W, 3 or 4) float array, 1:2 or 1:1; a 3-channel image
+                gets alpha 1.
+            compensate_mis: sample the map less its sin-weighted mean
+                (envmap.build_envmap).
+        """
+        img = np.asarray(img, dtype=np.float32)
+        if img.ndim == 3 and img.shape[2] == 3:
+            img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
+        d = self._data
+        self._data = dataclasses.replace(
+            d,
+            env=build_envmap(img, compensate_mis, self.device),
+            meta=dataclasses.replace(d.meta, n_env=1),
+        )
+        # the scene rows carry the light count; the BVH stays
+        self._data.table = scene_table(self._data)
 
     def _config(self, res, spp) -> RenderConfig:
         return RenderConfig(

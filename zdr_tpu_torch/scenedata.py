@@ -2,8 +2,8 @@
 
 Port of zdr_tpu/scenedata.py (`SceneData`), zdr_tpu/scene.py:42-73
 (`_build_fused_meta`) and pallas_bounce.py:71-88 (`FusedMeta`). Only what
-the path loop reads is kept: geometry, per-instance emission and point
-lights. There is no envmap in the port yet (ROADMAP A11).
+the kernels read is kept: geometry, per-instance emission, point lights and
+the environment map (JAX scenedata.py:31-45: `env`, `env_count`).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from .accel.types import Accel
+from .envmap import EnvMap
 from .geometry.mesh import Geometry
 
 
@@ -36,7 +37,8 @@ class LightMeta:
         return max(self.n_env + self.n_point + self.n_lights, 1)
 
 
-def build_light_meta(geom: Geometry, light_insts: Sequence[int], n_point: int = 0) -> LightMeta:
+def build_light_meta(geom: Geometry, light_insts: Sequence[int], n_point: int = 0,
+                     n_env: int = 0) -> LightMeta:
     offs = geom.inst_tri_offset.tolist()
     cnts = geom.inst_tri_count.tolist()
     tri_ids, offsets, tcs = [], [], []
@@ -50,6 +52,7 @@ def build_light_meta(geom: Geometry, light_insts: Sequence[int], n_point: int = 
         light_offsets=tuple(offsets),
         light_tcs=tuple(tcs),
         num_tris=int(geom.num_triangles),
+        n_env=int(n_env),
         n_point=int(n_point),
     )
 
@@ -68,6 +71,9 @@ class SceneData:
     # the (T, 31) scene rows (integrators/scene_tables.scene_table), kept by
     # a Scene and rebuilt when its lights change; None: built per render
     table: Optional[torch.Tensor] = None
+    # the environment light (meta.n_env 1), its sampling tables built once
+    # per Scene.add_envmap; None: no env (meta.n_env 0)
+    env: Optional[EnvMap] = None
 
     @property
     def device(self) -> torch.device:
