@@ -115,7 +115,21 @@ Phases, one line each; any failure raises and exits non-zero:
      direct_grad_env, the early out), as phase 17 drives them, the images
      equal bit for bit; then the dense env instantiation without the early
      out on the cornell box under the same envmap (128x128, 16 spp), bit
-     for bit against its plain version and its gradient at phase 7's bars.
+     for bit against its plain version and its gradient at phase 7's bars;
+ 19. the path integrator under an envmap (_slice_main): bench.py's
+     flagship (cornell box + light @ 15, its camera, pmj02bn, 512x512,
+     64 spp, 1024^2 material of 0.5) under make_test_envmap(256, 512) by the
+     dense route (path_loop_env, path_loop_grad_env), then the JAX package's
+     own path + env scene (tools/bench_round3.py:39-44's env_scene: a uv
+     sphere of 0.6 at 16 x 32 under make_test_envmap(128, 256), its camera)
+     at the same 512x512, 64 spp, pmj02bn, 1024^2 material by accel="auto"
+     (the BVH: path_loop_env_bvh, path_loop_grad_env_bvh); each drive holds
+     its two kernels against their plain versions on its own inputs at every
+     64th lane (the dense route over all the samples, the BVH over the first
+     CHECK_SAMPLES), the forward bit for bit, the gradient at phase 7's
+     bars; then the cornell box under the same envmap forced through the
+     BVH at 128x128, 16 spp: its image equal bit for bit to the dense
+     route's, its gradient at phase 7's bars against the dense route's.
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
@@ -127,7 +141,9 @@ direct_bvh and direct_grad_bvh, whose big-mesh numbers of phase 13 stand
 under "big_mesh", 13 for the path BVH kernels, 17's big mesh for
 collocated_bvh and collocated_grad_bvh (the golden sphere's under
 "golden_sphere") and its golden sphere by the dense route for collocated
-and collocated_grad, 18's example by each route for the env kernels; for
+and collocated_grad, 18's example by each route for the direct env kernels,
+19's flagship under the envmap for path_loop_env and path_loop_grad_env
+and its env_scene for path_loop_env_bvh and path_loop_grad_env_bvh; for
 the probes, the standalone traces and the sweep variants, the sum over all
 of them; trace_interact's "body_launches" counts, by kernel, the launches of
 phases 17-18's main paths, each of which runs B3's body a sample),
@@ -151,6 +167,7 @@ last line is {"ok": true,
 Imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -174,7 +191,8 @@ KERNELS = ("sampler_probe", "path_loop", "path_loop_grad", "trace_interact", "di
            "direct_bvh", "direct_grad_bvh", "sweep_variant", "woop_sweep", "aabb_sweep",
            "floor_probe", "collocated", "collocated_grad", "collocated_bvh",
            "collocated_grad_bvh", "direct_env", "direct_grad_env", "direct_env_bvh",
-           "direct_grad_env_bvh")
+           "direct_grad_env_bvh", "path_loop_env", "path_loop_grad_env", "path_loop_env_bvh",
+           "path_loop_grad_env_bvh")
 # the dense instantiations of the four megakernels
 DENSE = ("path_loop", "path_loop_grad", "direct", "direct_grad")
 # phases 11 and 13 hold the BVH kernels against their plain walks on the
@@ -247,10 +265,11 @@ DIRECT_INT, DIRECT_TAP_INT = 3 * NEXT1_INT + 3 * NEXT2_SET_INT, 20
 # FP32 operations of the env's light sample in nee_select<true>
 # (kernels/csrc/path_loop_step.cuh, counted as DIRECT_FP is): two alias draws
 # 24, the sample's uv 4, its pdf 8, env_uv_to_direction 9 and the bilinear
-# fetch env_fetch 40; the samples whose light selection takes the env run it
-# (the share n_env / (n_env + n_point + n_mesh)); a miss's env_miss_add (66)
-# is not counted, so the bound is below the work there
-ENV_NEE_FP = 85
+# fetch env_fetch 40, run where the light selection takes the env; and of a
+# miss's env_miss_add: env_direction_to_uv 9, the pdf's bins, sine and
+# scale 10, the selection's 1/n 1, the MIS weight 3, env_fetch 40 and the
+# weighted radiance 3, run for each ray that misses (_EnvWork counts both)
+ENV_NEE_FP, ENV_MISS_FP = 85, 66
 # A collocated sample's work besides its sweep (collocated_step.cuh, counted
 # as DIRECT_FP is): FP32: the camera ray and the clamped accumulation 64, the
 # hit's interaction 67, the bilinear fetch 49, the frame 32, a projection 15,
@@ -279,12 +298,12 @@ def _drive_main(fn):
     return out, counts
 
 
-def _bound(tests, nbytes, visits=0, ops=MT_OPS, visit_ops=VISIT_OPS):
+def _bound(tests, nbytes, visits=0, ops=MT_OPS, visit_ops=VISIT_OPS, extra_ops=0):
     """-> (bound_ms, bound_by): the larger of the tests' (`ops` each) and
     node visits' (`visit_ops` each; SLAB_OPS for the sweep variants' tile-box
-    tests) FP32 operations at the FP32 peak and the bytes at the memory
-    rate."""
-    t_ops = (tests * ops + visits * visit_ops) / FP32_PEAK * 1e3
+    tests) FP32 operations, with extra_ops (the env's, _env_ops), at the FP32
+    peak and the bytes at the memory rate."""
+    t_ops = (tests * ops + visits * visit_ops + extra_ops) / FP32_PEAK * 1e3
     t_bytes = nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -331,20 +350,61 @@ def _protocol(device, accel="bruteforce", integrator="direct", stacks=(16, 32)):
     return scene
 
 
+class _EnvWork:
+    """Counts the env's work in a plain walk of module `mod` (path_loop or
+    direct): while entered, mod.env_miss_add adds the rays it is given that
+    miss to .miss (the kernels run env_miss_add for each of them), and
+    mod.nee_select adds the light samples that take the env (their shadow ray
+    runs to 1e30) to .nee, over the lanes of .live where that is set."""
+
+    def __init__(self, mod):
+        self.mod, self.miss, self.nee, self.live = mod, 0, 0, None
+
+    def __enter__(self):
+        miss_add, select = self.mod.env_miss_add, self.mod.nee_select
+
+        def counted_miss_add(env, d, pdf_prev, miss, inv_n):
+            self.miss += int(miss.sum())
+            return miss_add(env, d, pdf_prev, miss, inv_n)
+
+        def counted_select(tb, p, smp):
+            out = select(tb, p, smp)
+            env = out[0][1] == 1e30
+            self.nee += int((env if self.live is None else env & self.live).sum())
+            return out
+
+        self.saved = (miss_add, select)
+        self.mod.env_miss_add, self.mod.nee_select = counted_miss_add, counted_select
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.env_miss_add, self.mod.nee_select = self.saved
+
+
+def _env_ops(work):
+    """FP32 operations of the env's counted work (_path_work's or
+    _direct_env_work's env_miss and env_nee)."""
+    return work.get("env_miss", 0) * ENV_MISS_FP + work.get("env_nee", 0) * ENV_NEE_FP
+
+
 def _path_work(tb, lanes, mat, stride=16):
     """The work of the path-loop kernels' walk, counted on every
     `stride`-th lane with the plain step and scaled to all lanes -> {tests:
     ray-triangle tests (each step a lane runs sweeps the whole table for its
     next hit, and a shading lane's shadow sweep stops at its first hit),
     steps: the lanes' steps, restarts: the samples begun, glossy: steps
-    whose BSDF sample takes the glossy lobe}."""
+    whose BSDF sample takes the glossy lobe; under an env, env_miss: the
+    env lookups of rays that miss, env_nee: the light samples that take the
+    env}. The tests are the dense sweep's: pass the tables without their
+    BVH (the routes' walks are equal, so the rest counts the same)."""
     from zdr_tpu_torch.integrators import path_loop as pl
 
     sub = lanes[:, ::stride].contiguous()
     carry = pl.init_carry(sub)
     n_tris = tb.scene.shape[0]
     fi, ii = pl.F_IDX, pl.I_IDX
-    work = dict(tests=0, steps=0, restarts=0, glossy=0)
+    work = dict(tests=0, steps=0, restarts=0, glossy=0, env_miss=0, env_nee=0)
+    counter = _EnvWork(pl)
     for _ in range(tb.n_steps):
         flying = carry.i[ii["in_flight"]] != 0
         run = (carry.i[ii["sample_idx"]] < sub[2]) | flying
@@ -360,11 +420,15 @@ def _path_work(tb, lanes, mat, stride=16):
         work["steps"] += int(run.sum())
         work["glossy"] += int((run & (carry.f[fi["u_lobe"]] >= 0.5)).sum())
         before = carry.i[ii["sample_idx"]].clone()
-        carry = pl.loop_step(carry, tb, sub, mat)
+        # a finished lane idles in the plain step; the kernel's stops
+        counter.live = run
+        with counter:
+            carry = pl.loop_step(carry, tb, sub, mat)
         # a lane restarts where it begins a sample: it ends in flight at a
         # sample below its stop that it was not in flight at before
         began = (carry.i[ii["in_flight"]] != 0) & ~(flying & (before == carry.i[ii["sample_idx"]]))
         work["restarts"] += int((run & began).sum())
+    work["env_miss"], work["env_nee"] = counter.miss, counter.nee
     scale = lanes.shape[1] / sub.shape[1]
     return {k: v * scale for k, v in work.items()}
 
@@ -420,16 +484,32 @@ def _test_ops(stages=None):
     return sum(n * ops for n, ops in zip(stages.tolist(), EARLY_OPS)) / int(stages.sum())
 
 
-def _direct_bound(tests, samples, nbytes, grad=False, test_ops=MT_OPS, env_samples=0):
+def _direct_env_work(tb, lanes, mat, stride=4 * CHECK_STRIDE):
+    """The env's work of the direct kernels, counted with the plain direct
+    samples on every `stride`-th lane and scaled to all lanes -> {env_miss:
+    the primary and bounce rays that miss, env_nee: the light samples that
+    take the env}; {} without an env."""
+    from zdr_tpu_torch.integrators import direct as dr
+
+    if tb.env is None:
+        return {}
+    sub = lanes[:, ::stride].contiguous()
+    with _EnvWork(dr) as counter:
+        dr.render_direct_plain(tb, sub, mat)
+    scale = lanes.shape[1] / sub.shape[1]
+    return dict(env_miss=counter.miss * scale, env_nee=counter.nee * scale)
+
+
+def _direct_bound(tests, samples, nbytes, grad=False, test_ops=MT_OPS, env_work=None):
     """The least time of a dense direct launch's counted work -> (bound_ms,
     bound_by, {term: ms}): the larger of its FP32 operations (the kernel's
     counted tests, `test_ops` each (_test_ops), and DIRECT_FP a sample,
-    with the taps' DIRECT_TAP_FP in tap mode, and ENV_NEE_FP for each of
-    env_samples, the samples whose light selection takes the env) at
+    with the taps' DIRECT_TAP_FP in tap mode, and the env's work,
+    env_work's misses and env samples (_direct_env_work, _env_ops)) at
     FP32_RATE, the draws' integer operations at INT32_RATE, both together at
     ISSUE_RATE, and the bytes at HBM_RATE."""
     fp = (tests * test_ops + samples * (DIRECT_FP + (DIRECT_TAP_FP if grad else 0))
-          + env_samples * ENV_NEE_FP)
+          + _env_ops(env_work or {}))
     ints = samples * (DIRECT_INT + (DIRECT_TAP_INT if grad else 0))
     terms = {"fp32": fp / FP32_RATE * 1e3, "int32": ints / INT32_RATE * 1e3,
              "issue": (fp + ints) / ISSUE_RATE * 1e3, "bytes": nbytes / HBM_RATE * 1e3}
@@ -454,10 +534,11 @@ def _loop_bound(work, nbytes):
     (bound_ms, bound_by, {term: ms}): the larger of the FP32 operations
     (the sweeps' tests and the steps', STEP_FP and the rest) at FP32_RATE,
     the draws' integer operations at INT32_RATE, both together at
-    ISSUE_RATE, and the bytes at HBM_RATE."""
+    ISSUE_RATE, and the bytes at HBM_RATE; under an env, its misses' and
+    light samples' work (_env_ops) among the FP32 operations."""
     steps, restarts, glossy = work["steps"], work["restarts"], work["glossy"]
     fp = (work["tests"] * MT_OPS + steps * STEP_FP + glossy * GLOSSY_FP
-          + (steps - glossy) * DIFFUSE_FP + restarts * RESTART_FP)
+          + (steps - glossy) * DIFFUSE_FP + restarts * RESTART_FP + _env_ops(work))
     ints = (steps * 4 * NEXT1_INT + (steps - restarts) * 2 * NEXT2_INT
             + restarts * 3 * NEXT2_SET_INT)
     terms = {"fp32": fp / FP32_RATE * 1e3, "int32": ints / INT32_RATE * 1e3,
@@ -489,11 +570,13 @@ def phase_device():
     return name, smi
 
 
-# the four BVH megakernels by a piece of their mangled entry names
+# the BVH megakernels by a piece of their mangled entry names
 BVH_ENTRIES = {"direct_bvh": "direct_bvh_kernelILb0ELb0E",
                "direct_grad_bvh": "direct_bvh_kernelILb1ELb0E",
-               "path_loop_bvh": "path_loop_bvh_kernel",
-               "path_loop_grad_bvh": "path_loop_grad_bvh_kernel",
+               "path_loop_bvh": "path_loop_bvh_kernelILb0E",
+               "path_loop_grad_bvh": "path_loop_grad_bvh_kernelILb0E",
+               "path_loop_env_bvh": "path_loop_bvh_kernelILb1E",
+               "path_loop_grad_env_bvh": "path_loop_grad_bvh_kernelILb1E",
                "direct_env_bvh": "direct_bvh_kernelILb0ELb1E",
                "direct_grad_env_bvh": "direct_bvh_kernelILb1ELb1E",
                "collocated_bvh": "collocated_bvh_kernelILb0E",
@@ -511,7 +594,13 @@ DIRECT_ENTRIES = {"direct": "direct_kernelILb0ELb0ELb0E",
                   "direct_grad_env_early": "direct_kernelILb1ELb1ELb1E",
                   "collocated": "collocated_kernelILb0E",
                   "collocated_grad": "collocated_kernelILb1E"}
-PTXAS_ENTRIES = {**BVH_ENTRIES, **DIRECT_ENTRIES}
+# the dense path-loop kernels (path_loop_kernel<kEnv>,
+# path_loop_grad_kernel<kEnv>), without and with the envmap
+PATH_ENTRIES = {"path_loop": "path_loop_kernelILb0E",
+                "path_loop_grad": "path_loop_grad_kernelILb0E",
+                "path_loop_env": "path_loop_kernelILb1E",
+                "path_loop_grad_env": "path_loop_grad_kernelILb1E"}
+PTXAS_ENTRIES = {**BVH_ENTRIES, **DIRECT_ENTRIES, **PATH_ENTRIES}
 
 
 def ptxas_bvh(log):
@@ -537,8 +626,7 @@ def ptxas_bvh(log):
 
 
 def phase_build():
-    """Phase 2 -> the BVH megakernels' and the dense direct kernels' ptxas
-    report (ptxas_bvh)."""
+    """Phase 2 -> the megakernels' ptxas report (ptxas_bvh)."""
     from zdr_tpu_torch import kernels
 
     t0 = time.perf_counter()
@@ -550,8 +638,8 @@ def phase_build():
     if sorted(report) != sorted(PTXAS_ENTRIES):
         raise AssertionError(f"ptxas reported {sorted(report)} of {sorted(PTXAS_ENTRIES)}")
     print(f"[2 build] nvcc sm_90a {time.perf_counter() - t0:.2f} s into "
-          f"{os.path.relpath(kernels.BUILD_DIR, ROOT)}; the BVH megakernels' and the dense "
-          f"direct kernels' registers, local bytes (stack frame) and spill bytes: "
+          f"{os.path.relpath(kernels.BUILD_DIR, ROOT)}; the megakernels' registers, local "
+          f"bytes (stack frame) and spill bytes: "
           f"{json.dumps(report)}; ptxas: {' | '.join(regs)}", flush=True)
     return report
 
@@ -999,10 +1087,12 @@ def phase_direct(dev):
 
 def _plain_calls():
     from zdr_tpu_torch.integrators import bounce, collocated as co, direct as dr
+    from zdr_tpu_torch.integrators import path_loop as pl
 
     return (dr.direct_sample_plain.calls, dr.render_direct_plain.calls,
             dr.render_direct_backward_plain.calls, bounce.trace_interact_plain.calls,
-            bounce.shade_plain.calls, co.collocated_sample_plain.calls)
+            bounce.shade_plain.calls, co.collocated_sample_plain.calls, pl.loop_step.calls,
+            pl.render_path_loop_plain.calls, pl.render_path_backward_loop_plain.calls)
 
 
 def _direct_main(scene, res, spp, what, smi, reps):
@@ -1730,11 +1820,13 @@ def phase_crossover(dev, smi):
     return found
 
 
-# the kernels of phases 17 and 18 by slice and route: forward, gradient
+# the kernels of phases 17-19 by slice and route: forward, gradient
 SLICE_KERNELS = {("collocated", "dense"): ("collocated", "collocated_grad"),
                  ("collocated", "bvh"): ("collocated_bvh", "collocated_grad_bvh"),
                  ("direct", "dense"): ("direct_env", "direct_grad_env"),
-                 ("direct", "bvh"): ("direct_env_bvh", "direct_grad_env_bvh")}
+                 ("direct", "bvh"): ("direct_env_bvh", "direct_grad_env_bvh"),
+                 ("path", "dense"): ("path_loop_env", "path_loop_grad_env"),
+                 ("path", "bvh"): ("path_loop_env_bvh", "path_loop_grad_env_bvh")}
 
 
 def _golden_sphere(device, integrator, accel):
@@ -1763,8 +1855,36 @@ def _example(device):
     return scene
 
 
+def _slice_kernels(integrator):
+    """The wrappers a slice's forward and gradient run by, as (tb, lanes,
+    mat) -> (3, N) radiance sums and (tb, lanes, mat, le) -> (gradient,
+    _), and their plain versions likewise."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import collocated as co
+    from zdr_tpu_torch.integrators import direct as dr
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    if integrator == "collocated":
+        return (kernels.collocated, kernels.collocated_grad, co.render_collocated_plain,
+                co.render_collocated_backward_plain)
+    if integrator == "direct":
+        return (kernels.direct, kernels.direct_grad, dr.render_direct_plain,
+                dr.render_direct_backward_plain)
+
+    def fwd(tb, lanes, m):
+        return kernels.path_loop(tb, lanes, m, pl.init_carry(lanes), tb.n_steps).f[0:3]
+
+    def fwd_plain(tb, lanes, m):
+        return pl.render_path_loop_plain(tb, lanes, m, pl.init_carry(lanes), tb.n_steps).f[0:3]
+
+    return (fwd, lambda tb, lanes, m, le: kernels.path_loop_grad(tb, lanes, m, le, tb.n_steps),
+            fwd_plain,
+            lambda tb, lanes, m, le: pl.render_path_backward_loop_plain(tb, lanes, m, le,
+                                                                        tb.n_steps))
+
+
 def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
-    """One main path of phases 17-18, Scene.render + loss.backward() of
+    """One main path of phases 17-19, Scene.render + loss.backward() of
     `scene` (pmj02bn, `res`, `spp`, a tex^2 material of 0.5) by the route
     its accel takes: one launch of each of its two kernels (SLICE_KERNELS)
     and of no other, no plain version called; both kernels against their
@@ -1775,8 +1895,6 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
     alone, with its counted work and bound -> (the two kernels' records, the
     image rendered at seed 0)."""
     from zdr_tpu_torch import kernels
-    from zdr_tpu_torch.integrators import collocated as co
-    from zdr_tpu_torch.integrators import direct as dr
     from zdr_tpu_torch.integrators import path_loop as pl
 
     integrator, dev = scene.integrator, scene.device
@@ -1802,17 +1920,13 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
     tb = pl.build_loop_tables(data, scene.camera, scene._config(res, spp), 0)
     tb1 = pl.build_loop_tables(data, scene.camera, scene._config(res, spp), 1)
     lanes = pl.pixel_lanes(res, spp, dev)
-    fkern, gkern = (kernels.collocated, kernels.collocated_grad) if integrator == "collocated" \
-        else (kernels.direct, kernels.direct_grad)
+    fkern, gkern, fplain, gplain = _slice_kernels(integrator)
     if route == "bvh":
         err, g_err, plain_ms, gplain_ms, check = _bvh_check(tb, tb1, m, integrator, what,
                                                             exact=True)
         shape = (f"every {CHECK_STRIDE}th lane of {res[0]}x{res[1]}, the first "
                  f"{CHECK_SAMPLES} of {spp} samples")
     else:
-        fplain, gplain = (co.render_collocated_plain, co.render_collocated_backward_plain) \
-            if integrator == "collocated" \
-            else (dr.render_direct_plain, dr.render_direct_backward_plain)
         sub = lanes[:, ::CHECK_STRIDE].contiguous()
         got = fkern(tb, lanes, m)[:, ::CHECK_STRIDE]
         want, plain_ms = _sync_ms(lambda: fplain(tb, sub, m))
@@ -1836,23 +1950,67 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
     image = scene.render(m, res=res, spp=spp, seed=0)
     render_ms, _r = _median_ms(lambda: scene.render(m, res=res, spp=spp, seed=0), reps)
     le = torch.full((3, lanes.shape[1]), 1.0 / spp, device=dev)
-    ms, _r = _event_ms(lambda: fkern(tb, lanes, m), reps)
+    # the state a launch reads and writes: the sums, or the path loop's carry
+    if integrator == "path":
+        carry0 = pl.init_carry(lanes)
+        state = [carry0.f, carry0.i, carry0.f, carry0.i]
+        ms, _r = _event_ms(lambda: kernels.path_loop(tb, lanes, m, carry0, tb.n_steps), reps)
+    else:
+        state = [torch.empty((3, lanes.shape[1]), device=dev)]
+        ms, _r = _event_ms(lambda: fkern(tb, lanes, m), reps)
     fk, gk = getattr(kernels, fwd), getattr(kernels, bwd)
     gms, _r = _event_ms(lambda: gkern(tb1, lanes, m, le), reps)
-    acc = torch.empty((3, lanes.shape[1]), device=dev)
     n_samples = res[0] * res[1] * spp
     tables = [lanes, m, tb.scene, tb.lights, tb.bn]
     if tb.env is not None:
         tables += [tb.env.texture, tb.env.alias_prob, tb.env.alias_idx, tb.env.pdf]
+    # the env's work: its misses' lookups and its light samples, counted on a
+    # stride of the lanes by the plain walk over the dense tables (the
+    # routes' walks are equal)
+    dense_tb = dataclasses.replace(tb, bvh=None)
+    if integrator == "path":
+        path_work = _path_work(dense_tb, lanes, m)
+        env_work = {k: path_work[k] for k in ("env_miss", "env_nee")}
+    elif integrator == "direct":
+        env_work = _direct_env_work(dense_tb, lanes, m)
+    else:
+        env_work = {}
+    env_note = "" if not env_work else (
+        f"; the env's work: {env_work['env_miss'] / n_samples:.3f} misses' lookups and "
+        f"{env_work['env_nee'] / n_samples:.3f} env light samples a sample (counted on a "
+        f"stride of the lanes), {_env_ops(env_work) / n_samples:.1f} FP32 operations a sample")
     if route == "bvh":
         tables += [tb.bvh.geom, tb.bvh.nodes]
         work, gwork = fk.counts.tolist(), gk.counts.tolist()
-        bound = _bound(work[0], _nbytes(*tables, acc), work[1])
-        gbound = _bound(gwork[0], _nbytes(*tables, le, acc, m), gwork[1])
+        bound = _bound(work[0], _nbytes(*tables, *state), work[1], extra_ops=_env_ops(env_work))
+        gbound = _bound(gwork[0], _nbytes(*tables, le, m, *state), gwork[1],
+                        extra_ops=_env_ops(env_work))
         work_note = (f"{work[0]:.4g} tests and {work[1]:.4g} node visits ({work[0] / n_samples:.2f}"
-                     f" and {work[1] / n_samples:.2f} a sample)")
-        extra, gextra = dict(tests=work[0], visits=work[1]), dict(tests=gwork[0], visits=gwork[1])
+                     f" and {work[1] / n_samples:.2f} a sample){env_note}")
+        extra = dict(tests=work[0], visits=work[1], **env_work)
+        gextra = dict(tests=gwork[0], visits=gwork[1], **env_work)
+        if integrator == "path":
+            lp, gp = fk.plan, gk.plan
+            work_note += (f"; {fwd} launch {lp['block']} threads a block, {lp['registers']} "
+                          f"registers, {lp['local_bytes']} bytes of local memory a thread, "
+                          f"{lp['waves']:.3f} waves; {bwd} launch {_plan_note(gp)}")
+    elif integrator == "path":
+        # the walk's counted work bounds both kernels (the taps not counted)
+        nbytes = _nbytes(*tables, *state)
+        bound = _loop_bound(path_work, nbytes)
+        gbound = _loop_bound(path_work, _nbytes(*tables, le, m, *state))
+        lp, gp = fk.plan, gk.plan
+        work_note = (f"{path_work['tests']:.4g} tests, {path_work['steps']:.4g} steps "
+                     f"({path_work['steps'] / n_samples:.2f} a sample; every 16th lane, scaled)"
+                     f"{env_note}; {fwd} launch {lp['block']} threads a block, "
+                     f"{lp['registers']} registers, {lp['local_bytes']} bytes of local memory a "
+                     f"thread, {lp['waves']:.3f} waves; {bwd} launch {_plan_note(gp)}")
+        extra = dict(tests=path_work["tests"], steps=path_work["steps"],
+                     bound_terms_ms=bound[2], **env_work)
+        gextra = dict(tests=path_work["tests"], steps=path_work["steps"],
+                      bound_terms_ms=gbound[2], **env_work)
     else:
+        acc = state[0]
         tests, gtests, plan = int(fk.tests), int(gk.tests), fk.plan
         if integrator == "collocated":
             bound = _collocated_bound(tests, n_samples, _nbytes(*tables, acc))
@@ -1872,17 +2030,15 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
                               f"division")
                 fk.tests = tests
             test_ops = _test_ops(stages)
-            meta = scene._data.meta
-            env_samples = n_samples * meta.n_env / meta.n_total
             bound = _direct_bound(tests, n_samples, _nbytes(*tables, acc), test_ops=test_ops,
-                                  env_samples=env_samples)
+                                  env_work=env_work)
             gbound = _direct_bound(gtests, n_samples, _nbytes(*tables, le, acc, m), True,
-                                   test_ops, env_samples)
+                                   test_ops, env_work)
         work_note = (f"{tests:.4g} tests ({tests / n_samples:.1f} a sample){stage_note}, "
                      f"{test_ops:.2f} FP32 operations a test, block {plan['block']}, "
-                     f"{plan['registers']} registers, {plan['waves']:.3f} waves")
-        extra = dict(tests=tests, test_ops=test_ops, bound_terms_ms=bound[2])
-        gextra = dict(tests=gtests, test_ops=test_ops, bound_terms_ms=gbound[2])
+                     f"{plan['registers']} registers, {plan['waves']:.3f} waves{env_note}")
+        extra = dict(tests=tests, test_ops=test_ops, bound_terms_ms=bound[2], **env_work)
+        gextra = dict(tests=gtests, test_ops=test_ops, bound_terms_ms=gbound[2], **env_work)
     print(f"[{tag}] {what}: {tb.scene.shape[0]} tris, {route}, pmj02bn {res[0]}x{res[1]} {spp} "
           f"spp, {tex}^2 material of 0.5, loss = image[..., :3].sum(), loss.backward(): 1 {fwd} "
           f"and 1 {bwd} launch, no other kernel, no plain version; loss "
@@ -1986,6 +2142,77 @@ def phase_env(dev, smi):
     return records
 
 
+def _env_scene(device):
+    """tools/bench_round3.py:39-44's env_scene: a uv sphere of 0.6 at 16 x 32
+    (960 triangles) under make_test_envmap(128, 256), its camera; the path
+    integrator by accel="auto" (the BVH)."""
+    import zdr_tpu_torch as zt
+    from zdr_tpu_torch.envmap import make_test_envmap
+    from zdr_tpu_torch.geometry.procedural import make_uv_sphere
+
+    scene = zt.Scene([(make_uv_sphere(0.6, n_lat=16, n_lon=32), None, None)], "path",
+                     device=device)
+    scene.camera = zt.Camera(fov=0.9, origin=(0.0, 0.3, 2.0), target=(0.0, 0.0, 0.0))
+    scene.add_envmap(make_test_envmap(128, 256))
+    return scene
+
+
+def phase_path_env(dev, smi):
+    """Phase 19: the path integrator under an envmap. The flagship under
+    make_test_envmap(256, 512) by the dense route (path_loop_env,
+    path_loop_grad_env) and tools/bench_round3.py's env_scene by accel="auto"
+    (the BVH: path_loop_env_bvh, path_loop_grad_env_bvh), at the flagship's
+    512x512, 64 spp, 1024^2 material (_slice_main each); then the cornell
+    box under the same envmap at 128x128, 16 spp by both routes, the BVH
+    forced: the images equal bit for bit, the gradients at phase 7's bars,
+    each gradient kernel's radiance equal to its forward's -> the four
+    kernels' records."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.envmap import make_test_envmap
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    box = _flagship(dev)
+    box.add_envmap(make_test_envmap(256, 512))
+    records, _img = _slice_main(box, RES, SPP, TEX, "19 path-env",
+                                "the flagship under make_test_envmap(256, 512)", smi)
+    sphere = _env_scene(dev)
+    if sphere._render_data("path").accel is None:
+        raise AssertionError("env_scene: accel='auto' did not take the BVH")
+    bvh, _img = _slice_main(sphere, RES, SPP, TEX, "19 path-env",
+                            "tools/bench_round3.py's env_scene, accel='auto'", smi)
+    records.update(bvh)
+
+    res, spp = (128, 128), 16
+    mat = _material(3, dev, tex=64)
+    lanes = pl.pixel_lanes(res, spp, dev)
+    le = torch.as_tensor(np.random.RandomState(3).rand(3, lanes.shape[1]).astype(np.float32),
+                         device=dev)
+    out = {}
+    for accel in ("bruteforce", "bvh"):
+        box.accel = accel
+        tb = pl.build_loop_tables(box._render_data("path"), box.camera, box._config(res, spp), 5)
+        if (tb.bvh is not None) != (accel == "bvh"):
+            raise AssertionError(f"the cornell box under the envmap: not the {accel} route")
+        img = kernels.path_loop(tb, lanes, mat, pl.init_carry(lanes), tb.n_steps).f[0:3]
+        grad, carry = kernels.path_loop_grad(tb, lanes, mat, le, tb.n_steps)
+        out[accel] = (img, grad, carry.f[0:3])
+    torch.cuda.synchronize()
+    (img_d, grad_d, acc_d), (img_b, grad_b, acc_b) = out["bruteforce"], out["bvh"]
+    if not torch.equal(img_d, img_b):
+        raise AssertionError(f"the cornell box under the envmap: the dense and BVH images "
+                             f"differ in {int((img_d != img_b).any(0).sum())} lanes")
+    if not (torch.equal(acc_d, img_d) and torch.equal(acc_b, img_b)):
+        raise AssertionError("path_loop_grad_env: its radiance differs from the forward's")
+    g_err, g_worst = _assert_grad_close(grad_b, grad_d, "path_loop_grad_env_bvh vs dense")
+    for k in ("path_loop_grad_env", "path_loop_grad_env_bvh"):
+        records[k]["max_abs_err"] = max(records[k]["max_abs_err"], g_err)
+    print(f"[19 path-env] the cornell box under the same envmap ({box._data.meta.num_tris} "
+          f"tris) 128x128 16 spp, forced through the BVH: path_loop_env_bvh's image equals "
+          f"path_loop_env's bit for bit, the gradients worst texel rel err {g_worst:.3e} "
+          f"(rtol 1e-4), each gradient kernel's radiance equal to its forward's", flush=True)
+    return records
+
+
 def _direct_extra(proto, g, ptxas):
     """The dense direct kernels' record beyond the contract's keys: the
     counted-work bound's terms and the tests-only bound on the protocol,
@@ -2037,6 +2264,7 @@ def main():
     timed("16", phase_emissive, dev, smi)
     coll = timed("17", phase_collocated, dev, smi)
     env = timed("18", phase_env, dev, smi)
+    path_env = timed("19", phase_path_env, dev, smi)
     print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     # direct_bvh and direct_grad_bvh report the protocol's main path by
@@ -2064,8 +2292,9 @@ def main():
     coll_src = "zdr_tpu_torch/kernels/csrc/collocated.cu"
     for pair in SLICE_KERNELS.values():
         for kname in pair:
-            rec = coll.get(kname) or env[kname]
+            rec = coll.get(kname) or env.get(kname) or path_env[kname]
             rec["ptxas"] = {e: v for e, v in ptxas.items() if e in (kname, f"{kname}_early")}
+    main_run["ptxas"], grad_run["ptxas"] = ptxas["path_loop"], ptxas["path_loop_grad"]
     variants_src = "zdr_tpu_torch/kernels/csrc/sweep_variants.cu"
     record = {"kernels": [{
         "name": "sampler_probe",
@@ -2232,6 +2461,34 @@ def main():
         "replaces": "zdr_tpu/integrators/pallas_bounce.py:917 (want_grad) with "
                     "pallas_stream.py:392 + :507 and the env glue",
         **env["direct_grad_env_bvh"],
+    }, {
+        "name": "path_loop_env",
+        "route": "cuda",
+        "source": "zdr_tpu_torch/kernels/csrc/path_loop.cu",
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:474 + :917 (path mode) with the "
+                    "env glue of path_fused.py:127-150 (fused_glue.py:236, :289-381)",
+        **path_env["path_loop_env"],
+    }, {
+        "name": "path_loop_grad_env",
+        "route": "cuda",
+        "source": "zdr_tpu_torch/kernels/csrc/path_loop_grad.cu",
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:917 (path mode, want_grad) with the "
+                    "env glue (path_fused.py:270-471)",
+        **path_env["path_loop_grad_env"],
+    }, {
+        "name": "path_loop_env_bvh",
+        "route": "cuda",
+        "source": "zdr_tpu_torch/kernels/csrc/path_loop.cu",
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:917 (path mode) with "
+                    "pallas_stream.py:392 + :507 and the env glue (path_fused.py:127-172)",
+        **path_env["path_loop_env_bvh"],
+    }, {
+        "name": "path_loop_grad_env_bvh",
+        "route": "cuda",
+        "source": "zdr_tpu_torch/kernels/csrc/path_loop_grad.cu",
+        "replaces": "zdr_tpu/integrators/pallas_bounce.py:917 (path mode, want_grad) with "
+                    "pallas_stream.py:392 + :507 and the env glue",
+        **path_env["path_loop_grad_env_bvh"],
     }]}
     for entry in record["kernels"]:
         for v in entry.values():

@@ -188,7 +188,7 @@ RESTART2 = """    Sampler t = fresh_sampler(sc, (uint32_t)s.sample_idx + (uint32
 """
 RUN_LANE = """  for (int it = 0; it < n_steps; ++it) {
     if (s.sample_idx >= lc.stop && s.in_flight == 0) break;
-    int last = loop_step<kGrad>(s, lc, tb, q, gl, tr, c);
+    int last = loop_step<kGrad, Tracer, kEnv>(s, lc, tb, q, gl, tr, c, env);
     if constexpr (kGrad) {
       if (last >= 0) replay_sample(*gl, last, q.tex_h * q.tex_w);
     }
@@ -219,7 +219,7 @@ RUN_LANE_TIMED = """#ifdef __CUDA_ARCH__
       ++study_warp_steps;
     }
 #endif
-    int last = loop_step<kGrad>(s, lc, tb, q, gl, tr, c);
+    int last = loop_step<kGrad, Tracer, kEnv>(s, lc, tb, q, gl, tr, c, env);
     if constexpr (kGrad) {
       if (last >= 0) replay_sample(*gl, last, q.tex_h * q.tex_w);
     }
@@ -234,7 +234,8 @@ RUN_LANE_TIMED = """#ifdef __CUDA_ARCH__
   if (study_block < kStudyBlocks) atomicMax(&study_t1[study_block], study_t);
 #endif
 """
-RUN_LANE_HEAD = "template <bool kGrad = false, class Tracer = DenseSweep<>>\nZDR_HD void run_lane("
+RUN_LANE_HEAD = ("template <bool kGrad = false, class Tracer = DenseSweep<>, bool kEnv = false>\n"
+                 "ZDR_HD void run_lane(")
 STUDY_GLOBALS = f"""#ifdef __CUDACC__
 constexpr unsigned kStudyBlocks = {STUDY_BLOCKS};
 constexpr long kStudyLanes = {STUDY_LANES};

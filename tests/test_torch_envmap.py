@@ -312,20 +312,25 @@ def test_convert_carries_the_env():
 
 
 def test_path_with_env_raises_and_collocated_ignores_it():
-    """The path kernels do not read an env yet: a path render under one
-    raises NotImplementedError naming ROADMAP A11. The collocated
-    integrator lights by its camera light alone, as the JAX package's does:
-    the env leaves its image as it was."""
+    """The path integrator under an env, once refused (ROADMAP A11), now
+    renders on the CPU: the env adds light where a path escapes the box's
+    open front, and the image stays finite (tests/test_torch_path_env.py
+    holds it against JAX). The collocated integrator lights by its camera
+    light alone, as the JAX package's does: the env leaves its image as it
+    was."""
     s = _port_scene("cbox")
     mat = torch.full((8, 8, 4), 0.5)
+    s.integrator = "path"
+    s.max_depth = 4
+    path_before = s.render(mat, res=(4, 4), spp=1)
     s.integrator = "collocated"
     before = s.render(mat, res=(4, 4), spp=1)
     s.add_envmap(_env_img()[..., :3])
     assert s._data.meta.n_env == 1 and s._data.env.texture.shape == (64, 128, 4)
     assert torch.equal(s.render(mat, res=(4, 4), spp=1), before)
     s.integrator = "path"
-    with pytest.raises(NotImplementedError, match="A11"):
-        s.render(mat, res=(4, 4), spp=1)
+    img = s.render(mat, res=(4, 4), spp=1)
+    assert bool(torch.isfinite(img).all()) and not torch.equal(img, path_before)
 
 
 # ------------------------------------------------- the g++ build of the kernels' code

@@ -583,7 +583,7 @@ def test_floor_probe_is_a_plus_b(dev):
 def _slice_scene(dev, integrator, name, accel):
     """The collocated or envmap scenes of the new kernels: the cornell box,
     or tools/gen_golden.py's 960-triangle sphere and its camera; the direct
-    integrator's under make_test_envmap(64, 128)."""
+    and path integrators' under make_test_envmap(64, 128)."""
     from zdr_tpu_torch.envmap import make_test_envmap
 
     if name == "cbox":
@@ -593,7 +593,7 @@ def _slice_scene(dev, integrator, name, accel):
         s = zt.Scene([(tproc.make_uv_sphere(0.5), None, None)], integrator=integrator,
                      accel=accel, device=dev)
         s.camera = zt.Camera(fov=0.8, origin=(1.2, 0.2, 0.0), target=(0.0, 0.0, 0.0))
-    if integrator == "direct":
+    if integrator in ("direct", "path"):
         s.add_envmap(make_test_envmap(64, 128))
     return s
 
@@ -606,13 +606,17 @@ SLICE_CASES = {
     ("direct", "cbox", "auto"): ("direct_env", "direct_grad_env"),
     ("direct", "sphere", "bruteforce"): ("direct_env", "direct_grad_env"),
     ("direct", "sphere", "auto"): ("direct_env_bvh", "direct_grad_env_bvh"),
+    ("path", "cbox", "auto"): ("path_loop_env", "path_loop_grad_env"),
+    ("path", "cbox", "bvh"): ("path_loop_env_bvh", "path_loop_grad_env_bvh"),
+    ("path", "sphere", "auto"): ("path_loop_env_bvh", "path_loop_grad_env_bvh"),
 }
 
 
 @pytest.mark.parametrize("case", list(SLICE_CASES), ids=lambda c: "-".join(c))
 def test_collocated_and_env_kernels_match_plain(dev, case):
-    """The collocated kernels and the direct kernels' envmap instantiations
-    (dense without and with the early out, BVH) at 64x64, 8 spp, a random
+    """The collocated kernels and the direct and path kernels' envmap
+    instantiations (dense, direct's without and with the early out, BVH;
+    the cornell box forced through the BVH too) at 64x64, 8 spp, a random
     adjoint: the forward bit for bit its plain version; the gradient's
     per-channel sums within rtol 1e-5 and texels past 1e-3 of the largest
     within rtol 1e-4 of it (float atomics); the tap mode's radiance equal to
@@ -627,10 +631,26 @@ def test_collocated_and_env_kernels_match_plain(dev, case):
     lanes = pl.pixel_lanes(tb.res, tb.spp, dev)
     le = torch.as_tensor(np.random.RandomState(2).rand(3, lanes.shape[1]).astype(np.float32),
                          device=dev)
-    fk, gk = (kernels.collocated, kernels.collocated_grad) if integrator == "collocated" \
-        else (kernels.direct, kernels.direct_grad)
-    fp, gp = (co.render_collocated_plain, co.render_collocated_backward_plain) \
-        if integrator == "collocated" else (dr.render_direct_plain, dr.render_direct_backward_plain)
+    if integrator == "path":
+        def fk(tb, lanes, mat):
+            return kernels.path_loop(tb, lanes, mat, pl.init_carry(lanes), tb.n_steps).f[0:3]
+
+        def gk(tb, lanes, mat, le):
+            grad, carry = kernels.path_loop_grad(tb, lanes, mat, le, tb.n_steps)
+            return grad, carry.f[0:3]
+
+        def fp(tb, lanes, mat):
+            return pl.render_path_loop_plain(tb, lanes, mat, pl.init_carry(lanes),
+                                             tb.n_steps).f[0:3]
+
+        def gp(tb, lanes, mat, le):
+            return pl.render_path_backward_loop_plain(tb, lanes, mat, le, tb.n_steps)
+    else:
+        fk, gk = (kernels.collocated, kernels.collocated_grad) if integrator == "collocated" \
+            else (kernels.direct, kernels.direct_grad)
+        fp, gp = (co.render_collocated_plain, co.render_collocated_backward_plain) \
+            if integrator == "collocated" \
+            else (dr.render_direct_plain, dr.render_direct_backward_plain)
     before = (getattr(kernels, fwd).launches, getattr(kernels, bwd).launches)
     got = fk(tb, lanes, mat)
     grad, acc = gk(tb, lanes, mat, le)

@@ -2,9 +2,9 @@
 
 A second package beside the JAX one, held against it as the reference: same
 scene, material, camera and seed in, same image out. It imports torch and
-numpy, never jax and never zdr_tpu. The direct integrator (the default,
-under mesh, point and environment lights), the collocated one and the path
-integrator render, and differentiate in the material, on a CUDA device
+numpy, never jax and never zdr_tpu. The direct integrator (the default)
+and the path integrator, under mesh, point and environment lights, and the
+collocated one render, and differentiate in the material, on a CUDA device
 through hand-written kernels (kernels/csrc/direct.cu, collocated.cu,
 path_loop.cu, path_loop_grad.cu) and on the CPU through their plain
 PyTorch versions.

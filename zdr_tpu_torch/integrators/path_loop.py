@@ -9,8 +9,10 @@ modes, of `render_path_loop` (:1017-1069) and of the one-walk backward
   2. the NEE shadow test, GGX shade + sample, Russian roulette;
   3. termination bookkeeping, and the restart of a lane that has samples
      left: a fresh sampler at the next sample index and a camera ray;
-  4. the next closest hit, its interaction and the emitter-hit MIS;
-  5. the NEE light selection and the next bounce's draws.
+  4. the next closest hit, its interaction and the emitter-hit MIS, and
+     under an environment map the env's MIS-weighted radiance on a miss;
+  5. the NEE light selection (the env, the point and the mesh lights) and
+     the next bounce's draws.
 
 The draws follow pallas_loop.py:592-640 exactly, so the sample stream is the
 JAX package's. In tap mode a step also returns its gradient taps
@@ -35,7 +37,7 @@ import torch
 from ..accel.trace import bvh_any, bvh_closest, mt
 from ..accel.types import Accel
 from ..camera import camera_const, camera_ray
-from ..envmap import EnvMap, sample_envmap
+from ..envmap import EnvMap, env_miss_add, sample_envmap
 from ..microfacet import (
     ggx_brdf,
     ggx_sample,
@@ -273,13 +275,18 @@ def interact_epilogue(o, d, pdf_prev, active, best_t, bu, bv, miss, av):
     return p, (ux, uy), ns, ng, shade, ae
 
 
-def closest_interact(scene, o, d, pdf_prev, active, bvh=None):
+def closest_interact_miss(scene, o, d, pdf_prev, active, bvh=None):
+    """closest_interact's six outputs and the miss flag (no triangle hit)."""
     best_t, bu, bv, prim = closest_hit(scene, o, d, bvh)
     miss = prim < 0
     rows = scene[torch.clamp_min(prim, 0), 9:31]
     rows = torch.where(miss[:, None], 0.0, rows)
     av = tuple(rows.unbind(1))
-    return interact_epilogue(o, d, pdf_prev, active, best_t, bu, bv, miss, av)
+    return (*interact_epilogue(o, d, pdf_prev, active, best_t, bu, bv, miss, av), miss)
+
+
+def closest_interact(scene, o, d, pdf_prev, active, bvh=None):
+    return closest_interact_miss(scene, o, d, pdf_prev, active, bvh)[:6]
 
 
 # ------------------------------------------------------------ NEE select
@@ -472,10 +479,14 @@ def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch
     depth_n = torch.where(reset, 0, depth + 1)
     in_flight_n = restart | path_alive
 
-    # next closest hit + interaction
-    np_, nuv, nns, nng, nshade, nae = closest_interact(
+    # next closest hit + interaction; under an env, a live lane's miss adds
+    # the env, MIS-weighted against the BSDF pdf of its ray (path_fused.py:143)
+    np_, nuv, nns, nng, nshade, nae, nmiss = closest_interact_miss(
         tb.scene, o_n, d_n, pdf_prev, in_flight_n, tb.bvh
     )
+    if tb.env is not None:
+        em = env_miss_add(tb.env, d_n, pdf_prev, in_flight_n & nmiss, tb.inv_n_lights)
+        nae = tuple(nae[c] + em[c] for c in range(3))
 
     # NEE + bounce draws for the next bounce
     (nwl, nld, nlp, nlev), smp2 = nee_select(tb, np_, smp2)

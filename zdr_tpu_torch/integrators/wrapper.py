@@ -55,11 +55,6 @@ def check_scope(cfg: RenderConfig, material: torch.Tensor, data) -> None:
             "direct integrator with use_mis=False (the JAX package's unfused "
             "direct.py): ROADMAP A10"
         )
-    if data.meta.n_env and cfg.integrator == "path":
-        raise NotImplementedError(
-            "envmap with the path integrator (the env in the path kernels, "
-            "path_loop and path_loop_grad): ROADMAP A11"
-        )
     if not cfg.bilinear or min(material.shape[0], material.shape[1]) < 2:
         raise NotImplementedError(
             "render without the bilinear fetch (nearest filtering, or a "

@@ -13,8 +13,9 @@ error, and counts its launches in `.launches`; any other device raises.
 
 The megakernels have two instantiations each: the dense one sweeps the
 scene table from shared memory, the BVH one (path_loop_bvh,
-path_loop_grad_bvh, direct_bvh, direct_grad_bvh, direct_env_bvh,
-direct_grad_env_bvh, collocated_bvh, collocated_grad_bvh) walks the BVH in order,
+path_loop_grad_bvh, path_loop_env_bvh, path_loop_grad_env_bvh, direct_bvh,
+direct_grad_bvh, direct_env_bvh, direct_grad_env_bvh, collocated_bvh,
+collocated_grad_bvh) walks the BVH in order,
 near child first with a short stack, over child-box nodes in global memory
 (csrc/trace.cuh, accel/bvh.to_child_nodes) for scenes past shared memory. The
 wrappers pick it from the tables (LoopTables.bvh, built once per Scene),
@@ -35,6 +36,12 @@ Kernels:
                   (csrc/path_loop_grad.cu); `.plan` holds its last launch's
                   near rows, block, registers and occupancy;
                   plain version: integrators/path_loop.render_path_backward_loop_plain
+  path_loop_env, path_loop_grad_env
+                  the same under an environment light (LoopTables.env): the
+                  kernels' env instantiations, the env's tables in global
+                  memory as direct_env's; path_loop and path_loop_grad
+                  launch them when the tables carry an env; the same plain
+                  versions
   sampler_probe   K fresh-sampler draws per lane, for bit-exactness checks;
                   plain version: samplers.sampler_probe_plain
   trace_interact  closest hit + interaction of a ray batch, full or lite
@@ -256,7 +263,11 @@ _DIRECT_BVH_ARGS = [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P] + _BVH_ARGS + [_P, _
 # an envmap: texture, h, w, alias probabilities, alias indices, pdf; the env
 # entries take it after _DIRECT_ARGS (zdr_direct_env, then block and plan)
 # or _DIRECT_BVH_ARGS (zdr_direct_env_bvh), the host build after
-# _DIRECT_ARGS, then _BVH_ARGS (null nodes and no rows: the dense sweep)
+# _DIRECT_ARGS, then _BVH_ARGS (null nodes and no rows: the dense sweep);
+# the path loop's after _LOOP_ARGS (zdr_path_loop_env, then block and
+# plan), _LOOP_BVH_ARGS (zdr_path_loop_env_bvh, likewise), _GRAD_ARGS
+# (zdr_path_loop_grad_env) or _GRAD_BVH_ARGS (zdr_path_loop_grad_env_bvh,
+# and the host build zdr_path_loop_env_host)
 _ENV_ARGS = [_P, _I, _I, _P, _P, _P]
 # zdr_collocated: _DIRECT_ARGS without early, then block and plan;
 # zdr_collocated_bvh: _DIRECT_BVH_ARGS; the host build: _DIRECT_ARGS
@@ -287,6 +298,13 @@ def load_library() -> types.SimpleNamespace:
         zdr_path_loop_grad=_bind(grad, "zdr_path_loop_grad", _GRAD_ARGS + [_P]),
         zdr_path_loop_grad_bvh=_bind(grad, "zdr_path_loop_grad_bvh", _GRAD_BVH_ARGS + [_P]),
         zdr_path_loop_grad_plan=_bind(grad, "zdr_path_loop_grad_plan", [_I, _I, _I, _P]),
+        zdr_path_loop_env=_bind(fwd, "zdr_path_loop_env", _LOOP_ARGS + _ENV_ARGS + [_I, _P, _P]),
+        zdr_path_loop_env_bvh=_bind(fwd, "zdr_path_loop_env_bvh",
+                                    _LOOP_BVH_ARGS + _ENV_ARGS + [_I, _P, _P]),
+        zdr_path_loop_grad_env=_bind(grad, "zdr_path_loop_grad_env",
+                                     _GRAD_ARGS + _ENV_ARGS + [_P]),
+        zdr_path_loop_grad_env_bvh=_bind(grad, "zdr_path_loop_grad_env_bvh",
+                                         _GRAD_BVH_ARGS + _ENV_ARGS + [_P]),
         zdr_trace_interact=_bind(direct_lib, "zdr_trace_interact", _TRACE_ARGS + [_P]),
         zdr_direct=_bind(direct_lib, "zdr_direct", _DIRECT_ARGS + [_I, _P, _P]),
         zdr_direct_bvh=_bind(direct_lib, "zdr_direct_bvh", _DIRECT_BVH_ARGS + [_P]),
@@ -330,6 +348,10 @@ def load_host_library() -> types.SimpleNamespace:
         zdr_path_loop_grad_host=_bind(lib, "zdr_path_loop_grad_host", _GRAD_ARGS),
         # the forward when le_grad (8th) is null
         zdr_path_loop_bvh_host=_bind(lib, "zdr_path_loop_bvh_host", _GRAD_BVH_ARGS),
+        # the env instantiations: the forward when le_grad is null, the dense
+        # sweep when nodes is null and n_rows 0
+        zdr_path_loop_env_host=_bind(lib, "zdr_path_loop_env_host",
+                                     _GRAD_BVH_ARGS + _ENV_ARGS),
         zdr_trace_interact_host=_bind(direct_lib, "zdr_trace_interact_host", _TRACE_ARGS),
         zdr_direct_host=_bind(direct_lib, "zdr_direct_host", _DIRECT_ARGS),
         # rows, n_tris, rays, n, any, sweep, f_out, i_out, counts
@@ -486,7 +508,8 @@ def loop_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor
                 carry: Carry, n_steps: int, block: int = 0):
     """One launch of a build of csrc/path_loop.cu (`lib`: load_library()'s
     entries, or a build's of the same C entries), its dense or its BVH
-    kernel as tb.bvh says, on CUDA tensors, counting nothing: the forward
+    kernel as tb.bvh says, under tb.env where the tables carry one (the env
+    instantiations), on CUDA tensors, counting nothing: the forward
     wrappers, and the tests and studies of other blocks. block: threads a
     block, a power of two from 32 up to the kernel's largest (0: the
     launch's pick, the fewest rounds of resident blocks, then the largest
@@ -502,25 +525,33 @@ def loop_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor
         _bn_ptr(tb), material.data_ptr(), lanes.data_ptr(), carry.f.data_ptr(),
         carry.i.data_ptr(), f_out.data_ptr(), i_out.data_ptr(), n, n_steps)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    env = () if tb.env is None else env_args(tb.env, dev)
     counts = None
     if bvh:
         counts = _counts(dev)
-        rc = lib.zdr_path_loop_bvh(*args, *bvh_args(tb.bvh, dev), counts.data_ptr(), block,
-                                   info, stream)
+        entry = lib.zdr_path_loop_env_bvh if env else lib.zdr_path_loop_bvh
+        rc = entry(*args, *bvh_args(tb.bvh, dev), counts.data_ptr(), *env, block, info, stream)
     else:
-        rc = lib.zdr_path_loop(*args, block, info, stream)
-    _raise_on(rc, "path_loop_bvh" if bvh else "path_loop")
+        entry = lib.zdr_path_loop_env if env else lib.zdr_path_loop
+        rc = entry(*args, *env, block, info, stream)
+    _raise_on(rc, _loop_name("path_loop", tb))
     plan = dict(zip(LOOP_PLAN, info))
     plan["waves"] = n / (plan["block"] * plan["blocks_per_sm"] * plan["sms"])
     return Carry(f_out, i_out), counts, plan
+
+
+def _loop_name(base: str, tb: LoopTables) -> str:
+    """The path-loop kernel of the tables' route: base, _env, _bvh."""
+    return base + ("_env" if tb.env is not None else "") + ("_bvh" if tb.bvh is not None else "")
 
 
 def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
               carry: Carry, n_steps: int) -> Carry:
     """Run every lane of `carry` for up to n_steps steps -> the new carry.
     lanes: (3, N) int32 px, py, stop; material: (H, W, 4). With a BVH in
-    the tables, path_loop_bvh runs. `.plan` holds the last launch's block,
-    registers, occupancy and waves.
+    the tables, path_loop_bvh runs, with an env path_loop_env (or
+    path_loop_env_bvh). `.plan` holds the last launch's block, registers,
+    occupancy and waves.
 
     On the card a lane stops once its samples are done; the plain version
     idles it, which changes only its sampler state (acc_* and sample_idx
@@ -528,6 +559,8 @@ def path_loop(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     dev = lanes.device
     if not _on_card(dev, "path_loop"):
         return render_path_loop_plain(tb, lanes, material, carry, n_steps)
+    if tb.env is not None:
+        return path_loop_env(tb, lanes, material, carry, n_steps)
     if tb.bvh is not None:
         return path_loop_bvh(tb, lanes, material, carry, n_steps)
     out, _c, path_loop.plan = loop_launch(load_library(), tb, lanes, material, carry, n_steps)
@@ -546,6 +579,8 @@ def path_loop_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     dev = lanes.device
     if not _on_card(dev, "path_loop_bvh"):
         return render_path_loop_plain(tb, lanes, material, carry, n_steps)
+    if tb.env is not None:
+        return path_loop_env_bvh(tb, lanes, material, carry, n_steps)
     out, path_loop_bvh.counts, path_loop_bvh.plan = loop_launch(
         load_library(), tb, lanes, material, carry, n_steps)
     path_loop_bvh.launches += 1
@@ -557,11 +592,53 @@ path_loop_bvh.counts = None
 path_loop_bvh.plan = None
 
 
+def path_loop_env(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                  carry: Carry, n_steps: int) -> Carry:
+    """path_loop under the environment light of tb.env: the dense kernel's
+    env instantiation, or with a BVH in the tables path_loop_env_bvh (the
+    plain version the same: loop_step reads the env the tables carry)."""
+    dev = lanes.device
+    if not _on_card(dev, "path_loop_env"):
+        return render_path_loop_plain(tb, lanes, material, carry, n_steps)
+    if tb.env is None:
+        raise ValueError("path_loop_env needs tables with an env")
+    if tb.bvh is not None:
+        return path_loop_env_bvh(tb, lanes, material, carry, n_steps)
+    out, _c, path_loop_env.plan = loop_launch(load_library(), tb, lanes, material, carry,
+                                              n_steps)
+    path_loop_env.launches += 1
+    return out
+
+
+path_loop_env.launches = 0
+path_loop_env.plan = None
+
+
+def path_loop_env_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                      carry: Carry, n_steps: int) -> Carry:
+    """path_loop_env through the BVH of tb.bvh."""
+    dev = lanes.device
+    if not _on_card(dev, "path_loop_env_bvh"):
+        return render_path_loop_plain(tb, lanes, material, carry, n_steps)
+    if tb.env is None or tb.bvh is None:
+        raise ValueError("path_loop_env_bvh needs tables with an env and a BVH")
+    out, path_loop_env_bvh.counts, path_loop_env_bvh.plan = loop_launch(
+        load_library(), tb, lanes, material, carry, n_steps)
+    path_loop_env_bvh.launches += 1
+    return out
+
+
+path_loop_env_bvh.launches = 0
+path_loop_env_bvh.counts = None
+path_loop_env_bvh.plan = None
+
+
 def grad_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
                 le_grad: torch.Tensor, n_steps: int, k_cap=None):
     """One launch of a build of csrc/path_loop_grad.cu (`lib`: load_library()'s
     entries, or a build's of the same C entries), its dense or its BVH
-    kernel as tb.bvh says, on CUDA tensors, counting nothing: the gradient
+    kernel as tb.bvh says, under tb.env where the tables carry one, on CUDA
+    tensors, counting nothing: the gradient
     wrappers, and the tests and studies of other row layouts. k_cap: the
     most tap rows a sample in shared memory (GRAD_NEAR_ROWS of the route;
     0 keeps them all in global scratch) -> (d_material, the final carry,
@@ -578,7 +655,9 @@ def grad_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor
     rows = max(tb.max_depth, 1)
     k_cap = min(GRAD_NEAR_ROWS["bvh" if bvh else "dense"] if k_cap is None else k_cap, rows)
     info = (ctypes.c_int * 6)()
-    _raise_on(lib.zdr_path_loop_grad_plan(int(bvh), table_bytes, k_cap, info), "path_loop_grad")
+    kind = int(bvh) | (2 if tb.env is not None else 0)
+    name = _loop_name("path_loop_grad", tb)
+    _raise_on(lib.zdr_path_loop_grad_plan(kind, table_bytes, k_cap, info), name)
     plan = dict(zip(("k_near", "block", "registers", "blocks_per_sm", "smem_bytes",
                      "local_bytes"), info))
     carry = init_carry(lanes)
@@ -591,14 +670,16 @@ def grad_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor
         carry.f.data_ptr(), carry.i.data_ptr(), f_out.data_ptr(), i_out.data_ptr(),
         far.data_ptr(), grad.data_ptr(), n, n_steps, plan["k_near"])
     stream = torch.cuda.current_stream(dev).cuda_stream
+    env = () if tb.env is None else env_args(tb.env, dev)
     counts = None
     if bvh:
         counts = _counts(dev)
-        rc = lib.zdr_path_loop_grad_bvh(*args, *bvh_args(tb.bvh, dev), counts.data_ptr(),
-                                        stream)
+        entry = lib.zdr_path_loop_grad_env_bvh if env else lib.zdr_path_loop_grad_bvh
+        rc = entry(*args, *bvh_args(tb.bvh, dev), counts.data_ptr(), *env, stream)
     else:
-        rc = lib.zdr_path_loop_grad(*args, stream)
-    _raise_on(rc, "path_loop_grad_bvh" if bvh else "path_loop_grad")
+        entry = lib.zdr_path_loop_grad_env if env else lib.zdr_path_loop_grad
+        rc = entry(*args, *env, stream)
+    _raise_on(rc, name)
     return grad, Carry(f_out, i_out), counts, plan
 
 
@@ -608,7 +689,8 @@ def path_loop_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     carry, given le_grad, the (3, N) float32 adjoint of each of a lane's
     samples -> (d_material (H, W, 4), the final carry, whose acc_* rows are
     the forward render's). With a BVH in the tables, path_loop_grad_bvh
-    runs. `.plan` holds the last launch's tap rows in shared memory, block,
+    runs, with an env path_loop_grad_env (or path_loop_grad_env_bvh).
+    `.plan` holds the last launch's tap rows in shared memory, block,
     registers and occupancy.
 
     On the card the float atomics sum the taps in an order that changes
@@ -616,6 +698,8 @@ def path_loop_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     dev = lanes.device
     if not _on_card(dev, "path_loop_grad"):
         return render_path_backward_loop_plain(tb, lanes, material, le_grad, n_steps)
+    if tb.env is not None:
+        return path_loop_grad_env(tb, lanes, material, le_grad, n_steps)
     if tb.bvh is not None:
         return path_loop_grad_bvh(tb, lanes, material, le_grad, n_steps)
     grad, carry, _c, path_loop_grad.plan = grad_launch(load_library(), tb, lanes, material,
@@ -634,6 +718,8 @@ def path_loop_grad_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tens
     dev = lanes.device
     if not _on_card(dev, "path_loop_grad_bvh"):
         return render_path_backward_loop_plain(tb, lanes, material, le_grad, n_steps)
+    if tb.env is not None:
+        return path_loop_grad_env_bvh(tb, lanes, material, le_grad, n_steps)
     grad, carry, path_loop_grad_bvh.counts, path_loop_grad_bvh.plan = grad_launch(
         load_library(), tb, lanes, material, le_grad, n_steps)
     path_loop_grad_bvh.launches += 1
@@ -643,6 +729,46 @@ def path_loop_grad_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tens
 path_loop_grad_bvh.launches = 0
 path_loop_grad_bvh.counts = None
 path_loop_grad_bvh.plan = None
+
+
+def path_loop_grad_env(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                       le_grad: torch.Tensor, n_steps: int):
+    """path_loop_grad under the environment light of tb.env, as
+    path_loop_env."""
+    dev = lanes.device
+    if not _on_card(dev, "path_loop_grad_env"):
+        return render_path_backward_loop_plain(tb, lanes, material, le_grad, n_steps)
+    if tb.env is None:
+        raise ValueError("path_loop_grad_env needs tables with an env")
+    if tb.bvh is not None:
+        return path_loop_grad_env_bvh(tb, lanes, material, le_grad, n_steps)
+    grad, carry, _c, path_loop_grad_env.plan = grad_launch(load_library(), tb, lanes, material,
+                                                           le_grad, n_steps)
+    path_loop_grad_env.launches += 1
+    return grad, carry
+
+
+path_loop_grad_env.launches = 0
+path_loop_grad_env.plan = None
+
+
+def path_loop_grad_env_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
+                           le_grad: torch.Tensor, n_steps: int):
+    """path_loop_grad_env through the BVH of tb.bvh."""
+    dev = lanes.device
+    if not _on_card(dev, "path_loop_grad_env_bvh"):
+        return render_path_backward_loop_plain(tb, lanes, material, le_grad, n_steps)
+    if tb.env is None or tb.bvh is None:
+        raise ValueError("path_loop_grad_env_bvh needs tables with an env and a BVH")
+    grad, carry, path_loop_grad_env_bvh.counts, path_loop_grad_env_bvh.plan = grad_launch(
+        load_library(), tb, lanes, material, le_grad, n_steps)
+    path_loop_grad_env_bvh.launches += 1
+    return grad, carry
+
+
+path_loop_grad_env_bvh.launches = 0
+path_loop_grad_env_bvh.counts = None
+path_loop_grad_env_bvh.plan = None
 
 
 def sampler_probe(kind: str, spp: int, lanes: torch.Tensor, k: int, bn) -> torch.Tensor:

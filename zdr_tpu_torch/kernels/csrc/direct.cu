@@ -157,16 +157,6 @@ int launch_config(K kernel, size_t smem) {
                                    (int)smem);
 }
 
-// The env tables of a launch: none (every pointer null), or the texture
-// (env_h, env_w, 4) float32, the alias probabilities and indices
-// (kEnvMapH + kEnvMapH * kEnvMapW) float32 / int32 and the pdf (kEnvMapH *
-// kEnvMapW) float32, with the light selection's 1/n from the params.
-zdr::EnvTables env_tables(const zdr::LoopParams& q, const float* tex, int h, int w,
-                          const float* prob, const int* alias, const float* pdf) {
-  int n_i = q.n_env + q.n_point + q.n_mesh;
-  return zdr::EnvTables{tex, prob, alias, pdf, h, w, (float)(1.0 / (double)(n_i > 1 ? n_i : 1))};
-}
-
 // One launch of the dense direct kernel, forward or tap mode (le_grad
 // set), with or without the early out and the env.
 int direct_dense(const int* params, const float* tables, int tables_n, const float* bn,
@@ -281,7 +271,8 @@ int zdr_direct_env(const int* params, const float* tables, int tables_n, const f
   if (q.n_env != 1 || !env_tex || env_h < 2 || env_w < 1) return (int)cudaErrorInvalidValue;
   return direct_dense(params, tables, tables_n, bn, material, lanes, le_grad, acc, grad, counts,
                       n, early,
-                      env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf), true,
+                      zdr::env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf),
+                      true,
                       block, plan, stream);
 }
 
@@ -296,7 +287,8 @@ int zdr_direct_env_bvh(const int* params, const float* tables, int tables_n, int
   if (q.n_env != 1 || !env_tex || env_h < 2 || env_w < 1) return (int)cudaErrorInvalidValue;
   return direct_bvh(params, tables, tables_n, small_shared, bn, material, lanes, le_grad, acc,
                     grad, nodes, geom, n_nodes, n_rows, counts, n,
-                    env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf), true,
+                    zdr::env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf),
+                    true,
                     stream);
 }
 

@@ -145,9 +145,8 @@ int zdr_direct_env_host(const int* params, const float* tables, int tables_n, co
                         const float* geom, int n_nodes, int n_rows) {
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q) || q.n_env != 1) return 1;
-  int n_i = q.n_env + q.n_point + q.n_mesh;
-  zdr::EnvTables env{env_tex, env_prob, env_alias, env_pdf, env_h, env_w,
-                     (float)(1.0 / (double)(n_i > 1 ? n_i : 1))};
+  zdr::EnvTables env =
+      zdr::env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf);
   if (nodes || n_rows) {
     const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
     zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);

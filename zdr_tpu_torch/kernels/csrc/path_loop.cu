@@ -41,6 +41,14 @@
 // is left: a wavefront split of the sampler, sweeps and shading into passes
 // is the next redesign's.
 //
+// Under an environment map the same kernels run their kEnv instantiations
+// (path_loop_env, path_loop_env_bvh): the port of the JAX package's route
+// for path + env, path_fused.py's chain of pallas_bounce.py's B3 and
+// _shade_kernel around the env glue (fused_glue.py). The env tables ride
+// as a kernel argument in device memory, read through the read-only path;
+// the instantiations without the env never read it, and compile to the
+// code they had before it.
+//
 // path_loop_bvh_kernel is the same walk with its two sweeps a step through
 // the ordered BVH walk in global memory (trace.cuh): the big-mesh route that
 // the JAX package took through path_fused.py's streamed sweeps, B5 in
@@ -60,13 +68,15 @@ namespace {
 
 // Each kernel is capped at 64 registers, 32 warps an SM, by its largest
 // block and the blocks an SM that block needs; it launches at any power of
-// two from 32 up to that block (the code reads blockDim).
+// two from 32 up to that block (the code reads blockDim). kEnv: under the
+// environment light of `env`.
+template <bool kEnv>
 __global__ void __launch_bounds__(512, 2)
     path_loop_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                      const float* __restrict__ bn, const float* __restrict__ material,
                      const int* __restrict__ lanes, const float* __restrict__ f_in,
                      const int* __restrict__ i_in, float* __restrict__ f_out,
-                     int* __restrict__ i_out, int n, int n_steps) {
+                     int* __restrict__ i_out, int n, int n_steps, zdr::EnvTables env) {
   extern __shared__ float smem[];
   for (int k = threadIdx.x; k < tables_n; k += blockDim.x) smem[k] = tables[k];
   __syncthreads();
@@ -77,10 +87,12 @@ __global__ void __launch_bounds__(512, 2)
                                       q.seed, q);
   zdr::LaneState s;
   zdr::load_lane(s, f_in, i_in, lane, n);
-  zdr::run_lane(s, lc, tb, q, n_steps);
+  zdr::run_lane<false, zdr::DenseSweep<>, kEnv>(s, lc, tb, q, n_steps, nullptr,
+                                                zdr::DenseSweep<>(), nullptr, &env);
   zdr::store_lane(s, f_out, i_out, lane, n);
 }
 
+template <bool kEnv>
 __global__ void __launch_bounds__(256, 4)
     path_loop_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables,
                          int small_shared, const float* __restrict__ bn,
@@ -88,7 +100,7 @@ __global__ void __launch_bounds__(256, 4)
                          const int* __restrict__ lanes, const float* __restrict__ f_in,
                          const int* __restrict__ i_in, float* __restrict__ f_out,
                          int* __restrict__ i_out, int n, int n_steps, zdr::Bvh bvh,
-                         unsigned long long* counts) {
+                         unsigned long long* counts, zdr::EnvTables env) {
   extern __shared__ float smem[];
   const float* small = zdr::load_small(smem, tables, q, small_shared);
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -99,7 +111,8 @@ __global__ void __launch_bounds__(256, 4)
                                         q.seed, q);
     zdr::LaneState s;
     zdr::load_lane(s, f_in, i_in, lane, n);
-    zdr::run_lane(s, lc, tb, q, n_steps, nullptr, zdr::BvhTrace{bvh}, &count);
+    zdr::run_lane<false, zdr::BvhTrace, kEnv>(s, lc, tb, q, n_steps, nullptr,
+                                              zdr::BvhTrace{bvh}, &count, &env);
     zdr::store_lane(s, f_out, i_out, lane, n);
   }
   zdr::warp_add(counts, count.tests);
@@ -115,11 +128,47 @@ __global__ void sampler_probe_kernel(zdr::LoopParams q, const float* __restrict_
                           (uint32_t)lanes[3L * n + lane], k, out, lane, n);
 }
 
+// One launch of the dense kernel, with or without the env.
+int loop_dense(const int* params, const float* tables, int tables_n, const float* bn,
+               const float* material, const int* lanes, const float* f_in, const int* i_in,
+               float* f_out, int* i_out, int n, int n_steps, zdr::EnvTables env, bool with_env,
+               int block, int* plan, void* stream) {
+  zdr::LoopParams q = zdr::params_from(params);
+  // the params' env count must be the instantiation's
+  if (tables_n != zdr::tables_size(q) || (q.n_env != 0) != with_env)
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {&q,     &tables, &tables_n, &bn,  &material, &lanes, &f_in,
+                  &i_in,  &f_out,  &i_out,    &n,   &n_steps,  &env};
+  const void* fn = with_env ? (const void*)path_loop_kernel<true>
+                            : (const void*)path_loop_kernel<false>;
+  return zdr::launch(fn, n, tables_n * (int)sizeof(float), block, plan, args, stream);
+}
+
+// One launch of the BVH kernel, with or without the env.
+int loop_bvh(const int* params, const float* tables, int tables_n, int small_shared,
+             const float* bn, const float* material, const int* lanes, const float* f_in,
+             const int* i_in, float* f_out, int* i_out, int n, int n_steps, const float* nodes,
+             const float* geom, int n_nodes, int n_rows, unsigned long long* counts,
+             zdr::EnvTables env, bool with_env, int block, int* plan, void* stream) {
+  zdr::LoopParams q = zdr::params_from(params);
+  // the params' env count must be the instantiation's
+  if (tables_n != zdr::tables_size(q) || (q.n_env != 0) != with_env)
+    return (int)cudaErrorInvalidValue;
+  int smem = small_shared ? zdr::small_size(q) * (int)sizeof(float) : 0;
+  zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
+  void* args[] = {&q,    &tables, &small_shared, &bn,      &material, &lanes, &f_in,
+                  &i_in, &f_out,  &i_out,        &n,       &n_steps,  &bvh,   &counts,
+                  &env};
+  const void* fn = with_env ? (const void*)path_loop_bvh_kernel<true>
+                            : (const void*)path_loop_bvh_kernel<false>;
+  return zdr::launch(fn, n, smem, block, plan, args, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// params: the 17 ints of zdr::LoopParams (host memory); tables: tables_size floats;
+// params: the 18 ints of zdr::LoopParams (host memory); tables: tables_size floats;
 // lanes: (3, n) int32 px, py, stop; carry: (kNumF, n) float32 and
 // (kNumI, n) int32, read from *_in and written to *_out; block and plan: as
 // launch's (block 0: the plan's pick; plan: 8 ints, written). Returns the
@@ -128,12 +177,8 @@ int zdr_path_loop(const int* params, const float* tables, int tables_n, const fl
                   const float* material, const int* lanes, const float* f_in,
                   const int* i_in, float* f_out, int* i_out, int n, int n_steps, int block,
                   int* plan, void* stream) {
-  zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
-  void* args[] = {&q,     &tables, &tables_n, &bn,  &material, &lanes, &f_in,
-                  &i_in,  &f_out,  &i_out,    &n,   &n_steps};
-  return zdr::launch((const void*)path_loop_kernel, n, tables_n * (int)sizeof(float), block,
-                     plan, args, stream);
+  return loop_dense(params, tables, tables_n, bn, material, lanes, f_in, i_in, f_out, i_out, n,
+                    n_steps, zdr::EnvTables{}, false, block, plan, stream);
 }
 
 // zdr_path_loop through the BVH: nodes (n_nodes, 16) float32, geom (n_rows,
@@ -147,13 +192,44 @@ int zdr_path_loop_bvh(const int* params, const float* tables, int tables_n, int 
                       const int* i_in, float* f_out, int* i_out, int n, int n_steps,
                       const float* nodes, const float* geom, int n_nodes, int n_rows, unsigned long long* counts, int block, int* plan,
                       void* stream) {
+  return loop_bvh(params, tables, tables_n, small_shared, bn, material, lanes, f_in, i_in,
+                  f_out, i_out, n, n_steps, nodes, geom, n_nodes, n_rows, counts,
+                  zdr::EnvTables{}, false, block, plan, stream);
+}
+
+// zdr_path_loop under an environment light: the params' n_env is 1, and
+// env_tex (env_h, env_w, 4), env_prob, env_alias and env_pdf are the
+// envmap's tables (zdr_tpu_torch/envmap.py EnvMap), read through the
+// read-only path.
+int zdr_path_loop_env(const int* params, const float* tables, int tables_n, const float* bn,
+                      const float* material, const int* lanes, const float* f_in,
+                      const int* i_in, float* f_out, int* i_out, int n, int n_steps,
+                      const float* env_tex, int env_h, int env_w, const float* env_prob,
+                      const int* env_alias, const float* env_pdf, int block, int* plan,
+                      void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
-  int smem = small_shared ? zdr::small_size(q) * (int)sizeof(float) : 0;
-  zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
-  void* args[] = {&q,    &tables, &small_shared, &bn,      &material, &lanes, &f_in,
-                  &i_in, &f_out,  &i_out,        &n,       &n_steps,  &bvh,   &counts};
-  return zdr::launch((const void*)path_loop_bvh_kernel, n, smem, block, plan, args, stream);
+  if (q.n_env != 1 || !env_tex || env_h < 2 || env_w < 1) return (int)cudaErrorInvalidValue;
+  return loop_dense(params, tables, tables_n, bn, material, lanes, f_in, i_in, f_out, i_out, n,
+                    n_steps, zdr::env_tables(q, env_tex, env_h, env_w, env_prob, env_alias,
+                                             env_pdf),
+                    true, block, plan, stream);
+}
+
+// zdr_path_loop_bvh under an environment light, as zdr_path_loop_env.
+int zdr_path_loop_env_bvh(const int* params, const float* tables, int tables_n,
+                          int small_shared, const float* bn, const float* material,
+                          const int* lanes, const float* f_in, const int* i_in, float* f_out,
+                          int* i_out, int n, int n_steps, const float* nodes,
+                          const float* geom, int n_nodes, int n_rows,
+                          unsigned long long* counts, const float* env_tex, int env_h,
+                          int env_w, const float* env_prob, const int* env_alias,
+                          const float* env_pdf, int block, int* plan, void* stream) {
+  zdr::LoopParams q = zdr::params_from(params);
+  if (q.n_env != 1 || !env_tex || env_h < 2 || env_w < 1) return (int)cudaErrorInvalidValue;
+  return loop_bvh(params, tables, tables_n, small_shared, bn, material, lanes, f_in, i_in,
+                  f_out, i_out, n, n_steps, nodes, geom, n_nodes, n_rows, counts,
+                  zdr::env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf),
+                  true, block, plan, stream);
 }
 
 // lanes: (4, n) int32 px, py, seed, sample_idx; out: (3k, n) float32, for

@@ -36,6 +36,11 @@
 // The atomics sum in an order that changes from run to run, so the
 // gradient's last bits do too.
 //
+// Under an environment map the kernels run their kEnv instantiations
+// (path_loop_grad_env, path_loop_grad_env_bvh), as path_loop.cu's do: the
+// env's miss radiance enters a row's radiance as an emitter hit's does, so
+// the rows keep their layout (kRowPlanes).
+//
 // path_loop_grad_bvh_kernel is the same walk with its sweeps through the
 // ordered BVH walk in global memory (trace.cuh), as path_loop.cu's
 // path_loop_bvh_kernel: the big-mesh route of the JAX package's path_fused
@@ -84,12 +89,12 @@ __device__ zdr::GradLane grad_lane(const float* le_grad, long lane, int n, float
 }
 
 // A thread past the last lane has no sample (stop 0): its walk ends at once.
-template <class Tracer>
+template <bool kEnv, class Tracer>
 __device__ __forceinline__ void walk(const zdr::Tables& tb, const zdr::LoopParams& q,
                                      const int* lanes, const float* f_in, const int* i_in,
                                      float* f_out, int* i_out, long lane, int n, int n_steps,
                                      const zdr::GradLane& gl, const Tracer& tr,
-                                     zdr::TraceCount* count) {
+                                     zdr::TraceCount* count, const zdr::EnvTables* env) {
   zdr::LaneState s;
   zdr::LaneConst lc;
   if (lane < n) {
@@ -100,10 +105,11 @@ __device__ __forceinline__ void walk(const zdr::Tables& tb, const zdr::LoopParam
     s.sample_idx = 0;
     s.in_flight = 0;
   }
-  zdr::run_lane<true>(s, lc, tb, q, n_steps, &gl, tr, count);
+  zdr::run_lane<true, Tracer, kEnv>(s, lc, tb, q, n_steps, &gl, tr, count, env);
   if (lane < n) zdr::store_lane(s, f_out, i_out, lane, n);
 }
 
+template <bool kEnv>
 __global__ void __launch_bounds__(kBlock)
     path_loop_grad_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                           const float* __restrict__ bn, const float* __restrict__ material,
@@ -111,17 +117,18 @@ __global__ void __launch_bounds__(kBlock)
                           const float* __restrict__ f_in, const int* __restrict__ i_in,
                           float* __restrict__ f_out, int* __restrict__ i_out,
                           float* __restrict__ far, float* grad, int n, int n_steps,
-                          int k_near) {
+                          int k_near, zdr::EnvTables env) {
   extern __shared__ float smem[];
   for (int k = threadIdx.x; k < tables_n; k += blockDim.x) smem[k] = tables[k];
   __syncthreads();
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   zdr::Tables tb = zdr::tables_at(smem, bn, material, q);
   zdr::GradLane gl = grad_lane(le_grad, lane, n, smem + tables_n, k_near, far, grad);
-  walk(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl, zdr::DenseSweep<>(),
-       nullptr);
+  walk<kEnv>(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl,
+             zdr::DenseSweep<>(), nullptr, &env);
 }
 
+template <bool kEnv>
 __global__ void __launch_bounds__(kBlock, 4)
     path_loop_grad_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables,
                               int small_shared, const float* __restrict__ bn,
@@ -130,7 +137,8 @@ __global__ void __launch_bounds__(kBlock, 4)
                               const float* __restrict__ f_in, const int* __restrict__ i_in,
                               float* __restrict__ f_out, int* __restrict__ i_out,
                               float* __restrict__ far, float* grad, int n, int n_steps,
-                              int k_near, zdr::Bvh bvh, unsigned long long* counts) {
+                              int k_near, zdr::Bvh bvh, unsigned long long* counts,
+                              zdr::EnvTables env) {
   extern __shared__ float smem[];
   const float* small = zdr::load_small(smem, tables, q, small_shared);
   int n_small = small_shared ? zdr::small_size(q) : 0;
@@ -138,35 +146,82 @@ __global__ void __launch_bounds__(kBlock, 4)
   zdr::TraceCount count = {0, 0};
   zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);
   zdr::GradLane gl = grad_lane(le_grad, lane, n, smem + n_small, k_near, far, grad);
-  walk(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl, zdr::BvhTrace{bvh},
-       &count);
+  walk<kEnv>(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl,
+             zdr::BvhTrace{bvh}, &count, &env);
   zdr::warp_add(counts, count.tests);
   zdr::warp_add(counts + 1, count.visits);
 }
 
 // Dynamic shared memory past 48 KB needs the kernel's consent; give it the
-// most a block may hold, once.
-template <typename K>
-int allow_smem(K kernel) {
+// most a block may hold.
+int allow_smem(const void* kernel) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    kMaxSmem);
+}
+
+// One launch of the dense gradient kernel, with or without the env.
+int grad_dense(const int* params, const float* tables, int tables_n, const float* bn,
+               const float* material, const int* lanes, const float* le_grad,
+               const float* f_in, const int* i_in, float* f_out, int* i_out, float* far,
+               float* grad, int n, int n_steps, int k_near, zdr::EnvTables env, bool with_env,
+               void* stream) {
+  zdr::LoopParams q = zdr::params_from(params);
+  // the params' env count must be the instantiation's
+  if (tables_n != zdr::tables_size(q) || (q.n_env != 0) != with_env)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = (size_t)tables_n * sizeof(float) + near_bytes(k_near);
+  auto fn = with_env ? path_loop_grad_kernel<true> : path_loop_grad_kernel<false>;
+  int err = allow_smem((const void*)fn);
+  if (err) return err;
+  int grid = (n + kBlock - 1) / kBlock;
+  fn<<<grid, kBlock, smem, (cudaStream_t)stream>>>(q, tables, tables_n, bn, material, lanes,
+                                                   le_grad, f_in, i_in, f_out, i_out, far, grad,
+                                                   n, n_steps, k_near, env);
+  return (int)cudaGetLastError();
+}
+
+// One launch of the BVH gradient kernel, with or without the env.
+int grad_bvh(const int* params, const float* tables, int tables_n, int small_shared,
+             const float* bn, const float* material, const int* lanes, const float* le_grad,
+             const float* f_in, const int* i_in, float* f_out, int* i_out, float* far,
+             float* grad, int n, int n_steps, int k_near, const float* nodes, const float* geom,
+             int n_nodes, int n_rows, unsigned long long* counts, zdr::EnvTables env,
+             bool with_env, void* stream) {
+  zdr::LoopParams q = zdr::params_from(params);
+  // the params' env count must be the instantiation's
+  if (tables_n != zdr::tables_size(q) || (q.n_env != 0) != with_env)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = (small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0) +
+                near_bytes(k_near);
+  auto fn = with_env ? path_loop_grad_bvh_kernel<true> : path_loop_grad_bvh_kernel<false>;
+  int err = allow_smem((const void*)fn);
+  if (err) return err;
+  int grid = (n + kBlock - 1) / kBlock;
+  fn<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+      q, tables, small_shared, bn, material, lanes, le_grad, f_in, i_in, f_out, i_out, far,
+      grad, n, n_steps, k_near, zdr::Bvh{nodes, geom, n_nodes, n_rows}, counts, env);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// The launch of a gradient kernel (bvh 0: dense, 1: BVH) whose tables take
-// table_bytes of shared memory: k_near, the most near rows, up to k_cap,
-// that keep the resident blocks an SM of k_near = 0 (the rows are only as
-// deep as max_depth, so k_cap need not pass it). info: k_near, the block
-// size, the registers a thread, the resident blocks an SM, the block's
-// shared memory, the local memory a thread (spills). Returns the CUDA error
-// (cudaErrorInvalidValue when the tables alone do not fit a block).
-int zdr_path_loop_grad_plan(int bvh, int table_bytes, int k_cap, int* info) {
-  const void* kernel = bvh ? (const void*)path_loop_grad_bvh_kernel
-                           : (const void*)path_loop_grad_kernel;
-  int err = bvh ? allow_smem(path_loop_grad_bvh_kernel) : allow_smem(path_loop_grad_kernel);
+// The launch of a gradient kernel (kind: bit 0 the BVH, bit 1 the env; 0
+// the dense kernel without the env) whose tables take table_bytes of shared
+// memory: k_near, the most near rows, up to k_cap, that keep the resident
+// blocks an SM of k_near = 0 (the rows are only as deep as max_depth, so
+// k_cap need not pass it). info: k_near, the block size, the registers a
+// thread, the resident blocks an SM, the block's shared memory, the local
+// memory a thread (spills). Returns the CUDA error (cudaErrorInvalidValue
+// when the tables alone do not fit a block).
+int zdr_path_loop_grad_plan(int kind, int table_bytes, int k_cap, int* info) {
+  const void* kernels[4] = {
+      (const void*)path_loop_grad_kernel<false>, (const void*)path_loop_grad_bvh_kernel<false>,
+      (const void*)path_loop_grad_kernel<true>, (const void*)path_loop_grad_bvh_kernel<true>};
+  if (kind < 0 || kind > 3) return (int)cudaErrorInvalidValue;
+  const void* kernel = kernels[kind];
+  int err = allow_smem(kernel);
   if (err) return err;
   if (table_bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
@@ -204,16 +259,8 @@ int zdr_path_loop_grad(const int* params, const float* tables, int tables_n,
                        const float* le_grad, const float* f_in, const int* i_in,
                        float* f_out, int* i_out, float* far, float* grad, int n,
                        int n_steps, int k_near, void* stream) {
-  zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)tables_n * sizeof(float) + near_bytes(k_near);
-  int err = allow_smem(path_loop_grad_kernel);
-  if (err) return err;
-  int grid = (n + kBlock - 1) / kBlock;
-  path_loop_grad_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      q, tables, tables_n, bn, material, lanes, le_grad, f_in, i_in, f_out, i_out, far, grad,
-      n, n_steps, k_near);
-  return (int)cudaGetLastError();
+  return grad_dense(params, tables, tables_n, bn, material, lanes, le_grad, f_in, i_in, f_out,
+                    i_out, far, grad, n, n_steps, k_near, zdr::EnvTables{}, false, stream);
 }
 
 // zdr_path_loop_grad through the BVH, with the BVH arguments and counts of
@@ -226,17 +273,47 @@ int zdr_path_loop_grad_bvh(const int* params, const float* tables, int tables_n,
                            float* grad, int n, int n_steps, int k_near, const float* nodes,
                            const float* geom, int n_nodes, int n_rows,
                            unsigned long long* counts, void* stream) {
+  return grad_bvh(params, tables, tables_n, small_shared, bn, material, lanes, le_grad, f_in,
+                  i_in, f_out, i_out, far, grad, n, n_steps, k_near, nodes, geom, n_nodes,
+                  n_rows, counts, zdr::EnvTables{}, false, stream);
+}
+
+// zdr_path_loop_grad under an environment light: the params' n_env is 1,
+// and the env's tables as zdr_path_loop_env's (path_loop.cu); k_near from
+// zdr_path_loop_grad_plan of kind 2.
+int zdr_path_loop_grad_env(const int* params, const float* tables, int tables_n,
+                           const float* bn, const float* material, const int* lanes,
+                           const float* le_grad, const float* f_in, const int* i_in,
+                           float* f_out, int* i_out, float* far, float* grad, int n,
+                           int n_steps, int k_near, const float* env_tex, int env_h,
+                           int env_w, const float* env_prob, const int* env_alias,
+                           const float* env_pdf, void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
-  size_t smem = (small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0) +
-                near_bytes(k_near);
-  int err = allow_smem(path_loop_grad_bvh_kernel);
-  if (err) return err;
-  int grid = (n + kBlock - 1) / kBlock;
-  path_loop_grad_bvh_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      q, tables, small_shared, bn, material, lanes, le_grad, f_in, i_in, f_out, i_out, far,
-      grad, n, n_steps, k_near, zdr::Bvh{nodes, geom, n_nodes, n_rows}, counts);
-  return (int)cudaGetLastError();
+  if (q.n_env != 1 || !env_tex || env_h < 2 || env_w < 1) return (int)cudaErrorInvalidValue;
+  return grad_dense(params, tables, tables_n, bn, material, lanes, le_grad, f_in, i_in, f_out,
+                    i_out, far, grad, n, n_steps, k_near,
+                    zdr::env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf),
+                    true, stream);
+}
+
+// zdr_path_loop_grad_bvh under an environment light, as
+// zdr_path_loop_grad_env; k_near from zdr_path_loop_grad_plan of kind 3.
+int zdr_path_loop_grad_env_bvh(const int* params, const float* tables, int tables_n,
+                               int small_shared, const float* bn, const float* material,
+                               const int* lanes, const float* le_grad, const float* f_in,
+                               const int* i_in, float* f_out, int* i_out, float* far,
+                               float* grad, int n, int n_steps, int k_near,
+                               const float* nodes, const float* geom, int n_nodes, int n_rows,
+                               unsigned long long* counts, const float* env_tex, int env_h,
+                               int env_w, const float* env_prob, const int* env_alias,
+                               const float* env_pdf, void* stream) {
+  zdr::LoopParams q = zdr::params_from(params);
+  if (q.n_env != 1 || !env_tex || env_h < 2 || env_w < 1) return (int)cudaErrorInvalidValue;
+  return grad_bvh(params, tables, tables_n, small_shared, bn, material, lanes, le_grad, f_in,
+                  i_in, f_out, i_out, far, grad, n, n_steps, k_near, nodes, geom, n_nodes,
+                  n_rows, counts,
+                  zdr::env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf),
+                  true, stream);
 }
 
 }  // extern "C"

@@ -115,6 +115,60 @@ int zdr_path_loop_bvh_host(const int* params, const float* tables, int tables_n,
   return 0;
 }
 
+// The kEnv instantiations of the path-loop kernels (zdr_path_loop_env,
+// zdr_path_loop_grad_env and their _bvh entries) without the stream, the
+// block and the plan, each lane after the other: the forward where le_grad
+// is null (far, grad and k_near unused), else the tap mode; the dense sweep
+// where nodes is null and n_rows 0, else the BVH walk with the small tables
+// from a copy (small_shared 1) or from the packed tables (0); counts: the
+// tests and node visits; the env's tables as zdr_path_loop_env's.
+int zdr_path_loop_env_host(const int* params, const float* tables, int tables_n,
+                           int small_shared, const float* bn, const float* material,
+                           const int* lanes, const float* le_grad, const float* f_in,
+                           const int* i_in, float* f_out, int* i_out, float* far, float* grad,
+                           int n, int n_steps, int k_near, const float* nodes,
+                           const float* geom, int n_nodes, int n_rows,
+                           unsigned long long* counts, const float* env_tex, int env_h,
+                           int env_w, const float* env_prob, const int* env_alias,
+                           const float* env_pdf) {
+  zdr::LoopParams q = zdr::params_from(params);
+  if (tables_n != zdr::tables_size(q) || k_near < 0 || q.n_env != 1) return 1;
+  zdr::EnvTables env =
+      zdr::env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf);
+  bool bvh = nodes || n_rows;
+  const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
+  std::vector<float> copy(small, small + zdr::small_size(q));
+  zdr::Tables tb = bvh ? zdr::bvh_tables(small_shared ? copy.data() : small, tables, bn,
+                                         material, q)
+                       : zdr::tables_at(tables, bn, material, q);
+  zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
+  zdr::TraceCount c = {0, 0};
+  std::vector<float> near(le_grad ? (size_t)k_near * zdr::kRowPlanes * n : 0);
+  for (long lane = 0; lane < n; ++lane) {
+    zdr::LaneConst lc =
+        zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane], q.seed, q);
+    zdr::LaneState s;
+    zdr::load_lane(s, f_in, i_in, lane, n);
+    zdr::GradLane gl;
+    if (le_grad) gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
+    const zdr::GradLane* g = le_grad ? &gl : nullptr;
+    if (bvh && le_grad)
+      zdr::run_lane<true, zdr::BvhTrace, true>(s, lc, tb, q, n_steps, g, tr, &c, &env);
+    else if (bvh)
+      zdr::run_lane<false, zdr::BvhTrace, true>(s, lc, tb, q, n_steps, g, tr, &c, &env);
+    else if (le_grad)
+      zdr::run_lane<true, zdr::DenseSweep<>, true>(s, lc, tb, q, n_steps, g,
+                                                   zdr::DenseSweep<>(), &c, &env);
+    else
+      zdr::run_lane<false, zdr::DenseSweep<>, true>(s, lc, tb, q, n_steps, g,
+                                                    zdr::DenseSweep<>(), &c, &env);
+    zdr::store_lane(s, f_out, i_out, lane, n);
+  }
+  counts[0] += c.tests;
+  counts[1] += c.visits;
+  return 0;
+}
+
 int zdr_sampler_probe_host(const int* params, const float* bn, const int* lanes, int n,
                            int k, float* out) {
   zdr::LoopParams q = zdr::params_from(params);

@@ -1,7 +1,8 @@
 """Scene: the user-facing API (port of zdr_tpu/scene.py:84-302), on torch.
 
     scene = Scene([(obj_file, transform_or_None, emission_or_None), ...],
-                  integrator="direct", device="cuda")
+                  integrator="direct", accel="auto", sampler="pmj02bn",
+                  device="cuda")
     scene.camera = Camera(fov=..., origin=..., target=..., up=...)
     image = scene.render(material, res=(W, H), spp=64, seed=0)   # (H, W, 4)
 
@@ -16,8 +17,9 @@ collocated_grad for the collocated integrator; path_loop and path_loop_grad
 for the path integrator; on "cpu" their plain versions). The render is
 differentiable in the material: the backward re-estimates the texture
 gradient at seed + 1 (Path Replay Backprop for the path integrator).
-add_envmap lights the scene with an environment map (the direct
-integrator; the path kernels do not read it yet, ROADMAP A11).
+add_envmap lights the scene with an environment map (the direct and
+path integrators: their kernels' env instantiations; the collocated
+integrator lights by its camera light alone, as JAX's does).
 
 `accel` picks the route of the sweeps (JAX's names): "bruteforce" or
 "pallas", the dense sweep over the kernels' shared-memory scene table;
@@ -65,19 +67,21 @@ class Scene:
         models: list of (obj_file_or_ObjMesh, transform_4x4_or_None,
             emission_or_None). Emission > 0 marks an instance as an area light.
         integrator: 'direct' (default) | 'collocated' | 'path'.
-        sampler: 'pmj02bn' (default) | 'lcg'.
         accel: 'auto' (default) | 'bruteforce' | 'pallas' | 'bvh' | 'stream'.
-        device: torch device of the scene and of every render: the card
-            ("cuda", the default) or "cpu" for the plain versions.
+        sampler: 'pmj02bn' (default) | 'lcg'.
+        device: torch device of the scene and of every render, keyword only:
+            the card ("cuda", the default) or "cpu" for the plain versions.
+
+    The positional order is the JAX package's (zdr_tpu/scene.py:96-102).
     """
 
     def __init__(
         self,
         models: Sequence[Tuple[Union[str, ObjMesh], Optional[np.ndarray], object]],
         integrator: str = "direct",
+        accel: str = "auto",
         sampler: str = "pmj02bn",
         *,
-        accel: str = "auto",
         device="cuda",
     ):
         if len(models) > MAX_INSTANCES:
@@ -173,11 +177,15 @@ class Scene:
         scene.py:219-245): its sampling tables are built once, here.
 
         Args:
-            img: (H, W, 3 or 4) float array, 1:2 or 1:1; a 3-channel image
-                gets alpha 1.
+            img: (H, W, 3 or 4) float array, 1:2 or 1:1, or a path that
+                imageio reads; a 3-channel image gets alpha 1.
             compensate_mis: sample the map less its sin-weighted mean
                 (envmap.build_envmap).
         """
+        if isinstance(img, str):
+            import imageio.v2 as imageio
+
+            img = np.asarray(imageio.imread(img))
         img = np.asarray(img, dtype=np.float32)
         if img.ndim == 3 and img.shape[2] == 3:
             img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
