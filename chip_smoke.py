@@ -10,8 +10,12 @@ Phases, one line each; any failure raises and exits non-zero:
      zdr_tpu_torch/kernels/_build/; ptxas's registers, local bytes (stack
      frame) and spill bytes of the BVH megakernels, the dense direct
      kernels' instantiations (with and without the envmap) and the
-     collocated kernels (ptxas_bvh), also under "ptxas" in their records;
-  3. the sampler probe kernel, bit for bit against the plain sampler;
+     collocated kernels (ptxas_bvh), each without and with the generic
+     sampler (kGen: "<name>_gen"), also under "ptxas" in their records;
+  3. the sampler probe kernel, bit for bit against the plain sampler: lcg,
+     pmj02bn and corrmj at 64 spp, corrmj at 96 and 65 and pmj02bn at 96
+     and 65 (the generic instantiation), each timed, with its bound and the
+     rejection rounds of the plain permutation;
   4. one path-loop kernel step (n_steps=1) against loop_step at 128x128,
      from the first carry and after 5 steps;
   5. the whole render at 128x128, 16 spp: kernel against plain version;
@@ -129,7 +133,26 @@ Phases, one line each; any failure raises and exits non-zero:
      CHECK_SAMPLES), the forward bit for bit, the gradient at phase 7's
      bars; then the cornell box under the same envmap forced through the
      BVH at 128x128, 16 spp: its image equal bit for bit to the dense
-     route's, its gradient at phase 7's bars against the dense route's.
+     route's, its gradient at phase 7's bars against the dense route's;
+ 20. the samplers on the render paths: corrmj at 16 spp (the loop-free
+     form) and at 12 (the generic instantiation), and pmj02bn at 12, each
+     through every kernel family (path_loop and path_loop_grad, direct and
+     direct_grad, collocated and collocated_grad, each by the dense route
+     and through the BVH, and path_loop_env and path_loop_grad_env) on the
+     cornell box at 128x128, the first 4 samples of every 64th lane, the
+     forward bit for bit the plain version (both routes against one), the
+     gradient at phase 7's bars; the rejection rounds of phase 3's probes
+     at 96 and 65 spp; the kGen instantiations' ptxas; then the flagship
+     with corrmj at 64 spp, pmj02bn at 96 and corrmj at 96 as phase 19
+     drives its main paths (_slice_main: one launch of path_loop and of
+     path_loop_grad, both against their plain versions at every 64th lane
+     over all the samples, the forward bit for bit, the gradient at phase
+     7's bars), its iteration (median of 3), each kernel alone, the
+     counted-work bound (the draws and this run's rejection rounds, on
+     the checked lanes, by the plain walk that the forward's check runs),
+     a time a sample beside the pmj02bn 64-spp
+     flagship's; under "samplers" and "sampler_checks" in path_loop's and
+     path_loop_grad's records.
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
@@ -238,6 +261,15 @@ VISIT_OPS = 2 * SLAB_OPS + 1
 # does not (the first three of a sample: the camera's and its first step's
 # two).
 NEXT1_INT, NEXT2_INT, NEXT2_SET_INT = 53, 107, 59
+# corrmj's draws (the kGen instantiations' cmj_next1 / cmj_next2), counted
+# as NEXT1_INT is: next1 = the key 3 + permute_pow2 36 + lcg_step 2 +
+# lcg_to_unit_float 10 + a conversion + the dimension's increment; next2 =
+# three keys 9, three permute_pow2 108, the stratum's row and column 2, two
+# lcg_step 4 and lcg_to_unit_float 20, four conversions, the increment. A
+# round of the generic permutation's rejection loop past the first
+# (permute_round 34 and its test) adds PERM_ROUND_INT; the rounds depend on
+# the data and are counted by the plain permutation (_PermRounds).
+CMJ_NEXT1_INT, CMJ_NEXT2_INT, PERM_ROUND_INT = 53, 148, 35
 # FP32 operations of a step besides the sweeps (MT_OPS a test) and the
 # BSDF sample's branch: the bilinear fetch 49, the frame 32, two
 # projections 30, two ggx_sample_pdf 110, the MIS weights 6, to_world 15,
@@ -387,9 +419,14 @@ def _env_ops(work):
     return work.get("env_miss", 0) * ENV_MISS_FP + work.get("env_nee", 0) * ENV_NEE_FP
 
 
-def _path_work(tb, lanes, mat, stride=16):
+def _path_work(tb, lanes, mat, stride=16, carry_out=None):
     """The work of the path-loop kernels' walk, counted on every
-    `stride`-th lane with the plain step and scaled to all lanes -> {tests:
+    `stride`-th lane with the plain step and scaled to all lanes (the walk's
+    final carry, which is the plain forward's on those lanes, appended to
+    `carry_out` where a list is given) -> {kind:
+    the sampler, rounds: the generic permutations' rounds past the first
+    (those of the lanes that run, by their share of the plain walk's),
+    tests:
     ray-triangle tests (each step a lane runs sweeps the whole table for its
     next hit, and a shading lane's shadow sweep stops at its first hit),
     steps: the lanes' steps, restarts: the samples begun, glossy: steps
@@ -404,7 +441,8 @@ def _path_work(tb, lanes, mat, stride=16):
     n_tris = tb.scene.shape[0]
     fi, ii = pl.F_IDX, pl.I_IDX
     work = dict(tests=0, steps=0, restarts=0, glossy=0, env_miss=0, env_nee=0)
-    counter = _EnvWork(pl)
+    counter, perm = _EnvWork(pl), _PermRounds()
+    walked = 0
     for _ in range(tb.n_steps):
         flying = carry.i[ii["in_flight"]] != 0
         run = (carry.i[ii["sample_idx"]] < sub[2]) | flying
@@ -418,19 +456,54 @@ def _path_work(tb, lanes, mat, stride=16):
         first = torch.where(hit.any(1), hit.int().argmax(1) + 1, n_tris)
         work["tests"] += int(run.sum()) * n_tris + int(first.sum())
         work["steps"] += int(run.sum())
+        walked += sub.shape[1]
         work["glossy"] += int((run & (carry.f[fi["u_lobe"]] >= 0.5)).sum())
         before = carry.i[ii["sample_idx"]].clone()
         # a finished lane idles in the plain step; the kernel's stops
         counter.live = run
-        with counter:
+        with counter, perm:
             carry = pl.loop_step(carry, tb, sub, mat)
         # a lane restarts where it begins a sample: it ends in flight at a
         # sample below its stop that it was not in flight at before
         began = (carry.i[ii["in_flight"]] != 0) & ~(flying & (before == carry.i[ii["sample_idx"]]))
         work["restarts"] += int((run & began).sum())
     work["env_miss"], work["env_nee"] = counter.miss, counter.nee
+    work["rounds"] = perm.rounds * work["steps"] / max(walked, 1)
+    if carry_out is not None:
+        carry_out.append(carry)
     scale = lanes.shape[1] / sub.shape[1]
-    return {k: v * scale for k, v in work.items()}
+    return dict({k: v * scale for k, v in work.items()}, kind=tb.kind)
+
+
+class _PermRounds:
+    """While on, counts the plain generic permutation's work: the
+    samplers' permutation_element wrapped by one that keeps `draws` (the
+    permutations made), `rounds` (the rounds past the first) and `most`
+    (the most rounds past the first of one permutation), each from
+    hashes.permutation_rounds."""
+
+    def __init__(self):
+        self.draws = self.rounds = self.most = 0
+
+    def __enter__(self):
+        from zdr_tpu_torch.samplers import corrmj, hashes, pmj02bn
+
+        def counted(i, l, w, p):
+            out, rounds = hashes.permutation_rounds(i, l, w, p)
+            self.draws += rounds.numel()
+            self.rounds += int(rounds.sum())
+            self.most = max(self.most, int(rounds.max()) if rounds.numel() else 0)
+            return out
+
+        self.mods = (corrmj, pmj02bn)
+        self.saved = [m.permutation_element for m in self.mods]
+        for m in self.mods:
+            m.permutation_element = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved):
+            m.permutation_element = f
 
 
 def _early_work(tb, lanes, mat, stride=4 * CHECK_STRIDE):
@@ -539,8 +612,12 @@ def _loop_bound(work, nbytes):
     steps, restarts, glossy = work["steps"], work["restarts"], work["glossy"]
     fp = (work["tests"] * MT_OPS + steps * STEP_FP + glossy * GLOSSY_FP
           + (steps - glossy) * DIFFUSE_FP + restarts * RESTART_FP + _env_ops(work))
-    ints = (steps * 4 * NEXT1_INT + (steps - restarts) * 2 * NEXT2_INT
-            + restarts * 3 * NEXT2_SET_INT)
+    if work.get("kind") == "corrmj":
+        ints = steps * 4 * CMJ_NEXT1_INT + (steps * 2 + restarts) * CMJ_NEXT2_INT
+    else:
+        ints = (steps * 4 * NEXT1_INT + (steps - restarts) * 2 * NEXT2_INT
+                + restarts * 3 * NEXT2_SET_INT)
+    ints += work.get("rounds", 0) * PERM_ROUND_INT
     terms = {"fp32": fp / FP32_RATE * 1e3, "int32": ints / INT32_RATE * 1e3,
              "issue": (fp + ints) / ISSUE_RATE * 1e3, "bytes": nbytes / HBM_RATE * 1e3}
     by = max(terms, key=terms.get)
@@ -600,7 +677,12 @@ PATH_ENTRIES = {"path_loop": "path_loop_kernelILb0E",
                 "path_loop_grad": "path_loop_grad_kernelILb0E",
                 "path_loop_env": "path_loop_kernelILb1E",
                 "path_loop_grad_env": "path_loop_grad_kernelILb1E"}
-PTXAS_ENTRIES = {**BVH_ENTRIES, **DIRECT_ENTRIES, **PATH_ENTRIES}
+# each without (its name) and with the generic sampler (its name and
+# "_gen"): the template's last argument, kGen
+PTXAS_ENTRIES = {**{k: f"{v}Lb0E" for k, v in {**BVH_ENTRIES, **DIRECT_ENTRIES,
+                                                **PATH_ENTRIES}.items()},
+                 **{f"{k}_gen": f"{v}Lb1E" for k, v in {**BVH_ENTRIES, **DIRECT_ENTRIES,
+                                                        **PATH_ENTRIES}.items()}}
 
 
 def ptxas_bvh(log):
@@ -699,37 +781,79 @@ def _median_ms(fn, reps=5):
     return statistics.median(times), times
 
 
+# phase 3's samplers, beside lcg and pmj02bn at SPP: corrmj in the loop-free
+# form (64) and the generic one (96: a grid side of 9, row strata past the
+# grid; 65: a power-of-two side under a spp that is none), pmj02bn's generic
+# permutation at 96 and 65 (one past a power of two: the most rejections)
+PROBES = (("lcg", SPP), ("pmj02bn", SPP), ("corrmj", SPP), ("corrmj", 96), ("corrmj", 65),
+          ("pmj02bn", 96), ("pmj02bn", 65))
+
+
+def _probe_ints(kind, k, n, rounds):
+    """The integer operations of sampler_probe's k (next1, next2) pairs on
+    n lanes (the fresh sampler aside), with `rounds` rejection rounds."""
+    if kind == "lcg":
+        return n * k * 3 * 12  # lcg_step 2 and lcg_to_unit_float 10 a draw
+    if kind == "corrmj":
+        return n * k * (CMJ_NEXT1_INT + CMJ_NEXT2_INT) + rounds * PERM_ROUND_INT
+    # pmj02bn: the next2 of pair j (dimension 3j + 1) permutes from j = 3
+    pairs = sum(NEXT1_INT + (NEXT2_INT if (3 * j + 1) // 2 >= 5 else NEXT2_SET_INT)
+                for j in range(k))
+    return n * pairs + rounds * PERM_ROUND_INT
+
+
 def phase_sampler_probe(dev):
+    """Phase 3: the kernel's sampler bit for bit against the plain sampler
+    at each of PROBES, each timed, with its bound (the larger of its bytes
+    and its integer operations, the rejection rounds counted by the plain
+    permutation) and the rounds -> the record (pmj02bn at SPP's numbers,
+    and every probe's under "by_sampler")."""
     from zdr_tpu_torch import kernels
     from zdr_tpu_torch.samplers import sampler_probe_plain
     from zdr_tpu_torch.samplers.pmj02bn import bluenoise
 
     g = torch.Generator().manual_seed(1)
     n, k = RES[0] * RES[1], 8
-    lanes = torch.stack([
+    pixels = torch.stack([
         torch.randint(0, 4096, (n,), generator=g), torch.randint(0, 4096, (n,), generator=g),
-        torch.randint(-2**31, 2**31, (n,), generator=g), torch.randint(0, SPP, (n,), generator=g),
-    ]).to(torch.int32).to(dev)
+        torch.randint(-2**31, 2**31, (n,), generator=g)])
+    unit = torch.rand((n,), generator=g)
     bn = bluenoise(dev)
-    times = {}
-    for kind in ("lcg", "pmj02bn"):
-        got = kernels.sampler_probe(kind, SPP, lanes, k, bn)
-        want = sampler_probe_plain(kind, SPP, lanes, k, bn)
+    runs = {}
+    for kind, spp in PROBES:
+        lanes = torch.cat([pixels, (unit * spp).long().clamp_max(spp - 1)[None]]).to(
+            torch.int32).to(dev)
+        got = kernels.sampler_probe(kind, spp, lanes, k, bn)
+        with _PermRounds() as perm:
+            want = sampler_probe_plain(kind, spp, lanes, k, bn)
+        draws, rounds, most = perm.draws, perm.rounds, perm.most
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = int((got != want).sum())
-            raise AssertionError(f"sampler_probe {kind}: {bad} of {got.numel()} draws differ")
-        times[kind] = (_event_ms(lambda: kernels.sampler_probe(kind, SPP, lanes, k, bn))[0],
-                       _event_ms(lambda: sampler_probe_plain(kind, SPP, lanes, k, bn))[0])
-    print(f"[3 sampler_probe] lcg and pmj02bn bit-exact over {n} lanes x {3 * k} draws; "
-          + "; ".join(f"{kk} kernel {a:.3f} ms plain {b:.3f} ms" for kk, (a, b) in times.items()),
-          flush=True)
-    # integer hashing, no FP32 work: bound by its bytes (lanes, the blue
-    # noise table, the draws)
-    bound_ms, bound_by = _bound(0, _nbytes(lanes, bn[0]) + 3 * k * n * 4)
-    return dict(launches=None, max_abs_err=0.0, ms=times["pmj02bn"][0],
-                plain_ms=times["pmj02bn"][1], plain_shape=f"{n} lanes x {3 * k} draws",
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            raise AssertionError(f"sampler_probe {kind} {spp} spp: {bad} of {got.numel()} "
+                                 f"draws differ")
+        ms = _event_ms(lambda: kernels.sampler_probe(kind, spp, lanes, k, bn))[0]
+        plain_ms = _event_ms(lambda: sampler_probe_plain(kind, spp, lanes, k, bn))[0]
+        t_bytes = _nbytes(lanes, bn[0]) + 3 * k * n * 4
+        ints = _probe_ints(kind, k, n, rounds)
+        terms = {"bytes": t_bytes / HBM_RATE * 1e3, "int32": ints / INT32_RATE * 1e3}
+        by = max(terms, key=terms.get)
+        runs[f"{kind}_{spp}"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=terms[by],
+            bound_by="bytes" if by == "bytes" else "operations", bound_terms_ms=terms,
+            generic_permutations=draws, rounds=rounds,
+            rounds_mean=rounds / draws if draws else 0.0, rounds_most=most)
+    print(f"[3 sampler_probe] every sampler bit-exact against the plain one over {n} lanes x "
+          f"{3 * k} draws; " + "; ".join(
+              f"{kk} kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})" + (
+                  f", {r['rounds_mean']:.3f} rejection rounds a generic permutation, "
+                  f"most {r['rounds_most']}" if r["generic_permutations"] else "")
+              for kk, r in runs.items()), flush=True)
+    flag = runs[f"pmj02bn_{SPP}"]
+    return dict(launches=None, max_abs_err=0.0, ms=flag["ms"], plain_ms=flag["plain_ms"],
+                plain_shape=f"{n} lanes x {3 * k} draws", bound_ms=flag["bound_ms"],
+                bound_by=flag["bound_by"], library_ms=None, by_sampler=runs)
 
 
 def phase_step(dev):
@@ -1827,6 +1951,9 @@ SLICE_KERNELS = {("collocated", "dense"): ("collocated", "collocated_grad"),
                  ("direct", "bvh"): ("direct_env_bvh", "direct_grad_env_bvh"),
                  ("path", "dense"): ("path_loop_env", "path_loop_grad_env"),
                  ("path", "bvh"): ("path_loop_env_bvh", "path_loop_grad_env_bvh")}
+# the flagship's own kernels, which phase 20 drives through _slice_main with
+# the other samplers
+FLAGSHIP_KERNELS = {("path", "dense"): ("path_loop", "path_loop_grad")}
 
 
 def _golden_sphere(device, integrator, accel):
@@ -1883,24 +2010,27 @@ def _slice_kernels(integrator):
                                                                         tb.n_steps))
 
 
-def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
-    """One main path of phases 17-19, Scene.render + loss.backward() of
-    `scene` (pmj02bn, `res`, `spp`, a tex^2 material of 0.5) by the route
-    its accel takes: one launch of each of its two kernels (SLICE_KERNELS)
-    and of no other, no plain version called; both kernels against their
+def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16):
+    """One main path of phases 17-20, Scene.render + loss.backward() of
+    `scene` (its sampler, `res`, `spp`, a tex^2 material of 0.5) by the
+    route its accel takes: one launch of each of its two kernels
+    (SLICE_KERNELS; FLAGSHIP_KERNELS for the path integrator without an
+    env) and of no other, no plain version called; both kernels against their
     plain versions on the main path's own inputs at every CHECK_STRIDE-th
     lane (the dense kernels over all the samples, the BVH kernels over the
     first CHECK_SAMPLES), the forward bit for bit and the gradient at phase
     7's bars; the iteration's median, Scene.render's and each kernel's
-    alone, with its counted work and bound -> (the two kernels' records, the
-    image rendered at seed 0)."""
+    alone, with its counted work (the path walk's on every work_stride-th
+    lane) and bound -> (the two kernels' records, the image rendered at seed
+    0)."""
     from zdr_tpu_torch import kernels
     from zdr_tpu_torch.integrators import path_loop as pl
 
     integrator, dev = scene.integrator, scene.device
     data = scene._render_data(integrator)
     route = "bvh" if data.accel is not None else "dense"
-    fwd, bwd = SLICE_KERNELS[integrator, route]
+    own = integrator == "path" and data.env is None
+    fwd, bwd = (FLAGSHIP_KERNELS if own else SLICE_KERNELS)[integrator, route]
     mat = torch.full((tex, tex, 4), 0.5, dtype=torch.float32, device=dev).requires_grad_()
     iteration = _iteration(scene, mat, res, spp)
     plain = _plain_calls()
@@ -1929,7 +2059,17 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
     else:
         sub = lanes[:, ::CHECK_STRIDE].contiguous()
         got = fkern(tb, lanes, m)[:, ::CHECK_STRIDE]
-        want, plain_ms = _sync_ms(lambda: fplain(tb, sub, m))
+        if integrator == "path" and work_stride == CHECK_STRIDE:
+            # the walk that counts the work on these lanes is the plain
+            # forward: its time is the plain version's with the counting
+            walked = []
+            path_work, plain_ms = _sync_ms(
+                lambda: _path_work(tb, lanes, m, stride=work_stride, carry_out=walked))
+            want = walked[0].f[0:3]
+            counted = " (the walk that counts the work)"
+        else:
+            want, plain_ms = _sync_ms(lambda: fplain(tb, sub, m))
+            counted = ""
         if not torch.equal(got, want):
             raise AssertionError(f"{what}: {fwd} vs plain at every {CHECK_STRIDE}th lane: "
                                  f"{int((got != want).any(0).sum())} lanes differ")
@@ -1940,9 +2080,10 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
             lambda: gplain(tb1, sub, m, le_sub[:, ::CHECK_STRIDE].contiguous()))
         g_err, g_worst = _assert_grad_close(ggot, gwant, f"{what}: {bwd}")
         err = 0.0
-        shape = f"every {CHECK_STRIDE}th lane of {res[0]}x{res[1]}, {spp} spp"
+        shape = f"every {CHECK_STRIDE}th lane of {res[0]}x{res[1]}, {spp} spp{counted}"
         check = (f"at every {CHECK_STRIDE}th lane ({sub.shape[1]} lanes x {spp} spp) {fwd} "
-                 f"equals its plain version bit for bit, plain {plain_ms:.1f} ms; {bwd} vs plain "
+                 f"equals its plain version bit for bit, plain {plain_ms:.1f} ms{counted}; {bwd} "
+                 f"vs plain "
                  f"worst texel rel err {g_worst:.3e} (rtol 1e-4), max abs diff {g_err:.3e}, "
                  f"plain {gplain_ms:.1f} ms")
 
@@ -1969,7 +2110,8 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
     # routes' walks are equal)
     dense_tb = dataclasses.replace(tb, bvh=None)
     if integrator == "path":
-        path_work = _path_work(dense_tb, lanes, m)
+        if not (route == "dense" and work_stride == CHECK_STRIDE):
+            path_work = _path_work(dense_tb, lanes, m, stride=work_stride)
         env_work = {k: path_work[k] for k in ("env_miss", "env_nee")}
     elif integrator == "direct":
         env_work = _direct_env_work(dense_tb, lanes, m)
@@ -2001,12 +2143,14 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
         gbound = _loop_bound(path_work, _nbytes(*tables, le, m, *state))
         lp, gp = fk.plan, gk.plan
         work_note = (f"{path_work['tests']:.4g} tests, {path_work['steps']:.4g} steps "
-                     f"({path_work['steps'] / n_samples:.2f} a sample; every 16th lane, scaled)"
+                     f"({path_work['steps'] / n_samples:.2f} a sample, "
+                     f"{path_work['rounds'] / n_samples:.3f} rejection rounds a sample; every "
+                     f"{work_stride}th lane, scaled)"
                      f"{env_note}; {fwd} launch {lp['block']} threads a block, "
                      f"{lp['registers']} registers, {lp['local_bytes']} bytes of local memory a "
                      f"thread, {lp['waves']:.3f} waves; {bwd} launch {_plan_note(gp)}")
         extra = dict(tests=path_work["tests"], steps=path_work["steps"],
-                     bound_terms_ms=bound[2], **env_work)
+                     rounds=path_work["rounds"], bound_terms_ms=bound[2], **env_work)
         gextra = dict(tests=path_work["tests"], steps=path_work["steps"],
                       bound_terms_ms=gbound[2], **env_work)
     else:
@@ -2039,7 +2183,7 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3):
                      f"{plan['registers']} registers, {plan['waves']:.3f} waves{env_note}")
         extra = dict(tests=tests, test_ops=test_ops, bound_terms_ms=bound[2], **env_work)
         gextra = dict(tests=gtests, test_ops=test_ops, bound_terms_ms=gbound[2], **env_work)
-    print(f"[{tag}] {what}: {tb.scene.shape[0]} tris, {route}, pmj02bn {res[0]}x{res[1]} {spp} "
+    print(f"[{tag}] {what}: {tb.scene.shape[0]} tris, {route}, {tb.kind} {res[0]}x{res[1]} {spp} "
           f"spp, {tex}^2 material of 0.5, loss = image[..., :3].sum(), loss.backward(): 1 {fwd} "
           f"and 1 {bwd} launch, no other kernel, no plain version; loss "
           f"{float(loss.detach()):.4f}, |g|max {float(grad.abs().max()):.4e}; {check}; "
@@ -2213,6 +2357,152 @@ def phase_path_env(dev, smi):
     return records
 
 
+# phase 20's checks: corrmj in the loop-free form and the generic one, and
+# pmj02bn's generic permutation, through each kernel family on the first
+# SAMPLER_SAMPLES samples of every SAMPLER_STRIDE-th lane of SAMPLER_RES
+# (the plain walks step all their lanes while any runs)
+SAMPLER_CHECKS = (("corrmj", 16), ("corrmj", 12), ("pmj02bn", 12))
+SAMPLER_RES, SAMPLER_STRIDE, SAMPLER_SAMPLES = (128, 128), 64, 4
+# the families: (integrator, the routes held to one plain version, under the
+# envmap); the flagship's dense path kernels are held at full width too,
+# by SAMPLER_RUNS
+SAMPLER_FAMILIES = (("path", ("bruteforce", "bvh"), False),
+                    ("direct", ("bruteforce", "bvh"), False),
+                    ("collocated", ("bruteforce", "bvh"), False),
+                    ("path", ("bruteforce",), True))
+# and its full-width runs: the flagship with each of these samplers
+SAMPLER_RUNS = (("corrmj", SPP), ("pmj02bn", 96), ("corrmj", 96))
+
+
+def _sampler_check(scene, kind, spp, routes, mat, what):
+    """Scene's integrator with sampler `kind` at SAMPLER_RES, `spp`, by
+    each of `routes` (accel): each route's two kernels on the first
+    SAMPLER_SAMPLES samples of every SAMPLER_STRIDE-th lane against one
+    plain version, the first route's (the routes' walks are equal): the
+    forward bit for bit, the gradient at phase 7's bars (a random adjoint),
+    the gradient kernel's radiance the forward's -> [(the kernels' names,
+    the gradient's worst texel rel err, max abs diff)], a route each."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    scene.sampler = kind
+    integrator, dev = scene.integrator, scene.device
+    sub = pl.pixel_lanes(SAMPLER_RES, min(spp, SAMPLER_SAMPLES), dev)[:, ::SAMPLER_STRIDE]
+    sub = sub.contiguous()
+    le = torch.as_tensor(np.random.RandomState(spp).rand(3, sub.shape[1]).astype(np.float32),
+                         device=dev)
+    fkern, gkern, fplain, gplain = _slice_kernels(integrator)
+    want = gwant = None
+    out = []
+    for accel in routes:
+        scene.accel = accel
+        data = scene._render_data(integrator)
+        if (data.accel is not None) != (accel == "bvh"):
+            raise AssertionError(f"{what}: {integrator} did not take the {accel} route")
+        tb = pl.build_loop_tables(data, scene.camera, scene._config(SAMPLER_RES, spp), 0)
+        tb1 = pl.build_loop_tables(data, scene.camera, scene._config(SAMPLER_RES, spp), 1)
+        for k in KERNELS:
+            getattr(kernels, k).launches = 0
+        got, (ggot, acc) = fkern(tb, sub, mat), gkern(tb1, sub, mat, le)
+        ran = sorted(k for k in KERNELS if getattr(kernels, k).launches)
+        if want is None:
+            want, (gwant, _acc) = fplain(tb, sub, mat), gplain(tb1, sub, mat, le)
+        fwd1 = fkern(tb1, sub, mat)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: {ran} forward vs plain: "
+                                 f"{int((got != want).any(0).sum())} of {sub.shape[1]} lanes "
+                                 f"differ")
+        acc = acc.f[0:3] if integrator == "path" else acc
+        if not torch.equal(acc, fwd1):
+            raise AssertionError(f"{what}: {ran} the gradient kernel's radiance differs from "
+                                 f"the forward's")
+        g_err, g_worst = _assert_grad_close(ggot, gwant, f"{what}: {ran} gradient")
+        out.append((ran, g_worst, g_err))
+    return out
+
+
+def phase_samplers(dev, smi, flag, flag_grad, probes, ptxas):
+    """Phase 20: the samplers on the render paths. For each of
+    SAMPLER_CHECKS, every kernel family of SAMPLER_FAMILIES against its
+    plain version (_sampler_check): path_loop / path_loop_grad, direct /
+    direct_grad and collocated / collocated_grad by both routes (the
+    cornell box, the BVH forced), and path_loop_env / path_loop_grad_env
+    (the cornell box under make_test_envmap(64, 128)); then SAMPLER_RUNS at
+    full width through _slice_main (the forward bit for bit and the
+    gradient at phase 7's bars at every CHECK_STRIDE-th lane, the counted
+    work on the same lanes by the same plain walk), each beside the pmj02bn
+    SPP flagship (phases 6 and 8: `flag`, `flag_grad`), a time a sample
+    each, with the rejection
+    rounds of the probes at 96 and 65 spp (phase 3) and the kGen
+    instantiations' ptxas -> {"checks": ..., "runs": ...}."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.envmap import make_test_envmap
+
+    env_box = _flagship(dev)
+    env_box.add_envmap(make_test_envmap(64, 128))
+    mat = _material(7, dev, tex=64)
+    checks = {}
+    for kind, spp in SAMPLER_CHECKS:
+        notes = []
+        t0 = time.perf_counter()
+        for integrator, routes, env in SAMPLER_FAMILIES:
+            scene = env_box if env else _flagship(dev, integrator)
+            for ran, worst, err in _sampler_check(scene, kind, spp, routes, mat,
+                                                  f"phase 20 {kind} {spp} spp"):
+                checks[f"{kind}_{spp}_{'_'.join(ran)}"] = dict(worst_texel_rel=worst,
+                                                               max_abs=err)
+                notes.append(f"{'+'.join(ran)} (worst texel {worst:.2e})")
+        print(f"[20 samplers] {kind} at {spp} spp, {SAMPLER_RES[0]}x{SAMPLER_RES[1]}, the "
+              f"first {SAMPLER_SAMPLES} samples of every {SAMPLER_STRIDE}th lane: forwards bit "
+              f"for bit their plain versions (each route's against the first's), gradients at "
+              f"phase 7's bars: " + ", ".join(notes)
+              + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    for spp in (96, 65):
+        print(f"[20 samplers] rejection rounds past the first a generic permutation at {spp} "
+              f"spp (phase 3's probe, plain): " + "; ".join(
+                  f"{kind} mean {probes[f'{kind}_{spp}']['rounds_mean']:.3f} most "
+                  f"{probes[f'{kind}_{spp}']['rounds_most']}" for kind in ("corrmj", "pmj02bn")),
+              flush=True)
+    gen = {k: v for k, v in ptxas.items() if k.endswith("_gen")}
+    print(f"[20 samplers] the kGen instantiations' registers, local bytes and spill bytes: "
+          f"{json.dumps(gen)}", flush=True)
+    n_flag = RES[0] * RES[1] * SPP
+    runs = {}
+    for kind, spp in SAMPLER_RUNS:
+        t0 = time.perf_counter()
+        scene = _flagship(dev)
+        scene.sampler = kind
+        recs, _img = _slice_main(scene, RES, spp, TEX, "20 samplers",
+                                 f"the flagship with {kind} at {spp} spp", smi,
+                                 work_stride=CHECK_STRIDE)
+        f, g = recs["path_loop"], recs["path_loop_grad"]
+        plan, gplan = kernels.path_loop.plan, kernels.path_loop_grad.plan
+        n = RES[0] * RES[1] * spp
+        runs[f"{kind}_{spp}"] = r = dict(
+            spp=spp, launches=f["launches"], grad_launches=g["launches"],
+            iteration_ms=f["iteration_ms"], ms=f["ms"], grad_ms=g["ms"],
+            ns_a_sample=f["iteration_ms"] * 1e6 / n, bound_ms=f["bound_ms"],
+            bound_by=f["bound_by"], bound_terms_ms=f["bound_terms_ms"],
+            grad_bound_ms=g["bound_ms"], steps=f["steps"], rounds=f["rounds"],
+            max_abs_err=f["max_abs_err"], grad_max_abs_err=g["max_abs_err"],
+            plain_ms=f["plain_ms"], grad_plain_ms=g["plain_ms"], plain_shape=f["plain_shape"])
+        print(f"[20 samplers] the flagship with {kind} at {spp} spp beside pmj02bn {SPP}: "
+              f"iteration {r['iteration_ms']:.2f} ms = {r['ns_a_sample']:.3f} ns a sample "
+              f"(pmj02bn {SPP} spp: {flag_grad['iteration_ms']:.2f} ms = "
+              f"{flag_grad['iteration_ms'] * 1e6 / n_flag:.3f} ns); path_loop alone "
+              f"{r['ms']:.3f} ms = {r['ms'] * 1e6 / n:.3f} ns a sample (pmj02bn {SPP}: "
+              f"{flag['ms']:.3f} ms = {flag['ms'] * 1e6 / n_flag:.3f} ns), {plan['registers']} "
+              f"registers, {plan['local_bytes']} local bytes; path_loop_grad alone "
+              f"{r['grad_ms']:.3f} ms (pmj02bn {SPP}: {flag_grad['ms']:.3f} ms), "
+              f"{gplan['registers']} registers; {r['steps'] / n:.2f} steps and "
+              f"{r['rounds'] / n:.3f} rejection rounds a sample -> counted-work bound "
+              f"{r['bound_ms']:.3f} ms ("
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["bound_terms_ms"].items())
+              + f" ms); {time.perf_counter() - t0:.1f} s; card {smi}", flush=True)
+    return {"checks": checks, "runs": runs}
+
+
 def _direct_extra(proto, g, ptxas):
     """The dense direct kernels' record beyond the contract's keys: the
     counted-work bound's terms and the tests-only bound on the protocol,
@@ -2265,6 +2555,8 @@ def main():
     coll = timed("17", phase_collocated, dev, smi)
     env = timed("18", phase_env, dev, smi)
     path_env = timed("19", phase_path_env, dev, smi)
+    samplers = timed("20", phase_samplers, dev, smi, main_run, grad_run,
+                     probe_run["by_sampler"], ptxas)
     print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     # direct_bvh and direct_grad_bvh report the protocol's main path by
@@ -2295,6 +2587,20 @@ def main():
             rec = coll.get(kname) or env.get(kname) or path_env[kname]
             rec["ptxas"] = {e: v for e, v in ptxas.items() if e in (kname, f"{kname}_early")}
     main_run["ptxas"], grad_run["ptxas"] = ptxas["path_loop"], ptxas["path_loop_grad"]
+    main_run["ptxas_gen"] = ptxas["path_loop_gen"]
+    grad_run["ptxas_gen"] = ptxas["path_loop_grad_gen"]
+    # phase 20's full-width runs of the other samplers, and its checks
+    main_run["samplers"] = {k: {f: r[f] for f in ("spp", "launches", "max_abs_err", "ms",
+                                                  "plain_ms", "plain_shape", "iteration_ms",
+                                                  "ns_a_sample", "bound_ms", "bound_by",
+                                                  "bound_terms_ms", "steps", "rounds")}
+                            for k, r in samplers["runs"].items()}
+    grad_run["samplers"] = {k: {"spp": r["spp"], "launches": r["grad_launches"],
+                                "max_abs_err": r["grad_max_abs_err"], "ms": r["grad_ms"],
+                                "plain_ms": r["grad_plain_ms"], "plain_shape": r["plain_shape"],
+                                "bound_ms": r["grad_bound_ms"]}
+                            for k, r in samplers["runs"].items()}
+    main_run["sampler_checks"] = samplers["checks"]
     variants_src = "zdr_tpu_torch/kernels/csrc/sweep_variants.cu"
     record = {"kernels": [{
         "name": "sampler_probe",

@@ -113,36 +113,39 @@ BOUNCE2 = f"""  if (bounce_ok) {{
 """ + BOUNCE
 # the draws twice: each of direct_sample's and nee_select's draws through a
 # wrapper that also draws from a copy of the state, folded into the result
-DRAW2 = """ZDR_HD float study_next1(const SamplerCtx& c, Sampler& s) {
+DRAW2 = """template <bool kGen>
+ZDR_HD float study_next1(const SamplerCtx& c, Sampler& s) {
   Sampler t = s;
   t.a += ZERO;
   t.b += ZERO;
-  float again = next1(c, t);
-  float u = next1(c, s);
+  float again = next1<kGen>(c, t);
+  float u = next1<kGen>(c, s);
   return again == u ? u : again;
 }
 
+template <bool kGen>
 ZDR_HD void study_next2(const SamplerCtx& c, Sampler& s, float& ux, float& uy) {
   Sampler t = s;
   t.a += ZERO;
   t.b += ZERO;
   float ax, ay;
-  next2(c, t, ax, ay);
-  next2(c, s, ux, uy);
+  next2<kGen>(c, t, ax, ay);
+  next2<kGen>(c, s, ux, uy);
   ux = ax == ux ? ux : ax;
   uy = ay == uy ? uy : ay;
 }
 
 """.replace("ZERO", ZERO_U)
-NEE = "template <bool kEnv = false>\nZDR_HD Nee nee_select("
+NEE = "template <bool kEnv = false, bool kGen = false>\nZDR_HD Nee nee_select("
 SAMPLER2X = [
     (LOOP_STEP, NEE, DRAW2 + NEE),
-    (LOOP_STEP, "float u_sel = next1(c, s);", "float u_sel = study_next1(c, s);"),
-    (LOOP_STEP, "float u_prim = next1(c, s);", "float u_prim = study_next1(c, s);"),
-    (LOOP_STEP, "next2(c, s, u2a, u2b);", "study_next2(c, s, u2a, u2b);"),
-    (STEP, "  next2(sc, smp, cu0, cu1);\n", "  study_next2(sc, smp, cu0, cu1);\n"),
-    (STEP, "  float u_lobe = next1(sc, smp);\n", "  float u_lobe = study_next1(sc, smp);\n"),
-    (STEP, "  next2(sc, smp, ub0, ub1);\n", "  study_next2(sc, smp, ub0, ub1);\n"),
+    (LOOP_STEP, "float u_sel = next1<kGen>(c, s);", "float u_sel = study_next1<kGen>(c, s);"),
+    (LOOP_STEP, "float u_prim = next1<kGen>(c, s);", "float u_prim = study_next1<kGen>(c, s);"),
+    (LOOP_STEP, "next2<kGen>(c, s, u2a, u2b);", "study_next2<kGen>(c, s, u2a, u2b);"),
+    (STEP, "  next2<kGen>(sc, smp, cu0, cu1);\n", "  study_next2<kGen>(sc, smp, cu0, cu1);\n"),
+    (STEP, "  float u_lobe = next1<kGen>(sc, smp);\n",
+     "  float u_lobe = study_next1<kGen>(sc, smp);\n"),
+    (STEP, "  next2<kGen>(sc, smp, ub0, ub1);\n", "  study_next2<kGen>(sc, smp, ub0, ub1);\n"),
 ]
 # the attributes twice: a second read of the hit's row at an index the
 # compiler cannot know to equal it (best_t is never below -1), folded in

@@ -56,7 +56,7 @@ WARP_LOOP = """#ifdef __CUDA_ARCH__
     if constexpr (kGrad) {
       bool live = !(s.sample_idx >= lc.stop && s.in_flight == 0);
       if (!__any_sync(0xffffffffu, live)) break;
-      int done = live ? loop_step<true, Tracer, kEnv>(s, lc, tb, q, gl, tr, c, env) : -1;
+      int done = live ? loop_step<true, Tracer, kEnv, kGen>(s, lc, tb, q, gl, tr, c, env) : -1;
       replay_warp(*gl, done, q.tex_h * q.tex_w);
       continue;
     }

@@ -74,37 +74,40 @@ SMALL = ((128, 128), (256, 256))
 # a value the compiler cannot know and that is 0 at run time: a lane stops
 # at its spp, far below 2**30
 ZERO_U = "(uint32_t)(c.lc->stop >> 30)"
-DRAW2 = """ZDR_HD float study_next1(const SamplerCtx& c, Sampler& s) {
+DRAW2 = """template <bool kGen>
+ZDR_HD float study_next1(const SamplerCtx& c, Sampler& s) {
   Sampler t = s;
   t.a += ZERO;
   t.b += ZERO;
-  float again = next1(c, t);
-  float u = next1(c, s);
+  float again = next1<kGen>(c, t);
+  float u = next1<kGen>(c, s);
   return again == u ? u : again;
 }
 
+template <bool kGen>
 ZDR_HD void study_next2(const SamplerCtx& c, Sampler& s, float& ux, float& uy) {
   Sampler t = s;
   t.a += ZERO;
   t.b += ZERO;
   float ax, ay;
-  next2(c, t, ax, ay);
-  next2(c, s, ux, uy);
+  next2<kGen>(c, t, ax, ay);
+  next2<kGen>(c, s, ux, uy);
   ux = ax == ux ? ux : ax;
   uy = ay == uy ? uy : ay;
 }
 
 """.replace("ZERO", ZERO_U)
-NEE = "template <bool kEnv = false>\nZDR_HD Nee nee_select("
+NEE = "template <bool kEnv = false, bool kGen = false>\nZDR_HD Nee nee_select("
 SAMPLER2X = [
     (STEP, NEE, DRAW2 + NEE),
-    (STEP, "float u_sel = next1(c, s);", "float u_sel = study_next1(c, s);"),
-    (STEP, "float u_prim = next1(c, s);", "float u_prim = study_next1(c, s);"),
-    (STEP, "next2(c, s, u2a, u2b);", "study_next2(c, s, u2a, u2b);"),
-    (STEP, "s.u_lobe = next1(sc, s.smp);", "s.u_lobe = study_next1(sc, s.smp);"),
-    (STEP, "next2(sc, s.smp, s.u_b0, s.u_b1);", "study_next2(sc, s.smp, s.u_b0, s.u_b1);"),
-    (STEP, "s.u_rr = next1(sc, s.smp);", "s.u_rr = study_next1(sc, s.smp);"),
-    (STEP, "next2(sc, s.smp, cu0, cu1);", "study_next2(sc, s.smp, cu0, cu1);"),
+    (STEP, "float u_sel = next1<kGen>(c, s);", "float u_sel = study_next1<kGen>(c, s);"),
+    (STEP, "float u_prim = next1<kGen>(c, s);", "float u_prim = study_next1<kGen>(c, s);"),
+    (STEP, "next2<kGen>(c, s, u2a, u2b);", "study_next2<kGen>(c, s, u2a, u2b);"),
+    (STEP, "s.u_lobe = next1<kGen>(sc, s.smp);", "s.u_lobe = study_next1<kGen>(sc, s.smp);"),
+    (STEP, "next2<kGen>(sc, s.smp, s.u_b0, s.u_b1);",
+     "study_next2<kGen>(sc, s.smp, s.u_b0, s.u_b1);"),
+    (STEP, "s.u_rr = next1<kGen>(sc, s.smp);", "s.u_rr = study_next1<kGen>(sc, s.smp);"),
+    (STEP, "next2<kGen>(sc, s.smp, cu0, cu1);", "study_next2<kGen>(sc, s.smp, cu0, cu1);"),
 ]
 ANY = """    for (int ti = 0; ti < q.n_tris; ++ti) {
       float t, u, v;
@@ -171,15 +174,15 @@ FETCH2 = FETCH + """  {
     rough = rough2 == rough ? rough : rough2;
   }
 """
-RESTART = """    s.smp = fresh_sampler(sc, (uint32_t)s.sample_idx);
+RESTART = """    s.smp = fresh_sampler<kGen>(sc, (uint32_t)s.sample_idx);
     float cu0, cu1;
-    next2(sc, s.smp, cu0, cu1);
+    next2<kGen>(sc, s.smp, cu0, cu1);
     camera_ray(tb.cam, q, lc.px, lc.py, cu0, cu1, o_n, d_n);
 """
-RESTART2 = """    Sampler t = fresh_sampler(sc, (uint32_t)s.sample_idx + (uint32_t)(lc.stop >> 30));
+RESTART2 = """    Sampler t = fresh_sampler<kGen>(sc, (uint32_t)s.sample_idx + (uint32_t)(lc.stop >> 30));
     float tu0, tu1;
     V3 o2, d2;
-    next2(sc, t, tu0, tu1);
+    next2<kGen>(sc, t, tu0, tu1);
     camera_ray(tb.cam, q, lc.px, lc.py, tu0, tu1, o2, d2);
 """ + RESTART + """    o_n = v3(o2.x == o_n.x ? o_n.x : o2.x, o2.y == o_n.y ? o_n.y : o2.y,
              o2.z == o_n.z ? o_n.z : o2.z);
@@ -188,7 +191,7 @@ RESTART2 = """    Sampler t = fresh_sampler(sc, (uint32_t)s.sample_idx + (uint32
 """
 RUN_LANE = """  for (int it = 0; it < n_steps; ++it) {
     if (s.sample_idx >= lc.stop && s.in_flight == 0) break;
-    int last = loop_step<kGrad, Tracer, kEnv>(s, lc, tb, q, gl, tr, c, env);
+    int last = loop_step<kGrad, Tracer, kEnv, kGen>(s, lc, tb, q, gl, tr, c, env);
     if constexpr (kGrad) {
       if (last >= 0) replay_sample(*gl, last, q.tex_h * q.tex_w);
     }
@@ -219,7 +222,7 @@ RUN_LANE_TIMED = """#ifdef __CUDA_ARCH__
       ++study_warp_steps;
     }
 #endif
-    int last = loop_step<kGrad, Tracer, kEnv>(s, lc, tb, q, gl, tr, c, env);
+    int last = loop_step<kGrad, Tracer, kEnv, kGen>(s, lc, tb, q, gl, tr, c, env);
     if constexpr (kGrad) {
       if (last >= 0) replay_sample(*gl, last, q.tex_h * q.tex_w);
     }
@@ -234,8 +237,8 @@ RUN_LANE_TIMED = """#ifdef __CUDA_ARCH__
   if (study_block < kStudyBlocks) atomicMax(&study_t1[study_block], study_t);
 #endif
 """
-RUN_LANE_HEAD = ("template <bool kGrad = false, class Tracer = DenseSweep<>, bool kEnv = false>\n"
-                 "ZDR_HD void run_lane(")
+RUN_LANE_HEAD = ("template <bool kGrad = false, class Tracer = DenseSweep<>, bool kEnv = false,\n"
+                 "          bool kGen = false>\nZDR_HD void run_lane(")
 STUDY_GLOBALS = f"""#ifdef __CUDACC__
 constexpr unsigned kStudyBlocks = {STUDY_BLOCKS};
 constexpr long kStudyLanes = {STUDY_LANES};

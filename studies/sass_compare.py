@@ -8,7 +8,11 @@ archive` of the parent commit) to an sm_90a cubin with the package's nvcc
 flags, disassembles both with `cuobjdump -sass`, and pairs their kernels by
 name: the demangled name without its parameters, the anonymous namespace
 and a lone <false> template argument, so that `path_loop_kernel<false>` (a
-kernel given a kEnv argument) pairs with a `path_loop_kernel` of before it.
+kernel given a kEnv argument) pairs with a `path_loop_kernel` of before it;
+in a checkout whose kernels take the generic sampler's kGen as their last
+template argument, that argument too where it is false, so that
+`path_loop_kernel<true, false>` pairs with a `path_loop_kernel<true>` of
+before it, and the kGen instantiations are new.
 For each pair it prints whether the SASS is equal instruction for
 instruction with the immediates aside (every hex literal and `.L_x_` label
 replaced), the instruction counts, the first differing instruction, and
@@ -76,13 +80,16 @@ def _demangle(names):
     return dict(zip(names, proc.stdout.splitlines()))
 
 
-def _key(demangled):
+def _key(demangled, gen=False):
     """A kernel's name without its return type, parameters, anonymous
-    namespace and a lone <false> template argument."""
+    namespace and a lone <false> template argument (with `gen`, after its
+    last template argument where that is false: kGen)."""
     name = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", demangled)
     name = re.sub(r"\(bool\)0", "false", re.sub(r"\(bool\)1", "true", name))
     name = re.sub(r"^void ", "", name)
     name = name[:name.index("(")] if "(" in name else name
+    if gen:
+        name = re.sub(r"<false>$", "", re.sub(r", false>$", ">", name))
     return re.sub(r"<false>$", "", name)
 
 
@@ -129,7 +136,9 @@ def _side(root, tag):
     cubins, log = _build(root, tag)
     funcs, ptxas = _sass(cubins), _ptxas(log)
     names = _demangle(sorted(funcs))
-    return {_key(names[m]): (funcs[m], ptxas.get(m)) for m in funcs}
+    with open(os.path.join(root, CSRC, "path_loop_step.cuh")) as fh:
+        gen = "kGen" in fh.read()
+    return {_key(names[m], gen): (funcs[m], ptxas.get(m)) for m in funcs}
 
 
 def main():

@@ -439,12 +439,12 @@ def test_host_direct_matches_plain(sampler, name, early):
 FD_EPS = 0.01
 
 
-def _fd_error(sampler, spp):
+def _fd_error(sampler, spp, seed=3):
     """|AD - FD| / |FD| on the diffuse texel of largest |gradient|, the
     gate of tests/test_fused.py:174-191 on the g++ build: 24x24, a 16^2
     material in [0.25, 0.75], loss = sum(image[..., :3]); AD is the tap
     mode at seed + 1 with the adjoint 1 / spp, FD the two-sided difference
-    of renders at seed 3, eps 0.01."""
+    of renders at `seed`, eps 0.01."""
     s = _port_scene("cbox", sampler)
     mat = torch.as_tensor(np.random.RandomState(0).uniform(0.25, 0.75, (16, 16, 4))
                           .astype(np.float32))
@@ -454,9 +454,9 @@ def _fd_error(sampler, spp):
         return pl.build_loop_tables(s._data, s.camera, s._config((24, 24), spp), seed)
 
     def loss(m):
-        return float(_host_direct(tables(3), lanes, m)[0].double().sum()) / spp
+        return float(_host_direct(tables(seed), lanes, m)[0].double().sum()) / spp
 
-    g = _host_direct(tables(4), lanes, mat, torch.full((3, 576), 1.0 / spp))[1]
+    g = _host_direct(tables(seed + 1), lanes, mat, torch.full((3, 576), 1.0 / spp))[1]
     ti = np.unravel_index(int(g[..., 0].abs().argmax()), (16, 16)) + (0,)
     up, down = mat.clone(), mat.clone()
     up[ti] += FD_EPS
@@ -465,13 +465,23 @@ def _fd_error(sampler, spp):
     return abs(float(g[ti]) - fd) / max(abs(fd), 1e-9)
 
 
-@pytest.mark.parametrize("sampler", ["lcg", "pmj02bn"])
+# the FD gate's seeds: the gap is the noise of the one-corner splat against
+# a difference of renders at another seed, so one realization decides
+# little (at 96 spp, over these seeds: lcg 0.0004 to 0.058, corrmj 0.0027
+# to 0.033); the gate compares means
+FD_SEEDS = (3, 11, 21, 31, 41, 51, 61, 71)
+
+
+@pytest.mark.parametrize("sampler", ["lcg", "pmj02bn", "corrmj"])
 def test_fd_error_shrinks_with_spp(sampler):
-    """The AD-vs-FD gap at 96 spp within test_fused.py's 10%, and smaller
-    at 1024 spp (measured: lcg 0.024 -> 0.0096, pmj02bn 0.027 -> 0.0071)."""
-    e96, e1024 = _fd_error(sampler, 96), _fd_error(sampler, 1024)
-    assert e96 <= 0.1, (e96, e1024)
-    assert e1024 < e96, (e96, e1024)
+    """The AD-vs-FD gap at 96 spp within test_fused.py's 10% at each of
+    FD_SEEDS, and its mean smaller at 1024 spp, over the first four of them
+    (measured means: lcg 0.0226 -> 0.0080, pmj02bn 0.0154 -> 0.0057, corrmj
+    0.0141 -> 0.0046). The JAX package's own FD gate pins lcg."""
+    e96 = [_fd_error(sampler, 96, seed) for seed in FD_SEEDS]
+    e1024 = [_fd_error(sampler, 1024, seed) for seed in FD_SEEDS[:4]]
+    assert max(e96) <= 0.1, (e96, e1024)
+    assert np.mean(e1024) < np.mean(e96), (e96, e1024)
 
 
 def test_scope_gates_raise():
@@ -488,12 +498,14 @@ def test_scope_gates_raise():
     s.integrator = "path"
     assert bool(torch.isfinite(s.render(mat, res=(4, 4), spp=1)).all())
     s.integrator = "direct"
+    # corrmj at any spp, and pmj02bn at a spp that is no power of two
     s.sampler = "corrmj"
-    with pytest.raises(NotImplementedError, match="A4"):
-        s.render(mat, res=(4, 4), spp=4)
+    for spp in (4, 12):
+        assert bool(torch.isfinite(s.render(mat, res=(4, 4), spp=spp)).all())
     s.sampler = "pmj02bn"
-    with pytest.raises(NotImplementedError, match="A4"):
-        s.render(mat, res=(4, 4), spp=3)
+    assert bool(torch.isfinite(s.render(mat, res=(4, 4), spp=3)).all())
+    with pytest.raises(ValueError, match="spp"):
+        s.render(mat, res=(4, 4), spp=-1)
     s.bilinear = False
     with pytest.raises(NotImplementedError, match="A6"):
         s.render(mat, res=(4, 4), spp=1)

@@ -77,6 +77,7 @@ def _to_port_carry(kind, jc):
     named = dict(zip(f32_names + i32_names, (np.asarray(x).reshape(-1) for x in jc)))
     named["u_rr"] = named["u_rr_bits"].view(np.float32)
     named.setdefault("smp1", np.zeros_like(named["smp0"]))
+    named.setdefault("smp2", np.zeros_like(named["smp0"]))
     f = np.stack([named[n] for n in pl.F_NAMES])
     i = np.stack([named[n] for n in pl.I_NAMES])
     return pl.Carry(torch.as_tensor(f), torch.as_tensor(i.astype(np.int32)))
@@ -102,10 +103,13 @@ def _assert_carry_close(got, want):
     np.testing.assert_allclose(gf[k, used], wf[k, used], rtol=1e-4)
 
 
-@pytest.mark.parametrize("sampler,point_light", [("pmj02bn", False), ("lcg", True)])
+@pytest.mark.parametrize("sampler,point_light", [("pmj02bn", False), ("lcg", True),
+                                                 ("corrmj", False)])
 def test_loop_step_matches_jax_carry_for_carry(sampler, point_light):
     """From JAX's initial carry at 16x16, 4 spp (one 16x512 block, morton
-    lanes), each JAX kernel step against loop_step on the same carry."""
+    lanes), each JAX kernel step against loop_step on the same carry;
+    corrmj runs in the JAX kernel as its sampler kind 3, its three state
+    planes the port's smp0..smp2."""
     s = _jax_scene(point_light, sampler)
     cfg = s._config((16, 16), 4)
     mat = _material()
@@ -198,15 +202,20 @@ def test_scope_gates_raise():
     with pytest.raises(NotImplementedError, match="A17"):
         s.render(mat, res=(4, 4), spp=1)
     s.packed_splat = False
-    with pytest.raises(NotImplementedError, match="A4"):
-        s.render(mat, res=(4, 4), spp=3)
+    # pmj02bn at a spp that is no power of two renders (the generic
+    # permutation); spp <= 0 raises
+    img = s.render(mat, res=(4, 4), spp=3)
+    assert img.shape == (4, 4, 4) and bool(torch.isfinite(img).all())
+    with pytest.raises(ValueError, match="spp"):
+        s.render(mat, res=(4, 4), spp=0)
     s.integrator, s.use_mis = "direct", False
     with pytest.raises(NotImplementedError, match="A10"):
         s.render(mat, res=(4, 4), spp=1)
     s.integrator, s.use_mis = "path", True
     s.sampler = "corrmj"
-    with pytest.raises(NotImplementedError, match="A4"):
-        s.render(mat, res=(4, 4), spp=4)
+    for spp in (4, 3):
+        img = s.render(mat, res=(4, 4), spp=spp)
+        assert img.shape == (4, 4, 4) and bool(torch.isfinite(img).all())
     s.sampler = "pmj02bn"
     # no gate left for the env: a path render under one runs (ROADMAP A11 is
     # done; tests/test_torch_path_env.py holds it against JAX)

@@ -47,9 +47,10 @@ from ..microfacet import (
     to_local,
     to_world,
 )
+from ..samplers.corrmj import corrmj_fresh_state, corrmj_sampler
 from ..samplers.hashes import lcg_step, lcg_to_unit_float, to_i32, u32
 from ..samplers.lcg import LCGSampler, lcg_fresh_state
-from ..samplers.pmj02bn import PMJ02BNSamplerP2, bluenoise, bn_base
+from ..samplers.pmj02bn import bluenoise, bn_base, pmj02bn_class
 from ..texture import read_bilinear, scatter_add4, splat_ids
 from ..vec import div, vadd, vdot, vnormalize, vscale, vsub
 from . import scene_tables
@@ -69,8 +70,10 @@ F_NAMES = (
     "lev_r", "lev_g", "lev_b",
     "u_lobe", "u_b0", "u_b1", "u_rr",
 )
-# smp0/smp1: pmj02bn (sample_index, dimension); lcg (state, unused)
-I_NAMES = ("sample_idx", "shade", "depth", "in_flight", "smp0", "smp1")
+# smp0..smp2: corrmj (sample_index, dimension, state), as the JAX kernel
+# carries them (pallas_loop.py:177-184); pmj02bn (sample_index, dimension,
+# 0); lcg (state, 0, 0)
+I_NAMES = ("sample_idx", "shade", "depth", "in_flight", "smp0", "smp1", "smp2")
 F_IDX = {n: k for k, n in enumerate(F_NAMES)}
 I_IDX = {n: k for k, n in enumerate(I_NAMES)}
 # one step's gradient taps in tap mode (pallas_loop.py:666-687): radiance,
@@ -107,7 +110,7 @@ def init_carry(lanes: torch.Tensor) -> Carry:
 class LoopTables:
     """Everything a step reads besides the carry, the lanes and the material."""
 
-    kind: str  # "lcg" | "pmj02bn"
+    kind: str  # "lcg" | "pmj02bn" | "corrmj"
     spp: int
     res: Tuple[int, int]  # (width, height)
     use_tent: bool
@@ -179,32 +182,43 @@ def build_loop_tables(data, camera, cfg, seed: int) -> LoopTables:
 
 # ------------------------------------------------------------- the sampler
 
-def _sampler(tb: LoopTables, lanes, s0, s1):
-    """Sampler from carried state (pallas_loop.py:140)."""
+def _sampler(tb: LoopTables, lanes, s0, s1, s2):
+    """Sampler from carried state (pallas_loop.py:140), of the class the
+    JAX package's factory picks at this spp."""
     if tb.kind == "lcg":
         return LCGSampler(state=u32(s0))
     px = lanes[0].to(torch.int64)
     py = lanes[1].to(torch.int64)
-    return PMJ02BNSamplerP2(
+    if tb.kind == "corrmj":
+        return corrmj_sampler(px, py, tb.seed, tb.spp, u32(s0), u32(s1), u32(s2))
+    return pmj02bn_class(tb.spp)(
         px=px, py=py, sample_index=u32(s0), dimension=u32(s1),
         seed=tb.seed, spp=tb.spp, bn_rows=tb.bn,
         bn_base=bn_base(px, py, tb.seed, tb.bn_res, tb.bn_ntex), n_tex=tb.bn_ntex,
     )
 
 
-def _state(tb: LoopTables, smp, s1):
-    """Sampler -> (smp0, smp1) int32 rows; lcg leaves smp1 as it was."""
+def _state(tb: LoopTables, smp, s1, s2):
+    """Sampler -> (smp0, smp1, smp2) int32 rows; a row the kind does not
+    use stays as it was."""
     if tb.kind == "lcg":
-        return to_i32(smp.state), s1
-    return to_i32(smp.sample_index), to_i32(smp.dimension)
+        return to_i32(smp.state), s1, s2
+    if tb.kind == "corrmj":
+        return to_i32(smp.sample_index), to_i32(smp.dimension), to_i32(smp.state)
+    return to_i32(smp.sample_index), to_i32(smp.dimension), s2
 
 
 def _fresh_state(tb: LoopTables, lanes, sample_idx):
-    """(smp0, smp1) of a fresh sampler at the lane's next sample."""
+    """(smp0, smp1, smp2) of a fresh sampler at the lane's next sample
+    (pallas_loop.py:187-205)."""
+    zero = torch.zeros_like(sample_idx)
     if tb.kind == "lcg":
         st = lcg_fresh_state(lanes[0], lanes[1], tb.seed, sample_idx)
-        return to_i32(st), torch.zeros_like(sample_idx)
-    return sample_idx, torch.zeros_like(sample_idx)
+        return to_i32(st), zero, zero
+    if tb.kind == "corrmj":
+        st = corrmj_fresh_state(lanes[0], lanes[1], tb.seed, sample_idx)
+        return sample_idx, zero, to_i32(st)
+    return sample_idx, zero, zero
 
 
 # ------------------------------------------------------------ the sweeps
@@ -454,8 +468,8 @@ def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch
     avail = ~in_flight | terminated
     restart = avail & (sample_idx < lanes[2])
 
-    f0, f1 = _fresh_state(tb, lanes, sample_idx)
-    (cu0, cu1), smp_new = _sampler(tb, lanes, f0, f1).next2_xy()
+    f0, f1, f2 = _fresh_state(tb, lanes, sample_idx)
+    (cu0, cu1), smp_new = _sampler(tb, lanes, f0, f1, f2).next2_xy()
     cam_o, cam_d = camera_ray(tb.cam, lanes[0], lanes[1], cu0, cu1, tb.res, tb.use_tent)
 
     def sel(a, b, c):
@@ -463,10 +477,11 @@ def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch
 
     o_n = tuple(sel(cam_o[k], next_o[k], p[k]) for k in range(3))
     d_n = tuple(sel(cam_d[k], wi[k], d[k]) for k in range(3))
-    new0, new1 = _state(tb, smp_new, f1)
+    new0, new1, new2 = _state(tb, smp_new, f1, f2)
     st0 = torch.where(restart, new0, si["smp0"])
     st1 = torch.where(restart, new1, si["smp1"])
-    smp2 = _sampler(tb, lanes, st0, st1)
+    st2 = torch.where(restart, new2, si["smp2"])
+    smp = _sampler(tb, lanes, st0, st1, st2)
     reset = restart | terminated
     cur_n = tuple(torch.where(reset, 0.0, cur[k]) for k in range(3))
     beta_n = tuple(
@@ -489,18 +504,18 @@ def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch
         nae = tuple(nae[c] + em[c] for c in range(3))
 
     # NEE + bounce draws for the next bounce
-    (nwl, nld, nlp, nlev), smp2 = nee_select(tb, np_, smp2)
-    nu_lobe, smp2 = smp2.next1()
-    (nub0, nub1), smp2 = smp2.next2_xy()
-    nu_rr, smp2 = smp2.next1()
-    fin0, fin1 = _state(tb, smp2, st1)
+    (nwl, nld, nlp, nlev), smp = nee_select(tb, np_, smp)
+    nu_lobe, smp = smp.next1()
+    (nub0, nub1), smp = smp.next2_xy()
+    nu_rr, smp = smp.next1()
+    fin0, fin1, fin2 = _state(tb, smp, st1, st2)
 
     f_out = (
         *acc, *cur_n, *beta_n, *d_n, *np_, *nns, *nng, *nae, *nuv,
         *nwl, nld, nlp, *nlev, nu_lobe, nub0, nub1, nu_rr,
     )
     i_out = (sample_idx, nshade.to(torch.int32), depth_n,
-             in_flight_n.to(torch.int32), fin0, fin1)
+             in_flight_n.to(torch.int32), fin0, fin1, fin2)
     out = Carry(torch.stack(f_out), torch.stack(i_out))
     if le_grad is None:
         return out
@@ -525,7 +540,7 @@ def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch
     s_taps = tuple(b[c] * (u3 * (1.0 / 3.0)) for c in range(3))
     # the splat corner, drawn from the carried sampler's salt: the state
     # before this step's restart and draws
-    salt = _sampler(tb, lanes, si["smp0"], si["smp1"]).salt()
+    salt = _sampler(tb, lanes, si["smp0"], si["smp1"], si["smp2"]).salt()
     u_m = lcg_to_unit_float(lcg_step(salt))
     h, w = material.shape[0], material.shape[1]
     ids = splat_ids(s["uv_x"], s["uv_y"], lcg_to_unit_float(salt), h, w)

@@ -60,14 +60,10 @@ def check_scope(cfg: RenderConfig, material: torch.Tensor, data) -> None:
             "render without the bilinear fetch (nearest filtering, or a "
             "material under 2x2): ROADMAP A6"
         )
-    if cfg.sampler == "corrmj":
-        raise NotImplementedError("corrmj sampler: ROADMAP A4")
     if cfg.sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler kind: {cfg.sampler!r}")
-    if cfg.sampler == "pmj02bn" and (cfg.spp <= 0 or cfg.spp & (cfg.spp - 1)):
-        raise NotImplementedError(
-            "pmj02bn at non-power-of-two spp (generic permutation): ROADMAP A4"
-        )
+    if cfg.spp <= 0:
+        raise ValueError(f"spp must be >= 1, got {cfg.spp}")
     if (cfg.integrator == "path" and cfg.splat_merge != 1) or cfg.packed_splat:
         raise NotImplementedError(
             "splat_merge != 1 or packed_splat=True (merged or bf16-packed "

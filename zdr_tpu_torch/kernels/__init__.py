@@ -137,6 +137,7 @@ from ..accel.bvh import COUNT_BITS, NODE_COLS
 from ..accel.types import GEOM_COLS
 from ..integrators.scene_tables import SCENE_COLS
 from ..samplers import sampler_probe_plain
+from ..samplers.corrmj import grid_side
 from ..samplers.hashes import next_pow2_mask
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -153,7 +154,7 @@ NVCC_FLAGS = (
 HOST_SOURCES = ("path_loop_host.cpp", "direct_host.cpp", "accel_host.cpp",
                 "sweep_variants_host.cpp", "collocated_host.cpp")
 HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
-KINDS = {"lcg": 0, "pmj02bn": 1}
+KINDS = {"lcg": 0, "pmj02bn": 1, "corrmj": 2}
 # the floats of a tap row of path_loop_grad (path_loop_step.cuh kRowPlanes):
 # the 16 tap planes less u_m (no merge) and flags (the replay runs at the
 # sample's end), with Q and S as bq, u0 and u3
@@ -297,7 +298,7 @@ def load_library() -> types.SimpleNamespace:
         zdr_sampler_probe=_bind(fwd, "zdr_sampler_probe", [_P, _P, _P, _I, _I, _P, _P]),
         zdr_path_loop_grad=_bind(grad, "zdr_path_loop_grad", _GRAD_ARGS + [_P]),
         zdr_path_loop_grad_bvh=_bind(grad, "zdr_path_loop_grad_bvh", _GRAD_BVH_ARGS + [_P]),
-        zdr_path_loop_grad_plan=_bind(grad, "zdr_path_loop_grad_plan", [_I, _I, _I, _P]),
+        zdr_path_loop_grad_plan=_bind(grad, "zdr_path_loop_grad_plan", [_P, _I, _I, _I, _P]),
         zdr_path_loop_env=_bind(fwd, "zdr_path_loop_env", _LOOP_ARGS + _ENV_ARGS + [_I, _P, _P]),
         zdr_path_loop_env_bvh=_bind(fwd, "zdr_path_loop_env_bvh",
                                     _LOOP_BVH_ARGS + _ENV_ARGS + [_I, _P, _P]),
@@ -344,6 +345,7 @@ def load_host_library() -> types.SimpleNamespace:
         ctypes.CDLL(p) for p in _compile("g++", HOST_FLAGS, builds))
     return types.SimpleNamespace(
         zdr_path_loop_host=_bind(lib, "zdr_path_loop_host", _LOOP_ARGS),
+        zdr_gen_sampler_host=_bind(lib, "zdr_gen_sampler_host", [_P]),
         zdr_sampler_probe_host=_bind(lib, "zdr_sampler_probe_host", [_P, _P, _P, _I, _I, _P]),
         zdr_path_loop_grad_host=_bind(lib, "zdr_path_loop_grad_host", _GRAD_ARGS),
         # the forward when le_grad (8th) is null
@@ -371,11 +373,15 @@ def load_host_library() -> types.SimpleNamespace:
 def pack_params(kind: str, spp: int, seed: int, *, res=(1, 1), use_tent=True,
                 rr_depth=0, max_depth=0, counts=(0, 0, 0, 0), tex=(0, 0),
                 bn_res=0, bn_ntex=0, n_env=0):
-    """The kernel's integer parameters (path_loop_step.cuh LoopParams)."""
+    """The kernel's integer parameters (path_loop_step.cuh LoopParams);
+    corrmj's grid side and its mask as samplers/corrmj.py computes them."""
+    if spp <= 0:
+        raise ValueError(f"spp must be >= 1, got {spp}")
     seed &= 0xFFFFFFFF
+    cmj_res = grid_side(spp) if kind == "corrmj" else 0
     vals = [KINDS[kind], spp, next_pow2_mask(spp), seed - (seed >> 31 << 32),
             res[0], res[1], int(use_tent), rr_depth, max_depth, *counts, *tex,
-            bn_res, bn_ntex, n_env]
+            bn_res, bn_ntex, n_env, cmj_res, next_pow2_mask(cmj_res) if cmj_res else 0]
     return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -448,8 +454,6 @@ def _loop_inputs(tb: LoopTables, lanes, material, n_steps, dev, integrator):
     _check(material, "material", torch.float32, material.shape, dev)
     if material.data_ptr() % 16:
         raise ValueError("material must be 16-byte aligned for float4 loads")
-    if tb.kind not in KINDS:
-        raise NotImplementedError(f"{tb.kind} sampler in the path-loop kernel: ROADMAP A4")
     if tb.kind == "pmj02bn":
         _check(tb.bn, "blue noise", torch.float32, (tb.bn_res * tb.bn_res * tb.bn_ntex,), dev)
     tables = pack_tables(tb).to(dev)
@@ -655,9 +659,8 @@ def grad_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor
     rows = max(tb.max_depth, 1)
     k_cap = min(GRAD_NEAR_ROWS["bvh" if bvh else "dense"] if k_cap is None else k_cap, rows)
     info = (ctypes.c_int * 6)()
-    kind = int(bvh) | (2 if tb.env is not None else 0)
     name = _loop_name("path_loop_grad", tb)
-    _raise_on(lib.zdr_path_loop_grad_plan(kind, table_bytes, k_cap, info), name)
+    _raise_on(lib.zdr_path_loop_grad_plan(params, int(bvh), table_bytes, k_cap, info), name)
     plan = dict(zip(("k_near", "block", "registers", "blocks_per_sm", "smem_bytes",
                      "local_bytes"), info))
     carry = init_carry(lanes)
@@ -780,8 +783,6 @@ def sampler_probe(kind: str, spp: int, lanes: torch.Tensor, k: int, bn) -> torch
         return sampler_probe_plain(kind, spp, lanes, k, bn)
     n = lanes.shape[1]
     _check(lanes, "lanes", torch.int32, (4, n), dev)
-    if kind not in KINDS:
-        raise NotImplementedError(f"{kind} sampler: ROADMAP A4")
     rows, res, n_tex = bn if kind == "pmj02bn" else (None, 0, 0)
     if rows is not None:
         _check(rows, "blue noise", torch.float32, (res * res * n_tex,), dev)

@@ -43,7 +43,8 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kMaxBlock = 512;
 
-template <bool kGrad>
+// kGen: the generic sampler (zdr::gen_sampler), as direct.cu's kernels.
+template <bool kGrad, bool kGen>
 __global__ void __launch_bounds__(kMaxBlock, 2)
     collocated_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                       const float* __restrict__ bn, const float* __restrict__ material,
@@ -56,8 +57,8 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
   zdr::TraceCount count = {0, 0};
   if (lane < n) {
     zdr::Tables tb = zdr::compact_tables(smem, tables, bn, material, q);
-    zdr::LaneConst lc = zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane],
-                                        q.seed, q);
+    zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                              lanes[2L * n + lane], q.seed, q);
     zdr::DirectTaps dt;
     if (kGrad) {
       dt.lg[0] = le_grad[lane];
@@ -65,7 +66,8 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
       dt.lg[2] = le_grad[2L * n + lane];
       dt.grad = grad;
     }
-    zdr::V3 acc = zdr::collocated_lane<kGrad>(tb, q, lc, &dt, count);
+    zdr::V3 acc = zdr::collocated_lane<kGrad, zdr::CompactSweep<false>, kGen>(tb, q, lc, &dt,
+                                                                              count);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -73,7 +75,7 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
   zdr::warp_add(counts, count.tests);
 }
 
-template <bool kGrad>
+template <bool kGrad, bool kGen>
 __global__ void __launch_bounds__(kBlock, 4)
     collocated_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables,
                           int small_shared, const float* __restrict__ bn,
@@ -86,8 +88,8 @@ __global__ void __launch_bounds__(kBlock, 4)
   zdr::TraceCount count = {0, 0};
   if (lane < n) {
     zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);
-    zdr::LaneConst lc = zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane],
-                                        q.seed, q);
+    zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                              lanes[2L * n + lane], q.seed, q);
     zdr::DirectTaps dt;
     if (kGrad) {
       dt.lg[0] = le_grad[lane];
@@ -96,7 +98,7 @@ __global__ void __launch_bounds__(kBlock, 4)
       dt.grad = grad;
     }
     zdr::BvhTrace tr{bvh};
-    zdr::V3 acc = zdr::collocated_lane<kGrad>(tb, q, lc, &dt, count, tr);
+    zdr::V3 acc = zdr::collocated_lane<kGrad, zdr::BvhTrace, kGen>(tb, q, lc, &dt, count, tr);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -127,8 +129,10 @@ int zdr_collocated(const int* params, const float* tables, int tables_n, const f
   int smem = zdr::compact_size(q) * (int)sizeof(float);
   void* args[] = {&q,       &tables, &tables_n, &bn,     &material, &lanes,
                   &le_grad, &acc,    &grad,     &counts, &n};
-  const void* fn = le_grad ? (const void*)collocated_kernel<true>
-                           : (const void*)collocated_kernel<false>;
+  const void* fns[2][2] = {
+      {(const void*)collocated_kernel<false, false>, (const void*)collocated_kernel<false, true>},
+      {(const void*)collocated_kernel<true, false>, (const void*)collocated_kernel<true, true>}};
+  const void* fn = fns[le_grad != nullptr][zdr::gen_sampler(q)];
   return zdr::launch(fn, n, smem, block, plan, args, stream);
 }
 
@@ -143,7 +147,10 @@ int zdr_collocated_bvh(const int* params, const float* tables, int tables_n, int
   size_t smem = small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0;
   zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
   int grid = (n + kBlock - 1) / kBlock;
-  auto fn = le_grad ? collocated_bvh_kernel<true> : collocated_bvh_kernel<false>;
+  auto fn = le_grad ? (zdr::gen_sampler(q) ? collocated_bvh_kernel<true, true>
+                                           : collocated_bvh_kernel<true, false>)
+                    : (zdr::gen_sampler(q) ? collocated_bvh_kernel<false, true>
+                                           : collocated_bvh_kernel<false, false>);
   int err = launch_config(fn, smem);
   if (err) return err;
   fn<<<grid, kBlock, smem, (cudaStream_t)stream>>>(q, tables, small_shared, bn, material, lanes,

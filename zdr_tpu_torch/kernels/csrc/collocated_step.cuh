@@ -24,8 +24,9 @@ namespace zdr {
 // Sample `sample_idx` of a lane -> its radiance (before the clamp).
 // kGrad: also adds the sample's texture gradient, one tap at one texel. The
 // sweep goes through `tr` (the compact sweep, or trace.cuh's BVH) and adds
-// its work to `cnt`.
-template <bool kGrad = false, class Tracer = CompactSweep<false>>
+// its work to `cnt`. kGen: the generic sampler (path_loop_step.cuh
+// lane_const).
+template <bool kGrad = false, class Tracer = CompactSweep<false>, bool kGen = false>
 ZDR_HD V3 collocated_sample(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                             uint32_t sample_idx, const DirectTaps* dt, TraceCount& cnt,
                             const Tracer& tr = Tracer()) {
@@ -36,9 +37,9 @@ ZDR_HD V3 collocated_sample(const Tables& tb, const LoopParams& q, const LaneCon
   sc.seed = q.seed;
 
   // the camera's 2 draws and the primary ray
-  Sampler smp = fresh_sampler(sc, sample_idx);
+  Sampler smp = fresh_sampler<kGen>(sc, sample_idx);
   float cu0, cu1;
-  next2(sc, smp, cu0, cu1);
+  next2<kGen>(sc, smp, cu0, cu1);
   V3 o, d;
   camera_ray(tb.cam, q, lc.px, lc.py, cu0, cu1, o, d);
 
@@ -74,8 +75,8 @@ ZDR_HD V3 collocated_sample(const Tables& tb, const LoopParams& q, const LaneCon
       float wz = wo_local.z;
       float g3 = (ct[0] * wz + ct[1] * wz + ct[2] * wz) *
                  ggx_spec_droughness(wo_local, wo_local, rough);
-      int id = splat_id(hit.ux, hit.uy, lcg_to_unit_float(sampler_salt(sc, smp)), q.tex_h,
-                        q.tex_w);
+      int id = splat_id(hit.ux, hit.uy, lcg_to_unit_float(sampler_salt<kGen>(sc, smp)),
+                        q.tex_h, q.tex_w);
       splat_add4(dt->grad, id, (ct[0] * wz) / kPi, (ct[1] * wz) / kPi, (ct[2] * wz) / kPi, g3);
     }
   }
@@ -85,12 +86,12 @@ ZDR_HD V3 collocated_sample(const Tables& tb, const LoopParams& q, const LaneCon
 // A lane's samples 0 .. stop-1, accumulated with the clamp-and-NaN rule of
 // the render wrapper (wrapper.py:194-196) -> the sum of its clamped
 // radiances.
-template <bool kGrad = false, class Tracer = CompactSweep<false>>
+template <bool kGrad = false, class Tracer = CompactSweep<false>, bool kGen = false>
 ZDR_HD V3 collocated_lane(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                           const DirectTaps* dt, TraceCount& cnt, const Tracer& tr = Tracer()) {
   V3 acc = v3(0.0f, 0.0f, 0.0f);
   for (int s = 0; s < lc.stop; ++s) {
-    V3 rad = collocated_sample<kGrad>(tb, q, lc, (uint32_t)s, dt, cnt, tr);
+    V3 rad = collocated_sample<kGrad, Tracer, kGen>(tb, q, lc, (uint32_t)s, dt, cnt, tr);
     if (!(is_nan(rad.x) || is_nan(rad.y) || is_nan(rad.z)))
       acc = v3(acc.x + jclip(rad.x, 0.0f, kRadianceClamp),
                acc.y + jclip(rad.y, 0.0f, kRadianceClamp),

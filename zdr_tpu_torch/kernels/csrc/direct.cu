@@ -60,6 +60,10 @@
 // and 512, measured slower, or no faster on the protocol and the big mesh
 // at once (studies/walk_split.py; PERF.md).
 //
+// Each kernel has kGen instantiations for the generic sampler (corrmj;
+// pmj02bn at a spp that is no power of two: zdr::gen_sampler), as
+// path_loop.cu's; the others compile to the code they had before them.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false (see zdr_tpu_torch/kernels/__init__.py).
 #include <cuda_runtime.h>
@@ -86,7 +90,7 @@ __global__ void __launch_bounds__(kBlock)
   zdr::trace_interact_lane(tb, q, rays, active, f_out, i_out, lane, n, lite != 0);
 }
 
-template <bool kGrad, bool kEarly, bool kEnv>
+template <bool kGrad, bool kEarly, bool kEnv, bool kGen>
 __global__ void __launch_bounds__(kMaxBlock, 2)
     direct_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                   const float* __restrict__ bn, const float* __restrict__ material,
@@ -99,8 +103,8 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
   zdr::TraceCount count = {0, 0};
   if (lane < n) {
     zdr::Tables tb = zdr::compact_tables(smem, tables, bn, material, q);
-    zdr::LaneConst lc = zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane],
-                                        q.seed, q);
+    zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                              lanes[2L * n + lane], q.seed, q);
     zdr::DirectTaps dt;
     if (kGrad) {
       dt.lg[0] = le_grad[lane];
@@ -108,8 +112,8 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
       dt.lg[2] = le_grad[2L * n + lane];
       dt.grad = grad;
     }
-    zdr::V3 acc = zdr::direct_lane<kGrad, kEnv>(tb, q, lc, &dt, count,
-                                                zdr::CompactSweep<kEarly>(), &env);
+    zdr::V3 acc = zdr::direct_lane<kGrad, kEnv, zdr::CompactSweep<kEarly>, kGen>(
+        tb, q, lc, &dt, count, zdr::CompactSweep<kEarly>(), &env);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -119,7 +123,7 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
 
 // The same samples with every sweep through the BVH; shared memory holds
 // the small tables only, where they fit (small_shared).
-template <bool kGrad, bool kEnv>
+template <bool kGrad, bool kEnv, bool kGen>
 __global__ void __launch_bounds__(kBlock, 4)
     direct_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables, int small_shared,
                       const float* __restrict__ bn, const float* __restrict__ material,
@@ -132,8 +136,8 @@ __global__ void __launch_bounds__(kBlock, 4)
   zdr::TraceCount count = {0, 0};
   if (lane < n) {
     zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);
-    zdr::LaneConst lc = zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane],
-                                        q.seed, q);
+    zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                              lanes[2L * n + lane], q.seed, q);
     zdr::DirectTaps dt;
     if (kGrad) {
       dt.lg[0] = le_grad[lane];
@@ -142,7 +146,8 @@ __global__ void __launch_bounds__(kBlock, 4)
       dt.grad = grad;
     }
     zdr::BvhTrace tr{bvh};
-    zdr::V3 acc = zdr::direct_lane<kGrad, kEnv>(tb, q, lc, &dt, count, tr, &env);
+    zdr::V3 acc = zdr::direct_lane<kGrad, kEnv, zdr::BvhTrace, kGen>(tb, q, lc, &dt, count, tr,
+                                                                     &env);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -157,6 +162,20 @@ int launch_config(K kernel, size_t smem) {
                                    (int)smem);
 }
 
+// The dense direct kernel of the generic sampler (kGen) or not.
+template <bool kGen>
+const void* dense_fn(bool grad, bool early, bool with_env) {
+  if (with_env)
+    return grad ? (early ? (const void*)direct_kernel<true, true, true, kGen>
+                         : (const void*)direct_kernel<true, false, true, kGen>)
+                : (early ? (const void*)direct_kernel<false, true, true, kGen>
+                         : (const void*)direct_kernel<false, false, true, kGen>);
+  return grad ? (early ? (const void*)direct_kernel<true, true, false, kGen>
+                       : (const void*)direct_kernel<true, false, false, kGen>)
+              : (early ? (const void*)direct_kernel<false, true, false, kGen>
+                       : (const void*)direct_kernel<false, false, false, kGen>);
+}
+
 // One launch of the dense direct kernel, forward or tap mode (le_grad
 // set), with or without the early out and the env.
 int direct_dense(const int* params, const float* tables, int tables_n, const float* bn,
@@ -168,18 +187,17 @@ int direct_dense(const int* params, const float* tables, int tables_n, const flo
   int smem = zdr::compact_size(q) * (int)sizeof(float);
   void* args[] = {&q,       &tables, &tables_n, &bn,     &material, &lanes,
                   &le_grad, &acc,    &grad,     &counts, &n,        &env};
-  const void* fn;
-  if (with_env)
-    fn = le_grad ? (early ? (const void*)direct_kernel<true, true, true>
-                          : (const void*)direct_kernel<true, false, true>)
-                 : (early ? (const void*)direct_kernel<false, true, true>
-                          : (const void*)direct_kernel<false, false, true>);
-  else
-    fn = le_grad ? (early ? (const void*)direct_kernel<true, true, false>
-                          : (const void*)direct_kernel<true, false, false>)
-                 : (early ? (const void*)direct_kernel<false, true, false>
-                          : (const void*)direct_kernel<false, false, false>);
+  const void* fn = zdr::gen_sampler(q) ? dense_fn<true>(le_grad != nullptr, early, with_env)
+                                        : dense_fn<false>(le_grad != nullptr, early, with_env);
   return zdr::launch(fn, n, smem, block, plan, args, stream);
+}
+
+// The direct BVH kernel of the generic sampler (kGen) or not.
+template <bool kGen>
+auto bvh_fn(bool grad, bool with_env) {
+  return grad ? (with_env ? direct_bvh_kernel<true, true, kGen> : direct_bvh_kernel<true, false, kGen>)
+              : (with_env ? direct_bvh_kernel<false, true, kGen>
+                          : direct_bvh_kernel<false, false, kGen>);
 }
 
 // One launch of the direct BVH kernel, likewise.
@@ -193,8 +211,8 @@ int direct_bvh(const int* params, const float* tables, int tables_n, int small_s
   size_t smem = small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0;
   zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
   int grid = (n + kBlock - 1) / kBlock;
-  auto fn = le_grad ? (with_env ? direct_bvh_kernel<true, true> : direct_bvh_kernel<true, false>)
-                    : (with_env ? direct_bvh_kernel<false, true> : direct_bvh_kernel<false, false>);
+  auto fn = zdr::gen_sampler(q) ? bvh_fn<true>(le_grad != nullptr, with_env)
+                                 : bvh_fn<false>(le_grad != nullptr, with_env);
   int err = launch_config(fn, smem);
   if (err) return err;
   fn<<<grid, kBlock, smem, (cudaStream_t)stream>>>(q, tables, small_shared, bn, material, lanes,
@@ -206,7 +224,7 @@ int direct_bvh(const int* params, const float* tables, int tables_n, int small_s
 
 extern "C" {
 
-// params: the 18 ints of zdr::LoopParams (only n_tris is read); tables: the
+// params: the 20 ints of zdr::LoopParams (only n_tris is read); tables: the
 // (n_tris, 31) scene table; rays: (7, n) float32 o3 d3 pdf_prev; active:
 // (n,) int32; f_out / i_out: (14, n) / (2, n), or (3, n) / (1, n) when lite.
 // Returns the CUDA error of the launch (0 when it was accepted).

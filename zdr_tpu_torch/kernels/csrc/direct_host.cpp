@@ -25,24 +25,27 @@ void direct_lanes(const zdr::Tables& tb, const zdr::LoopParams& q, const Tracer&
                   const int* lanes, const float* le_grad, float* acc, float* grad,
                   unsigned long long* counts, int n, const zdr::EnvTables* env = nullptr) {
   zdr::TraceCount c = {0, 0};
-  for (long lane = 0; lane < n; ++lane) {
-    zdr::LaneConst lc =
-        zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane], q.seed, q);
-    zdr::V3 a;
-    if (le_grad) {
-      zdr::DirectTaps dt;
-      dt.lg[0] = le_grad[lane];
-      dt.lg[1] = le_grad[n + lane];
-      dt.lg[2] = le_grad[2L * n + lane];
-      dt.grad = grad;
-      a = zdr::direct_lane<true, kEnv>(tb, q, lc, &dt, c, tr, env);
-    } else {
-      a = zdr::direct_lane<false, kEnv>(tb, q, lc, nullptr, c, tr, env);
+  zdr::with_gen(q, [&](auto gen) {
+    constexpr bool kGen = decltype(gen)::value;
+    for (long lane = 0; lane < n; ++lane) {
+      zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                                lanes[2L * n + lane], q.seed, q);
+      zdr::V3 a;
+      if (le_grad) {
+        zdr::DirectTaps dt;
+        dt.lg[0] = le_grad[lane];
+        dt.lg[1] = le_grad[n + lane];
+        dt.lg[2] = le_grad[2L * n + lane];
+        dt.grad = grad;
+        a = zdr::direct_lane<true, kEnv, Tracer, kGen>(tb, q, lc, &dt, c, tr, env);
+      } else {
+        a = zdr::direct_lane<false, kEnv, Tracer, kGen>(tb, q, lc, nullptr, c, tr, env);
+      }
+      acc[lane] = a.x;
+      acc[n + lane] = a.y;
+      acc[2L * n + lane] = a.z;
     }
-    acc[lane] = a.x;
-    acc[n + lane] = a.y;
-    acc[2L * n + lane] = a.z;
-  }
+  });
   counts[0] += c.tests;
   if (Tracer::kBvh) counts[1] += c.visits;
 }

@@ -242,8 +242,10 @@ struct DirectTaps {
 // ray adds it MIS-weighted against the BSDF pdf. The gradient needs no term
 // of its own: the taps read the env through nee.ev and rad - rk.
 // The sweeps go through `tr` (the compact sweep, or trace.cuh's BVH) and
-// add their work to `cnt`.
-template <bool kGrad = false, bool kEnv = false, class Tracer = CompactSweep<true>>
+// add their work to `cnt`. kGen: the generic sampler (path_loop_step.cuh
+// lane_const).
+template <bool kGrad = false, bool kEnv = false, class Tracer = CompactSweep<true>,
+          bool kGen = false>
 ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                         uint32_t sample_idx, const DirectTaps* dt, TraceCount& cnt,
                         const Tracer& tr = Tracer(), const EnvTables* env = nullptr) {
@@ -254,9 +256,9 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
   sc.seed = q.seed;
 
   // the camera's 2 draws and the primary ray (fused_glue.py:121-170)
-  Sampler smp = fresh_sampler(sc, sample_idx);
+  Sampler smp = fresh_sampler<kGen>(sc, sample_idx);
   float cu0, cu1;
-  next2(sc, smp, cu0, cu1);
+  next2<kGen>(sc, smp, cu0, cu1);
   V3 o, d;
   camera_ray(tb.cam, q, lc.px, lc.py, cu0, cu1, o, d);
 
@@ -270,10 +272,10 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
   V3 dif;
   float rough;
   read_bilinear(tb.material, q.tex_h, q.tex_w, hit.ux, hit.uy, dif, rough);
-  Nee nee = nee_select<kEnv>(tb, q, sc, smp, hit.p, env);
-  float u_lobe = next1(sc, smp);
+  Nee nee = nee_select<kEnv, kGen>(tb, q, sc, smp, hit.p, env);
+  float u_lobe = next1<kGen>(sc, smp);
   float ub0, ub1;
-  next2(sc, smp, ub0, ub1);
+  next2<kGen>(sc, smp, ub0, ub1);
 
   // B2 at depth 0 with beta = 1: the shadow test, MIS, GGX shade + sample.
   // Roulette is inert (depth 0 < rr_depth 2) and the path goes on when the
@@ -346,8 +348,8 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
     // vector atomic (path_loop_step.cuh splat_add4: a NaN channel adds 0);
     // the salt follows the sample's 9 draws (direct_fused.py:260)
     if (nee_ok || bounce_ok) {
-      int id = splat_id(hit.ux, hit.uy, lcg_to_unit_float(sampler_salt(sc, smp)), q.tex_h,
-                        q.tex_w);
+      int id = splat_id(hit.ux, hit.uy, lcg_to_unit_float(sampler_salt<kGen>(sc, smp)),
+                        q.tex_h, q.tex_w);
       splat_add4(dt->grad, id, g[0], g[1], g[2], g[3]);
     }
   }
@@ -356,13 +358,14 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
 
 // A lane's samples 0 .. stop-1, accumulated with the clamp-and-NaN rule of
 // direct_fused.py:283-286 -> the sum of its clamped radiances.
-template <bool kGrad = false, bool kEnv = false, class Tracer = CompactSweep<true>>
+template <bool kGrad = false, bool kEnv = false, class Tracer = CompactSweep<true>,
+          bool kGen = false>
 ZDR_HD V3 direct_lane(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                       const DirectTaps* dt, TraceCount& cnt, const Tracer& tr = Tracer(),
                       const EnvTables* env = nullptr) {
   V3 acc = v3(0.0f, 0.0f, 0.0f);
   for (int s = 0; s < lc.stop; ++s) {
-    V3 rad = direct_sample<kGrad, kEnv>(tb, q, lc, (uint32_t)s, dt, cnt, tr, env);
+    V3 rad = direct_sample<kGrad, kEnv, Tracer, kGen>(tb, q, lc, (uint32_t)s, dt, cnt, tr, env);
     if (!(is_nan(rad.x) || is_nan(rad.y) || is_nan(rad.z)))
       acc = v3(acc.x + jclip(rad.x, 0.0f, kRadianceClamp),
                acc.y + jclip(rad.y, 0.0f, kRadianceClamp),

@@ -49,6 +49,17 @@
 // the instantiations without the env never read it, and compile to the
 // code they had before it.
 //
+// The samplers that need more than the flagship's (corrmj, and pmj02bn at a
+// spp that is no power of two: zdr::gen_sampler) run the kGen
+// instantiations of the same kernels: a third sampler word in the carry,
+// corrmj's draws, and the Kensler permutation's per-lane rejection loop,
+// which the JAX package ran in the XLA glue around its kernels
+// (path_fused.py) wherever its loop kernel could not take the sampler. The
+// instantiations without kGen never run that code, but they still store a 0
+// into the carry's seventh row (smp2), which moved their schedule: the
+// flagship's SASS changed, and path_loop_grad went from 126 to 128
+// registers (PERF.md).
+//
 // path_loop_bvh_kernel is the same walk with its two sweeps a step through
 // the ordered BVH walk in global memory (trace.cuh): the big-mesh route that
 // the JAX package took through path_fused.py's streamed sweeps, B5 in
@@ -69,8 +80,8 @@ namespace {
 // Each kernel is capped at 64 registers, 32 warps an SM, by its largest
 // block and the blocks an SM that block needs; it launches at any power of
 // two from 32 up to that block (the code reads blockDim). kEnv: under the
-// environment light of `env`.
-template <bool kEnv>
+// environment light of `env`; kGen: the generic sampler.
+template <bool kEnv, bool kGen>
 __global__ void __launch_bounds__(512, 2)
     path_loop_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                      const float* __restrict__ bn, const float* __restrict__ material,
@@ -83,16 +94,16 @@ __global__ void __launch_bounds__(512, 2)
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   zdr::Tables tb = zdr::tables_at(smem, bn, material, q);
-  zdr::LaneConst lc = zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane],
-                                      q.seed, q);
+  zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                            lanes[2L * n + lane], q.seed, q);
   zdr::LaneState s;
-  zdr::load_lane(s, f_in, i_in, lane, n);
-  zdr::run_lane<false, zdr::DenseSweep<>, kEnv>(s, lc, tb, q, n_steps, nullptr,
-                                                zdr::DenseSweep<>(), nullptr, &env);
-  zdr::store_lane(s, f_out, i_out, lane, n);
+  zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
+  zdr::run_lane<false, zdr::DenseSweep<>, kEnv, kGen>(s, lc, tb, q, n_steps, nullptr,
+                                                      zdr::DenseSweep<>(), nullptr, &env);
+  zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
 }
 
-template <bool kEnv>
+template <bool kEnv, bool kGen>
 __global__ void __launch_bounds__(256, 4)
     path_loop_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables,
                          int small_shared, const float* __restrict__ bn,
@@ -107,24 +118,25 @@ __global__ void __launch_bounds__(256, 4)
   zdr::TraceCount count = {0, 0};
   if (lane < n) {
     zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);
-    zdr::LaneConst lc = zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane],
-                                        q.seed, q);
+    zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                              lanes[2L * n + lane], q.seed, q);
     zdr::LaneState s;
-    zdr::load_lane(s, f_in, i_in, lane, n);
-    zdr::run_lane<false, zdr::BvhTrace, kEnv>(s, lc, tb, q, n_steps, nullptr,
-                                              zdr::BvhTrace{bvh}, &count, &env);
-    zdr::store_lane(s, f_out, i_out, lane, n);
+    zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
+    zdr::run_lane<false, zdr::BvhTrace, kEnv, kGen>(s, lc, tb, q, n_steps, nullptr,
+                                                    zdr::BvhTrace{bvh}, &count, &env);
+    zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
   }
   zdr::warp_add(counts, count.tests);
   zdr::warp_add(counts + 1, count.visits);
 }
 
+template <bool kGen>
 __global__ void sampler_probe_kernel(zdr::LoopParams q, const float* __restrict__ bn,
                                      const int* __restrict__ lanes, int n, int k,
                                      float* __restrict__ out) {
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  zdr::sampler_probe_lane(q, bn, lanes[lane], lanes[n + lane], (uint32_t)lanes[2L * n + lane],
+  zdr::sampler_probe_lane<kGen>(q, bn, lanes[lane], lanes[n + lane], (uint32_t)lanes[2L * n + lane],
                           (uint32_t)lanes[3L * n + lane], k, out, lane, n);
 }
 
@@ -139,8 +151,10 @@ int loop_dense(const int* params, const float* tables, int tables_n, const float
     return (int)cudaErrorInvalidValue;
   void* args[] = {&q,     &tables, &tables_n, &bn,  &material, &lanes, &f_in,
                   &i_in,  &f_out,  &i_out,    &n,   &n_steps,  &env};
-  const void* fn = with_env ? (const void*)path_loop_kernel<true>
-                            : (const void*)path_loop_kernel<false>;
+  const void* fns[2][2] = {
+      {(const void*)path_loop_kernel<false, false>, (const void*)path_loop_kernel<false, true>},
+      {(const void*)path_loop_kernel<true, false>, (const void*)path_loop_kernel<true, true>}};
+  const void* fn = fns[with_env][zdr::gen_sampler(q)];
   return zdr::launch(fn, n, tables_n * (int)sizeof(float), block, plan, args, stream);
 }
 
@@ -159,8 +173,12 @@ int loop_bvh(const int* params, const float* tables, int tables_n, int small_sha
   void* args[] = {&q,    &tables, &small_shared, &bn,      &material, &lanes, &f_in,
                   &i_in, &f_out,  &i_out,        &n,       &n_steps,  &bvh,   &counts,
                   &env};
-  const void* fn = with_env ? (const void*)path_loop_bvh_kernel<true>
-                            : (const void*)path_loop_bvh_kernel<false>;
+  const void* fns[2][2] = {
+      {(const void*)path_loop_bvh_kernel<false, false>,
+       (const void*)path_loop_bvh_kernel<false, true>},
+      {(const void*)path_loop_bvh_kernel<true, false>,
+       (const void*)path_loop_bvh_kernel<true, true>}};
+  const void* fn = fns[with_env][zdr::gen_sampler(q)];
   return zdr::launch(fn, n, smem, block, plan, args, stream);
 }
 
@@ -168,7 +186,7 @@ int loop_bvh(const int* params, const float* tables, int tables_n, int small_sha
 
 extern "C" {
 
-// params: the 18 ints of zdr::LoopParams (host memory); tables: tables_size floats;
+// params: the 20 ints of zdr::LoopParams (host memory); tables: tables_size floats;
 // lanes: (3, n) int32 px, py, stop; carry: (kNumF, n) float32 and
 // (kNumI, n) int32, read from *_in and written to *_out; block and plan: as
 // launch's (block 0: the plan's pick; plan: 8 ints, written). Returns the
@@ -237,8 +255,8 @@ int zdr_path_loop_env_bvh(const int* params, const float* tables, int tables_n,
 int zdr_sampler_probe(const int* params, const float* bn, const int* lanes, int n, int k,
                       float* out, void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
-  sampler_probe_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(q, bn, lanes, n, k,
-                                                                           out);
+  auto fn = zdr::gen_sampler(q) ? sampler_probe_kernel<true> : sampler_probe_kernel<false>;
+  fn<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(q, bn, lanes, n, k, out);
   return (int)cudaGetLastError();
 }
 

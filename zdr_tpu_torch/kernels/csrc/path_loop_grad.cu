@@ -41,6 +41,9 @@
 // env's miss radiance enters a row's radiance as an emitter hit's does, so
 // the rows keep their layout (kRowPlanes).
 //
+// The generic sampler (corrmj; pmj02bn at a spp that is no power of two)
+// runs the kGen instantiations, as path_loop.cu's.
+//
 // path_loop_grad_bvh_kernel is the same walk with its sweeps through the
 // ordered BVH walk in global memory (trace.cuh), as path_loop.cu's
 // path_loop_bvh_kernel: the big-mesh route of the JAX package's path_fused
@@ -89,7 +92,7 @@ __device__ zdr::GradLane grad_lane(const float* le_grad, long lane, int n, float
 }
 
 // A thread past the last lane has no sample (stop 0): its walk ends at once.
-template <bool kEnv, class Tracer>
+template <bool kEnv, bool kGen, class Tracer>
 __device__ __forceinline__ void walk(const zdr::Tables& tb, const zdr::LoopParams& q,
                                      const int* lanes, const float* f_in, const int* i_in,
                                      float* f_out, int* i_out, long lane, int n, int n_steps,
@@ -98,18 +101,18 @@ __device__ __forceinline__ void walk(const zdr::Tables& tb, const zdr::LoopParam
   zdr::LaneState s;
   zdr::LaneConst lc;
   if (lane < n) {
-    lc = zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane], q.seed, q);
-    zdr::load_lane(s, f_in, i_in, lane, n);
+    lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane], lanes[2L * n + lane], q.seed, q);
+    zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
   } else {
-    lc = zdr::lane_const(0, 0, 0, q.seed, q);
+    lc = zdr::lane_const<kGen>(0, 0, 0, q.seed, q);
     s.sample_idx = 0;
     s.in_flight = 0;
   }
-  zdr::run_lane<true, Tracer, kEnv>(s, lc, tb, q, n_steps, &gl, tr, count, env);
-  if (lane < n) zdr::store_lane(s, f_out, i_out, lane, n);
+  zdr::run_lane<true, Tracer, kEnv, kGen>(s, lc, tb, q, n_steps, &gl, tr, count, env);
+  if (lane < n) zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
 }
 
-template <bool kEnv>
+template <bool kEnv, bool kGen>
 __global__ void __launch_bounds__(kBlock)
     path_loop_grad_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                           const float* __restrict__ bn, const float* __restrict__ material,
@@ -124,11 +127,11 @@ __global__ void __launch_bounds__(kBlock)
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   zdr::Tables tb = zdr::tables_at(smem, bn, material, q);
   zdr::GradLane gl = grad_lane(le_grad, lane, n, smem + tables_n, k_near, far, grad);
-  walk<kEnv>(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl,
-             zdr::DenseSweep<>(), nullptr, &env);
+  walk<kEnv, kGen>(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl,
+                   zdr::DenseSweep<>(), nullptr, &env);
 }
 
-template <bool kEnv>
+template <bool kEnv, bool kGen>
 __global__ void __launch_bounds__(kBlock, 4)
     path_loop_grad_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables,
                               int small_shared, const float* __restrict__ bn,
@@ -146,8 +149,8 @@ __global__ void __launch_bounds__(kBlock, 4)
   zdr::TraceCount count = {0, 0};
   zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);
   zdr::GradLane gl = grad_lane(le_grad, lane, n, smem + n_small, k_near, far, grad);
-  walk<kEnv>(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl,
-             zdr::BvhTrace{bvh}, &count, &env);
+  walk<kEnv, kGen>(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl,
+                   zdr::BvhTrace{bvh}, &count, &env);
   zdr::warp_add(counts, count.tests);
   zdr::warp_add(counts + 1, count.visits);
 }
@@ -170,7 +173,10 @@ int grad_dense(const int* params, const float* tables, int tables_n, const float
   if (tables_n != zdr::tables_size(q) || (q.n_env != 0) != with_env)
     return (int)cudaErrorInvalidValue;
   size_t smem = (size_t)tables_n * sizeof(float) + near_bytes(k_near);
-  auto fn = with_env ? path_loop_grad_kernel<true> : path_loop_grad_kernel<false>;
+  auto fn = with_env ? (zdr::gen_sampler(q) ? path_loop_grad_kernel<true, true>
+                                            : path_loop_grad_kernel<true, false>)
+                     : (zdr::gen_sampler(q) ? path_loop_grad_kernel<false, true>
+                                            : path_loop_grad_kernel<false, false>);
   int err = allow_smem((const void*)fn);
   if (err) return err;
   int grid = (n + kBlock - 1) / kBlock;
@@ -193,7 +199,10 @@ int grad_bvh(const int* params, const float* tables, int tables_n, int small_sha
     return (int)cudaErrorInvalidValue;
   size_t smem = (small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0) +
                 near_bytes(k_near);
-  auto fn = with_env ? path_loop_grad_bvh_kernel<true> : path_loop_grad_bvh_kernel<false>;
+  auto fn = with_env ? (zdr::gen_sampler(q) ? path_loop_grad_bvh_kernel<true, true>
+                                            : path_loop_grad_bvh_kernel<true, false>)
+                     : (zdr::gen_sampler(q) ? path_loop_grad_bvh_kernel<false, true>
+                                            : path_loop_grad_bvh_kernel<false, false>);
   int err = allow_smem((const void*)fn);
   if (err) return err;
   int grid = (n + kBlock - 1) / kBlock;
@@ -207,20 +216,29 @@ int grad_bvh(const int* params, const float* tables, int tables_n, int small_sha
 
 extern "C" {
 
-// The launch of a gradient kernel (kind: bit 0 the BVH, bit 1 the env; 0
-// the dense kernel without the env) whose tables take table_bytes of shared
-// memory: k_near, the most near rows, up to k_cap, that keep the resident
-// blocks an SM of k_near = 0 (the rows are only as deep as max_depth, so
-// k_cap need not pass it). info: k_near, the block size, the registers a
-// thread, the resident blocks an SM, the block's shared memory, the local
-// memory a thread (spills). Returns the CUDA error (cudaErrorInvalidValue
-// when the tables alone do not fit a block).
-int zdr_path_loop_grad_plan(int kind, int table_bytes, int k_cap, int* info) {
-  const void* kernels[4] = {
-      (const void*)path_loop_grad_kernel<false>, (const void*)path_loop_grad_bvh_kernel<false>,
-      (const void*)path_loop_grad_kernel<true>, (const void*)path_loop_grad_bvh_kernel<true>};
-  if (kind < 0 || kind > 3) return (int)cudaErrorInvalidValue;
-  const void* kernel = kernels[kind];
+// The launch of the gradient kernel that the params pick (the env where
+// their n_env is 1, the generic sampler where zdr::gen_sampler holds; the
+// BVH where bvh is 1), as grad_dense and grad_bvh pick it, whose tables
+// take table_bytes of shared memory: k_near, the most near rows, up to
+// k_cap, that keep the resident blocks an SM of k_near = 0 (the rows are
+// only as deep as max_depth, so k_cap need not pass it). info: k_near, the
+// block size, the registers a thread, the resident blocks an SM, the
+// block's shared memory, the local memory a thread (spills). Returns the
+// CUDA error (cudaErrorInvalidValue when the tables alone do not fit a
+// block).
+int zdr_path_loop_grad_plan(const int* params, int bvh, int table_bytes, int k_cap, int* info) {
+  const void* kernels[8] = {
+      (const void*)path_loop_grad_kernel<false, false>,
+      (const void*)path_loop_grad_bvh_kernel<false, false>,
+      (const void*)path_loop_grad_kernel<true, false>,
+      (const void*)path_loop_grad_bvh_kernel<true, false>,
+      (const void*)path_loop_grad_kernel<false, true>,
+      (const void*)path_loop_grad_bvh_kernel<false, true>,
+      (const void*)path_loop_grad_kernel<true, true>,
+      (const void*)path_loop_grad_bvh_kernel<true, true>};
+  if (bvh < 0 || bvh > 1) return (int)cudaErrorInvalidValue;
+  zdr::LoopParams q = zdr::params_from(params);
+  const void* kernel = kernels[bvh | (q.n_env != 0 ? 2 : 0) | (zdr::gen_sampler(q) ? 4 : 0)];
   int err = allow_smem(kernel);
   if (err) return err;
   if (table_bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -280,7 +298,7 @@ int zdr_path_loop_grad_bvh(const int* params, const float* tables, int tables_n,
 
 // zdr_path_loop_grad under an environment light: the params' n_env is 1,
 // and the env's tables as zdr_path_loop_env's (path_loop.cu); k_near from
-// zdr_path_loop_grad_plan of kind 2.
+// zdr_path_loop_grad_plan of the same params.
 int zdr_path_loop_grad_env(const int* params, const float* tables, int tables_n,
                            const float* bn, const float* material, const int* lanes,
                            const float* le_grad, const float* f_in, const int* i_in,
@@ -297,7 +315,7 @@ int zdr_path_loop_grad_env(const int* params, const float* tables, int tables_n,
 }
 
 // zdr_path_loop_grad_bvh under an environment light, as
-// zdr_path_loop_grad_env; k_near from zdr_path_loop_grad_plan of kind 3.
+// zdr_path_loop_grad_env; k_near from zdr_path_loop_grad_plan of the same params.
 int zdr_path_loop_grad_env_bvh(const int* params, const float* tables, int tables_n,
                                int small_shared, const float* bn, const float* material,
                                const int* lanes, const float* le_grad, const float* f_in,

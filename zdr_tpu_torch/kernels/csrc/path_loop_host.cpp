@@ -36,6 +36,12 @@ zdr::GradLane host_grad_lane(const float* le_grad, long lane, int n, float* near
 
 extern "C" {
 
+// 1 where the params run the kernels' kGen instantiations (zdr::gen_sampler),
+// else 0: the pick that every launch makes, for the tests.
+int zdr_gen_sampler_host(const int* params) {
+  return zdr::gen_sampler(zdr::params_from(params)) ? 1 : 0;
+}
+
 int zdr_path_loop_host(const int* params, const float* tables, int tables_n,
                        const float* bn, const float* material, const int* lanes,
                        const float* f_in, const int* i_in, float* f_out, int* i_out,
@@ -43,14 +49,17 @@ int zdr_path_loop_host(const int* params, const float* tables, int tables_n,
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return 1;
   zdr::Tables tb = zdr::tables_at(tables, bn, material, q);
-  for (long lane = 0; lane < n; ++lane) {
-    zdr::LaneConst lc =
-        zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane], q.seed, q);
-    zdr::LaneState s;
-    zdr::load_lane(s, f_in, i_in, lane, n);
-    zdr::run_lane(s, lc, tb, q, n_steps);
-    zdr::store_lane(s, f_out, i_out, lane, n);
-  }
+  zdr::with_gen(q, [&](auto gen) {
+    constexpr bool kGen = decltype(gen)::value;
+    for (long lane = 0; lane < n; ++lane) {
+      zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                                lanes[2L * n + lane], q.seed, q);
+      zdr::LaneState s;
+      zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
+      zdr::run_lane<false, zdr::DenseSweep<>, false, kGen>(s, lc, tb, q, n_steps);
+      zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
+    }
+  });
   return 0;
 }
 
@@ -65,15 +74,18 @@ int zdr_path_loop_grad_host(const int* params, const float* tables, int tables_n
   if (tables_n != zdr::tables_size(q) || k_near < 0) return 1;
   zdr::Tables tb = zdr::tables_at(tables, bn, material, q);
   std::vector<float> near((size_t)k_near * zdr::kRowPlanes * n);
-  for (long lane = 0; lane < n; ++lane) {
-    zdr::LaneConst lc =
-        zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane], q.seed, q);
-    zdr::GradLane gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
-    zdr::LaneState s;
-    zdr::load_lane(s, f_in, i_in, lane, n);
-    zdr::run_lane<true>(s, lc, tb, q, n_steps, &gl);
-    zdr::store_lane(s, f_out, i_out, lane, n);
-  }
+  zdr::with_gen(q, [&](auto gen) {
+    constexpr bool kGen = decltype(gen)::value;
+    for (long lane = 0; lane < n; ++lane) {
+      zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                                lanes[2L * n + lane], q.seed, q);
+      zdr::GradLane gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
+      zdr::LaneState s;
+      zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
+      zdr::run_lane<true, zdr::DenseSweep<>, false, kGen>(s, lc, tb, q, n_steps, &gl);
+      zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
+    }
+  });
   return 0;
 }
 
@@ -97,19 +109,23 @@ int zdr_path_loop_bvh_host(const int* params, const float* tables, int tables_n,
   zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
   zdr::TraceCount c = {0, 0};
   std::vector<float> near(le_grad ? (size_t)k_near * zdr::kRowPlanes * n : 0);
-  for (long lane = 0; lane < n; ++lane) {
-    zdr::LaneConst lc =
-        zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane], q.seed, q);
-    zdr::LaneState s;
-    zdr::load_lane(s, f_in, i_in, lane, n);
-    if (le_grad) {
-      zdr::GradLane gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
-      zdr::run_lane<true>(s, lc, tb, q, n_steps, &gl, tr, &c);
-    } else {
-      zdr::run_lane(s, lc, tb, q, n_steps, nullptr, tr, &c);
+  zdr::with_gen(q, [&](auto gen) {
+    constexpr bool kGen = decltype(gen)::value;
+    for (long lane = 0; lane < n; ++lane) {
+      zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                                lanes[2L * n + lane], q.seed, q);
+      zdr::LaneState s;
+      zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
+      if (le_grad) {
+        zdr::GradLane gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
+        zdr::run_lane<true, zdr::BvhTrace, false, kGen>(s, lc, tb, q, n_steps, &gl, tr, &c);
+      } else {
+        zdr::run_lane<false, zdr::BvhTrace, false, kGen>(s, lc, tb, q, n_steps, nullptr, tr,
+                                                         &c);
+      }
+      zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
     }
-    zdr::store_lane(s, f_out, i_out, lane, n);
-  }
+  });
   counts[0] += c.tests;
   counts[1] += c.visits;
   return 0;
@@ -144,26 +160,30 @@ int zdr_path_loop_env_host(const int* params, const float* tables, int tables_n,
   zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
   zdr::TraceCount c = {0, 0};
   std::vector<float> near(le_grad ? (size_t)k_near * zdr::kRowPlanes * n : 0);
-  for (long lane = 0; lane < n; ++lane) {
-    zdr::LaneConst lc =
-        zdr::lane_const(lanes[lane], lanes[n + lane], lanes[2L * n + lane], q.seed, q);
-    zdr::LaneState s;
-    zdr::load_lane(s, f_in, i_in, lane, n);
-    zdr::GradLane gl;
-    if (le_grad) gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
-    const zdr::GradLane* g = le_grad ? &gl : nullptr;
-    if (bvh && le_grad)
-      zdr::run_lane<true, zdr::BvhTrace, true>(s, lc, tb, q, n_steps, g, tr, &c, &env);
-    else if (bvh)
-      zdr::run_lane<false, zdr::BvhTrace, true>(s, lc, tb, q, n_steps, g, tr, &c, &env);
-    else if (le_grad)
-      zdr::run_lane<true, zdr::DenseSweep<>, true>(s, lc, tb, q, n_steps, g,
-                                                   zdr::DenseSweep<>(), &c, &env);
-    else
-      zdr::run_lane<false, zdr::DenseSweep<>, true>(s, lc, tb, q, n_steps, g,
-                                                    zdr::DenseSweep<>(), &c, &env);
-    zdr::store_lane(s, f_out, i_out, lane, n);
-  }
+  zdr::with_gen(q, [&](auto gen) {
+    constexpr bool kGen = decltype(gen)::value;
+    const zdr::DenseSweep<> dense;
+    for (long lane = 0; lane < n; ++lane) {
+      zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                                lanes[2L * n + lane], q.seed, q);
+      zdr::LaneState s;
+      zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
+      zdr::GradLane gl;
+      if (le_grad) gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
+      const zdr::GradLane* g = le_grad ? &gl : nullptr;
+      if (bvh && le_grad)
+        zdr::run_lane<true, zdr::BvhTrace, true, kGen>(s, lc, tb, q, n_steps, g, tr, &c, &env);
+      else if (bvh)
+        zdr::run_lane<false, zdr::BvhTrace, true, kGen>(s, lc, tb, q, n_steps, g, tr, &c, &env);
+      else if (le_grad)
+        zdr::run_lane<true, zdr::DenseSweep<>, true, kGen>(s, lc, tb, q, n_steps, g, dense, &c,
+                                                           &env);
+      else
+        zdr::run_lane<false, zdr::DenseSweep<>, true, kGen>(s, lc, tb, q, n_steps, g, dense, &c,
+                                                            &env);
+      zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
+    }
+  });
   counts[0] += c.tests;
   counts[1] += c.visits;
   return 0;
@@ -172,10 +192,12 @@ int zdr_path_loop_env_host(const int* params, const float* tables, int tables_n,
 int zdr_sampler_probe_host(const int* params, const float* bn, const int* lanes, int n,
                            int k, float* out) {
   zdr::LoopParams q = zdr::params_from(params);
-  for (long lane = 0; lane < n; ++lane)
-    zdr::sampler_probe_lane(q, bn, lanes[lane], lanes[n + lane],
-                            (uint32_t)lanes[2L * n + lane], (uint32_t)lanes[3L * n + lane],
-                            k, out, lane, n);
+  zdr::with_gen(q, [&](auto gen) {
+    for (long lane = 0; lane < n; ++lane)
+      zdr::sampler_probe_lane<decltype(gen)::value>(
+          q, bn, lanes[lane], lanes[n + lane], (uint32_t)lanes[2L * n + lane],
+          (uint32_t)lanes[3L * n + lane], k, out, lane, n);
+  });
   return 0;
 }
 

@@ -1,15 +1,16 @@
 """Counter-based samplers: per-(pixel, seed, spp, sample_index) streams.
 
-The port covers lcg and pmj02bn at power-of-two spp; corrmj and the
-generic pmj02bn permutation are ROADMAP A4.
+Kinds (zdr_tpu/samplers/__init__.py): "pmj02bn", "corrmj" and "lcg", at
+any spp >= 1.
 """
 
 import torch
 
 from .lcg import LCGSampler, make_lcg_sampler_xy
-from .pmj02bn import PMJ02BNSamplerP2, make_pmj02bn_sampler_xy
+from .corrmj import CorrMJSampler, CorrMJSamplerP2, make_corrmj_sampler_xy
+from .pmj02bn import PMJ02BNSampler, PMJ02BNSamplerP2, make_pmj02bn_sampler_xy
 
-SAMPLERS = ("lcg", "pmj02bn")
+SAMPLERS = ("lcg", "pmj02bn", "corrmj")
 
 
 def make_sampler_xy(kind: str, px, py, seed, spp: int, sample_index, bn=None):
@@ -19,7 +20,7 @@ def make_sampler_xy(kind: str, px, py, seed, spp: int, sample_index, bn=None):
     if kind == "pmj02bn":
         return make_pmj02bn_sampler_xy(px, py, seed, spp, sample_index, bn)
     if kind == "corrmj":
-        raise NotImplementedError("corrmj sampler: ROADMAP A4")
+        return make_corrmj_sampler_xy(px, py, seed, spp, sample_index)
     raise ValueError(f"unknown sampler kind: {kind!r}")
 
 
@@ -40,6 +41,9 @@ def sampler_probe_plain(kind: str, spp: int, lanes, k: int, bn=None):
 __all__ = [
     "SAMPLERS",
     "LCGSampler",
+    "CorrMJSampler",
+    "CorrMJSamplerP2",
+    "PMJ02BNSampler",
     "PMJ02BNSamplerP2",
     "make_sampler_xy",
     "sampler_probe_plain",

@@ -87,6 +87,39 @@ def _permute_round(i: torch.Tensor, w, p: torch.Tensor) -> torch.Tensor:
     return i
 
 
+def permutation_rounds(i: torch.Tensor, l, w: int, p: torch.Tensor):
+    """Kensler permutation of i within a list of length l (hashes.py:79):
+    the first round, then another round for each lane whose candidate is
+    still >= l, then (cand + p) % l. w is the next power of two above l,
+    less 1, and l an int or a tensor like i -> (the element, the rounds past
+    the first that each lane ran).
+
+    A round maps [0, w] into itself, so if none of a lane's first w + 1
+    candidates is below l, they repeat one and the lane cycles above l: the
+    JAX package's loop never ends there. This happens only to corrmj's row
+    stratum of an index past its grid (y >= res, at a spp that is no square
+    and whose grid side is no power of two). The loop stops at w + 1
+    candidates, which changes no lane that the JAX loop finishes, and such a
+    lane takes (cand + p) % l of its last candidate."""
+    p = u32(p)
+    cand = _permute_round(u32(i), w, p)
+    over = cand >= l
+    rounds = torch.zeros_like(cand)
+    for _ in range(w):
+        if not bool(over.any()):
+            break
+        rounds += over
+        cand = torch.where(over, _permute_round(cand, w, p), cand)
+        over = cand >= l
+    return ((cand + p) & M32) % l, rounds
+
+
+def permutation_element(i: torch.Tensor, l, w: int, p: torch.Tensor) -> torch.Tensor:
+    """Kensler permutation of i within a list of length l: permutation_rounds'
+    element."""
+    return permutation_rounds(i, l, w, p)[0]
+
+
 def permutation_element_pow2(i: torch.Tensor, w: int, p: torch.Tensor) -> torch.Tensor:
     """Kensler permutation of i within a power-of-two list of length w + 1
     (hashes.py:110): the first-round candidate is always in range."""
@@ -112,6 +145,10 @@ def _finalize(h: torch.Tensor) -> torch.Tensor:
 def lcg_to_unit_float(state: torch.Tensor) -> torch.Tensor:
     """LCG state -> [0, 1) through the finalizer and the top 24 bits."""
     return to_f32(_finalize(state) >> 8) * (1.0 / 0x01000000)
+
+
+def is_pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
 
 
 def next_pow2_mask(spp: int) -> int:

@@ -1,6 +1,7 @@
-"""Progressive multi-jittered (0,2) blue-noise sampler, power-of-two spp.
+"""Progressive multi-jittered (0,2) blue-noise sampler.
 
-Port of zdr_tpu/samplers/pmj02bn.py (`PMJ02BNSamplerP2`). Per draw:
+Port of zdr_tpu/samplers/pmj02bn.py (`PMJ02BNSampler`, `PMJ02BNSamplerP2`).
+Per draw:
   * 1D: Kensler permutation of the sample index within spp (keyed by
     xxhash32(pixel, dimension, seed)), stratified value + the pixel's
     blue-noise Cranley-Patterson offset (pixel xor seed picks the texel).
@@ -11,8 +12,9 @@ The blue-noise textures are the port's own copy (bluenoise.npz beside this
 module) of the "bluenoise" array of zdr_tpu/samplers/tables.npz, the one
 array of that file the port reads. A draw indexes
 `bn_rows[(y * res + x) * n_tex + dim % n_tex]` directly; the value is the
-one the JAX package's per-lane cache holds. Only power-of-two spp is ported:
-the generic rejection-loop permutation is ROADMAP A4.
+one the JAX package's per-lane cache holds. At a power-of-two spp the
+permutation is the loop-free form (PMJ02BNSamplerP2), at any other the
+generic rejection loop (PMJ02BNSampler): the same bits where both apply.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ import torch
 from .hashes import (
     M32,
     ONE_MINUS_EPSILON,
+    is_pow2,
     mul32,
     next_pow2_mask,
+    permutation_element,
     permutation_element_pow2,
     to_f32,
     u32,
@@ -127,16 +131,21 @@ def bn_base(px: torch.Tensor, py: torch.Tensor, seed, res: int, n_tex: int) -> t
 
 
 @dataclasses.dataclass(frozen=True)
-class PMJ02BNSamplerP2:
+class PMJ02BNSampler:
     px: torch.Tensor  # int64 pixel x
     py: torch.Tensor  # int64 pixel y
     sample_index: torch.Tensor  # uint32 as int64
     dimension: torch.Tensor  # uint32 as int64
     seed: object  # uint32: an int, or an int64 tensor like px
-    spp: int  # a power of two
+    spp: int
     bn_rows: torch.Tensor  # (res*res*n_tex,) float32
     bn_base: torch.Tensor  # int64 per-lane index of the pixel's first texture
     n_tex: int
+
+    @staticmethod
+    def _perm(i, l: int, w: int, p):
+        """The Kensler permutation within spp: the generic rejection loop."""
+        return permutation_element(i, l, w, p)
 
     def _bn(self, dim: torch.Tensor) -> torch.Tensor:
         return self.bn_rows[self.bn_base + dim % self.n_tex]
@@ -149,7 +158,7 @@ class PMJ02BNSamplerP2:
     def next1(self):
         w = next_pow2_mask(self.spp)
         h = xxhash32_4(self.px, self.py, self.dimension, self.seed)
-        index = permutation_element_pow2(self.sample_index, w, h)
+        index = self._perm(self.sample_index, self.spp, w, h)
         spp = torch.tensor(float(self.spp), dtype=torch.float32, device=index.device)
         u = (to_f32(index) + self._bn(self.dimension)) / spp
         u = torch.clamp(u, 0.0, ONE_MINUS_EPSILON)
@@ -159,7 +168,7 @@ class PMJ02BNSamplerP2:
         w = next_pow2_mask(self.spp)
         instance = self.dimension // 2
         h = xxhash32_4(self.px, self.py, self.dimension, self.seed)
-        permuted = permutation_element_pow2(self.sample_index, w, h)
+        permuted = self._perm(self.sample_index, self.spp, w, h)
         index = torch.where(instance >= N_SETS, permuted, self.sample_index) % N_SAMPLES
         ptx, pty = pmj_point(instance % N_SETS, index)
         ux = ptx + self._bn(self.dimension)
@@ -169,17 +178,30 @@ class PMJ02BNSamplerP2:
         return (ux, uy), dataclasses.replace(self, dimension=(self.dimension + 2) & M32)
 
 
+class PMJ02BNSamplerP2(PMJ02BNSampler):
+    """Power-of-two spp: the permutation's first candidate is always below
+    spp, so the rejection loop never runs (permutation_element_pow2)."""
+
+    @staticmethod
+    def _perm(i, l: int, w: int, p):
+        return permutation_element_pow2(i, w, p)
+
+
+def pmj02bn_class(spp: int):
+    """The class the JAX package's factory picks at this spp."""
+    return PMJ02BNSamplerP2 if is_pow2(spp) else PMJ02BNSampler
+
+
 def make_pmj02bn_sampler_xy(px, py, seed, spp: int, sample_index, bn=None):
     """Fresh sampler at (pixel, seed, sample_index); seed an int or a tensor
-    like px; bn = bluenoise(px.device) by default."""
-    if spp <= 0 or spp & (spp - 1):
-        raise NotImplementedError(
-            "pmj02bn at non-power-of-two spp (generic permutation): ROADMAP A4"
-        )
+    like px; bn = bluenoise(px.device) by default. The class by spp, as
+    pmj02bn.py:268-295 picks it; spp <= 0 raises ValueError."""
+    if spp <= 0:
+        raise ValueError(f"spp must be >= 1, got {spp}")
     rows, res, n_tex = bluenoise(px.device) if bn is None else bn
     px = px.to(torch.int64)
     py = py.to(torch.int64)
-    return PMJ02BNSamplerP2(
+    return pmj02bn_class(spp)(
         px=px,
         py=py,
         sample_index=u32(torch.as_tensor(sample_index, device=px.device)).expand(px.shape),

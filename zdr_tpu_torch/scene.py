@@ -68,7 +68,7 @@ class Scene:
             emission_or_None). Emission > 0 marks an instance as an area light.
         integrator: 'direct' (default) | 'collocated' | 'path'.
         accel: 'auto' (default) | 'bruteforce' | 'pallas' | 'bvh' | 'stream'.
-        sampler: 'pmj02bn' (default) | 'lcg'.
+        sampler: 'pmj02bn' (default) | 'corrmj' | 'lcg', at any spp >= 1.
         device: torch device of the scene and of every render, keyword only:
             the card ("cuda", the default) or "cpu" for the plain versions.
 
