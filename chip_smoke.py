@@ -152,7 +152,26 @@ Phases, one line each; any failure raises and exits non-zero:
      the checked lanes, by the plain walk that the forward's check runs),
      a time a sample beside the pmj02bn 64-spp
      flagship's; under "samplers" and "sampler_checks" in path_loop's and
-     path_loop_grad's records.
+     path_loop_grad's records;
+ 21. the JAX package's unfused estimators, plain torch around the
+     trace_closest and trace_any kernels: bench.py's flagship (cornell box +
+     light @ 15, its camera, pmj02bn, 512x512, a 1024^2 material of 0.5) with
+     scene.fused = False through Scene.render + loss.backward() at
+     UNFUSED_SPP (the walk is bound by the host's launches: PERF.md), its
+     launches (the two trace kernels only, no plain trace), its image
+     against the loop route's at the same seed and spp at the golden bar on
+     all but LOOP_VALUE_SHARE of its values, its gradient's channel sums at
+     rtol 1e-5 and all but LOOP_TEXEL_SHARE of its texels at phase 7's rtol
+     1e-4 (float-level flips of a few samples: LOOP_VALUE_SHARE's comment),
+     the trace kernels on one of its
+     own calls bit for bit against their plain versions and timed, its
+     iteration (median of 3) and forward, each trace kernel's device time a
+     launch (torch.profiler on a forward); the same flagship under nearest
+     filtering; the direct integrator without MIS on the cornell box and on
+     the protocol's 962 triangles by accel="auto" (the BVH); then at
+     128x128, 16 spp each of those walks and the collocated golden sphere
+     under nearest with the trace kernels against the same walk with the
+     plain traces: the image bit for bit, the gradient at phase 7's bars.
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
@@ -166,9 +185,12 @@ collocated_bvh and collocated_grad_bvh (the golden sphere's under
 "golden_sphere") and its golden sphere by the dense route for collocated
 and collocated_grad, 18's example by each route for the direct env kernels,
 19's flagship under the envmap for path_loop_env and path_loop_grad_env
-and its env_scene for path_loop_env_bvh and path_loop_grad_env_bvh; for
-the probes, the standalone traces and the sweep variants, the sum over all
-of them; trace_interact's "body_launches" counts, by kernel, the launches of
+and its env_scene for path_loop_env_bvh and path_loop_grad_env_bvh, 21's
+unfused flagship for trace_closest and trace_any (their "ms" the device
+time a launch over its walk by torch.profiler, "plain_ms" and bounds on one
+of its own bounce calls, phase 12's big mesh under "big_mesh");
+for
+the probes and the sweep variants, the sum over all of them; trace_interact's "body_launches" counts, by kernel, the launches of
 phases 17-18's main paths, each of which runs B3's body a sample),
 "max_abs_err" the largest difference from the plain version over the
 kernel's checks, "ms" the kernel alone at the main path's shapes by CUDA
@@ -342,6 +364,17 @@ def _bound(tests, nbytes, visits=0, ops=MT_OPS, visit_ops=VISIT_OPS, extra_ops=0
 
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _trace_nbytes(kname, acc, o, d, *t_range):
+    """The bytes a trace function must move: its rays, the accel's rows and
+    nodes, a t bound only where the call passes one a ray (a scalar bound
+    is an argument, whatever the wrapper broadcasts), and its outputs: t,
+    prim, u, v for the closest hit, one bool a ray for any hit."""
+    n = o.shape[0]
+    per_ray = [t for t in t_range if torch.is_tensor(t) and t.numel() == n]
+    outs = 16 * n if kname.endswith("closest") else n
+    return _nbytes(o, d, acc.geom, acc.nodes, *per_ray) + outs
 
 
 def _sync_ms(fn):
@@ -1424,9 +1457,8 @@ def phase_trace_bvh(dev, smi):
                 raise AssertionError(f"{kname} {method} on the {name}: counts {counts} vs plain "
                                      f"{[int(x) for x in work]}")
             ms, _runs = _event_ms(kern)
-            outs = 16 * n if kname == "trace_closest" else 4 * n
-            bound = _bound(counts[0], _nbytes(o, d, t_max, t_max, acc.geom, acc.nodes) + outs,
-                           counts[1])
+            t_range = (0.0, 1e30) if kname == "trace_closest" else (1e-4, t_max)
+            bound = _bound(counts[0], _trace_nbytes(kname, acc, o, d, *t_range), counts[1])
             deep = f", BVH {acc.depth} deep" if acc.is_bvh else ""
             notes.append(f"{kname} {method} {name} ({acc.num_triangles} tris{deep}): kernel {ms:.3f} ms, "
                          f"plain {plain_ms:.1f} ms, {counts[0] / n:.1f} tests and {counts[1] / n:.1f} "
@@ -2503,6 +2535,357 @@ def phase_samplers(dev, smi, flag, flag_grad, probes, ptxas):
     return {"checks": checks, "runs": runs}
 
 
+# phase 21: the unfused estimators around the trace kernels. Their walks
+# are plain torch, bound by the host's launches (~35 ms a walk iteration of
+# 262,144 lanes on an H100 host, ~3.5 iterations a sample forward and ~7
+# backward: ~25 s an iteration at 64 spp), so the full-width drives run at
+# UNFUSED_SPP and the checks against the plain traces at UNFUSED_CHECK_RES,
+# UNFUSED_CHECK_SPP
+UNFUSED_SPP = 4
+UNFUSED_CHECK_RES, UNFUSED_CHECK_SPP = (128, 128), 8
+TRACES = ("trace_closest", "trace_any")
+# the golden bar (tests/test_golden.py:36)
+GOLDEN_ATOL, GOLDEN_RTOL = 2e-4, 1e-4
+# The unfused walk against the loop route: the two take a hit's point, uv
+# and normals and a light sample by different float arithmetic (the loop
+# as the fused route's o + t d and uv0 + u du1 + v du2, the walk as JAX's
+# unfused estimator, (1 - u - v) p0 + u p1 + v p2), so on a handful of the
+# ~10^6 samples a decision flips, worth up to 1/spp of a light's radiance
+# in one pixel, and a tap whose stochastic corner draw lies at a weight's
+# edge lands one texel over. studies/unfused_flips.py shows it at 4 spp:
+# the 6 values past the bar are 2 pixels, each one sample apart (the loop
+# kernel equal to its plain version on those lanes), one where the hit
+# points, 1e-5 apart by the fourth bounce, fall either side of the light's
+# edge at the seventh, one where a shadow ray grazing the ceiling's corner
+# is occluded by the walk alone; and 298 of the 369 texels past 1e-4 pair
+# with a neighbour whose difference cancels theirs. The image at the
+# golden bar on all but LOOP_VALUE_SHARE of its values and within
+# LOOP_MEAN_ABS on average (measured at 8 spp: 0 values past the bar, mean
+# 1.8e-8; at 4 spp 6 of 786,432 values past it, max 0.060, mean 2.5e-7);
+# the gradient's per-channel sums at phase 7's rtol 1e-5 and all but
+# LOOP_TEXEL_SHARE of its texels at phase 7's rtol 1e-4 (measured 0.10% at
+# 8 spp, 0.057% at 4).
+LOOP_VALUE_SHARE, LOOP_MEAN_ABS, LOOP_TEXEL_SHARE = 1e-4, 1e-6, 0.005
+
+
+class _CountPlainTraces:
+    """While entered, `calls` counts the calls of the plain traces, by
+    accel/trace.py's names and by those the kernels' wrappers call them by."""
+
+    def __enter__(self):
+        from zdr_tpu_torch import kernels
+        from zdr_tpu_torch.accel import trace as tt
+
+        self.calls, self.saved = 0, []
+        for mod in (kernels, tt):
+            for name in ("trace_closest_plain", "trace_any_plain"):
+                fn = getattr(mod, name)
+                self.saved.append((mod, name, fn))
+
+                def wrap(*args, _fn=fn, **kw):
+                    self.calls += 1
+                    return _fn(*args, **kw)
+                setattr(mod, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+class _PlainTraces:
+    """While entered, the trace kernels' wrappers run their plain versions
+    on the card's tensors: the unfused walks' traces by the plain sweeps."""
+
+    def __enter__(self):
+        from zdr_tpu_torch import kernels
+        from zdr_tpu_torch.accel import trace as tt
+
+        self.saved = (kernels.trace_closest, kernels.trace_any)
+        kernels.trace_closest = lambda a, o, d, lo=0.0, hi=1e30: tt.trace_closest_plain(
+            a, o, d, lo, hi)[0]
+        kernels.trace_any = lambda a, o, d, lo=1e-4, hi=1e30: tt.trace_any_plain(
+            a, o, d, lo, hi)[0]
+        return self
+
+    def __exit__(self, *exc):
+        from zdr_tpu_torch import kernels
+
+        kernels.trace_closest, kernels.trace_any = self.saved
+
+
+def _render_grad(scene, mat, res, spp, seed=0):
+    """Scene.render + loss.backward() -> (image, gradient), both detached."""
+    mat.grad = None
+    img = scene.render(mat, res=res, spp=spp, seed=seed)
+    img[..., :3].sum().backward()
+    return img.detach(), mat.grad.clone()
+
+
+def _times_ms(fn, reps=3):
+    """`reps` synchronised runs of fn, warm already, by the host clock ->
+    (median ms, runs)."""
+    times = [_sync_ms(fn)[1] for _ in range(reps)]
+    return statistics.median(times), times
+
+
+def _trace_profile(fn):
+    """The trace kernels' device time in one run of fn by torch.profiler
+    (CUPTI) -> {kernel: (launches, mean ms a launch)}, or None where the
+    profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {"trace_closest": re.compile(r"(?<![A-Za-z_])(dense|bvh)_kernel<true>"),
+             "trace_any": re.compile(r"(?<![A-Za-z_])(dense|bvh)_kernel<false>")}
+    out = {k: [0, 0.0] for k in names}
+    busy_ms = 0.0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        busy_ms += dev_us / 1e3
+        for k, pat in names.items():
+            if pat.search(ev.key):
+                out[k][0] += ev.count
+                out[k][1] += dev_us / 1e3
+    if not any(v[1] > 0 for v in out.values()):
+        return None
+    res = {k: (n, ms / n if n else 0.0) for k, (n, ms) in out.items()}
+    res["all_kernels_ms"] = busy_ms
+    return res
+
+
+class _TraceCapture:
+    """While entered, the path walk's traces (integrators/path.py's
+    trace_closest and trace_any, which call the kernels' wrappers) keep the
+    arguments of their `at`-th call (a bounce's rays) and pass every call
+    on."""
+
+    def __init__(self, at=3):
+        self.at, self.seen, self.args = at, {}, {}
+
+    def __enter__(self):
+        from zdr_tpu_torch.integrators import path
+
+        self.saved = {k: getattr(path, k) for k in TRACES}
+        for k, fn in self.saved.items():
+            lo = 0.0 if k == "trace_closest" else 1e-4
+
+            def wrap(accel, o, d, t_min=lo, t_max=1e30, _k=k, _fn=fn):
+                self.seen[_k] = self.seen.get(_k, 0) + 1
+                if self.seen[_k] == self.at:
+                    self.args[_k] = (accel, o, d, t_min, t_max)
+                return _fn(accel, o, d, t_min=t_min, t_max=t_max)
+            setattr(path, k, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        from zdr_tpu_torch.integrators import path
+
+        for k, fn in self.saved.items():
+            setattr(path, k, fn)
+
+
+def _trace_records(args, launches, per_launch):
+    """Each trace kernel on one of the unfused flagship's own calls (its
+    rays, t range and accel): bit for bit and with the same counted work as
+    its plain version, and timed -> its record. "ms" is the kernel's device
+    time a launch over the walk (per_launch, torch.profiler's), where the
+    profiler saw it; "call_ms" the wrapper's call by CUDA events around it,
+    whose host work (checks, the t range's broadcast, ctypes) outlasts a
+    launch this small."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.accel import trace as tt
+
+    plains = {"trace_closest": tt.trace_closest_plain, "trace_any": tt.trace_any_plain}
+    out, notes = {}, []
+    for k in TRACES:
+        acc, o, d, lo, hi = args[k]
+        n = o.shape[0]
+        kern = getattr(kernels, k)
+        got = kern(acc, o, d, lo, hi)
+        counts = kern.counts.tolist()
+        (want, work), plain_ms = _sync_ms(lambda: plains[k](acc, o, d, lo, hi))
+        got, want = (got, want) if k == "trace_closest" else ((got,), (want,))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"phase 21 {k}: the unfused flagship's rays differ from the "
+                                 "plain version")
+        if counts != [int(x) for x in work]:
+            raise AssertionError(f"phase 21 {k}: counts {counts} vs plain {work}")
+        call_ms, _runs = _event_ms(lambda: kern(acc, o, d, lo, hi))
+        ms = per_launch[k][1] if per_launch else call_ms
+        bound = _bound(counts[0], _trace_nbytes(k, acc, o, d, lo, hi), counts[1])
+        out[k] = dict(launches=launches[k], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                      call_ms=call_ms, ms_by="torch.profiler" if per_launch else "events",
+                      plain_shape=f"{n} rays of the unfused flagship x {acc.num_triangles} "
+                                  f"triangles ({acc.method}), its bounce call",
+                      bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                      tests=counts[0], visits=counts[1])
+        notes.append(f"{k} on the flagship's bounce rays: a call {call_ms:.4f} ms (events), plain "
+                     f"{plain_ms:.1f} ms, bit for bit, {counts[0] / n:.1f} tests a ray, bound "
+                     f"{bound[0]:.4f} ms ({bound[1]})")
+    return out, notes
+
+
+def _vs_loop(img_u, img_l, g_u, g_l):
+    """The unfused walk's image and gradient against the loop route's ->
+    their differences' statistics."""
+    diff = (img_u - img_l).abs()[..., :3]
+    over = diff > GOLDEN_ATOL + GOLDEN_RTOL * img_l[..., :3].abs()
+    sums = g_u.double().sum((0, 1))
+    want = g_l.double().sum((0, 1))
+    mag = g_l.abs().amax(-1)
+    big = mag > 1e-3 * float(mag.max())
+    rel = (g_u - g_l).abs().amax(-1)[big] / mag[big]
+    return {"image_max_abs": float(diff.max()), "image_mean_abs": float(diff.mean()),
+            "image_over_golden_bar": int(over.sum()), "image_values": over.numel(),
+            "grad_sums_rel": [float(x) for x in ((sums - want).abs() / want.abs()).tolist()],
+            "grad_texels": int(big.sum()), "grad_worst_texel": float(rel.max()),
+            "grad_texels_past_1e-4": int((rel > 1e-4).sum()),
+            "grad_texels_past_1e-3": int((rel > 1e-3).sum())}
+
+
+def _unfused_check(scene, mat, what):
+    """The unfused walk with the trace kernels against the same walk with
+    the plain traces, at UNFUSED_CHECK_RES, UNFUSED_CHECK_SPP: the image bit
+    for bit, the gradient at phase 7's bars -> its note."""
+    from zdr_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    res, spp = UNFUSED_CHECK_RES, UNFUSED_CHECK_SPP
+    launches0 = kernels.trace_closest.launches + kernels.trace_any.launches
+    img_k, g_k = _render_grad(scene, mat, res, spp, seed=3)
+    if kernels.trace_closest.launches + kernels.trace_any.launches == launches0:
+        raise AssertionError(f"phase 21 {what}: the trace kernels were not launched")
+    with _CountPlainTraces() as plain, _PlainTraces():
+        img_p, g_p = _render_grad(scene, mat, res, spp, seed=3)
+    if plain.calls == 0:
+        raise AssertionError(f"phase 21 {what}: the plain traces were not called")
+    if not torch.equal(img_k, img_p):
+        raise AssertionError(f"phase 21 {what}: {int((img_k != img_p).sum())} image values "
+                             "differ from the walk with the plain traces")
+    _err, worst = _assert_grad_close(g_k, g_p, f"phase 21 {what}")
+    return (f"{what}: image bit for bit, gradient worst texel {worst:.2e} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_unfused(dev, smi):
+    """Phase 21: the JAX package's unfused estimators, plain torch around
+    the trace_closest and trace_any kernels -> the trace kernels' main-path
+    launches and per-launch times, and the drives' numbers."""
+    t0 = time.perf_counter()
+    notes, out, secs = [], {}, {}
+    res, spp = RES, UNFUSED_SPP
+    # drive 1: the flagship with scene.fused = False (the persistent PRB walk)
+    scene = _flagship(dev)
+    mat = torch.full((TEX, TEX, 4), 0.5, dtype=torch.float32, device=dev).requires_grad_()
+    scene.fused = False
+    with _CountPlainTraces() as plain:
+        (img_u, g_u), counts = _drive_main(lambda: _render_grad(scene, mat, res, spp))
+    if plain.calls:
+        raise AssertionError("phase 21: the unfused flagship called a plain trace")
+    if counts["trace_closest"] == 0 or counts["trace_any"] == 0:
+        raise AssertionError(f"phase 21: the trace kernels were not launched: {counts}")
+    others = {k: v for k, v in counts.items() if v and k not in TRACES}
+    if others:
+        raise AssertionError(f"phase 21: the unfused flagship launched {others}")
+    if not bool(torch.isfinite(img_u).all()) or float(g_u.abs().sum()) == 0.0:
+        raise AssertionError("phase 21: the unfused flagship's image or gradient is bad")
+    scene.fused = "auto"
+    (img_l, g_l), loop_counts = _drive_main(lambda: _render_grad(scene, mat, res, spp))
+    if loop_counts["path_loop"] != 1 or loop_counts["path_loop_grad"] != 1:
+        raise AssertionError(f"phase 21: the loop route's launches {loop_counts}")
+    vs_loop = _vs_loop(img_u, img_l, g_u, g_l)
+    if vs_loop["image_over_golden_bar"] > LOOP_VALUE_SHARE * vs_loop["image_values"] or \
+            vs_loop["image_mean_abs"] > LOOP_MEAN_ABS or max(vs_loop["grad_sums_rel"]) > 1e-5 \
+            or vs_loop["grad_texels_past_1e-4"] > LOOP_TEXEL_SHARE * vs_loop["grad_texels"]:
+        raise AssertionError(f"phase 21: the unfused flagship against the loop route: {vs_loop}")
+    scene.fused = False
+    it_ms, it_runs = _times_ms(lambda: _render_grad(scene, mat, res, spp))
+    fwd_ms, fwd_runs = _times_ms(lambda: scene.render(mat.detach(), res=res, spp=spp, seed=0))
+    with _TraceCapture() as cap:
+        prof = _trace_profile(lambda: scene.render(mat.detach(), res=res, spp=spp, seed=0))
+    records, rec_notes = _trace_records(cap.args, counts, prof)
+    out["records"] = records
+    out["flagship"] = {"spp": spp, "launches": {k: counts[k] for k in TRACES},
+                       "iteration_ms": it_ms, "iteration_runs": it_runs, "forward_ms": fwd_ms,
+                       "forward_runs": fwd_runs, "vs_loop": vs_loop,
+                       "per_launch": {k: prof[k] for k in TRACES} if prof else None,
+                       "forward_device_ms": prof["all_kernels_ms"] if prof else None}
+    secs["flagship"] = time.perf_counter() - t0
+    notes.append(
+        f"flagship fused=False {res[0]}x{res[1]} {spp} spp: {counts['trace_closest']} closest + "
+        f"{counts['trace_any']} any launches, no other kernel, no plain trace; against the loop "
+        f"route {vs_loop}; iteration {it_ms:.1f} ms (runs {[round(x, 1) for x in it_runs]}), "
+        f"forward {fwd_ms:.1f} ms; "
+        + (", ".join(f"{k} {prof[k][0]} launches {prof[k][1]:.4f} ms a launch" for k in TRACES)
+           + f", the forward's kernels {prof['all_kernels_ms']:.1f} ms of device time"
+           if prof else "the profiler saw no device time"))
+    notes += rec_notes
+
+    # drive 2: the same flagship under nearest filtering
+    t1 = time.perf_counter()
+    scene.bilinear = False
+    (img_n, g_n), n_counts = _drive_main(lambda: _render_grad(scene, mat, res, spp))
+    if not bool(torch.isfinite(img_n).all()) or not bool(torch.isfinite(g_n).all()) \
+            or float(g_n.abs().sum()) == 0.0:
+        raise AssertionError("phase 21: the nearest flagship's image or gradient is bad")
+    n_ms, n_runs = _times_ms(lambda: _render_grad(scene, mat, res, spp))
+    out["nearest"] = {"spp": spp, "launches": {k: n_counts[k] for k in TRACES},
+                      "iteration_ms": n_ms, "iteration_runs": n_runs}
+    secs["nearest"] = time.perf_counter() - t1
+    notes.append(f"nearest: iteration {n_ms:.1f} ms, {n_counts['trace_closest']} + "
+                 f"{n_counts['trace_any']} launches")
+
+    # drive 3: direct without MIS on the cornell box (dense) and on the
+    # protocol's 962 triangles by accel="auto" (the BVH)
+    scenes = {"direct_cbox": _flagship(dev, "direct"),
+              "direct_protocol_auto": _protocol(dev, accel="auto")}
+    for key, sc in scenes.items():
+        t1 = time.perf_counter()
+        sc.use_mis = False
+        (img_d, g_d), d_counts = _drive_main(lambda: _render_grad(sc, mat, res, spp))
+        if d_counts["trace_closest"] == 0 or d_counts["trace_any"] == 0 or any(
+                v for k, v in d_counts.items() if k not in TRACES):
+            raise AssertionError(f"phase 21 {key}: launches {d_counts}")
+        if not bool(torch.isfinite(img_d).all()) or float(g_d.abs().sum()) == 0.0:
+            raise AssertionError(f"phase 21 {key}: bad image or gradient")
+        d_ms, d_runs = _times_ms(lambda: _render_grad(sc, mat, res, spp))
+        acc = sc._render_data("direct").accel
+        route = "bvh" if acc is not None and acc.is_bvh else "dense"
+        out[key] = {"spp": spp, "launches": {k: d_counts[k] for k in TRACES},
+                    "iteration_ms": d_ms, "iteration_runs": d_runs, "route": route}
+        secs[key] = time.perf_counter() - t1
+        notes.append(f"{key} use_mis=False ({route}): iteration {d_ms:.1f} ms, "
+                     f"{d_counts['trace_closest']} + {d_counts['trace_any']} launches")
+
+    # the checks: each drive with the kernels against the plain traces
+    t1 = time.perf_counter()
+    small = torch.rand((64, 64, 4), generator=torch.Generator().manual_seed(5)).to(dev)
+    small = (0.25 + 0.5 * small).requires_grad_()
+    checks = []
+    scene.bilinear = True
+    checks.append(_unfused_check(scene, small, "flagship fused=False"))
+    scene.bilinear = False
+    checks.append(_unfused_check(scene, small, "flagship nearest"))
+    for key, sc in scenes.items():
+        checks.append(_unfused_check(sc, small, f"{key} use_mis=False"))
+    coll = _golden_sphere(dev, "collocated", "auto")
+    coll.bilinear = False
+    checks.append(_unfused_check(coll, small, "collocated golden sphere nearest"))
+    out["checks"] = checks
+    secs["checks"] = time.perf_counter() - t1
+    out["seconds"] = {k: round(v, 1) for k, v in secs.items()}
+    print(f"[21 unfused] " + "; ".join(notes) + f"; at {UNFUSED_CHECK_RES[0]}x"
+          f"{UNFUSED_CHECK_RES[1]}, {UNFUSED_CHECK_SPP} spp against the plain traces: "
+          + "; ".join(checks) + f"; seconds {out['seconds']}, "
+          f"{time.perf_counter() - t0:.1f} s in all; card {smi}", flush=True)
+    return out
+
+
 def _direct_extra(proto, g, ptxas):
     """The dense direct kernels' record beyond the contract's keys: the
     counted-work bound's terms and the tests-only bound on the protocol,
@@ -2557,6 +2940,7 @@ def main():
     path_env = timed("19", phase_path_env, dev, smi)
     samplers = timed("20", phase_samplers, dev, smi, main_run, grad_run,
                      probe_run["by_sampler"], ptxas)
+    unfused = timed("21", phase_unfused, dev, smi)
     print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     # direct_bvh and direct_grad_bvh report the protocol's main path by
@@ -2576,8 +2960,19 @@ def main():
                                             "collocated_grad_bvh", "direct_env",
                                             "direct_grad_env", "direct_env_bvh",
                                             "direct_grad_env_bvh")}
-    for k in ("trace_closest", "trace_any"):
-        traces[k]["launches"] = sum(c[k] for c in MAIN_COUNTS)
+    # the trace kernels' main path: phase 21's unfused flagship, its numbers
+    # on its own bounce call; phase 12's big mesh under "big_mesh"
+    for k in TRACES:
+        per = (unfused["flagship"]["per_launch"] or {}).get(k)
+        big_mesh = {f: v for f, v in traces[k].items() if f != "launches"}
+        traces[k] = dict(unfused["records"][k], big_mesh=big_mesh,
+                         per_launch_ms_on_the_walk=per[1] if per else None,
+                         unfused_launches={d: unfused[d]["launches"][k] for d in (
+                             "nearest", "direct_cbox", "direct_protocol_auto")})
+    traces["trace_closest"]["unfused_drives"] = {
+        k: {f: v for f, v in unfused[k].items() if f != "launches"}
+        for k in ("flagship", "nearest", "direct_cbox", "direct_protocol_auto")}
+    traces["trace_closest"]["unfused_checks"] = unfused["checks"]
     for k in VARIANTS:
         variants[k]["launches"] = sum(c[k] for c in MAIN_COUNTS)
     direct_src = "zdr_tpu_torch/kernels/csrc/direct.cu"

@@ -32,6 +32,7 @@ from zdr_tpu_torch.accel import native as tnative
 from zdr_tpu_torch.accel import trace as ttrace
 from zdr_tpu_torch.geometry import procedural as tproc
 from zdr_tpu_torch.geometry.mesh import build_geometry
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 SCENES = {"sphere960": (16, 32), "sphere3k": (32, 50)}
 N_RAYS = 4096

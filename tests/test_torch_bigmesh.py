@@ -28,6 +28,7 @@ from zdr_tpu_torch.accel.build import DENSE_MAX_TRIS
 from zdr_tpu_torch.geometry import procedural as tproc
 from zdr_tpu_torch.integrators import direct as dr
 from zdr_tpu_torch.integrators import path_loop as pl
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 CAM = dict(fov=0.8, origin=(1.5, 0.3, 0.0), target=(0.0, 0.0, 0.0))
 RES, SPP = (16, 16), 4

@@ -23,6 +23,7 @@ from zdr_tpu_torch import kernels
 from zdr_tpu_torch.geometry import procedural as tproc
 from zdr_tpu_torch.integrators import collocated as co
 from zdr_tpu_torch.integrators import path_loop as pl
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 GOLDEN_CAM = dict(fov=0.8, origin=(1.2, 0.2, 0.0), target=(0.0, 0.0, 0.0))

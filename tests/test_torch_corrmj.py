@@ -33,6 +33,7 @@ from zdr_tpu_torch import kernels
 from zdr_tpu_torch.geometry import procedural as tproc
 from zdr_tpu_torch.integrators import collocated as co
 from zdr_tpu_torch.integrators import path_loop as pl
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 RES, SEED = (16, 16), 3
 

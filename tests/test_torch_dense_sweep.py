@@ -35,6 +35,7 @@ from zdr_tpu_torch.accel.trace import (
     mt_rows,
 )
 from zdr_tpu_torch.integrators.bounce import trace_interact_plain
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 SHADOW_T_MIN = np.float32(1e-4)
 

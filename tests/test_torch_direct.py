@@ -44,6 +44,7 @@ from zdr_tpu_torch.integrators import path_loop as pl
 from zdr_tpu_torch.integrators.bounce import shade_plain, trace_interact_plain
 from zdr_tpu_torch.integrators.scene_tables import scene_table
 from zdr_tpu_torch.integrators.wrapper import RenderConfig
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 N = BLOCK_ROWS * LANES  # one block of the JAX kernels: 16384 rays
@@ -485,11 +486,13 @@ def test_fd_error_shrinks_with_spp(sampler):
 
 
 def test_scope_gates_raise():
+    from test_torch_loop import _assert_unfused_render
+
     s = _port_scene("cbox")
     mat = torch.full((8, 8, 4), 0.5)
+    # without MIS, by the unfused estimator (ROADMAP A10)
     s.use_mis = False
-    with pytest.raises(NotImplementedError, match="A10"):
-        s.render(mat, res=(4, 4), spp=1)
+    _assert_unfused_render(s, mat)
     s.use_mis = True
     # both the direct and the path integrator render under an envmap (no
     # A11 gate is left)
@@ -506,12 +509,12 @@ def test_scope_gates_raise():
     assert bool(torch.isfinite(s.render(mat, res=(4, 4), spp=3)).all())
     with pytest.raises(ValueError, match="spp"):
         s.render(mat, res=(4, 4), spp=-1)
+    # nearest filtering and a material under 2x2, by the unfused estimator
+    # (ROADMAP A6)
     s.bilinear = False
-    with pytest.raises(NotImplementedError, match="A6"):
-        s.render(mat, res=(4, 4), spp=1)
+    _assert_unfused_render(s, mat)
     s.bilinear = True
-    with pytest.raises(NotImplementedError, match="A6"):
-        s.render(torch.full((1, 8, 4), 0.5), res=(4, 4), spp=1)
+    _assert_unfused_render(s, torch.full((1, 8, 4), 0.5))
     s.packed_splat = True
     with pytest.raises(NotImplementedError, match="A17"):
         s.render(mat, res=(4, 4), spp=1)

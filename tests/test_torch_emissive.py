@@ -34,6 +34,7 @@ from zdr_tpu_torch.integrators import direct as dr
 from zdr_tpu_torch.integrators import path_loop as pl
 from zdr_tpu_torch.integrators.scene_tables import SCENE_COLS, table_floats
 from test_torch_bigmesh import _host_bvh
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 CAM = dict(fov=0.9, origin=(1.6, 0.6, 0.4), target=(0.0, -0.3, 0.0))
 RES, SPP = (8, 8), 2

@@ -32,6 +32,7 @@ from zdr_tpu_torch import envmap as tenv
 from zdr_tpu_torch.geometry import procedural as tproc
 from zdr_tpu_torch.integrators import direct as dr
 from zdr_tpu_torch.integrators import path_loop as pl
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 N = 4096

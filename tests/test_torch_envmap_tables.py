@@ -11,6 +11,7 @@ import pytest
 from zdr_tpu import envmap as jenv
 
 from zdr_tpu_torch import envmap as tenv
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 
 def assert_tables_equal(got, want, compensate):

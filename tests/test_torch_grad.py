@@ -28,6 +28,7 @@ from zdr_tpu_torch.integrators import path_loop as pl
 from zdr_tpu_torch.integrators.wrapper import RenderConfig
 from zdr_tpu_torch.samplers.lcg import LCGSampler
 from zdr_tpu_torch.samplers.pmj02bn import PMJ02BNSamplerP2
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _u32(a):

@@ -28,6 +28,7 @@ from zdr_tpu_torch import kernels
 from zdr_tpu_torch.geometry.procedural import make_cornell_box, make_cornell_light
 from zdr_tpu_torch.integrators import path_loop as pl
 from zdr_tpu_torch.integrators.wrapper import RenderConfig
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 
 # max|a - b| / max|a| against JAX with roughness in [0.2, 0.9], at 16x16,

@@ -13,6 +13,7 @@ import zdr_tpu_torch as zt
 from zdr_tpu_torch import kernels
 from zdr_tpu_torch.geometry.procedural import make_cornell_box, make_cornell_light
 from zdr_tpu_torch.integrators import path_loop as pl
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _scene(sampler):

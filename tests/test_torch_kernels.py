@@ -26,6 +26,7 @@ from zdr_tpu_torch.integrators import path_loop as pl
 from zdr_tpu_torch.integrators.scene_tables import scene_table
 from zdr_tpu_torch.samplers import sampler_probe_plain
 from zdr_tpu_torch.samplers.pmj02bn import bluenoise
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 

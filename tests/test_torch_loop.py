@@ -31,6 +31,7 @@ from zdr_tpu_torch.geometry.procedural import (
 from zdr_tpu_torch.integrators import path_loop as pl
 from zdr_tpu_torch.integrators.wrapper import RenderConfig
 from zdr_tpu_torch.samplers import sampler_probe_plain
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 CAM = dict(fov=0.87, origin=(-0.2, 2.6, -0.5), target=(-0.2, 2.6, -5.0))
@@ -191,6 +192,22 @@ def test_golden_path_cbox():
     np.testing.assert_allclose(got.numpy(), expected, atol=2e-4, rtol=1e-4)
 
 
+def _assert_unfused_render(s, mat, res=(4, 4), spp=1):
+    """s renders mat by the unfused estimators: the Scene's image equals
+    render_forward_rays of its integrator's estimator, bit for bit."""
+    from zdr_tpu_torch.integrators import get_integrator
+    from zdr_tpu_torch.integrators.wrapper import (kernel_route, pixel_grid, render_forward_rays,
+                                                   with_accel)
+
+    cfg = s._config(res, spp)
+    assert not kernel_route(cfg, mat)
+    img = s.render(mat, res=res, spp=spp, seed=2)
+    data = with_accel(s._render_data(cfg.integrator))
+    want = render_forward_rays(data, mat, s.camera, 2, cfg, get_integrator(cfg.integrator)[0],
+                               pixel_grid(res, "cpu"))
+    assert torch.equal(img[..., :3].reshape(-1, 3), want)
+
+
 def test_scope_gates_raise():
     s = zt.Scene([(t_make_cornell_box(), None, None),
                   (t_make_cornell_light(), None, 15.0)], integrator="path", device="cpu")
@@ -208,9 +225,9 @@ def test_scope_gates_raise():
     assert img.shape == (4, 4, 4) and bool(torch.isfinite(img).all())
     with pytest.raises(ValueError, match="spp"):
         s.render(mat, res=(4, 4), spp=0)
+    # direct without MIS renders, by the unfused estimator (ROADMAP A10)
     s.integrator, s.use_mis = "direct", False
-    with pytest.raises(NotImplementedError, match="A10"):
-        s.render(mat, res=(4, 4), spp=1)
+    _assert_unfused_render(s, mat)
     s.integrator, s.use_mis = "path", True
     s.sampler = "corrmj"
     for spp in (4, 3):

@@ -35,6 +35,7 @@ from zdr_tpu_torch import envmap as tenv
 from zdr_tpu_torch import kernels
 from zdr_tpu_torch.geometry import procedural as tproc
 from zdr_tpu_torch.integrators import path_loop as pl
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 MAX_DEPTH = 4
 RES, SPP, SEED = (16, 16), 2, 3

@@ -20,6 +20,7 @@ from zdr_tpu_torch.samplers import corrmj as tcmj
 from zdr_tpu_torch.samplers import hashes as th
 from zdr_tpu_torch.samplers import make_sampler_xy, sampler_probe_plain
 from zdr_tpu_torch.samplers import pmj02bn as tpmj
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 N = 2000
 

@@ -21,6 +21,7 @@ import zdr_tpu_torch as zt
 from zdr_tpu_torch import convert
 from zdr_tpu_torch.geometry import procedural as tproc
 from zdr_tpu_torch.integrators import scene_tables
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -20,6 +20,7 @@ from zdr_tpu_torch import camera as tcam
 from zdr_tpu_torch import microfacet as tmf
 from zdr_tpu_torch.integrators import path_loop as tpl
 from zdr_tpu_torch.texture import read_bilinear
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 N = 4096
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -32,6 +32,7 @@ from zdr_tpu_torch.accel.woop import tile_boxes, woop_rows
 from zdr_tpu_torch.geometry import procedural as tproc
 from zdr_tpu_torch.integrators.bounce import trace_interact_plain
 from zdr_tpu_torch.integrators.scene_tables import scene_table
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 CAM = dict(fov=0.8, origin=(1.5, 0.3, 0.0), target=(0.0, 0.0, 0.0))
 N_RAYS = 2048

@@ -39,6 +39,7 @@ from zdr_tpu_torch.geometry.mesh import build_geometry
 from zdr_tpu_torch.integrators import direct as dr
 from zdr_tpu_torch.integrators import path_loop as pl
 import zdr_tpu_torch as zt
+from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 LEAVES = (2, 4, 8)
 N_RAYS = 2048

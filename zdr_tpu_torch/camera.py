@@ -49,13 +49,23 @@ def camera_ray(cam: torch.Tensor, px, py, u0, u1, res, use_tent: bool):
         ox, oy = u0, u1
     px_ndc = 2.0 / w * (px.to(torch.float32) + ox) - 1.0
     py_ndc = (2.0 / h * (py.to(torch.float32) + oy) - 1.0) * (h / w)
+    return ndc_ray(cam, px_ndc, py_ndc)
+
+
+def ndc_ray(cam: torch.Tensor, px_ndc, py_ndc):
+    """The perspective ray through NDC (px_ndc, py_ndc), y already
+    aspect-corrected -> (o, d) component tuples."""
     sx = px_ndc * cam[12]
     sy = py_ndc * cam[12]
     dx = sx * cam[3] - sy * cam[6] + cam[9]
     dy = sx * cam[4] - sy * cam[7] + cam[10]
     dz = sx * cam[5] - sy * cam[8] + cam[11]
     inv = 1.0 / torch.clamp_min(torch.sqrt(dx * dx + dy * dy + dz * dz), 1e-20)
-    d = (dx * inv, dy * inv, dz * inv)
     zero = torch.zeros_like(dx)
-    o = (zero + cam[0], zero + cam[1], zero + cam[2])
-    return o, d
+    return (zero + cam[0], zero + cam[1], zero + cam[2]), (dx * inv, dy * inv, dz * inv)
+
+
+def generate_ray(camera: Camera, p: torch.Tensor):
+    """Perspective ray through (N, 2) points p in NDC, y already
+    aspect-corrected (JAX camera.py:18) -> (o, d) component tuples."""
+    return ndc_ray(camera_const(camera).to(p.device), p[:, 0], p[:, 1])

@@ -296,3 +296,17 @@ def env_miss_add(env: EnvMap, d, pdf_prev, miss, inv_n: float):
     mis = pdf_prev / torch.clamp_min(pdf_prev + pdf_env, 1e-4)
     rad = texture_sample(env.texture, u, v)
     return tuple(torch.where(miss, mis * rad[c], 0.0) for c in range(3))
+
+
+def env_sampled_light_pdf(env: EnvMap, d):
+    """The pdf of sample_envmap having drawn direction d, before the light
+    selection's 1/n (JAX envmap.py:271)."""
+    u, v = direction_to_uv(d)
+    return sampled_light_pdf(env.pdf, u, v)
+
+
+def env_radiance(env: EnvMap, d):
+    """The env's radiance along direction d, the miss shader's lookup (JAX
+    envmap.py:283) -> (r, g, b)."""
+    u, v = direction_to_uv(d)
+    return texture_sample(env.texture, u, v)

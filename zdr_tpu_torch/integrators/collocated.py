@@ -167,3 +167,54 @@ def render_collocated_backward(data, material, camera, seed: int, cfg, le_grad) 
     lanes = pixel_lanes(cfg.res, cfg.spp, data.device)
     grad, _acc = kernels.collocated_grad(tb, lanes, material, le_grad)
     return grad
+
+
+# ------------------------------------------------------ the unfused estimator
+
+
+def _shade_parts(data, material, ray_o, ray_d, bilinear: bool):
+    """The hit of one sample per lane (JAX collocated.py:30) -> (valid, uv
+    (N, 2), the material (N, 4), wo_local, li = 1 / max(t, 1e-6)^2)."""
+    from ..accel.trace import trace_closest
+    from ..interaction import surface_interact
+    from ..texture import read_bsdf
+    from .path import stack3
+
+    hit = trace_closest(data.accel, stack3(ray_o), stack3(ray_d))
+    it = surface_interact(hit, data.geom)
+    wo = vscale(ray_d, -1.0)
+    valid = ~hit.miss & (vdot(wo, it.ng) >= 1e-4) & (vdot(wo, it.ns) >= 1e-4)
+    uv = torch.stack(it.uv, dim=1)
+    mat = read_bsdf(uv, material, bilinear)
+    tangent, binormal = make_onb(it.ns)
+    inv_t = 1.0 / torch.clamp_min(hit.t, 1e-6)
+    return valid, uv, mat, to_local(tangent, binormal, it.ns, wo), inv_t * inv_t
+
+
+def collocated_estimator(data, material, ray_o, ray_d, sampler, cfg=None):
+    """The GGX shade at wi = wo times li on a valid hit -> the radiance, 3
+    (N,) tensors (JAX collocated.py:46)."""
+    from .path import bilinear_of
+
+    valid, _uv, mat, wo_local, li = _shade_parts(data, material, ray_o, ray_d,
+                                                 bilinear_of(cfg))
+    beta = ggx_brdf(wo_local, wo_local, (mat[:, 0], mat[:, 1], mat[:, 2]), mat[:, 3])
+    return tuple(torch.where(valid, b * li, 0.0) for b in beta)
+
+
+def collocated_backward(data, material, ray_o, ray_d, sampler, le_grad, cfg=None):
+    """The shade's VJP at the cotangent li * le_grad, one tap a sample
+    (JAX collocated.py:55) -> d_material (H, W, 4): into the corner the
+    salt picks with stochastic_splat and bilinear filtering, else into the
+    bilinear corners or the texel read."""
+    from .path import bilinear_of, splat, stochastic_of
+
+    bilinear = bilinear_of(cfg)
+    material = material.detach()
+    valid, uv, mat, wo_local, li = _shade_parts(data, material, ray_o, ray_d, bilinear)
+    _beta, _b, vjp = ggx_shade_vjp(wo_local, wo_local, wo_local,
+                                   (mat[:, 0], mat[:, 1], mat[:, 2]), mat[:, 3])
+    zero = torch.zeros_like(li)
+    ct = tuple(torch.where(valid, li * le_grad[:, c], 0.0) for c in range(3))
+    return splat(torch.zeros_like(material), uv, vjp((ct, (zero, zero, zero))), valid,
+                 sampler.salt(), stochastic_of(cfg), bilinear)

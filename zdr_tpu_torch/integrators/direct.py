@@ -176,3 +176,167 @@ def render_direct_backward(data, material, camera, seed: int, cfg, le_grad) -> t
     lanes = pixel_lanes(cfg.res, cfg.spp, data.device)
     grad, _acc = kernels.direct_grad(tb, lanes, material, le_grad)
     return grad
+
+
+# ------------------------------------------------------ the unfused estimator
+
+
+def direct_estimator(data, material, ray_o, ray_d, sampler, cfg=None):
+    """NEE, and with MIS one BSDF bounce looking for emitters, of one sample
+    per lane -> the radiance, 3 (N,) tensors (JAX direct.py:52): the JAX
+    package's unfused estimator, which its fused route refuses without MIS
+    (direct_fused.py:81). Sampling pdfs, MIS weights and the lights'
+    radiance are detached, as JAX's stop_gradient places them: only the GGX
+    factors carry the material's gradient."""
+    from ..accel.trace import trace_any, trace_closest
+    from ..envmap import env_radiance, env_sampled_light_pdf
+    from ..interaction import gather_rows, surface_interact
+    from ..lights import light_selection_pdf, sample_light, sample_light_pdf
+    from ..microfacet import ggx_brdf, ggx_sample, ggx_sample_pdf, make_onb, to_local, to_world
+    from ..texture import read_bsdf
+    from ..vec import offset_ray_origin, vdot, vscale
+    from .path import balanced_heuristic, bilinear_of, stack3
+
+    mis_on = True if cfg is None else bool(cfg.use_mis)
+    hit = trace_closest(data.accel, stack3(ray_o), stack3(ray_d))
+    it = surface_interact(hit, data.geom)
+    wo = vscale(ray_d, -1.0)
+    zero = torch.zeros_like(hit.t)
+    miss_radiance = (env_radiance(data.env, ray_d) if data.env is not None
+                     else (zero, zero, zero))
+    frontfacing = (vdot(wo, it.ng) >= 1e-4) & (vdot(wo, it.ns) >= 1e-4)
+    emission = gather_rows(data.emission, torch.clamp_min(hit.inst, 0).long())
+    hit_light = (emission[0] > 0.0) | (emission[1] > 0.0) | (emission[2] > 0.0)
+    shade = ~hit.miss & frontfacing & ~hit_light
+
+    mat = read_bsdf(torch.stack(it.uv, dim=1), material, bilinear_of(cfg))
+    dif, rough = (mat[:, 0], mat[:, 1], mat[:, 2]), mat[:, 3]
+    tangent, binormal = make_onb(it.ns)
+    wo_local = to_local(tangent, binormal, it.ns, wo)
+
+    # NEE: a light sample and its shadow ray
+    light, sampler = sample_light(data, it.p, sampler)
+    occluded = trace_any(data.accel, stack3(it.p), stack3(light.wi), t_min=1e-4,
+                         t_max=light.dist.detach())
+    wll = to_local(tangent, binormal, it.ns, light.wi)
+    nee_ok = shade & ~occluded & (wll[2] > 0.0)
+    bsdf_nee = ggx_brdf(wo_local, wll, dif, rough)
+    l_pdf = light.pdf.detach()
+    if mis_on:
+        mis_nee = balanced_heuristic(l_pdf, ggx_sample_pdf(wo_local, wll, rough).detach())
+    else:
+        mis_nee = torch.ones_like(l_pdf)
+    w_nee = mis_nee / torch.clamp_min(l_pdf, 1e-4)
+    radiance = tuple(torch.where(nee_ok, bsdf_nee[c] * w_nee * light.eval[c].detach(), 0.0)
+                     for c in range(3))
+
+    if mis_on:
+        # the BSDF sample: one more bounce looking for emitters
+        u_lobe, sampler = sampler.next1()
+        (u0, u1), sampler = sampler.next2_xy()
+        wi_local = tuple(x.detach() for x in ggx_sample(wo_local, rough, u_lobe, u0, u1))
+        wi = to_world(tangent, binormal, it.ns, wi_local)
+        bounce_ok = shade & (vdot(wi, it.ng) >= 1e-4) & (wi_local[2] >= 1e-4)
+        hit2 = trace_closest(data.accel, stack3(offset_ray_origin(it.p, it.ng)), stack3(wi))
+        it2 = surface_interact(hit2, data.geom)
+        nwi = vscale(wi, -1.0)
+        front2 = (vdot(nwi, it2.ng) >= 1e-4) & (vdot(nwi, it2.ns) >= 1e-4)
+        if data.env is not None:
+            em_miss = env_radiance(data.env, wi)
+            pdf_miss = env_sampled_light_pdf(data.env, wi) * light_selection_pdf(data)
+        else:
+            em_miss, pdf_miss = (zero, zero, zero), zero
+        em_hit = gather_rows(data.emission, torch.clamp_min(hit2.inst, 0).long())
+        pdf_hit = sample_light_pdf(data, tuple(x.detach() for x in it.p), hit2.inst,
+                                   hit2.prim, it2.p)
+        em2 = tuple(torch.where(hit2.miss, a, b) for a, b in zip(em_miss, em_hit))
+        pdf_l2 = torch.where(hit2.miss, pdf_miss, pdf_hit)
+        usable2 = (bounce_ok & (hit2.miss | front2)
+                   & ((em2[0] > 0.0) | (em2[1] > 0.0) | (em2[2] > 0.0)))
+        pdf_b2 = ggx_sample_pdf(wo_local, wi_local, rough).detach()
+        mis2 = balanced_heuristic(pdf_b2, pdf_l2.detach())
+        b2 = ggx_brdf(wo_local, wi_local, dif, rough)
+        pdf_b2c = torch.clamp_min(pdf_b2, 1e-9)
+        radiance = tuple(
+            radiance[c] + torch.where(usable2, b2[c] / pdf_b2c * mis2 * em2[c].detach(), 0.0)
+            for c in range(3))
+
+    out = tuple(torch.where(shade, x, 0.0) for x in radiance)
+    out = tuple(torch.where(hit_light & ~hit.miss & frontfacing, e.detach(), x)
+                for e, x in zip(emission, out))
+    return tuple(torch.where(hit.miss, m.detach(), x) for m, x in zip(miss_radiance, out))
+
+
+def direct_backward(data, material, ray_o, ray_d, sampler, le_grad, cfg=None):
+    """The direct estimator's hand-written gradient (JAX direct.py:145): the
+    same sample again, the adjoint through the GGX factors only, one tap a
+    sample -> d_material (H, W, 4). The tap splats into the corner the
+    sampler's salt picks (stochastic_splat), the bilinear corners, or under
+    nearest filtering the texel the forward read (path.splat)."""
+    from ..accel.trace import trace_any, trace_closest
+    from ..envmap import env_radiance, env_sampled_light_pdf
+    from ..interaction import gather_rows, surface_interact
+    from ..lights import light_selection_pdf, sample_light, sample_light_pdf
+    from ..microfacet import ggx_sample, ggx_sample_pdf, ggx_shade_vjp, make_onb, to_local, to_world
+    from ..texture import read_bsdf
+    from ..vec import offset_ray_origin, vdot, vscale
+    from .path import balanced_heuristic, bilinear_of, splat, stack3, stochastic_of
+
+    mis_on = True if cfg is None else bool(cfg.use_mis)
+    material = material.detach()
+    hit = trace_closest(data.accel, stack3(ray_o), stack3(ray_d))
+    it = surface_interact(hit, data.geom)
+    wo = vscale(ray_d, -1.0)
+    frontfacing = (vdot(wo, it.ng) >= 1e-4) & (vdot(wo, it.ns) >= 1e-4)
+    emission = gather_rows(data.emission, torch.clamp_min(hit.inst, 0).long())
+    hit_light = (emission[0] > 0.0) | (emission[1] > 0.0) | (emission[2] > 0.0)
+    shade = ~hit.miss & frontfacing & ~hit_light
+    uv = torch.stack(it.uv, dim=1)
+    mat = read_bsdf(uv, material, bilinear_of(cfg))
+    dif, rough = (mat[:, 0], mat[:, 1], mat[:, 2]), mat[:, 3]
+    tangent, binormal = make_onb(it.ns)
+    wo_local = to_local(tangent, binormal, it.ns, wo)
+
+    light, sampler = sample_light(data, it.p, sampler)
+    occluded = trace_any(data.accel, stack3(it.p), stack3(light.wi), t_min=1e-4,
+                         t_max=light.dist)
+    wll = to_local(tangent, binormal, it.ns, light.wi)
+    nee_ok = shade & ~occluded & (wll[2] > 0.0)
+    if mis_on:
+        mis_nee = balanced_heuristic(light.pdf, ggx_sample_pdf(wo_local, wll, rough))
+    else:
+        mis_nee = torch.ones_like(light.pdf)
+    w_nee = mis_nee / torch.clamp_min(light.pdf, 1e-4)
+    zero = torch.zeros_like(w_nee)
+    ct_bounce, wil, usable2 = (zero, zero, zero), wll, torch.zeros_like(nee_ok)
+    if mis_on:
+        u_lobe, sampler = sampler.next1()
+        (u0, u1), sampler = sampler.next2_xy()
+        wil = ggx_sample(wo_local, rough, u_lobe, u0, u1)
+        wi = to_world(tangent, binormal, it.ns, wil)
+        bounce_ok = shade & (vdot(wi, it.ng) >= 1e-4) & (wil[2] >= 1e-4)
+        hit2 = trace_closest(data.accel, stack3(offset_ray_origin(it.p, it.ng)), stack3(wi))
+        it2 = surface_interact(hit2, data.geom)
+        nwi = vscale(wi, -1.0)
+        front2 = (vdot(nwi, it2.ng) >= 1e-4) & (vdot(nwi, it2.ns) >= 1e-4)
+        if data.env is not None:
+            em_miss = env_radiance(data.env, wi)
+            pdf_miss = env_sampled_light_pdf(data.env, wi) * light_selection_pdf(data)
+        else:
+            em_miss, pdf_miss = (zero, zero, zero), zero
+        em_hit = gather_rows(data.emission, torch.clamp_min(hit2.inst, 0).long())
+        em2 = tuple(torch.where(hit2.miss, a, b) for a, b in zip(em_miss, em_hit))
+        pdf_l2 = torch.where(hit2.miss, pdf_miss,
+                             sample_light_pdf(data, it.p, hit2.inst, hit2.prim, it2.p))
+        usable2 = (bounce_ok & (hit2.miss | front2)
+                   & ((em2[0] > 0.0) | (em2[1] > 0.0) | (em2[2] > 0.0)))
+        pdf_b2 = ggx_sample_pdf(wo_local, wil, rough)
+        mis2 = balanced_heuristic(pdf_b2, pdf_l2)
+        w_b = mis2 / torch.clamp_min(pdf_b2, 1e-9)
+        ct_bounce = tuple(torch.where(usable2, w_b * em2[c] * le_grad[:, c], 0.0)
+                          for c in range(3))
+    ct_nee = tuple(torch.where(nee_ok, w_nee * light.eval[c] * le_grad[:, c], 0.0)
+                   for c in range(3))
+    _b_nee, _b_bounce, vjp = ggx_shade_vjp(wo_local, wll, wil, dif, rough)
+    return splat(torch.zeros_like(material), uv, vjp((ct_nee, ct_bounce)), nee_ok | usable2,
+                 sampler.salt(), stochastic_of(cfg), bilinear_of(cfg))

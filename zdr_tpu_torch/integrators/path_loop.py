@@ -52,7 +52,7 @@ from ..samplers.hashes import lcg_step, lcg_to_unit_float, to_i32, u32
 from ..samplers.lcg import LCGSampler, lcg_fresh_state
 from ..samplers.pmj02bn import bluenoise, bn_base, pmj02bn_class
 from ..texture import read_bilinear, scatter_add4, splat_ids
-from ..vec import div, vadd, vdot, vnormalize, vscale, vsub
+from ..vec import div, luminance, offset_ray_origin, vadd, vdot, vnormalize, vscale, vsub
 from . import scene_tables
 
 RADIANCE_CLAMP = 1e5
@@ -430,7 +430,7 @@ def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch
     pdf_bounce = ggx_sample_pdf(wo_local, wi_local, rough)
     wi = to_world(tangent, binormal, ns, wi_local)
     bounce_ok = shade & (vdot(wi, ng) >= 1e-4) & (wi_local[2] >= 1e-4)
-    next_o = vadd(p, vscale(ng, 1e-4))
+    next_o = offset_ray_origin(p, ng)
 
     if le_grad is None:
         b_nee = ggx_brdf(wo_local, wi_light_local, dif, rough)
@@ -439,8 +439,7 @@ def loop_step(carry: Carry, tb: LoopTables, lanes: torch.Tensor, material: torch
         b_nee, b_bounce, vjp = ggx_shade_vjp(wo_local, wi_light_local, wi_local, dif, rough)
     inv_pdf = 1.0 / torch.clamp_min(pdf_bounce, 1e-9)
     beta_next = tuple(beta[c] * b_bounce[c] * inv_pdf for c in range(3))
-    lum = (0.212671 * beta_next[0] + 0.715160 * beta_next[1]
-           + 0.072169 * beta_next[2])
+    lum = luminance(beta_next)
     q = torch.clamp_min(lum, 0.05)
     do_rr = depth >= tb.rr_depth
     dead = do_rr & ((lum == 0.0) | (s["u_rr"] >= q))

@@ -346,6 +346,8 @@ def load_host_library() -> types.SimpleNamespace:
     return types.SimpleNamespace(
         zdr_path_loop_host=_bind(lib, "zdr_path_loop_host", _LOOP_ARGS),
         zdr_gen_sampler_host=_bind(lib, "zdr_gen_sampler_host", [_P]),
+        # wo, wi, rough, g_spec, out, n
+        zdr_ggx_droughness_host=_bind(lib, "zdr_ggx_droughness_host", [_P] * 5 + [_I]),
         zdr_sampler_probe_host=_bind(lib, "zdr_sampler_probe_host", [_P, _P, _P, _I, _I, _P]),
         zdr_path_loop_grad_host=_bind(lib, "zdr_path_loop_grad_host", _GRAD_ARGS),
         # the forward when le_grad (8th) is null

@@ -67,14 +67,14 @@ ZDR_HD V3 collocated_sample(const Tables& tb, const LoopParams& q, const LaneCon
   if constexpr (kGrad) {
     // the VJP of ggx_brdf(wo, wo) = (spec + dif / pi) * wo_z at the
     // cotangent li * le_grad: wo_z / pi in each diffuse channel,
-    // dspec/drough * wo_z summed over the channels in roughness; one vector
+    // the reverse chain of spec in roughness (ggx_spec_droughness); one vector
     // atomic at the corner drawn from the salt after the camera's draws
     // (splat_add4: a NaN channel adds 0)
     if (valid) {
       const float ct[3] = {li * dt->lg[0], li * dt->lg[1], li * dt->lg[2]};
       float wz = wo_local.z;
-      float g3 = (ct[0] * wz + ct[1] * wz + ct[2] * wz) *
-                 ggx_spec_droughness(wo_local, wo_local, rough);
+      float g3 = ggx_spec_droughness(wo_local, wo_local, rough,
+                                     ggx_spec_cotangent(ct[0], ct[1], ct[2], wz));
       int id = splat_id(hit.ux, hit.uy, lcg_to_unit_float(sampler_salt<kGen>(sc, smp)),
                         q.tex_h, q.tex_w);
       splat_add4(dt->grad, id, (ct[0] * wz) / kPi, (ct[1] * wz) / kPi, (ct[2] * wz) / kPi, g3);

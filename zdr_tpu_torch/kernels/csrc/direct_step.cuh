@@ -327,7 +327,8 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
     // this vertex's own terms is the bounce term; its cotangent through
     // b_bounce is le_rem / b_bounce per channel. The VJP of ggx_brdf =
     // (spec + dif / pi) * wi_z is written out: wi_z / pi in each diffuse
-    // channel, dspec/drough * wi_z summed over the channels in roughness.
+    // channel; in roughness the reverse chain of both specs under their
+    // cotangents (ggx_pair_droughness), in torch.func's order.
     const float lg[3] = {dt->lg[0], dt->lg[1], dt->lg[2]};
     const float lev[3] = {nee.ev.x, nee.ev.y, nee.ev.z};
     const float bb[3] = {b_bounce.x, b_bounce.y, b_bounce.z};
@@ -340,10 +341,9 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
     float wlz = wll.z, wiz = wil.z;
     float g[4];
     for (int c = 0; c < 3; ++c) g[c] = (ctn[c] * wlz) / kPi + (ctb[c] * wiz) / kPi;
-    g[3] = (ctn[0] * wlz + ctn[1] * wlz + ctn[2] * wlz) *
-               ggx_spec_droughness(wo_local, wll, rough) +
-           (ctb[0] * wiz + ctb[1] * wiz + ctb[2] * wiz) *
-               ggx_spec_droughness(wo_local, wil, rough);
+    g[3] = ggx_pair_droughness(wo_local, wll, wil, rough,
+                               ggx_spec_cotangent(ctn[0], ctn[1], ctn[2], wlz),
+                               ggx_spec_cotangent(ctb[0], ctb[1], ctb[2], wiz));
     // the stochastic single-corner splat (pallas_bounce.py:1305-1336), one
     // vector atomic (path_loop_step.cuh splat_add4: a NaN channel adds 0);
     // the salt follows the sample's 9 draws (direct_fused.py:260)

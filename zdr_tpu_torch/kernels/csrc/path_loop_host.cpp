@@ -201,4 +201,16 @@ int zdr_sampler_probe_host(const int* params, const float* bn, const int* lanes,
   return 0;
 }
 
+// The kernels' roughness derivative of ggx_brdf, one direction pair a row:
+// wo, wi (n, 3) float32 local directions, rough and g_spec (n,), the
+// cotangent on spec -> out (n,) = ggx_spec_droughness.
+int zdr_ggx_droughness_host(const float* wo, const float* wi, const float* rough,
+                            const float* g_spec, float* out, int n) {
+  for (long k = 0; k < n; ++k)
+    out[k] = zdr::ggx_spec_droughness(zdr::v3(wo[3 * k], wo[3 * k + 1], wo[3 * k + 2]),
+                                      zdr::v3(wi[3 * k], wi[3 * k + 1], wi[3 * k + 2]),
+                                      rough[k], g_spec[k]);
+  return 0;
+}
+
 }  // extern "C"

@@ -4,6 +4,8 @@ Kinds (zdr_tpu/samplers/__init__.py): "pmj02bn", "corrmj" and "lcg", at
 any spp >= 1.
 """
 
+import dataclasses
+
 import torch
 
 from .lcg import LCGSampler, make_lcg_sampler_xy
@@ -22,6 +24,22 @@ def make_sampler_xy(kind: str, px, py, seed, spp: int, sample_index, bn=None):
     if kind == "corrmj":
         return make_corrmj_sampler_xy(px, py, seed, spp, sample_index)
     raise ValueError(f"unknown sampler kind: {kind!r}")
+
+
+def make_sampler(kind: str, pixel, seed, spp: int, sample_index, bn=None):
+    """make_sampler_xy over (N, 2) integer pixel coordinates (JAX
+    samplers/__init__.py:62)."""
+    return make_sampler_xy(kind, pixel[..., 0], pixel[..., 1], seed, spp, sample_index, bn)
+
+
+def select_on_restart(restart, new_smp, smp):
+    """where(restart, new_smp, smp) per lane over the sampler's fields that a
+    restart changes (`_RESTART_VARYING`); the others (pixel, seed, spp, the
+    blue-noise rows) are the same for a lane's every sample (JAX
+    samplers/__init__.py:22)."""
+    return dataclasses.replace(smp, **{
+        f: torch.where(restart, getattr(new_smp, f), getattr(smp, f))
+        for f in type(smp)._RESTART_VARYING})
 
 
 def sampler_probe_plain(kind: str, spp: int, lanes, k: int, bn=None):
@@ -45,6 +63,8 @@ __all__ = [
     "CorrMJSamplerP2",
     "PMJ02BNSampler",
     "PMJ02BNSamplerP2",
+    "make_sampler",
     "make_sampler_xy",
+    "select_on_restart",
     "sampler_probe_plain",
 ]

@@ -50,6 +50,7 @@ def is_p2(spp: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class CorrMJSampler:
+    _RESTART_VARYING = ("sample_index", "dimension", "state")
     sample_index: torch.Tensor  # uint32 as int64
     dimension: torch.Tensor  # uint32 as int64
     permutation_seed: torch.Tensor  # uint32 as int64, constant per lane

@@ -18,6 +18,7 @@ SALT = 0x5F356495
 @dataclasses.dataclass(frozen=True)
 class LCGSampler:
     state: torch.Tensor  # uint32 as int64
+    _RESTART_VARYING = ("state",)
 
     def next1(self):
         s = lcg_step(self.state)

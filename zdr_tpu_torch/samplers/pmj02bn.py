@@ -132,6 +132,7 @@ def bn_base(px: torch.Tensor, py: torch.Tensor, seed, res: int, n_tex: int) -> t
 
 @dataclasses.dataclass(frozen=True)
 class PMJ02BNSampler:
+    _RESTART_VARYING = ("sample_index", "dimension")
     px: torch.Tensor  # int64 pixel x
     py: torch.Tensor  # int64 pixel y
     sample_index: torch.Tensor  # uint32 as int64

@@ -14,7 +14,12 @@ The scene's tensors live on its device ("cuda" unless the caller asks for
 "cpu"), the material must too, and a render runs there (on "cuda" the CUDA
 kernels: direct and, for the backward, direct_grad; collocated and
 collocated_grad for the collocated integrator; path_loop and path_loop_grad
-for the path integrator; on "cpu" their plain versions). The render is
+for the path integrator; on "cpu" their plain versions). With `fused =
+False`, nearest filtering (`bilinear = False`), a material under 2x2 or a
+direct render without MIS (`use_mis = False`) the render takes the JAX
+package's unfused estimators instead, plain torch around the trace_closest
+and trace_any kernels (integrators/path_persistent.py, path.py, direct.py,
+collocated.py). The render is
 differentiable in the material: the backward re-estimates the texture
 gradient at seed + 1 (Path Replay Backprop for the path integrator).
 add_envmap lights the scene with an environment map (the direct and
@@ -113,6 +118,10 @@ class Scene:
         # PRB scatter knobs; the port takes only 1 and False (ROADMAP A17)
         self.splat_merge = 1
         self.packed_splat = False
+        # "auto" (default) and "force": the kernel routes where they apply;
+        # False: the unfused estimators around the trace kernels (JAX
+        # scene.py:147-150)
+        self.fused = "auto"
 
     def _with_bvh(self) -> SceneData:
         """The scene's data with its BVH, built at the first call."""
@@ -211,6 +220,7 @@ class Scene:
             bilinear=bool(self.bilinear),
             splat_merge=int(self.splat_merge),
             packed_splat=bool(self.packed_splat),
+            fused=self.fused,
         )
 
     def render(self, material: torch.Tensor, *, res, spp, seed=0) -> torch.Tensor:

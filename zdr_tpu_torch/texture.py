@@ -11,6 +11,13 @@ The gradient side: `splat_ids` (the one-corner splat of pallas_loop.py:
 544-572) and `scatter_add4`, the meaning of texture.segment_scatter_add4,
 in the (H*W, 4) layout of the material rather than JAX's channel-major
 (4, H*W), which was a TPU layout choice.
+
+The unfused estimators' side (texture.py:383-593): `read_bsdf`, the fetch
+with nearest filtering too and the generic corners of a material under 2x2,
+differentiable in the material through JAX's own VJP (`ReadBsdf`), and the
+splats `write_bsdf_grad`, `write_bsdf_grad_stochastic` and
+`stochastic_corner_ids`. JAX's bf16 quad table (`texture_bf16`) is a TPU
+gather knob and is not ported.
 """
 
 from __future__ import annotations
@@ -90,3 +97,109 @@ def scatter_add4(ids: torch.Tensor, vals: torch.Tensor, n_bins: int) -> torch.Te
     buf = torch.zeros((n_bins + 1, 4), dtype=vals.dtype, device=vals.device)
     buf.index_add_(0, ids, vals)
     return buf[:n_bins]
+
+
+# ----------------------------------------------- the unfused estimators' side
+
+
+def nearest_ids(ux: torch.Tensor, uy: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The texel a nearest fetch reads (texture.py:389-391) -> (N,) int64."""
+    x = torch.clamp(_to_int(ux * (w - 1) + 0.4999, w), 0, w - 1)
+    y = torch.clamp(_to_int((1.0 - uy) * (h - 1) + 0.4999, h), 0, h - 1)
+    return y * w + x
+
+
+def bilinear_corners(ux: torch.Tensor, uy: torch.Tensor, h: int, w: int):
+    """The four corners of the generic bilinear fetch and its VJP, with the
+    floor unclamped and the corners clipped (texture.py:35-59) -> (ids,
+    weights), 4 (N,) int64 and 4 (N,) float32: (x0, y0), (x0, y0+1),
+    (x0+1, y0), (x0+1, y0+1)."""
+    x = ux * (w - 1)
+    y = (1.0 - uy) * (h - 1)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = _to_int(x0, w)
+    y0i = _to_int(y0, h)
+    xa, ya = torch.clamp(x0i, 0, w - 1), torch.clamp(y0i, 0, h - 1)
+    xb, yb = torch.clamp(x0i + 1, 0, w - 1), torch.clamp(y0i + 1, 0, h - 1)
+    ids = (ya * w + xa, yb * w + xa, ya * w + xb, yb * w + xb)
+    weights = ((1 - fx) * (1 - fy), (1 - fx) * fy, fx * (1 - fy), fx * fy)
+    return ids, weights
+
+
+def _read_bsdf_impl(uv: torch.Tensor, material: torch.Tensor, bilinear: bool) -> torch.Tensor:
+    h, w = material.shape[0], material.shape[1]
+    flat = material.reshape(h * w, 4)
+    if not bilinear:
+        return flat[nearest_ids(uv[:, 0], uv[:, 1], h, w)]
+    if h >= 2 and w >= 2:
+        return torch.stack(read_bilinear(material, uv[:, 0], uv[:, 1]), dim=1)
+    ids, ws = bilinear_corners(uv[:, 0], uv[:, 1], h, w)
+    out = flat[ids[0]] * ws[0][:, None]
+    for k in range(1, 4):
+        out = out + flat[ids[k]] * ws[k][:, None]
+    return out
+
+
+class ReadBsdf(torch.autograd.Function):
+    """The material at uv, differentiable in the material: its backward is
+    JAX's _read_bsdf_bwd (texture.py:537-551), the scatter of the cotangent
+    into the texel the nearest fetch read, or into the four bilinear corners
+    (unclamped floor, clipped corners) by their weights. uv carries no
+    gradient."""
+
+    @staticmethod
+    def forward(uv, material, bilinear):
+        return _read_bsdf_impl(uv, material, bilinear)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        uv, material, bilinear = inputs
+        ctx.save_for_backward(uv)
+        ctx.shape = material.shape
+        ctx.bilinear = bilinear
+
+    @staticmethod
+    def backward(ctx, g):
+        (uv,) = ctx.saved_tensors
+        d_mat = write_bsdf_grad(uv, g, torch.zeros(ctx.shape, dtype=g.dtype, device=g.device),
+                                ctx.bilinear)
+        return None, d_mat, None
+
+
+def read_bsdf(uv: torch.Tensor, material: torch.Tensor, bilinear: bool = True) -> torch.Tensor:
+    """The (H, W, 4) material at uv (N, 2) -> (N, 4), bilinear (CLAMP, v
+    flipped) or nearest; differentiable in the material (texture.py:581)."""
+    return ReadBsdf.apply(uv, material, bool(bilinear))
+
+
+def write_bsdf_grad(uv: torch.Tensor, dmat: torch.Tensor, d_material: torch.Tensor,
+                    bilinear: bool = True) -> torch.Tensor:
+    """d_material (H, W, 4) plus the per-sample gradients dmat (N, 4)
+    scattered to the texel read (nearest) or the bilinear corners by their
+    weights (texture.py:402): read_bsdf's VJP."""
+    h, w = d_material.shape[0], d_material.shape[1]
+    if not bilinear:
+        add = scatter_add4(nearest_ids(uv[:, 0], uv[:, 1], h, w), dmat, h * w)
+    else:
+        ids, ws = bilinear_corners(uv[:, 0], uv[:, 1], h, w)
+        add = scatter_add4(torch.cat(ids), torch.cat([wk[:, None] * dmat for wk in ws]),
+                           h * w)
+    return d_material + add.reshape(h, w, 4)
+
+
+def stochastic_corner_ids(uv: torch.Tensor, u: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """One bilinear corner per sample, picked with probability its weight by
+    the uniform u (texture.py:495) -> (N,) int64: splat_ids."""
+    return splat_ids(uv[:, 0], uv[:, 1], u, h, w)
+
+
+def write_bsdf_grad_stochastic(uv: torch.Tensor, dmat: torch.Tensor, d_material: torch.Tensor,
+                               u: torch.Tensor) -> torch.Tensor:
+    """The unbiased single-corner splat (texture.py:433): each sample's
+    whole gradient into the corner stochastic_corner_ids picks."""
+    h, w = d_material.shape[0], d_material.shape[1]
+    add = scatter_add4(stochastic_corner_ids(uv, u, h, w), dmat, h * w)
+    return d_material + add.reshape(h, w, 4)

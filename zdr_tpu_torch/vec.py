@@ -50,3 +50,13 @@ def vnormalize(a):
 
 def vwhere(m, a, b):
     return tuple(torch.where(m, a[k], b[k]) for k in range(3))
+
+
+def luminance(rgb):
+    """CIE Y of a linear rgb tuple (JAX vecmath.py:42)."""
+    return 0.212671 * rgb[0] + 0.715160 * rgb[1] + 0.072169 * rgb[2]
+
+
+def offset_ray_origin(p, ng, dist: float = 1e-4):
+    """A ray origin nudged along the geometric normal (JAX vecmath.py:48)."""
+    return vadd(p, vscale(ng, dist))
