@@ -171,7 +171,25 @@ Phases, one line each; any failure raises and exits non-zero:
      the protocol's 962 triangles by accel="auto" (the BVH); then at
      128x128, 16 spp each of those walks and the collocated golden sphere
      under nearest with the trace kernels against the same walk with the
-     plain traces: the image bit for bit, the gradient at phase 7's bars.
+     plain traces: the image bit for bit, the gradient at phase 7's bars;
+ 22. the texture-recovery apps (zdr_tpu_torch/apps/) through their
+     main(argv), at their full sizes: the example (512x512, a 512^2
+     material, GT 512 spp, 64 spp a step; APP_EXAMPLE_ITERS of its 500
+     steps), its launches (direct_env_bvh and direct_grad_env_bvh, and
+     trace_closest a sample of render_duvdxy), no other kernel and no plain
+     version, the loss falling, the five EXRs read back by load_exr; the
+     lightstage (30 lights, 512x512, 256 spp, 8 patterns, one step a
+     pattern of its 200), its direct_bvh and direct_grad_bvh launches;
+     fd_validate's whole protocol on the cornell box (96x96, 48^2, spp 1 ..
+     256, 5 seeds; path_loop, path_loop_grad), its rows; the step times
+     from the apps' RunLogger records; then one lightstage pattern's two
+     kernels against their plain versions at every 64th lane (the first
+     CHECK_SAMPLES samples, the forward bit for bit), render_duvdxy's
+     trace_closest bit for bit against trace_closest_plain on its own rays
+     at every 64th ray of every sample, timed (with the card's busy time by
+     torch.profiler), and a checkpoint of the example's recovery after
+     APP_CHECKPOINT_STEP steps loaded into a fresh Adam on the card, bit for
+     bit, the next step from each bit-equal; an Adam step's time.
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
@@ -188,7 +206,9 @@ and collocated_grad, 18's example by each route for the direct env kernels,
 and its env_scene for path_loop_env_bvh and path_loop_grad_env_bvh, 21's
 unfused flagship for trace_closest and trace_any (their "ms" the device
 time a launch over its walk by torch.profiler, "plain_ms" and bounds on one
-of its own bounce calls, phase 12's big mesh under "big_mesh");
+of its own bounce calls, phase 12's big mesh under "big_mesh"); phase 22's
+apps under "apps" in the records of the kernels they launch (launches and
+the median step; render_duvdxy's numbers in trace_closest's);
 for
 the probes and the sweep variants, the sum over all of them; trace_interact's "body_launches" counts, by kernel, the launches of
 phases 17-18's main paths, each of which runs B3's body a sample),
@@ -2886,6 +2906,262 @@ def phase_unfused(dev, smi):
     return out
 
 
+# phase 22: the texture-recovery apps (zdr_tpu_torch/apps/) through their
+# main(argv) on the card, at their full sizes (the apps' FULL). The
+# example's iterations are cut from 500 to APP_EXAMPLE_ITERS and the
+# lightstage's from 200 to one step a pattern; fd_validate runs its whole
+# protocol (96x96, 48^2, spp 1 .. 2^APP_FD_MAX_EXP)
+APP_EXAMPLE_ITERS = 10
+APP_FD_MAX_EXP = 8
+# the steps after which the example's checkpoint is saved
+APP_CHECKPOINT_STEP = 2
+
+
+def _steps(path):
+    """A RunLogger jsonl's records."""
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _app_run(what, fn, expect):
+    """One app's main(argv) as a main-path call: its launch counts must be
+    `expect` (kernel -> count) and no other kernel's, no plain version (the
+    integrators' or the traces') called -> (its result, its seconds)."""
+    plain = _plain_calls()
+    with _CountPlainTraces() as plain_traces:
+        (out, ms), counts = _drive_main(lambda: _sync_ms(fn))
+    got = {k: v for k, v in counts.items() if v}
+    if got != expect:
+        raise AssertionError(f"{what}: launches {got}, expected {expect}")
+    if _plain_calls() != plain or plain_traces.calls:
+        raise AssertionError(f"{what}: the app ran a plain version")
+    return out, ms / 1e3
+
+
+def _duvdxy_check(scene, mat, res, spp):
+    """render_duvdxy on the example's scene at its size: one trace_closest
+    launch a sample, the kernel bit for bit its plain version
+    (trace_closest_plain) on the render's own rays at every CHECK_STRIDE-th
+    ray of every sample; its time (median of 3) and a launch's alone ->
+    (the trace record's numbers, a note)."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.accel.trace import trace_closest_plain
+    from zdr_tpu_torch.camera import camera_const
+    from zdr_tpu_torch.integrators import uvgrad
+    from zdr_tpu_torch.integrators.wrapper import pixel_grid, with_accel
+
+    dev = scene.device
+    aov, counts = _drive_main(lambda: scene.render_duvdxy(mat, res=res, spp=spp))
+    if {k: v for k, v in counts.items() if v} != {"trace_closest": spp}:
+        raise AssertionError(f"render_duvdxy: launches {counts}")
+    if tuple(aov.shape) != (res[1], res[0], 4) or not bool(torch.isfinite(aov).all()):
+        raise AssertionError("render_duvdxy: the AOV is not finite (H, W, 4)")
+    data = with_accel(scene._render_data(scene.integrator))
+    cfg = scene._config(res, spp)
+    cam, coords = camera_const(scene.camera).to(dev), pixel_grid(res, dev)
+    consts = uvgrad.ray_consts(res, dev)
+    rays = [uvgrad.sample_rays(cam, consts, coords, 0, cfg, it)[0] for it in range(spp)]
+    plain_ms = 0.0
+    for o, d in rays:
+        got = kernels.trace_closest(data.accel, o, d)
+        (want, _work), ms = _sync_ms(lambda: trace_closest_plain(
+            data.accel, o[::CHECK_STRIDE], d[::CHECK_STRIDE], 0.0, 1e30))
+        plain_ms += ms
+        for g, w in zip(got, want):
+            if not torch.equal(g[::CHECK_STRIDE], w):
+                raise AssertionError("render_duvdxy: trace_closest differs from its plain "
+                                     "version on the render's rays")
+    render_ms, runs = _median_ms(
+        lambda: scene.render_duvdxy(mat, res=res, spp=spp), reps=3)
+    # the card's busy time in one render, and a trace launch's, by the profiler
+    prof = _trace_profile(lambda: scene.render_duvdxy(mat, res=res, spp=spp)) or {}
+    busy_ms = prof.get("all_kernels_ms")
+    trace_dev_ms = prof.get("trace_closest", (0, None))[1]
+    o, d = rays[0]
+    launch_ms, _r = _event_ms(lambda: kernels.trace_closest(data.accel, o, d), reps=5)
+    tests, visits = kernels.trace_closest.counts.tolist()
+    bound = _bound(tests, _trace_nbytes("trace_closest", data.accel, o, d), visits)
+    hits = int((aov[..., 0] != 0).sum())
+    rec = dict(launches=spp, ms=launch_ms, plain_ms=plain_ms / spp,
+               plain_shape=f"every {CHECK_STRIDE}th ray of a sample's {res[0]}x{res[1]}",
+               bound_ms=bound[0], bound_by=bound[1], tests=tests, visits=visits,
+               render_duvdxy_ms=render_ms, render_busy_ms=busy_ms,
+               per_launch_ms_in_render=trace_dev_ms, max_abs_err=0.0)
+    note = (f"render_duvdxy {res[0]}x{res[1]} {spp} spp: {spp} trace_closest "
+            f"launches ({'BVH' if data.accel.is_bvh else 'dense'}), no other kernel, "
+            f"{hits} pixels with a footprint; the kernel equals its plain version bit for bit "
+            f"on every {CHECK_STRIDE}th ray of all {spp} samples; median "
+            f"{render_ms:.2f} ms of {[round(t, 2) for t in runs]} (the card busy "
+            f"{busy_ms} ms of one, a trace launch {trace_dev_ms} ms there), a launch alone "
+            f"{launch_ms:.3f} ms ({tests / o.shape[0]:.2f} tests and {visits / o.shape[0]:.2f} "
+            f"visits a ray) -> bound {bound[0]:.4f} ms ({bound[1]})")
+    return rec, note
+
+
+def _checkpoint_check(scene, dev):
+    """The example's recovery for APP_CHECKPOINT_STEP steps at full size,
+    saved, loaded into a fresh Adam on the card: every tensor bit-equal,
+    and one more step from each on the same gradient bit-equal; an Adam
+    step's time alone -> (its ms, a note)."""
+    import tempfile
+
+    from zdr_tpu_torch.apps import example
+    from zdr_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    res, tex, _spp_gt, spp, _iters = example.FULL
+    with torch.no_grad():
+        target = scene.render(example.procedural_wood(tex, dev), res=res, spp=spp)
+    mat = torch.full((tex, tex, 4), 0.5, device=dev).requires_grad_()
+    opt = torch.optim.Adam([mat], lr=example.LR)
+    for it in range(APP_CHECKPOINT_STEP):
+        example.train_step(scene, mat, opt, target, res, spp, it + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        save_checkpoint(path, mat, opt, APP_CHECKPOINT_STEP)
+        mat2 = torch.empty((tex, tex, 4), device=dev).requires_grad_()
+        opt2 = torch.optim.Adam([mat2], lr=example.LR)
+        _m, step, _x = load_checkpoint(path, opt2)
+    st, st2 = opt.state[mat], opt2.state[mat2]
+    if not (step == APP_CHECKPOINT_STEP and torch.equal(mat, mat2)
+            and all(torch.equal(st[k], st2[k]) for k in ("step", "exp_avg", "exp_avg_sq"))):
+        raise AssertionError("checkpoint: the loaded state differs from the saved one")
+    # one more step from each on the same gradient
+    m = mat.detach().clone().requires_grad_()
+    ((scene.render(m, res=res, spp=spp, seed=APP_CHECKPOINT_STEP + 1) - target) ** 2
+     ).sum().backward()
+    for p, o in ((mat, opt), (mat2, opt2)):
+        p.grad = m.grad.clone()
+        o.step()
+        with torch.no_grad():
+            p.clamp_(*example.CLAMP)
+    if not (torch.equal(mat, mat2) and all(torch.equal(opt.state[mat][k], opt2.state[mat2][k])
+                                           for k in ("exp_avg", "exp_avg_sq"))):
+        raise AssertionError("checkpoint: the step after the load differs")
+    adam_ms, _r = _event_ms(opt.step, reps=5)
+    return adam_ms, (f"checkpoint after step {APP_CHECKPOINT_STEP} of the example at "
+                     f"{res[0]}x{res[1]}, {tex}^2: loaded into a fresh Adam on the card bit for "
+                     f"bit, the next step from each bit-equal; an Adam step on {tex * tex * 4} "
+                     f"floats {adam_ms:.3f} ms (CUDA events)")
+
+
+def phase_apps(dev, smi):
+    """Phase 22: the texture-recovery apps through their main(argv) on the
+    card -> the apps' numbers, by kernel."""
+    import tempfile
+
+    from zdr_tpu_torch.apps import example, fd_validate, lightstage
+    from zdr_tpu_torch.imageio_exr import load_exr
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    out = {}
+    res, tex, spp_gt, spp, _iters = example.FULL
+    duv_spp = max(spp // 4, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the example (512^2, a 512^2 material, GT 512 spp, 64 spp a step),
+        # APP_EXAMPLE_ITERS steps: GT and the final render launch
+        # direct_env_bvh, each step direct_env_bvh and direct_grad_env_bvh,
+        # render_duvdxy trace_closest a sample
+        log = os.path.join(tmp, "example.jsonl")
+        n = APP_EXAMPLE_ITERS
+        ex_launches = {"direct_env_bvh": n + 2, "direct_grad_env_bvh": n,
+                       "trace_closest": duv_spp}
+        mse, secs = _app_run("example", lambda: example.main(
+            ["--iters", str(n), "--out", tmp, "--log", log, "--device", str(dev)]), ex_launches)
+        steps = _steps(log)
+        losses = [r["loss"] for r in steps]
+        if not (len(steps) == n and math.isfinite(mse) and losses[-1] < losses[0]):
+            raise AssertionError(f"example: {len(steps)} steps, mse {mse}, losses {losses}")
+        for name in example.OUTPUTS:
+            img = load_exr(os.path.join(tmp, f"{name}.exr"))
+            if img.shape[2] != 3 or not np.isfinite(img).all():
+                raise AssertionError(f"example: {name}.exr reads back as {img.shape}")
+            if not os.path.getsize(os.path.join(tmp, f"{name}.png")):
+                raise AssertionError(f"example: {name}.png is empty")
+        ex_ms = statistics.median(r["step_ms"] for r in steps[1:])
+        out["example"] = dict(launches=ex_launches,
+                              step_ms=ex_ms, first_step_ms=steps[0]["step_ms"], seconds=secs,
+                              mse=mse, loss_first=losses[0], loss_last=losses[-1])
+        print(f"[22 apps] example ({res[0]}x{res[1]}, {tex}^2 material, GT {spp_gt} spp, {spp} "
+              f"spp a step, {n} of 500 iterations) through main(argv): {n + 2} direct_env_bvh, "
+              f"{n} direct_grad_env_bvh, {duv_spp} trace_closest launches, no other kernel, no "
+              f"plain version; loss {losses[0]:.2f} -> {losses[-1]:.2f}, final MSE {mse:.6f}; "
+              f"the five EXRs read back by load_exr; step median {ex_ms:.2f} ms of "
+              f"{[round(r['step_ms'], 2) for r in steps]}; {secs:.1f} s in all; card {smi}",
+              flush=True)
+        # the lightstage (30 lights, 512^2, 256 spp, 8 patterns), one step
+        # a pattern: GT, each step and the noise floor launch direct_bvh,
+        # each step direct_grad_bvh
+        log = os.path.join(tmp, "lightstage.jsonl")
+        n_lights, ls_res, ls_spp, _iters, ls_tex, n_pat = lightstage.FULL
+        k = n_pat
+        ls_launches = {"direct_bvh": 2 * n_pat + k, "direct_grad_bvh": k}
+        r, secs = _app_run("lightstage", lambda: lightstage.main(
+            ["--iters", str(k), "--log", log, "--device", str(dev)]), ls_launches)
+        steps = _steps(log)
+        if len(steps) != k or not all(math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"lightstage: {len(steps)} steps, {r}")
+        ls_ms = statistics.median(s["step_ms"] for s in steps[1:])
+        out["lightstage"] = dict(launches=ls_launches,
+                                 step_ms=ls_ms, first_step_ms=steps[0]["step_ms"],
+                                 seconds=secs, **r)
+        print(f"[22 apps] lightstage ({n_lights} lights, {ls_res[0]}x{ls_res[1]}, {ls_spp} spp, "
+              f"{n_pat} patterns, {k} of 200 steps) through main(argv): {2 * n_pat + k} direct_bvh, {k} direct_grad_bvh "
+              f"launches, no "
+              f"other kernel, no plain version; loss {r['loss_first']:.2f} -> "
+              f"{r['loss_last']:.2f}, noise floor {r['noise_floor']:.2f}; step median "
+              f"{ls_ms:.2f} ms of {[round(s['step_ms'], 2) for s in steps]}; {secs:.1f} s in "
+              f"all", flush=True)
+        # fd_validate: the pick's 2 renders and gradient at 64 spp, then the
+        # FD (2 renders) and AD (a render and its backward) rows
+        e = APP_FD_MAX_EXP + 1
+        fd, secs = _app_run("fd_validate", lambda: fd_validate.main(
+            ["--max-exp", str(APP_FD_MAX_EXP), "--device", str(dev)]),
+            {"path_loop": 3 + 15 * e, "path_loop_grad": 1 + 5 * e})
+        if not all(math.isfinite(v) for row in fd["fd"] + fd["ad"] for v in row):
+            raise AssertionError("fd_validate: a non-finite row")
+        fd_mean, ad_mean = (float(np.mean(fd[key][-1])) for key in ("fd", "ad"))
+        out["fd_validate"] = dict(launches={"path_loop": 3 + 15 * e, "path_loop_grad": 1 + 5 * e},
+                                  seconds=secs, imgidx=fd["imgidx"], texidx=fd["texidx"],
+                                  fd_last=fd["fd"][-1], ad_last=fd["ad"][-1])
+        print(f"[22 apps] fd_validate (path, 96x96, 48^2, spp 1 .. {2 ** APP_FD_MAX_EXP}, 5 "
+              f"seeds) through main(argv): {3 + 15 * e} path_loop, {1 + 5 * e} path_loop_grad "
+              f"launches, no other kernel, no plain version; pixel {fd['imgidx']}, texel "
+              f"{fd['texidx']}; at {2 ** APP_FD_MAX_EXP} spp FD mean {fd_mean:.6f}, AD mean "
+              f"{ad_mean:.6f}; {secs:.1f} s in all", flush=True)
+
+    # one lightstage pattern's kernels against their plain versions on its
+    # own inputs (the first pattern after update_lights, the first step's
+    # seed, the GT material), at every CHECK_STRIDE-th lane, the first
+    # CHECK_SAMPLES samples, the forward bit for bit
+    scene = lightstage.build_lightstage(n_lights, device=dev)
+    scene.camera = lightstage.make_camera()
+    scene.update_lights(lightstage.make_patterns(n_lights, n_pat)[0])
+    data = scene._render_data("direct")
+    cfg = scene._config(ls_res, ls_spp)
+    mat = torch.as_tensor(np.random.RandomState(5).uniform(0.2, 0.8, (ls_tex, ls_tex, 4))
+                          .astype(np.float32), device=dev)
+    err, g_err, plain_ms, gplain_ms, note = _bvh_check(
+        pl.build_loop_tables(data, scene.camera, cfg, 100),
+        pl.build_loop_tables(data, scene.camera, cfg, 101), mat, "direct",
+        "lightstage pattern 0", exact=True)
+    out["lightstage"].update(max_abs_err=err, g_max_abs_err=g_err, plain_ms=plain_ms,
+                             gplain_ms=gplain_ms)
+    print(f"[22 apps] lightstage pattern 0 ({data.meta.n_lights} lights on of {n_lights}, "
+          f"{data.meta.num_tris} tris, BVH): direct_bvh and direct_grad_bvh {note}", flush=True)
+
+    ex_scene = example.build_scene(device=dev)
+    duv, note = _duvdxy_check(ex_scene, example.procedural_wood(tex, dev), res, duv_spp)
+    out["render_duvdxy"] = duv
+    print(f"[22 apps] {note}", flush=True)
+    adam_ms, note = _checkpoint_check(ex_scene, dev)
+    out["adam_ms"] = adam_ms
+    print(f"[22 apps] {note}", flush=True)
+    print(f"[22 apps] medians: example step {out['example']['step_ms']:.2f} ms, lightstage step "
+          f"{out['lightstage']['step_ms']:.2f} ms, render_duvdxy {duv['render_duvdxy_ms']:.2f} "
+          f"ms, Adam step {adam_ms:.3f} ms; card {smi}", flush=True)
+    return out
+
+
 def _direct_extra(proto, g, ptxas):
     """The dense direct kernels' record beyond the contract's keys: the
     counted-work bound's terms and the tests-only bound on the protocol,
@@ -2941,6 +3217,8 @@ def main():
     samplers = timed("20", phase_samplers, dev, smi, main_run, grad_run,
                      probe_run["by_sampler"], ptxas)
     unfused = timed("21", phase_unfused, dev, smi)
+    n_main = len(MAIN_COUNTS)
+    apps = timed("22", phase_apps, dev, smi)
     print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     # direct_bvh and direct_grad_bvh report the protocol's main path by
@@ -2955,7 +3233,7 @@ def main():
     trace_run["launches"] = sum(c["trace_interact"] for c in MAIN_COUNTS)
     # B3's body (closest_interact) runs inside the megakernels: its launches
     # on the main paths of phases 17-18, by the kernel it runs in
-    trace_run["body_launches"] = {k: sum(c[k] for c in MAIN_COUNTS)
+    trace_run["body_launches"] = {k: sum(c[k] for c in MAIN_COUNTS[:n_main])
                                   for k in ("collocated", "collocated_grad", "collocated_bvh",
                                             "collocated_grad_bvh", "direct_env",
                                             "direct_grad_env", "direct_env_bvh",
@@ -2975,6 +3253,20 @@ def main():
     traces["trace_closest"]["unfused_checks"] = unfused["checks"]
     for k in VARIANTS:
         variants[k]["launches"] = sum(c[k] for c in MAIN_COUNTS)
+    # phase 22's apps: their launches and step times under "apps" in the
+    # records of the kernels they run
+    ex, ls, fdv = apps["example"], apps["lightstage"], apps["fd_validate"]
+    for k in ("direct_env_bvh", "direct_grad_env_bvh"):
+        env[k]["apps"] = {"example": dict(launches=ex["launches"][k], step_ms=ex["step_ms"])}
+    for k in ("direct_bvh", "direct_grad_bvh"):
+        err = ls["max_abs_err" if k == "direct_bvh" else "g_max_abs_err"]
+        big[k]["apps"] = {"lightstage": dict(launches=ls["launches"][k], step_ms=ls["step_ms"],
+                                             max_abs_err=err)}
+        big[k]["max_abs_err"] = max(big[k]["max_abs_err"], err)
+    main_run["apps"] = {"fd_validate": dict(launches=fdv["launches"]["path_loop"])}
+    grad_run["apps"] = {"fd_validate": dict(launches=fdv["launches"]["path_loop_grad"])}
+    traces["trace_closest"]["apps"] = {"render_duvdxy": apps["render_duvdxy"]}
+    env["direct_env_bvh"]["apps"]["adam_step_ms"] = apps["adam_ms"]
     direct_src = "zdr_tpu_torch/kernels/csrc/direct.cu"
     coll_src = "zdr_tpu_torch/kernels/csrc/collocated.cu"
     for pair in SLICE_KERNELS.values():

@@ -1,8 +1,9 @@
-"""Parameters and scene state carried across from the JAX package.
+"""Parameters, scene and optimizer state carried across from the JAX package.
 
 The JAX package hands its arrays over as numpy (`np.asarray` of its
-`SceneData` fields and of a material); these build the port's tensors on a
-given device. Nothing here imports the JAX package.
+`SceneData` fields, of a material and of optax.adam's state leaves); these
+build the port's tensors on a given device, and back. Nothing here imports
+the JAX package or optax.
 """
 
 from __future__ import annotations
@@ -157,3 +158,43 @@ def _tree_of(packed: np.ndarray, perm: np.ndarray) -> BVHArrays:
     right = np.where(is_leaf, leaf_size, escape[np.minimum(ids + 1, m - 1)]).astype(np.int32)
     return BVHArrays(node_lo=packed[:, 0:3].copy(), node_hi=packed[:, 3:6].copy(),
                      node_left=left, node_right=right, node_is_leaf=is_leaf, tri_perm=perm)
+
+
+# optax.adam's state leaves in its tree order (ScaleByAdamState's count, mu,
+# nu; its EmptyState has none), and torch.optim.Adam's state keys for them
+ADAM_LEAVES = ("count", "mu", "nu")
+ADAM_KEYS = ("step", "exp_avg", "exp_avg_sq")
+
+
+def adam_state_from_numpy(leaves, device, step_device="cpu") -> dict:
+    """optax.adam's state leaves as numpy arrays, in ADAM_LEAVES' order ->
+    torch.optim.Adam's state of its one parameter: "step" a float32 scalar
+    on `step_device` (the CPU, where torch keeps it unless the optimizer is
+    capturable or fused), "exp_avg" and "exp_avg_sq" float32 on `device`."""
+    if len(leaves) != len(ADAM_LEAVES):
+        raise ValueError(f"optax.adam's state has {len(ADAM_LEAVES)} leaves "
+                         f"{ADAM_LEAVES}, got {len(leaves)}")
+    count, mu, nu = (np.asarray(x) for x in leaves)
+    if count.shape != () or mu.shape != nu.shape:
+        raise ValueError(f"adam leaves of shapes {count.shape}, {mu.shape}, {nu.shape}")
+    return {
+        "step": torch.tensor(float(count), dtype=torch.float32, device=step_device),
+        "exp_avg": torch.as_tensor(np.array(mu, np.float32), device=device),
+        "exp_avg_sq": torch.as_tensor(np.array(nu, np.float32), device=device),
+    }
+
+
+def adam_state_to_numpy(state: dict, like: torch.Tensor) -> list:
+    """The inverse of adam_state_from_numpy -> [count int32 (), mu, nu]; an
+    empty state (no step taken) is optax.adam's init: 0 and zeros like
+    `like`."""
+    if not state:
+        zeros = np.zeros(tuple(like.shape), np.float32)
+        return [np.asarray(0, np.int32), zeros, zeros.copy()]
+    extra = set(state) - set(ADAM_KEYS)
+    if extra:
+        raise ValueError(f"no optax.adam leaf for Adam state {sorted(extra)} "
+                         f"(amsgrad is not optax.adam)")
+    return [np.asarray(int(state["step"]), np.int32),
+            state["exp_avg"].detach().to("cpu", torch.float32).numpy(),
+            state["exp_avg_sq"].detach().to("cpu", torch.float32).numpy()]

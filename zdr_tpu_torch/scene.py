@@ -9,6 +9,7 @@
     material.requires_grad_()
     image = scene.render(material, res=(W, H), spp=64, seed=0)
     image[..., :3].sum().backward()                                # material.grad
+    duv = scene.render_duvdxy(material, res=(W, H), spp=16)       # (H, W, 4) AOV
 
 The scene's tensors live on its device ("cuda" unless the caller asks for
 "cpu"), the material must too, and a render runs there (on "cuda" the CUDA
@@ -246,3 +247,19 @@ class Scene:
         return RenderFunction.apply(
             material.contiguous(), self._render_data(cfg.integrator), self.camera, int(seed), cfg,
         )
+
+    def render_duvdxy(self, material, *, res, spp, seed=0) -> torch.Tensor:
+        """Screen-space-to-texture-space Jacobian AOV (JAX scene.py:304-313)
+        -> (H, W, 4) float32 (du/dx, dv/dx, du/dy, dv/dy) on the scene's
+        device: one trace_closest launch a sample on the card, through the
+        render's route (the BVH, or the dense rows). The material does not
+        enter it; not differentiable."""
+        from .integrators.uvgrad import render_uvgrad
+        from .integrators.wrapper import with_accel
+
+        cfg = self._config(res, spp)
+        if cfg.spp <= 0:
+            raise ValueError(f"spp must be >= 1, got {cfg.spp}")
+        with torch.no_grad():
+            data = with_accel(self._render_data(cfg.integrator))
+            return render_uvgrad(data, self.camera, int(seed), cfg)
