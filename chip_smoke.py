@@ -189,7 +189,20 @@ Phases, one line each; any failure raises and exits non-zero:
      at every 64th ray of every sample, timed (with the card's busy time by
      torch.profiler), and a checkpoint of the example's recovery after
      APP_CHECKPOINT_STEP steps loaded into a fresh Adam on the card, bit for
-     bit, the next step from each bit-equal; an Adam step's time.
+     bit, the next step from each bit-equal; an Adam step's time;
+ 23. multi-device rendering (zdr_tpu_torch/parallel.py) through
+     parallel.launch: the flagship (512x512, 64 spp, 1024^2 material of
+     0.5) by render_sharded + loss.backward() on PAR_RANKS gloo ranks on the
+     one card, then on NCCL with one rank a card: one path_loop and one
+     path_loop_grad launch a rank on its lanes, the image bit for bit the
+     single-device Scene.render's, the gradient at phase 7's bars, the
+     iteration's time a rank; render_batch of the lightstage's 8
+     epsilon-off patterns (30 lights) at 128x128, 8 spp on the gloo ranks,
+     every view bit for bit the sequential update_lights + Scene.render;
+     dryrun_multichip's two losses; the lightstage's main(["--batched",
+     ...]) at full size on one rank, PAR_LS_ITERS steps, their launches and
+     step times; and at --small with tests/test_apps.py's batched recovery
+     gate.
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
@@ -208,7 +221,9 @@ unfused flagship for trace_closest and trace_any (their "ms" the device
 time a launch over its walk by torch.profiler, "plain_ms" and bounds on one
 of its own bounce calls, phase 12's big mesh under "big_mesh"); phase 22's
 apps under "apps" in the records of the kernels they launch (launches and
-the median step; render_duvdxy's numbers in trace_closest's);
+the median step; render_duvdxy's numbers in trace_closest's); phase 23's
+under "parallel" in the records of path_loop, path_loop_grad, direct_bvh
+and direct_grad_bvh (launches a rank a call, counted in the ranks);
 for
 the probes and the sweep variants, the sum over all of them; trace_interact's "body_launches" counts, by kernel, the launches of
 phases 17-18's main paths, each of which runs B3's body a sample),
@@ -408,16 +423,9 @@ def _sync_ms(fn):
 def _flagship(device, integrator="path", accel="bruteforce"):
     """bench.py's cornell box + light and camera; the dense route unless
     `accel` says otherwise (phases 6, 8 and 11 hold the dense kernels)."""
-    import zdr_tpu_torch as zt
-    from zdr_tpu_torch.geometry.procedural import make_cornell_box, make_cornell_light
+    from zdr_tpu_torch.parallel import flagship_spec
 
-    scene = zt.Scene(
-        [(make_cornell_box(), None, None), (make_cornell_light(), None, 15.0)],
-        integrator=integrator, accel=accel, device=device,
-    )
-    scene.camera = zt.Camera(fov=50 / 180 * 3.1415926, origin=(-0.2, 2.6, -0.5),
-                             target=(-0.2, 2.6, -5.0))
-    return scene
+    return flagship_spec(integrator, accel).build(device)
 
 
 def _protocol(device, accel="bruteforce", integrator="direct", stacks=(16, 32)):
@@ -3162,6 +3170,179 @@ def phase_apps(dev, smi):
     return out
 
 
+# phase 23: the ranks on the one card (gloo), the seconds a spawn may take,
+# the lightstage's batched steps, and the batch check's size
+PAR_RANKS = 2
+PAR_TIMEOUT = 600
+PAR_LS_ITERS = 3
+PAR_BATCH_RES, PAR_BATCH_SPP = (128, 128), 8
+
+
+def _rank_launches(what, results, job, expect):
+    """Every rank's launches of one job: exactly `expect` (kernel -> count a
+    rank) and no other kernel."""
+    for r, res in enumerate(results):
+        got = {k: v for k, v in res[job]["launches"].items() if v}
+        if got != expect:
+            raise AssertionError(f"{what}: rank {r} launched {got}, expected {expect}")
+
+
+def _sharded_check(what, results, img, grad):
+    """Every rank's render_sharded image bit for bit the single-device
+    image, its gradient at phase 7's bars -> (max abs error, worst rel)."""
+    err = (0.0, 0.0)
+    for r, res in enumerate(results):
+        if not np.array_equal(res[0]["image"], img.cpu().numpy()):
+            raise AssertionError(f"{what}: rank {r}'s image differs from Scene.render's")
+        e = _assert_grad_close(torch.as_tensor(res[0]["grad"]), grad.cpu(), f"{what} rank {r}")
+        err = max(err, e)
+    return err
+
+
+def phase_parallel(dev, smi):
+    """Phase 23: parallel.py on the card. The flagship (512x512, 64 spp,
+    1024^2 material of 0.5) through render_sharded + loss.backward() on
+    PAR_RANKS gloo ranks on cuda:0, then on NCCL with one rank a card: each
+    rank one path_loop and one path_loop_grad launch on its 131,072 lanes,
+    the image bit for bit the single-device Scene.render's, the gradient at
+    phase 7's bars; render_batch of 8 epsilon-off lightstage patterns (30
+    lights) at 128x128, 8 spp on the gloo ranks, every view bit for bit the
+    sequential update_lights + Scene.render at its seed, the gradient at
+    phase 7's bars against the sum of the views'; dryrun_multichip; then the
+    lightstage's main(["--batched", ...]) at full size in this process (one
+    rank), PAR_LS_ITERS steps, and at --small (--iters 10 --tex 8) held to
+    tests/test_apps.py's batched recovery gate -> the phase's numbers."""
+    from zdr_tpu_torch import parallel as par
+    from zdr_tpu_torch.apps import lightstage
+
+    out = {}
+    spec = par.flagship_spec()
+    scene = spec.build(dev)
+    mat0 = np.full((TEX, TEX, 4), 0.5, np.float32)
+    mat = torch.as_tensor(mat0, device=dev).requires_grad_()
+    img, grad = _render_grad(scene, mat, RES, SPP)
+    single_ms, _r = _median_ms(lambda: _render_grad(scene, mat, RES, SPP), reps=3)
+    n_lights, ls_res, ls_spp, _iters, ls_tex, n_pat = lightstage.FULL
+    ls_spec = par.SceneSpec(models=lightstage.lightstage_models(n_lights), integrator="direct",
+                            camera=lightstage.make_camera())
+    patterns = lightstage.make_patterns(n_lights, n_pat, lightstage.OFF_BATCHED)
+    ls_mat = np.random.RandomState(5).uniform(0.2, 0.8, (ls_tex, ls_tex, 4)).astype(np.float32)
+    lanes = RES[0] * RES[1] // PAR_RANKS
+    flag = (par.sharded_iteration, dict(spec=spec, material=mat0, res=RES, spp=SPP, seed=0,
+                                        reps=3, mesh=True))
+    jobs = [flag,
+            (par.batch_iteration, dict(spec=ls_spec, material=ls_mat, patterns=patterns,
+                                       res=PAR_BATCH_RES, spp=PAR_BATCH_SPP, seed=0)),
+            (par.dryrun_multichip, {})]
+    t0 = time.perf_counter()
+    gloo = par.launch(jobs, PAR_RANKS, backend="gloo", devices=str(dev), timeout=PAR_TIMEOUT)
+    gloo_s = time.perf_counter() - t0
+    _rank_launches("gloo flagship", gloo, 0, {"path_loop": 1, "path_loop_grad": 1})
+    err, worst = _sharded_check("gloo flagship", gloo, img, grad)
+    ms = [statistics.median(r[0]["ms"]) for r in gloo]
+    out["gloo"] = dict(ranks=PAR_RANKS, lanes_a_rank=lanes, iteration_ms=ms,
+                       max_abs_err=err, worst_rel=worst, seconds=gloo_s)
+    print(f"[23 parallel] flagship ({RES[0]}x{RES[1]}, {SPP} spp, {TEX}^2 material) through "
+          f"render_sharded + loss.backward() on {PAR_RANKS} gloo ranks on {dev} (a make_mesh "
+          f"mesh): each rank 1 path_loop and 1 path_loop_grad launch on {lanes} lanes, no "
+          f"other kernel; the image equals the single-device Scene.render's bit for bit on "
+          f"every rank, the gradient at phase 7's bars (max abs err {err:.3e}, worst texel rel "
+          f"{worst:.3e}); iteration median by rank {[round(m, 2) for m in ms]} ms (each of 3 "
+          f"after a barrier) against {single_ms:.2f} ms on one rank; the spawn {gloo_s:.1f} s "
+          f"in all; card {smi}", flush=True)
+
+    # the batch: each view against the sequential renders at its seed
+    seq = lightstage.build_lightstage(n_lights, device=dev)
+    seq.camera = lightstage.make_camera()
+    views, seq_grad = [], None
+    for p, em in enumerate(patterns):
+        seq.update_lights(em)
+        m = torch.as_tensor(ls_mat, device=dev).requires_grad_()
+        v, g = _render_grad(seq, m, PAR_BATCH_RES, PAR_BATCH_SPP, seed=7919 * p)
+        views.append(v.cpu().numpy())
+        seq_grad = g if seq_grad is None else seq_grad + g
+    n_local = n_pat // PAR_RANKS
+    _rank_launches("gloo batch", gloo, 1, {"direct_bvh": n_local, "direct_grad_bvh": n_local})
+    b_err = (0.0, 0.0)
+    for r, res in enumerate(gloo):
+        if not np.array_equal(res[1]["images"], np.stack(views)):
+            raise AssertionError(f"render_batch: rank {r}'s views differ from the sequential "
+                                 f"renders")
+        b_err = max(b_err, _assert_grad_close(torch.as_tensor(res[1]["grad"]), seq_grad.cpu(),
+                                              f"render_batch rank {r}"))
+    losses = gloo[0][2]
+    if any(r[2] != losses for r in gloo) or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"dryrun_multichip: losses by rank {[r[2] for r in gloo]}")
+    out["batch"] = dict(views=n_pat, views_a_rank=n_local, max_abs_err=b_err[0],
+                        worst_rel=b_err[1])
+    out["dryrun"] = dict(loss=losses[0], batched_loss=losses[1])
+    print(f"[23 parallel] render_batch of {n_pat} epsilon-off lightstage patterns ({n_lights} "
+          f"lights, {PAR_BATCH_RES[0]}x{PAR_BATCH_RES[1]}, {PAR_BATCH_SPP} spp) on "
+          f"{PAR_RANKS} gloo ranks: each rank {n_local} direct_bvh and {n_local} "
+          f"direct_grad_bvh launches, every view equal bit for bit to update_lights + "
+          f"Scene.render at seed 7919 p, the gradient at phase 7's bars against the sum of the "
+          f"views' (max abs err {b_err[0]:.3e}); dryrun_multichip({PAR_RANKS}): loss {losses[0]:.6f}, batched {PAR_RANKS}-view loss "
+          f"{losses[1]:.6f}", flush=True)
+
+    n_cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    nccl = par.launch([flag], n_cards, backend="nccl",
+                      devices=[f"cuda:{r}" for r in range(n_cards)], timeout=PAR_TIMEOUT)
+    nccl_s = time.perf_counter() - t0
+    n_lanes = RES[0] * RES[1] // n_cards
+    _rank_launches("nccl flagship", nccl, 0, {"path_loop": 1, "path_loop_grad": 1})
+    n_err, n_worst = _sharded_check("nccl flagship", nccl, img, grad)
+    n_ms = [statistics.median(r[0]["ms"]) for r in nccl]
+    out["nccl"] = dict(ranks=n_cards, lanes_a_rank=n_lanes, iteration_ms=n_ms,
+                       max_abs_err=n_err, worst_rel=n_worst, seconds=nccl_s)
+    print(f"[23 parallel] the same on NCCL, {n_cards} rank(s), one a card: each rank 1 "
+          f"path_loop and 1 path_loop_grad launch on {n_lanes} lanes, the image bit for bit, "
+          f"the gradient at phase 7's bars (max abs err {n_err:.3e}); iteration median by rank "
+          f"{[round(m, 2) for m in n_ms]} ms; the spawn {nccl_s:.1f} s in all", flush=True)
+
+    # the lightstage's --batched at full size, one rank: the targets, each
+    # step and the noise floor render every pattern (direct_bvh), each step
+    # differentiates every pattern (direct_grad_bvh)
+    import tempfile
+
+    k = PAR_LS_ITERS
+    expect = {"direct_bvh": n_pat * (k + 2), "direct_grad_bvh": n_pat * k}
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "lightstage.jsonl")
+        r, secs = _app_run("lightstage --batched", lambda: lightstage.main(
+            ["--batched", "--iters", str(k), "--log", log, "--device", str(dev)]), expect)
+        steps = _steps(log)
+    if len(steps) != k or not all(math.isfinite(v) for v in r.values()):
+        raise AssertionError(f"lightstage --batched: {len(steps)} steps, {r}")
+    step_ms = statistics.median(x["step_ms"] for x in steps[1:])
+    out["lightstage"] = dict(launches=expect, step_ms=step_ms, first_step_ms=steps[0]["step_ms"],
+                             seconds=secs, **r)
+    print(f"[23 parallel] lightstage --batched ({n_lights} lights, {ls_res[0]}x{ls_res[1]}, "
+          f"{ls_spp} spp, {n_pat} patterns a step, {k} steps) through main(argv) on one rank: "
+          f"{expect['direct_bvh']} direct_bvh, {expect['direct_grad_bvh']} direct_grad_bvh "
+          f"launches, no other kernel, no plain version; loss {r['loss_first']:.2f} -> "
+          f"{r['loss_last']:.2f}, noise floor {r['noise_floor']:.2f}; step median "
+          f"{step_ms:.2f} ms of {[round(x['step_ms'], 2) for x in steps]}; {secs:.1f} s in "
+          f"all; card {smi}", flush=True)
+
+    # the batched recovery gate of tests/test_apps.py at its own --small
+    # sizes (10 lights, 48x48, 16 spp, 4 patterns; --iters 10 --tex 8)
+    n_small = lightstage.SMALL[5]
+    expect = {"direct_bvh": n_small * 12, "direct_grad_bvh": n_small * 10}
+    r, secs = _app_run("lightstage --small --batched", lambda: lightstage.main(
+        ["--small", "--batched", "--iters", "10", "--tex", "8", "--device", str(dev)]), expect)
+    gate = (r["tex_err_diffuse"] < 0.985 * r["tex_err0_diffuse"],
+            r["loss_last"] < 0.97 * r["loss_first"], r["loss_last"] < 1.5 * r["noise_floor"])
+    if not all(gate):
+        raise AssertionError(f"lightstage --small --batched: the recovery gate {gate}: {r}")
+    out["lightstage_small"] = dict(launches=expect, seconds=secs, **r)
+    print(f"[23 parallel] lightstage --small --batched --iters 10 --tex 8 on one rank: the "
+          f"recovery gate of tests/test_apps.py met: diffuse error {r['tex_err0_diffuse']:.4f} "
+          f"-> {r['tex_err_diffuse']:.4f}, loss {r['loss_first']:.2f} -> {r['loss_last']:.2f}, "
+          f"noise floor {r['noise_floor']:.2f}; {secs:.1f} s", flush=True)
+    return out
+
+
 def _direct_extra(proto, g, ptxas):
     """The dense direct kernels' record beyond the contract's keys: the
     counted-work bound's terms and the tests-only bound on the protocol,
@@ -3219,6 +3400,7 @@ def main():
     unfused = timed("21", phase_unfused, dev, smi)
     n_main = len(MAIN_COUNTS)
     apps = timed("22", phase_apps, dev, smi)
+    par = timed("23", phase_parallel, dev, smi)
     print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     # direct_bvh and direct_grad_bvh report the protocol's main path by
@@ -3266,6 +3448,21 @@ def main():
     main_run["apps"] = {"fd_validate": dict(launches=fdv["launches"]["path_loop"])}
     grad_run["apps"] = {"fd_validate": dict(launches=fdv["launches"]["path_loop_grad"])}
     traces["trace_closest"]["apps"] = {"render_duvdxy": apps["render_duvdxy"]}
+    # phase 23's multi-rank runs: launches a rank a call, under "parallel"
+    for rec in (main_run, grad_run):
+        rec["parallel"] = {b: dict(launches_a_rank=1, ranks=par[b]["ranks"],
+                                   lanes_a_rank=par[b]["lanes_a_rank"],
+                                   iteration_ms=par[b]["iteration_ms"])
+                           for b in ("gloo", "nccl")}
+    main_run["parallel"]["dryrun"] = par["dryrun"]
+    for kname in ("direct_bvh", "direct_grad_bvh"):
+        big[kname]["parallel"] = {
+            "batch_gloo": dict(launches_a_rank=par["batch"]["views_a_rank"],
+                               ranks=PAR_RANKS, res=list(PAR_BATCH_RES), spp=PAR_BATCH_SPP),
+            "lightstage_batched": dict(launches=par["lightstage"]["launches"][kname],
+                                       launches_a_step=par["batch"]["views"],
+                                       step_ms=par["lightstage"]["step_ms"]),
+            "lightstage_small_gate": par["lightstage_small"]}
     env["direct_env_bvh"]["apps"]["adam_step_ms"] = apps["adam_ms"]
     direct_src = "zdr_tpu_torch/kernels/csrc/direct.cu"
     coll_src = "zdr_tpu_torch/kernels/csrc/collocated.cu"

@@ -376,11 +376,6 @@ def test_lightstage_app_on_the_cpu(monkeypatch):
     assert excess_last < 0.8 * excess_first, r
 
 
-def test_lightstage_batched_is_refused():
-    with pytest.raises(NotImplementedError, match="A15"):
-        lightstage.main(["--batched", "--device", "cpu"])
-
-
 def test_apps_need_a_card_for_cuda():
     """--device cuda without a card raises; nothing carries on on the CPU."""
     if torch.cuda.is_available():

@@ -307,8 +307,9 @@ def test_convert_carries_the_env():
         np.testing.assert_array_equal(back[k], arrays[k])
     cfg = ts._config((8, 8), 2)
     mat = torch.as_tensor(_material(seed=3))
-    a = dr.render_direct(data, mat, ts.camera, 1, cfg)
-    b = dr.render_direct(ts._data, mat, ts.camera, 1, cfg)
+    lanes = pl.pixel_lanes(cfg.res, cfg.spp, "cpu")
+    a = dr.render_direct(data, mat, ts.camera, 1, cfg, lanes)
+    b = dr.render_direct(ts._data, mat, ts.camera, 1, cfg, lanes)
     assert torch.equal(a, b)
 
 

@@ -81,7 +81,7 @@ def _backward_rel_err(sampler, point_light, mat, le_seed):
     calls = pl.render_path_backward_loop_plain.calls
     got = pl.render_path_backward_loop(
         _port_data(s), torch.as_tensor(mat), _port_camera(), 3, tcfg,
-        torch.as_tensor(le.T.copy())).numpy()
+        torch.as_tensor(le.T.copy()), pl.pixel_lanes(tcfg.res, tcfg.spp, "cpu")).numpy()
     assert pl.render_path_backward_loop_plain.calls == calls + 1
     assert got.shape == want.shape == (16, 16, 4)
     assert np.abs(want).max() > 0

@@ -12,9 +12,14 @@ PyTorch versions.
     from zdr_tpu_torch import Camera, Scene, float3
     scene = Scene(models, integrator="direct", device="cuda")
     image = scene.render(material, res=(512, 512), spp=64, seed=0)
+
+parallel.py splits a render over the ranks of a torch.distributed group
+(render_sharded, render_batch, make_mesh).
 """
 
 from .dtypes import Camera, float3
-from .scene import Scene
+from .scene import Scene  # noqa: I001 (first: the integrators import the scene's modules)
+from .integrators.wrapper import RenderConfig
+from .parallel import make_mesh, render_sharded
 
-__all__ = ["Scene", "Camera", "float3"]
+__all__ = ["Scene", "Camera", "float3", "RenderConfig", "render_sharded", "make_mesh"]

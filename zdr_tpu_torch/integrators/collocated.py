@@ -44,8 +44,7 @@ from ..texture import read_bilinear, scatter_add4, splat_ids
 from ..vec import div, vdot, vscale
 from .bounce import closest_hit_plain, interact_planes
 from .direct import _accumulate, _n_samples
-from .path_loop import (PDF_NONE, LoopTables, _fresh_state, _sampler, build_loop_tables,
-                        pixel_lanes)
+from .path_loop import PDF_NONE, LoopTables, _fresh_state, _sampler, build_loop_tables
 
 
 def _hit(tb: LoopTables, lanes, sample_idx: int):
@@ -147,24 +146,25 @@ def render_collocated_backward_plain(tb: LoopTables, lanes, material, le_grad):
 render_collocated_backward_plain.calls = 0
 
 
-def render_collocated(data, material, camera, seed: int, cfg) -> torch.Tensor:
-    """spp-averaged radiance of every pixel -> (W*H, 3). On a CUDA device
-    one launch of the collocated kernel; on the CPU the plain version."""
+def render_collocated(data, material, camera, seed: int, cfg, lanes) -> torch.Tensor:
+    """spp-averaged radiance of every lane -> (N, 3); lanes: (3, N) int32
+    rows px, py, spp (path_loop.coord_lanes; pixel_lanes for every pixel). On a
+    CUDA device one launch of the collocated kernel; on the CPU the plain
+    version."""
     from .. import kernels
 
     tb = build_loop_tables(data, camera, cfg, seed)
-    lanes = pixel_lanes(cfg.res, cfg.spp, data.device)
     return div(kernels.collocated(tb, lanes, material).T, float(cfg.spp))
 
 
-def render_collocated_backward(data, material, camera, seed: int, cfg, le_grad) -> torch.Tensor:
-    """Texture gradient -> d_material (H, W, 4), given the (3, W*H)
-    per-sample adjoint of each pixel lane. On a CUDA device one launch of
-    the collocated_grad kernel; on the CPU the plain version."""
+def render_collocated_backward(data, material, camera, seed: int, cfg, le_grad,
+                               lanes) -> torch.Tensor:
+    """Texture gradient -> d_material (H, W, 4), given the (3, N)
+    per-sample adjoint of each lane; lanes as render_collocated's. On a CUDA
+    device one launch of the collocated_grad kernel; on the CPU the plain version."""
     from .. import kernels
 
     tb = build_loop_tables(data, camera, cfg, seed)
-    lanes = pixel_lanes(cfg.res, cfg.spp, data.device)
     grad, _acc = kernels.collocated_grad(tb, lanes, material, le_grad)
     return grad
 

@@ -50,7 +50,6 @@ from .path_loop import (
     _sampler,
     build_loop_tables,
     nee_select,
-    pixel_lanes,
 )
 
 # direct_fused.py:204: rr_depth 2 and max_depth 16 at depth 0 -> no
@@ -156,24 +155,25 @@ def render_direct_backward_plain(tb: LoopTables, lanes, material, le_grad):
 render_direct_backward_plain.calls = 0
 
 
-def render_direct(data, material, camera, seed: int, cfg) -> torch.Tensor:
-    """spp-averaged radiance of every pixel -> (W*H, 3). On a CUDA device
-    one launch of the direct kernel; on the CPU the plain version."""
+def render_direct(data, material, camera, seed: int, cfg, lanes) -> torch.Tensor:
+    """spp-averaged radiance of every lane -> (N, 3); lanes: (3, N) int32
+    rows px, py, spp (path_loop.coord_lanes; pixel_lanes for every pixel). On a
+    CUDA device one launch of the direct kernel; on the CPU the plain
+    version."""
     from .. import kernels
 
     tb = build_loop_tables(data, camera, cfg, seed)
-    lanes = pixel_lanes(cfg.res, cfg.spp, data.device)
     return div(kernels.direct(tb, lanes, material).T, float(cfg.spp))
 
 
-def render_direct_backward(data, material, camera, seed: int, cfg, le_grad) -> torch.Tensor:
-    """Texture gradient -> d_material (H, W, 4), given the (3, W*H)
-    per-sample adjoint of each pixel lane. On a CUDA device one launch of
-    the direct_grad kernel; on the CPU the plain version."""
+def render_direct_backward(data, material, camera, seed: int, cfg, le_grad,
+                           lanes) -> torch.Tensor:
+    """Texture gradient -> d_material (H, W, 4), given the (3, N)
+    per-sample adjoint of each lane; lanes as render_direct's. On a CUDA
+    device one launch of the direct_grad kernel; on the CPU the plain version."""
     from .. import kernels
 
     tb = build_loop_tables(data, camera, cfg, seed)
-    lanes = pixel_lanes(cfg.res, cfg.spp, data.device)
     grad, _acc = kernels.direct_grad(tb, lanes, material, le_grad)
     return grad
 

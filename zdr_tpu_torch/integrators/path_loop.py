@@ -54,6 +54,7 @@ from ..samplers.pmj02bn import bluenoise, bn_base, pmj02bn_class
 from ..texture import read_bilinear, scatter_add4, splat_ids
 from ..vec import div, luminance, offset_ray_origin, vadd, vdot, vnormalize, vscale, vsub
 from . import scene_tables
+from .wrapper import pixel_grid
 
 RADIANCE_CLAMP = 1e5
 T_MAX = 1e30  # the closest-hit distance of a miss
@@ -612,32 +613,38 @@ def render_path_backward_loop_plain(tb: LoopTables, lanes, material, le_grad, n_
 render_path_backward_loop_plain.calls = 0
 
 
+def coord_lanes(coords: torch.Tensor, spp: int) -> torch.Tensor:
+    """(3, N) int32 lane rows of the pixels coords (N, 2): px, py and the
+    sample to stop at, spp."""
+    c = coords.to(torch.int32)
+    return torch.stack([c[:, 0], c[:, 1], torch.full_like(c[:, 0], spp)])
+
+
 def pixel_lanes(res, spp: int, device) -> torch.Tensor:
     """(3, W*H) int32 lane rows of the raster pixel grid, x fastest."""
-    w, h = res
-    n = w * h
-    k = torch.arange(n, dtype=torch.int32, device=device)
-    return torch.stack([k % w, k // w, torch.full_like(k, spp)])
+    return coord_lanes(pixel_grid(res, device), spp)
 
 
-def render_path_loop(data, material, camera, seed: int, cfg) -> torch.Tensor:
-    """spp-averaged radiance of every pixel -> (W*H, 3). On a CUDA device the
-    whole render is one launch of the kernel; on the CPU the plain loop."""
+def render_path_loop(data, material, camera, seed: int, cfg, lanes) -> torch.Tensor:
+    """spp-averaged radiance of every lane -> (N, 3); lanes: (3, N) int32
+    rows px, py, spp (coord_lanes; pixel_lanes for every pixel). On a CUDA
+    device the whole render is one launch of the kernel; on the CPU the
+    plain loop."""
     from .. import kernels
 
     tb = build_loop_tables(data, camera, cfg, seed)
-    lanes = pixel_lanes(cfg.res, cfg.spp, data.device)
     carry = kernels.path_loop(tb, lanes, material, init_carry(lanes), tb.n_steps)
     return div(carry.f[0:3].T, float(cfg.spp))
 
 
-def render_path_backward_loop(data, material, camera, seed: int, cfg, le_grad) -> torch.Tensor:
-    """PRB texture gradient -> d_material (H, W, 4), given the (3, W*H)
-    per-sample adjoint of each pixel lane. On a CUDA device one launch of
-    the path_loop_grad kernel; on the CPU the plain walk."""
+def render_path_backward_loop(data, material, camera, seed: int, cfg, le_grad,
+                              lanes) -> torch.Tensor:
+    """PRB texture gradient -> d_material (H, W, 4), given the (3, N)
+    per-sample adjoint of each lane; lanes as render_path_loop's. On a CUDA
+    device one launch of the path_loop_grad kernel; on the CPU the plain
+    walk."""
     from .. import kernels
 
     tb = build_loop_tables(data, camera, cfg, seed)
-    lanes = pixel_lanes(cfg.res, cfg.spp, data.device)
     grad, _carry = kernels.path_loop_grad(tb, lanes, material, le_grad, tb.n_steps)
     return grad

@@ -8,8 +8,10 @@ direct and the collocated kernels. Everything else takes the unfused
 estimators, plain torch around the trace kernels: the persistent path walk
 (path_persistent.py; `persistent=False`, the per-sample loop over
 path.path_estimator and path_backward), and for the direct and collocated
-integrators the per-sample loop over their estimators (`render_forward_rays`,
-`render_grad_rays`).
+integrators the per-sample loop over their estimators.
+`render_forward_rays` and `render_grad_rays` send any batch of pixels
+down either route, the unit that parallel.py shards over ranks;
+`render_forward` and `render_grad` are their calls on the full grid.
 
 The port renders all spp in one call: the sampler is keyed by the absolute
 sample index, so the JAX package's spp windows give the same image.
@@ -137,13 +139,37 @@ def _samplers(cfg, coords, seed):
         yield make_sampler(cfg.sampler, coords, seed, cfg.spp, it, bn)
 
 
+def _kernel_render(integrator: str, backward: bool):
+    """The kernel route's render, or its backward, of an integrator."""
+    if integrator == "path":
+        from .path_loop import render_path_backward_loop, render_path_loop
+
+        return render_path_backward_loop if backward else render_path_loop
+    if integrator == "collocated":
+        from .collocated import render_collocated, render_collocated_backward
+
+        return render_collocated_backward if backward else render_collocated
+    from .direct import render_direct, render_direct_backward
+
+    return render_direct_backward if backward else render_direct
+
+
 def render_forward_rays(data, material, camera, seed: int, cfg: RenderConfig, estimator,
                         coords) -> torch.Tensor:
-    """spp-averaged radiance of the pixels coords (N, 2) by the unfused
-    estimators -> (N, 3) (JAX wrapper.py:134): the persistent path walk, or
-    the per-sample loop over `estimator` with the NaN guard and the clamp."""
+    """spp-averaged radiance of the pixels coords (N, 2) -> (N, 3) (JAX
+    wrapper.py:134), the shardable unit: where kernel_route holds, the
+    kernel route on the lanes of coords alone (a lane's math does not depend
+    on the lanes beside it); else the unfused estimators: the persistent
+    path walk, or the per-sample loop over `estimator` with the NaN guard
+    and the clamp."""
     from ..camera import camera_const
 
+    if kernel_route(cfg, material):
+        from .path_loop import coord_lanes
+
+        render = _kernel_render(cfg.integrator, backward=False)
+        return render(data, material, camera, seed, cfg, coord_lanes(coords, cfg.spp))
+    data = with_accel(data)
     if cfg.integrator == "path" and cfg.persistent:
         from .path_persistent import render_path_persistent
 
@@ -162,11 +188,19 @@ def render_forward_rays(data, material, camera, seed: int, cfg: RenderConfig, es
 def render_grad_rays(data, material, camera, seed: int, le_grad, cfg: RenderConfig, estimator,
                      backward, coords) -> torch.Tensor:
     """d_material of the pixels coords (N, 2) given their (N, 3)
-    per-sample adjoints, by the unfused estimators (JAX wrapper.py:223): the
-    persistent PRB walk, or the per-sample loop over `backward`, or
-    torch.autograd of `estimator` where backward is None."""
+    per-sample adjoints (JAX wrapper.py:223): where kernel_route holds, the
+    kernel route's backward on the lanes of coords alone; else the unfused
+    estimators: the persistent PRB walk, or the per-sample loop over
+    `backward`, or torch.autograd of `estimator` where backward is None."""
     from ..camera import camera_const
 
+    if kernel_route(cfg, material):
+        from .path_loop import coord_lanes
+
+        render = _kernel_render(cfg.integrator, backward=True)
+        return render(data, material, camera, seed, cfg, le_grad.T.contiguous(),
+                      coord_lanes(coords, cfg.spp))
+    data = with_accel(data)
     if cfg.integrator == "path" and cfg.persistent:
         from .path_persistent import render_path_backward_persistent
 
@@ -200,24 +234,22 @@ def with_accel(data):
     return dataclasses.replace(data, accel=build_accel(data.geom, "bruteforce"))
 
 
+def pixel_adjoint(d_image: torch.Tensor, spp: int) -> torch.Tensor:
+    """Every sample's adjoint of each pixel, x fastest: d_image[..., :3] /
+    spp as (H*W, 3), NaN -> 0 (wrapper.py:299-323)."""
+    le_grad = div(d_image[..., :3].reshape(-1, 3), float(spp))
+    return torch.where(torch.isnan(le_grad), 0.0, le_grad)
+
+
 def render_forward(data, material: torch.Tensor, camera, seed: int, cfg: RenderConfig) -> torch.Tensor:
-    """Forward render -> (H, W, 4) image (mean radiance, alpha = 1)."""
+    """Forward render -> (H, W, 4) image (mean radiance, alpha = 1): the
+    full grid of render_forward_rays."""
+    from . import get_integrator
+
     check_scope(cfg, material, data)
     w, h = cfg.res
-    if kernel_route(cfg, material):
-        from .collocated import render_collocated
-        from .direct import render_direct
-        from .path_loop import render_path_loop
-
-        render = {"direct": render_direct, "collocated": render_collocated,
-                  "path": render_path_loop}[cfg.integrator]
-        rgb = render(data, material, camera, seed, cfg)
-    else:
-        from . import get_integrator
-
-        estimator, _backward = get_integrator(cfg.integrator)
-        rgb = render_forward_rays(with_accel(data), material, camera, seed, cfg, estimator,
-                                  pixel_grid(cfg.res, data.device))
+    rgb = render_forward_rays(data, material, camera, seed, cfg, get_integrator(cfg.integrator)[0],
+                              pixel_grid(cfg.res, data.device))
     rgb = rgb.reshape(h, w, 3)
     alpha = torch.ones((h, w, 1), dtype=torch.float32, device=rgb.device)
     return torch.cat([rgb, alpha], dim=-1)
@@ -227,24 +259,13 @@ def render_grad(data, material: torch.Tensor, camera, seed: int, d_image: torch.
                 cfg: RenderConfig) -> torch.Tensor:
     """Gradient estimator (wrapper.py:299-323): replay the samples at this
     seed with d_image[..., :3] / spp as every sample's adjoint (NaN -> 0)
-    -> d_material (H_tex, W_tex, 4)."""
-    check_scope(cfg, material, data)
-    w, h = cfg.res
-    le_grad = div(d_image[..., :3].reshape(h * w, 3), float(cfg.spp))
-    le_grad = torch.where(torch.isnan(le_grad), 0.0, le_grad)
-    if kernel_route(cfg, material):
-        from .collocated import render_collocated_backward
-        from .direct import render_direct_backward
-        from .path_loop import render_path_backward_loop
-
-        backward = {"direct": render_direct_backward, "collocated": render_collocated_backward,
-                    "path": render_path_backward_loop}[cfg.integrator]
-        return backward(data, material, camera, seed, cfg, le_grad.T.contiguous())
+    -> d_material (H_tex, W_tex, 4): the full grid of render_grad_rays."""
     from . import get_integrator
 
+    check_scope(cfg, material, data)
     estimator, backward = get_integrator(cfg.integrator)
-    return render_grad_rays(with_accel(data), material, camera, seed, le_grad, cfg, estimator,
-                            backward, pixel_grid(cfg.res, data.device))
+    return render_grad_rays(data, material, camera, seed, pixel_adjoint(d_image, cfg.spp), cfg,
+                            estimator, backward, pixel_grid(cfg.res, data.device))
 
 
 class RenderFunction(torch.autograd.Function):

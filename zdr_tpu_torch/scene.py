@@ -224,6 +224,16 @@ class Scene:
             fused=self.fused,
         )
 
+    def _check_material(self, material: torch.Tensor) -> None:
+        if material.ndim != 3 or material.shape[2] != 4:
+            raise ValueError(f"material must be (H, W, 4), got {tuple(material.shape)}")
+        if material.dtype != torch.float32:
+            raise TypeError(f"material must be float32, got {material.dtype}")
+        if material.device != self.device:
+            raise ValueError(
+                f"material is on {material.device}, the scene on {self.device}"
+            )
+
     def render(self, material: torch.Tensor, *, res, spp, seed=0) -> torch.Tensor:
         """Render -> (H, W, 4) float32 image on the scene's device;
         differentiable w.r.t. material.
@@ -235,14 +245,7 @@ class Scene:
             spp: samples per pixel.
             seed: sampler seed; the backward pass uses seed + 1.
         """
-        if material.ndim != 3 or material.shape[2] != 4:
-            raise ValueError(f"material must be (H, W, 4), got {tuple(material.shape)}")
-        if material.dtype != torch.float32:
-            raise TypeError(f"material must be float32, got {material.dtype}")
-        if material.device != self.device:
-            raise ValueError(
-                f"material is on {material.device}, the scene on {self.device}"
-            )
+        self._check_material(material)
         cfg = self._config(res, spp)
         return RenderFunction.apply(
             material.contiguous(), self._render_data(cfg.integrator), self.camera, int(seed), cfg,
