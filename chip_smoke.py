@@ -203,6 +203,25 @@ Phases, one line each; any failure raises and exits non-zero:
      ...]) at full size on one rank, PAR_LS_ITERS steps, their launches and
      step times; and at --small with tests/test_apps.py's batched recovery
      gate.
+ 24. the splat knobs (splat_merge, packed_splat; ROADMAP A17): the
+     flagship at JAX's defaults (4, True) through Scene.render +
+     loss.backward(), one launch each of path_loop, path_loop_grad (its
+     kMerge instantiation) and splat_round; the flagship iteration at (1,
+     False), (4, False), (1, True) and (4, True) in turns A B B A,
+     SPLAT_ROUNDS each, medians; path_loop_grad at (4, False) and (4, True)
+     against the plain backward at every 64th lane (one plain walk: the
+     packed gradient is its totals rounded; _assert_splat_close: the
+     touched texels equal, sums rtol 1e-5, texels at phase 7's bars or, packed,
+     within one bf16 ulp, rounding flips counted; a merge may choose the
+     other tap at FLIP_SHARE of the texels), each instantiation alone;
+     splat_round bit for bit round_bf16, timed beside its plain version and
+     x.to(torch.bfloat16).float(); direct_grad packed on the cornell box (16
+     launches of its kPacked instantiation, one a group of 4 samples) and,
+     on the big mesh, path_loop_grad_bvh at (4, True) and
+     collocated_grad_bvh packed, each driven once through the Scene (its
+     launches) and held against its plain version (the BVH kernels at the
+     first CHECK_SAMPLES samples of every 64th lane), timed; the new
+     instantiations' ptxas (registers, stack, spills).
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
@@ -224,6 +243,9 @@ apps under "apps" in the records of the kernels they launch (launches and
 the median step; render_duvdxy's numbers in trace_closest's); phase 23's
 under "parallel" in the records of path_loop, path_loop_grad, direct_bvh
 and direct_grad_bvh (launches a rank a call, counted in the ranks);
+phase 24's under "splat" in the records of path_loop_grad,
+path_loop_grad_bvh, direct_grad and collocated_grad_bvh, and splat_round's
+own record (its launches on phase 24's flagship at (4, True));
 for
 the probes and the sweep variants, the sum over all of them; trace_interact's "body_launches" counts, by kernel, the launches of
 phases 17-18's main paths, each of which runs B3's body a sample),
@@ -272,7 +294,7 @@ KERNELS = ("sampler_probe", "path_loop", "path_loop_grad", "trace_interact", "di
            "floor_probe", "collocated", "collocated_grad", "collocated_bvh",
            "collocated_grad_bvh", "direct_env", "direct_grad_env", "direct_env_bvh",
            "direct_grad_env_bvh", "path_loop_env", "path_loop_grad_env", "path_loop_env_bvh",
-           "path_loop_grad_env_bvh")
+           "path_loop_grad_env_bvh", "splat_round")
 # the dense instantiations of the four megakernels
 DENSE = ("path_loop", "path_loop_grad", "direct", "direct_grad")
 # phases 11 and 13 hold the BVH kernels against their plain walks on the
@@ -739,11 +761,25 @@ PATH_ENTRIES = {"path_loop": "path_loop_kernelILb0E",
                 "path_loop_env": "path_loop_kernelILb1E",
                 "path_loop_grad_env": "path_loop_grad_kernelILb1E"}
 # each without (its name) and with the generic sampler (its name and
-# "_gen"): the template's last argument, kGen
-PTXAS_ENTRIES = {**{k: f"{v}Lb0E" for k, v in {**BVH_ENTRIES, **DIRECT_ENTRIES,
-                                                **PATH_ENTRIES}.items()},
-                 **{f"{k}_gen": f"{v}Lb1E" for k, v in {**BVH_ENTRIES, **DIRECT_ENTRIES,
-                                                        **PATH_ENTRIES}.items()}}
+# "_gen"): the template's argument after those above, kGen; the gradient
+# kernels take one more, the splat knob (kMerge of the path gradient
+# kernels, kPacked of the direct and collocated ones), false in the
+# instantiations above and true in SPLAT_ENTRIES' ("_merge" or "_packed",
+# then "_gen")
+_ENTRIES = {**BVH_ENTRIES, **DIRECT_ENTRIES, **PATH_ENTRIES}
+_KNOB_KERNELS = ("path_loop_grad", "direct_kernel", "direct_bvh", "collocated")
+SPLAT_ENTRIES = {f"{k}_{'merge' if k.startswith('path') else 'packed'}": v
+                 for k, v in _ENTRIES.items() if "grad" in k}
+
+
+def _knob(key):
+    return "Lb0E" if key.startswith(_KNOB_KERNELS) else ""
+
+
+PTXAS_ENTRIES = {**{k: f"{v}Lb0E{_knob(v)}" for k, v in _ENTRIES.items()},
+                 **{f"{k}_gen": f"{v}Lb1E{_knob(v)}" for k, v in _ENTRIES.items()},
+                 **{k: f"{v}Lb0ELb1E" for k, v in SPLAT_ENTRIES.items()},
+                 **{f"{k}_gen": f"{v}Lb1ELb1E" for k, v in SPLAT_ENTRIES.items()}}
 
 
 def ptxas_bvh(log):
@@ -3343,6 +3379,251 @@ def phase_parallel(dev, smi):
     return out
 
 
+# phase 24: the splat knobs (splat_merge, packed_splat) the flagship's
+# iteration is timed at, in turns (A B B A ...), SPLAT_ROUNDS rounds of
+# each; a merged gradient's texels that may differ from the plain
+# version's by more than the bars, each where a merge chose the other tap
+# (u tot < wp decided the other way by the float rounding in which the two
+# differ), at most FLIP_SHARE of the texels it touches
+SPLAT_KNOBS = ((1, False), (4, False), (1, True), (4, True))
+SPLAT_ROUNDS = 4
+FLIP_SHARE = 1e-3
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each |x|: 2^(exponent - 7)."""
+    tiny = torch.finfo(torch.float32).tiny
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(tiny))) - 7)
+
+
+def _assert_splat_close(got, want, what, packed, merged):
+    """A gradient of the splat knobs against its plain version: the texels
+    each touches equal (the selected taps' ids); the per-channel sums within
+    rtol 1e-5; unpacked, every texel past 1e-3 of the largest within rtol
+    1e-4 (phase 7's bars); packed, every texel within one bf16 ulp of the
+    plain version's (the atomics' order, and the taps' float rounding, can
+    take a total across a rounding boundary: those texels are counted as
+    rounding flips). A merged gradient may break the texel bars at
+    FLIP_SHARE of its touched texels (merge flips) -> a note's numbers."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite gradient")
+    sums, want_sums = got.double().sum((0, 1)), want.double().sum((0, 1))
+    if not bool(torch.allclose(sums, want_sums, rtol=1e-5, atol=0.0)):
+        raise AssertionError(f"{what}: channel sums {sums.tolist()} vs plain {want_sums.tolist()}")
+    touched, want_touched = got.abs().amax(-1) > 0, want.abs().amax(-1) > 0
+    ids_differ = touched != want_touched
+    mag = want.abs().amax(-1)
+    if packed:
+        bad = ((got - want).abs() > _bf16_ulp(torch.maximum(got.abs(), want.abs()))).any(-1)
+        rounding = int(((got != want).any(-1) & ~bad).sum())
+    else:
+        big = mag > 1e-3 * float(mag.max())
+        rel = (got - want).abs().amax(-1) / mag.clamp_min(1e-30)
+        bad = big & (rel > 1e-4)
+        rounding = 0
+    flips = int((bad | ids_differ).sum())
+    n = int((touched | want_touched).sum())
+    allowed = int(FLIP_SHARE * n) if merged else 0
+    if flips > allowed or (int(ids_differ.sum()) and not merged):
+        raise AssertionError(f"{what}: {flips} of {n} texels past the bars ({int(ids_differ.sum())} "
+                             f"touched by one side only; {allowed} allowed)")
+    return dict(max_abs_err=float((got - want).abs().max()), texels=n, merge_flips=flips,
+                ids_differ=int(ids_differ.sum()), rounding_flips=rounding)
+
+
+def _knob_tables(scene, merge, packed, seed, res=RES, spp=SPP):
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    scene.splat_merge, scene.packed_splat = merge, packed
+    return pl.build_loop_tables(scene._render_data(scene.integrator), scene.camera,
+                                scene._config(res, spp), seed)
+
+
+def _splat_drive(scene, merge, packed, tex, what, expect):
+    """One main-path iteration of `scene` at the knobs: its launches must be
+    `expect` (kernel: count) and none other, no plain version -> counts."""
+    scene.splat_merge, scene.packed_splat = merge, packed
+    mat = torch.full((tex, tex, 4), 0.5, dtype=torch.float32, device=scene.device)
+    mat.requires_grad_()
+    plain = _plain_calls()
+    _loss, counts = _drive_main(_iteration(scene, mat, RES, SPP))
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts.items() if v}
+    if got != expect:
+        raise AssertionError(f"{what}: launches {got}, expected {expect}")
+    if _plain_calls() != plain:
+        raise AssertionError(f"{what}: the iteration ran a plain version")
+    g = mat.grad
+    if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0):
+        raise AssertionError(f"{what}: non-finite or zero gradient")
+    return got
+
+
+def phase_splat(dev, smi, ptxas, grad_run, big, coll, proto):
+    """Phase 24 -> the splat knobs' numbers, by kernel."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import collocated as co
+    from zdr_tpu_torch.integrators import direct as dr
+    from zdr_tpu_torch.integrators import path_loop as pl
+    from zdr_tpu_torch.texture import round_bf16
+
+    out, notes = {}, []
+    n_grad = 4 * TEX * TEX
+    # the flagship's main path at JAX's defaults: the merged gradient kernel
+    # and its epilogue
+    scene = _flagship(dev)
+    counts = _splat_drive(scene, 4, True, TEX, "24 splat flagship (4, True)",
+                          {"path_loop": 1, "path_loop_grad": 1, "splat_round": 1})
+    mat = torch.full((TEX, TEX, 4), 0.5, dtype=torch.float32, device=dev).requires_grad_()
+    iteration = _iteration(scene, mat, RES, SPP)
+    runs = {k: [] for k in SPLAT_KNOBS}
+    for knobs in SPLAT_KNOBS:  # warm-up
+        scene.splat_merge, scene.packed_splat = knobs
+        iteration()
+    for r in range(SPLAT_ROUNDS):
+        for knobs in (SPLAT_KNOBS if r % 2 == 0 else SPLAT_KNOBS[::-1]):
+            scene.splat_merge, scene.packed_splat = knobs
+            runs[knobs].append(_sync_ms(iteration)[1])
+    it_ms = {f"{m},{p}": statistics.median(v) for (m, p), v in runs.items()}
+    notes.append("flagship iteration medians (ms, turns A B B A, "
+                 f"{SPLAT_ROUNDS} a setting): " + ", ".join(
+                     f"({m}, {p}) {statistics.median(v):.2f} of {[round(t, 2) for t in v]}"
+                     for (m, p), v in runs.items()))
+
+    # path_loop_grad at (4, False) and (4, True) against the plain backward
+    # at every CHECK_STRIDE-th lane; each instantiation alone by events
+    m = mat.detach()
+    lanes = pl.pixel_lanes(RES, SPP, dev)
+    sub = lanes[:, ::CHECK_STRIDE].contiguous()
+    le_sub = torch.zeros((3, lanes.shape[1]), device=dev)
+    le_sub[:, ::CHECK_STRIDE] = 1.0 / SPP
+    le = torch.full((3, lanes.shape[1]), 1.0 / SPP, device=dev)
+    path = {}
+    # the plain backward at (4, True) is its (4, False) walk with the totals
+    # rounded (scatter_add4(packed=True)): one plain walk checks both
+    (want4, _c), plain_ms = _sync_ms(lambda: pl.render_path_backward_loop_plain(
+        _knob_tables(scene, 4, False, 1), sub, m, le_sub[:, ::CHECK_STRIDE].contiguous(),
+        _knob_tables(scene, 4, False, 1).n_steps))
+    for merge, packed in ((4, False), (4, True), (1, True)):
+        tb1 = _knob_tables(scene, merge, packed, 1)
+        got, _c = kernels.path_loop_grad(tb1, lanes, m, le_sub, tb1.n_steps)
+        rec = dict(launches=counts["path_loop_grad"] if (merge, packed) == (4, True) else None,
+                   splat_merge=merge, packed_splat=packed)
+        if merge > 1:
+            want = round_bf16(want4) if packed else want4
+            rec.update(_assert_splat_close(got, want, f"24 path_loop_grad ({merge}, {packed})",
+                                           packed, True), plain_ms=plain_ms,
+                       plain_shape=f"every {CHECK_STRIDE}th lane of {RES[0]}x{RES[1]}, {SPP} spp")
+        rec["ms"], rec["runs"] = _event_ms(
+            lambda: kernels.path_loop_grad(tb1, lanes, m, le, tb1.n_steps))
+        rec.update(bound_ms=grad_run["bound_ms"], bound_by=grad_run["bound_by"],
+                   library_ms=None, plan=dict(kernels.path_loop_grad.plan),
+                   ptxas=ptxas["path_loop_grad_merge" if merge > 1 else "path_loop_grad"])
+        path[f"{merge},{packed}"] = rec
+    out["path_loop_grad"] = path
+    notes.append(f"path_loop_grad vs plain at every {CHECK_STRIDE}th lane: " + "; ".join(
+        f"({k}) texels {r['texels']}, merge flips {r['merge_flips']}, rounding flips "
+        f"{r['rounding_flips']}, max abs diff {r['max_abs_err']:.3e}, kernel {r['ms']:.2f} ms"
+        for k, r in path.items() if "texels" in r)
+        + f"; (1, True) kernel {path['1,True']['ms']:.2f} ms; merged launch "
+        + _plan_note(path["4,True"]["plan"]))
+
+    # splat_round: the epilogue alone, its plain version, the library call
+    g = torch.randn((TEX, TEX, 4), device=dev) * 1e-3
+    want = round_bf16(g)
+    got = kernels.splat_round(g.clone())
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("24 splat_round: in place, not bit for bit the plain version")
+    scratch, acc0 = g.clone(), torch.randn_like(g)
+    got = kernels.splat_round(acc0.clone(), scratch)
+    if not (torch.equal(got, acc0 + want) and not bool(scratch.any())):
+        raise AssertionError("24 splat_round: the round-add differs from grad + bf16(scratch)")
+    work = g.clone()
+    sr_ms, _r = _event_ms(lambda: kernels.splat_round(work))
+    _p, sr_plain_ms = _sync_ms(lambda: round_bf16(g))
+    lib_ms, _r = _event_ms(lambda: g.to(torch.bfloat16).float())
+    sr_bound = _bound(0, 2 * 4 * n_grad)
+    out["splat_round"] = dict(
+        launches=counts["splat_round"], max_abs_err=0.0, ms=sr_ms, plain_ms=sr_plain_ms,
+        plain_shape=f"{TEX}^2 x 4", bound_ms=sr_bound[0], bound_by=sr_bound[1],
+        library_ms=lib_ms)
+    notes.append(f"splat_round in place bit for bit round_bf16, round-add exact: {sr_ms:.4f} ms "
+                 f"(bound {sr_bound[0]:.4f} ms, bytes), plain {sr_plain_ms:.3f} ms, "
+                 f"x.to(torch.bfloat16).float() {lib_ms:.4f} ms")
+
+    # direct_grad on the cornell box, packed, against its plain version
+    dscene = _flagship(dev, "direct")
+    dcounts = _splat_drive(dscene, 1, True, TEX, "24 splat direct",
+                           {"direct": 1, "direct_grad": SPP // 4, "splat_round": SPP // 4})
+    tb1 = _knob_tables(dscene, 1, True, 1)
+    got, _acc = kernels.direct_grad(tb1, lanes, m, le_sub)
+    (want, _acc), plain_ms = _sync_ms(lambda: dr.render_direct_backward_plain(
+        tb1, sub, m, le_sub[:, ::CHECK_STRIDE].contiguous()))
+    rec = _assert_splat_close(got, want, "24 direct_grad packed", True, False)
+    rec["ms"], rec["runs"] = _event_ms(lambda: kernels.direct_grad(tb1, lanes, m, le))
+    tb_exact = _knob_tables(dscene, 1, False, 1)
+    exact_ms, _r = _event_ms(lambda: kernels.direct_grad(tb_exact, lanes, m, le))
+    cb = proto["cornell_box"]
+    rec.update(launches=dcounts["direct_grad"], plain_ms=plain_ms, unpacked_ms=exact_ms,
+               plain_shape=f"every {CHECK_STRIDE}th lane of {RES[0]}x{RES[1]}, {SPP} spp",
+               bound_ms=cb["gbound"][0], bound_by=cb["gbound"][1], library_ms=None,
+               ptxas=ptxas["direct_grad_packed"])
+    out["direct_grad"] = rec
+    notes.append(f"direct_grad packed (cornell box): {rec['launches']} launches, texels "
+                 f"{rec['texels']}, rounding flips {rec['rounding_flips']}, max abs diff "
+                 f"{rec['max_abs_err']:.3e}, {rec['ms']:.2f} ms (unpacked {exact_ms:.2f} ms)")
+
+    # the BVH kernels on the big mesh at the first CHECK_SAMPLES samples of
+    # every CHECK_STRIDE-th lane: path_loop_grad_bvh at (4, True),
+    # collocated_grad_bvh packed
+    bsub = pl.pixel_lanes(RES, CHECK_SAMPLES, dev)[:, ::CHECK_STRIDE].contiguous()
+    ble = torch.full((3, bsub.shape[1]), 1.0 / SPP, device=dev)
+    for integrator, kname, knobs, plain in (
+            ("path", "path_loop_grad_bvh", (4, True),
+             lambda tb, ln, mm, lg: pl.render_path_backward_loop_plain(tb, ln, mm, lg,
+                                                                       tb.n_steps)),
+            ("collocated", "collocated_grad_bvh", (1, True),
+             co.render_collocated_backward_plain)):
+        bscene = _bigmesh(dev, integrator)
+        expect = ({"path_loop_bvh": 1, "path_loop_grad_bvh": 1, "splat_round": 1}
+                  if integrator == "path" else
+                  {"collocated_bvh": 1, "collocated_grad_bvh": SPP // 4,
+                   "splat_round": SPP // 4})
+        bcounts = _splat_drive(bscene, *knobs, TEX, f"24 splat big mesh {integrator}", expect)
+        tb1 = _knob_tables(bscene, *knobs, 1)
+        fn = getattr(kernels, kname)
+        if integrator == "path":
+            got, _c = fn(tb1, bsub, m, ble, tb1.n_steps)
+        else:
+            got, _acc = fn(tb1, bsub, m, ble)
+        (want, _x), plain_ms = _sync_ms(lambda: plain(tb1, bsub, m, ble))
+        rec = _assert_splat_close(got, want, f"24 {kname} {knobs}", True, knobs[0] > 1)
+        if integrator == "path":
+            rec["ms"], rec["runs"] = _event_ms(lambda: fn(tb1, lanes, m, le, tb1.n_steps), reps=3)
+        else:
+            rec["ms"], rec["runs"] = _event_ms(lambda: fn(tb1, lanes, m, le), reps=3)
+        base = big[kname] if integrator == "path" else coll[kname]
+        key = f"{kname}_merge" if integrator == "path" else f"{kname}_packed"
+        rec.update(launches=bcounts[kname], splat_merge=knobs[0], packed_splat=knobs[1],
+                   plain_ms=plain_ms, plain_shape=f"every {CHECK_STRIDE}th lane of "
+                   f"{RES[0]}x{RES[1]}, the first {CHECK_SAMPLES} of {SPP} samples",
+                   bound_ms=base["bound_ms"], bound_by=base["bound_by"], library_ms=None,
+                   unsplat_ms=base["ms"], ptxas=ptxas[key])
+        out[kname] = rec
+        notes.append(f"{kname} {knobs} (big mesh): {rec['launches']} launch(es), texels "
+                     f"{rec['texels']}, merge flips {rec['merge_flips']}, rounding flips "
+                     f"{rec['rounding_flips']}, max abs diff {rec['max_abs_err']:.3e}, "
+                     f"{rec['ms']:.2f} ms (phase 13/17's {base['ms']:.2f} ms); {rec['ptxas']}")
+    out["iteration_ms"] = it_ms
+    out["ptxas"] = {k: ptxas[k] for k in PTXAS_ENTRIES
+                    if k.endswith(("_merge", "_packed", "_merge_gen", "_packed_gen"))}
+    print(f"[24 splat] cornell box pmj02bn {RES[0]}x{RES[1]} {SPP} spp {TEX}^2 material: "
+          + "; ".join(notes) + f"; the new instantiations' ptxas {json.dumps(out['ptxas'])}; "
+          f"card {smi}", flush=True)
+    return out
+
+
 def _direct_extra(proto, g, ptxas):
     """The dense direct kernels' record beyond the contract's keys: the
     counted-work bound's terms and the tests-only bound on the protocol,
@@ -3401,6 +3682,7 @@ def main():
     n_main = len(MAIN_COUNTS)
     apps = timed("22", phase_apps, dev, smi)
     par = timed("23", phase_parallel, dev, smi)
+    splat = timed("24", phase_splat, dev, smi, ptxas, grad_run, big, coll, proto)
     print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     # direct_bvh and direct_grad_bvh report the protocol's main path by
@@ -3485,6 +3767,13 @@ def main():
                                 "bound_ms": r["grad_bound_ms"]}
                             for k, r in samplers["runs"].items()}
     main_run["sampler_checks"] = samplers["checks"]
+    # phase 24's splat knobs: the merged and packed instantiations' numbers
+    # under "splat" in the records of the kernels they are instantiations of
+    grad_run["splat"] = splat["path_loop_grad"]
+    grad_run["splat"]["iteration_ms"] = splat["iteration_ms"]
+    big["path_loop_grad_bvh"]["splat"] = splat["path_loop_grad_bvh"]
+    coll["collocated_grad_bvh"]["splat"] = splat["collocated_grad_bvh"]
+    direct_grad_splat = splat["direct_grad"]
     variants_src = "zdr_tpu_torch/kernels/csrc/sweep_variants.cu"
     record = {"kernels": [{
         "name": "sampler_probe",
@@ -3527,7 +3816,7 @@ def main():
         "launches": proto["launches"][1], "max_abs_err": max(check["g_err"], proto["g_err"]),
         "ms": proto["gms"], "plain_ms": proto["gplain_ms"], "plain_shape": proto["plain_shape"],
         "bound_ms": proto["gbound"][0], "bound_by": proto["gbound"][1], "library_ms": None,
-        **_direct_extra(proto, "g", ptxas),
+        **_direct_extra(proto, "g", ptxas), "splat": direct_grad_splat,
     }, {
         "name": "trace_closest",
         "route": "cuda",
@@ -3679,6 +3968,13 @@ def main():
         "replaces": "zdr_tpu/integrators/pallas_bounce.py:917 (path mode, want_grad) with "
                     "pallas_stream.py:392 + :507 and the env glue",
         **path_env["path_loop_grad_env_bvh"],
+    }, {
+        "name": "splat_round",
+        "route": "cuda",
+        "source": "zdr_tpu_torch/kernels/csrc/splat.cu",
+        "replaces": "zdr_tpu/texture.py:186 (segment_scatter_add4's packed flush, "
+                    "pallas_loop.py:1254-1258; no Pallas kernel)",
+        **splat["splat_round"],
     }]}
     for entry in record["kernels"]:
         for v in entry.values():

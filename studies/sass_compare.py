@@ -82,15 +82,19 @@ def _demangle(names):
 
 def _key(demangled, gen=False):
     """A kernel's name without its return type, parameters, anonymous
-    namespace and a lone <false> template argument (with `gen`, after its
-    last template argument where that is false: kGen)."""
+    namespace and its trailing false template arguments (every one: a
+    template argument added at the end, false in the instantiations that
+    were there before it, as kGen and the splat knobs kMerge and kPacked,
+    keeps their key; `gen` is kept for callers and no longer matters)."""
     name = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", demangled)
     name = re.sub(r"\(bool\)0", "false", re.sub(r"\(bool\)1", "true", name))
     name = re.sub(r"^void ", "", name)
     name = name[:name.index("(")] if "(" in name else name
-    if gen:
-        name = re.sub(r"<false>$", "", re.sub(r", false>$", ">", name))
-    return re.sub(r"<false>$", "", name)
+    while True:
+        short = re.sub(r"<false>$", "", re.sub(r", false>$", ">", name))
+        if short == name:
+            return name
+        name = short
 
 
 def _sass(cubins):

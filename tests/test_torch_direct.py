@@ -515,9 +515,16 @@ def test_scope_gates_raise():
     _assert_unfused_render(s, mat)
     s.bilinear = True
     _assert_unfused_render(s, torch.full((1, 8, 4), 0.5))
-    s.packed_splat = True
-    with pytest.raises(NotImplementedError, match="A17"):
-        s.render(mat, res=(4, 4), spp=1)
+    # packed_splat (ROADMAP A17) renders, and the gradient follows it
+    grads = []
+    for packed in (False, True):
+        s.packed_splat = packed
+        m = mat.clone().requires_grad_(True)
+        img = s.render(m, res=(4, 4), spp=5)
+        img[..., :3].sum().backward()
+        assert bool(torch.isfinite(img).all()) and bool(torch.isfinite(m.grad).all())
+        grads.append(m.grad)
+    assert not torch.equal(grads[0], grads[1])
     s.packed_splat = False
     s.splat_merge = 4  # the direct integrator never merges splats
     assert s.render(mat, res=(4, 4), spp=1).shape == (4, 4, 4)

@@ -155,6 +155,16 @@ class TestPathPRB:
     def test_roughness_grad(self, path_pairs):
         assert_close(*path_pairs[3], rtol=0.15)
 
+    @pytest.mark.parametrize("merge,packed", [(4, True)])
+    def test_diffuse_grad_at_jax_splat_knobs(self, merge, packed):
+        """The JAX package's defaults splat_merge 4 and packed_splat
+        (ROADMAP A17), path_pairs' sizes, the bar of
+        tests/test_fd_validate.py:153: measured rel err 0.0114 (0.0017 at
+        1 and False)."""
+        s = _cbox("path")
+        s.splat_merge, s.packed_splat = merge, packed
+        assert_close(*fd_ad_pairs(s, 16, (40, 40), 128, (0,))[0], rtol=0.15)
+
 
 class TestDirectEnvmap:
     def test_image_lit(self, env_scene):

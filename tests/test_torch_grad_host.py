@@ -13,6 +13,7 @@ import zdr_tpu_torch as zt
 from zdr_tpu_torch import kernels
 from zdr_tpu_torch.geometry.procedural import make_cornell_box, make_cornell_light
 from zdr_tpu_torch.integrators import path_loop as pl
+from zdr_tpu_torch.texture import round_bf16
 from test_torch_unfused import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -35,7 +36,9 @@ def _host_grad(tb, lanes, mat, le_grad, k_near=kernels.GRAD_NEAR_ROWS["dense"]):
     f, i = torch.empty_like(carry.f), torch.empty_like(carry.i)
     rows = max(tb.max_depth, 1)
     k_near = min(k_near, rows)
-    far = torch.empty((rows - k_near, kernels.GRAD_ROW_PLANES, n))
+    # the kMerge instantiations keep the merge draw u_m in a row too
+    planes = kernels.GRAD_ROW_PLANES + (1 if tb.splat_merge > 1 else 0)
+    far = torch.empty((rows - k_near, planes, n))
     grad = torch.zeros_like(mat)
     tables = kernels.pack_tables(tb)
     rc = lib.zdr_path_loop_grad_host(
@@ -44,6 +47,8 @@ def _host_grad(tb, lanes, mat, le_grad, k_near=kernels.GRAD_NEAR_ROWS["dense"]):
         carry.i.data_ptr(), f.data_ptr(), i.data_ptr(), far.data_ptr(), grad.data_ptr(),
         n, tb.n_steps, k_near)
     assert rc == 0
+    if tb.packed_splat:  # the launch's epilogue, splat_round
+        grad = round_bf16(grad)
     return grad, pl.Carry(f, i)
 
 
@@ -62,7 +67,7 @@ def _host_render(tb, lanes, mat):
 
 
 def _assert_host_grad_matches_plain(sampler, rough_lo, bar, k_near=kernels.GRAD_NEAR_ROWS["dense"],
-                                    max_depth=6):
+                                    max_depth=6, merge=1, packed=False):
     """24x24, 8 spp, max_depth 6, roughness in [rough_lo, 0.9], a random
     adjoint: the gradient within max|a - b| / max|a| < bar, and the walk's
     own radiance (acc) as the forward render's (glibc's sinf and torch's
@@ -70,6 +75,7 @@ def _assert_host_grad_matches_plain(sampler, rough_lo, bar, k_near=kernels.GRAD_
     test_torch_loop.test_host_build_of_kernel_step_matches_plain)."""
     s = _scene(sampler)
     s.max_depth = max_depth
+    s.splat_merge, s.packed_splat = merge, packed
     mat = _material(seed=6)
     mat[..., 3] = np.random.RandomState(7).uniform(rough_lo, 0.9, mat.shape[:2])
     mat = torch.as_tensor(mat)
@@ -112,6 +118,19 @@ def test_host_build_of_grad_kernel_keeps_its_rows_anywhere(k_near, max_depth):
     it (12, rows 8 .. 11 in scratch), each at the bar 1e-5 against the
     plain backward."""
     _assert_host_grad_matches_plain("pmj02bn", 0.5, 1e-5, k_near, max_depth)
+
+
+@pytest.mark.parametrize("merge,packed", [(4, False), (4, True)])
+@pytest.mark.parametrize("k_near", [0, kernels.GRAD_NEAR_ROWS["dense"]])
+def test_host_build_of_merged_grad_kernel_matches_plain(merge, packed, k_near):
+    """The kMerge instantiation (splat_merge 4: a sample's rows merged in
+    step order into the lane's pending tap, path_loop_step.cuh
+    replay_merge), with every row in global scratch and with the dense
+    launch's shared-memory rows, and packed_splat's rounding after it,
+    against the plain backward (JAX's static fold over the steps) at the
+    bar 1e-5. Measured: 7.4e-7 to 1.2e-6 unpacked, 0 packed (no total
+    rounded to the other side)."""
+    _assert_host_grad_matches_plain("pmj02bn", 0.5, 1e-5, k_near, 6, merge, packed)
 
 
 FD_EPS = 0.01

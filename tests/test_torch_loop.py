@@ -212,13 +212,18 @@ def test_scope_gates_raise():
     s = zt.Scene([(t_make_cornell_box(), None, None),
                   (t_make_cornell_light(), None, 15.0)], integrator="path", device="cpu")
     mat = torch.full((8, 8, 4), 0.5)
-    s.splat_merge = 4
-    with pytest.raises(NotImplementedError, match="A17"):
-        s.render(mat.clone().requires_grad_(True), res=(4, 4), spp=1)
-    s.splat_merge, s.packed_splat = 1, True
-    with pytest.raises(NotImplementedError, match="A17"):
-        s.render(mat, res=(4, 4), spp=1)
-    s.packed_splat = False
+    # the splat knobs (ROADMAP A17) render, and the gradient follows them
+    grads = {}
+    for knobs in ((1, False), (4, False), (1, True)):
+        s.splat_merge, s.packed_splat = knobs
+        m = mat.clone().requires_grad_(True)
+        img = s.render(m, res=(4, 4), spp=4)
+        img[..., :3].sum().backward()
+        assert bool(torch.isfinite(img).all()) and bool(torch.isfinite(m.grad).all())
+        grads[knobs] = m.grad
+    assert not torch.equal(grads[(4, False)], grads[(1, False)])
+    assert not torch.equal(grads[(1, True)], grads[(1, False)])
+    s.splat_merge, s.packed_splat = 1, False
     # pmj02bn at a spp that is no power of two renders (the generic
     # permutation); spp <= 0 raises
     img = s.render(mat, res=(4, 4), spp=3)

@@ -183,7 +183,8 @@ def test_routing_and_the_scope_gates():
     """Nearest filtering, a material under 2x2, fused = False and direct
     without MIS take the unfused estimators around the trace kernels
     (integrators.wrapper.kernel_route); fused "auto" and "force" keep the
-    kernel routes; A17 still raises, and so does an unknown fused value."""
+    kernel routes; an unknown fused value raises; the splat knobs (A17)
+    render by the unfused walk, and its gradient follows them."""
     s = _cbox("direct")
     mat = torch.full((8, 8, 4), 0.5)
     cfg = s._config((4, 4), 1)
@@ -203,9 +204,16 @@ def test_routing_and_the_scope_gates():
     s.fused = "bogus"
     with pytest.raises(ValueError, match="fused"):
         s.render(mat, res=(4, 4), spp=1)
-    s.integrator, s.fused, s.splat_merge = "path", False, 4
-    with pytest.raises(NotImplementedError, match="A17"):
-        s.render(mat, res=(4, 4), spp=1)
+    s.integrator, s.fused = "path", False
+    grads = []
+    for merge in (1, 4):
+        s.splat_merge = merge
+        m = mat.clone().requires_grad_(True)
+        img = s.render(m, res=(4, 4), spp=2)
+        img[..., :3].sum().backward()
+        assert bool(torch.isfinite(img).all()) and bool(torch.isfinite(m.grad).all())
+        grads.append(m.grad)
+    assert not torch.equal(grads[0], grads[1])
 
 
 def _ieee_sqrt():

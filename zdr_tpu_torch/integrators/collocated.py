@@ -40,7 +40,7 @@ import torch
 from ..camera import camera_ray
 from ..microfacet import ggx_brdf, ggx_shade_vjp, make_onb, to_local
 from ..samplers.hashes import lcg_to_unit_float
-from ..texture import read_bilinear, scatter_add4, splat_ids
+from ..texture import add_taps, read_bilinear, splat_ids
 from ..vec import div, vdot, vscale
 from .bounce import closest_hit_plain, interact_planes
 from .direct import _accumulate, _n_samples
@@ -126,20 +126,25 @@ render_collocated_plain.calls = 0
 def render_collocated_backward_plain(tb: LoopTables, lanes, material, le_grad):
     """Texture gradient of every lane's samples, given the (3, N) per-sample
     adjoint -> (d_material (H, W, 4), the (3, N) radiance sums of the same
-    samples): the plain version of the collocated_grad kernel."""
+    samples): the plain version of the collocated_grad kernel; with
+    tb.packed_splat the taps are flushed every SPLAT_BATCH samples in bf16
+    (texture.add_taps)."""
     render_collocated_backward_plain.calls += 1
     h, w = material.shape[0], material.shape[1]
     lg = tuple(le_grad[c] for c in range(3))
     zero = torch.zeros_like(lg[0])
     acc = (zero, zero, zero)
     grad = torch.zeros((h * w, 4), dtype=torch.float32, device=material.device)
-    for it in range(_n_samples(lanes)):
+    scratch = torch.zeros_like(grad) if tb.packed_splat else None
+    n_samples = _n_samples(lanes)
+    for it in range(n_samples):
         rad, (g0, g1, g2, g3, ids) = collocated_sample_plain(tb, lanes, material, it, lg)
         live = it < lanes[2]
         more = _accumulate(acc, rad)
         acc = tuple(torch.where(live, m, a) for m, a in zip(more, acc))
         ids = torch.where(live, ids, h * w)
-        grad += scatter_add4(ids.to(torch.int64), torch.stack([g0, g1, g2, g3], 1), h * w)
+        add_taps(grad, scratch, it, n_samples, ids.to(torch.int64),
+                 torch.stack([g0, g1, g2, g3], 1), h * w, tb.packed_splat)
     return grad.reshape(h, w, 4), torch.stack(acc)
 
 

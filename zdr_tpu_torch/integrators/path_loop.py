@@ -51,7 +51,7 @@ from ..samplers.corrmj import corrmj_fresh_state, corrmj_sampler
 from ..samplers.hashes import lcg_step, lcg_to_unit_float, to_i32, u32
 from ..samplers.lcg import LCGSampler, lcg_fresh_state
 from ..samplers.pmj02bn import bluenoise, bn_base, pmj02bn_class
-from ..texture import read_bilinear, scatter_add4, splat_ids
+from ..texture import read_bilinear, reservoir_merge_taps, scatter_add4, splat_ids
 from ..vec import div, luminance, offset_ray_origin, vadd, vdot, vnormalize, vscale, vsub
 from . import scene_tables
 from .wrapper import pixel_grid
@@ -135,6 +135,12 @@ class LoopTables:
     # (n_env 1), and the kernels' wrappers launch their env instantiations;
     # None: no env
     env: Optional[EnvMap] = None
+    # the gradient splat's knobs (RenderConfig): the path gradient merges
+    # each group of splat_merge steps of a lane into one tap; packed_splat
+    # rounds the gradient to bf16 (the direct and collocated gradients every
+    # 4 samples, their taps too)
+    splat_merge: int = 1
+    packed_splat: bool = False
 
     @property
     def n_env(self) -> int:
@@ -178,6 +184,8 @@ def build_loop_tables(data, camera, cfg, seed: int) -> LoopTables:
         bn_ntex=n_tex,
         bvh=data.accel if data.accel is not None and data.accel.is_bvh else None,
         env=data.env,
+        splat_merge=max(int(cfg.splat_merge), 1),
+        packed_splat=bool(cfg.packed_splat),
     )
 
 
@@ -572,15 +580,18 @@ def render_path_backward_loop_plain(tb: LoopTables, lanes, material, le_grad, n_
     """PRB texture gradient of every lane's samples, given the (3, N)
     per-sample adjoint le_grad -> (d_material (H, W, 4), the final Carry):
     the plain version of the path_loop_grad kernel, and the JAX package's
-    one-walk algorithm (pallas_loop.py:1082-1286) at splat_merge=1,
-    packed_splat=False.
+    one-walk algorithm (pallas_loop.py:1082-1286) in one window.
 
     Walks the forward from the first carry, keeping every step's taps; then,
     for all lanes at once, a sequential reverse pass over the steps recovers
     G'[it] = term ? 0 : G[it+1], with G[it] = rad[it] + G'[it], and the
     sample's ok flag (good at its terminating step), as post_pass defines
     them; forms g_j = P_j + G'_j Q_j and g_rough = P_3 + sum_c G'_c S_c,
-    zeroes NaN taps and the taps of a NaN sample, and scatters."""
+    zeroes NaN taps and the taps of a NaN sample, and scatters. With
+    tb.splat_merge > 1 the taps of each group of that many steps are
+    merged first, JAX's static fold (pallas_loop.py:1232-1254): the group's
+    first step as it is, each later one merged in with its own u_m; with
+    tb.packed_splat every texel's total is rounded to bf16."""
     render_path_backward_loop_plain.calls += 1
     carry = init_carry(lanes)
     steps = []
@@ -592,7 +603,7 @@ def render_path_backward_loop_plain(tb: LoopTables, lanes, material, le_grad, n_
     zero = torch.zeros_like(le_grad[0])
     g_next = (zero, zero, zero)  # G[it + 1]
     ok_next = torch.ones_like(zero, dtype=torch.bool)  # no later term: keep
-    ids, vals = [], []
+    ids, vals, u_m = [], [], []
     for taps in reversed(steps):
         rad, p, q, s = taps[0:3], taps[3:7], taps[7:10], taps[10:13]
         flags = taps[15]
@@ -603,14 +614,38 @@ def render_path_backward_loop_plain(tb: LoopTables, lanes, material, le_grad, n_
              p[3] + gp[0] * s[0] + gp[1] * s[1] + gp[2] * s[2])
         vals.append(torch.stack([torch.where(ok & ~torch.isnan(x), x, 0.0) for x in g], 1))
         ids.append(taps[14])
+        u_m.append(taps[13])
         g_next = tuple(rad[c] + gp[c] for c in range(3))
         ok_next = ok
     h, w = material.shape[0], material.shape[1]
-    grad = scatter_add4(torch.cat(ids), torch.cat(vals), h * w).reshape(h, w, 4)
-    return grad, carry
+    ids, vals, u_m = ids[::-1], vals[::-1], u_m[::-1]
+    if tb.splat_merge > 1:
+        ids, vals = merge_steps(ids, vals, u_m, tb.splat_merge, h * w)
+    grad = scatter_add4(torch.cat(ids), torch.cat(vals), h * w, packed=tb.packed_splat)
+    return grad.reshape(h, w, 4), carry
 
 
 render_path_backward_loop_plain.calls = 0
+
+
+def merge_steps(ids, vals, u_m, merge: int, n_bins: int):
+    """The walk's taps, a list of (N,) ids and (N, 4) values a step in
+    step order, merged within each group of `merge` steps, the steps past
+    the walk's last padding the last group as sentinels (JAX's tap store of
+    s_cap steps, pallas_loop.py:1232-1254) -> one (ids, values) a group."""
+    pad = -len(ids) % merge
+    sentinel = torch.full_like(ids[0], n_bins)
+    ids = list(ids) + [sentinel] * pad
+    vals = list(vals) + [torch.zeros_like(vals[0])] * pad
+    u_m = list(u_m) + [torch.zeros_like(u_m[0])] * pad
+    out_ids, out_vals = [], []
+    for k in range(0, len(ids), merge):
+        cur = (ids[k], *vals[k].unbind(1))
+        for j in range(k + 1, k + merge):
+            cur = reservoir_merge_taps(cur, (ids[j], *vals[j].unbind(1)), u_m[j], n_bins)
+        out_ids.append(cur[0])
+        out_vals.append(torch.stack(cur[1:], 1))
+    return out_ids, out_vals
 
 
 def coord_lanes(coords: torch.Tensor, spp: int) -> torch.Tensor:

@@ -11,11 +11,17 @@ The backward cycles each lane through phase 0 (the Le replay walk) and
 phase 1 (the gradient walk on the same stream, path.path_backward's
 algebra), then the next sample. Its taps splat every iteration (path.splat):
 the stochastic single corner (the default), the four bilinear corners, or,
-under nearest filtering, the texel the forward read.
+under nearest filtering, the texel the forward read. With the stochastic
+splat (a splat to one texel), splat_merge > 1 or packed_splat take JAX's
+splat buffer
+(path_persistent.py:211-242, :300-340, _SplatBuffer): a lane's taps merged
+into a pending tap over each group of splat_merge iterations, a buffer of
+SCATTER_BATCH rows (bf16-rounded where packed), flushed every splat_merge *
+SCATTER_BATCH iterations.
 
-The port takes one lane a pixel (JAX's lanes_per_pixel 1), splat_merge 1
-and no bf16 packing (wrapper.check_scope). Every bounce traces through
-accel.trace_closest / trace_any: on the card the trace kernels.
+The port takes one lane a pixel (JAX's lanes_per_pixel 1). Every bounce
+traces through accel.trace_closest / trace_any: on the card the trace
+kernels.
 """
 
 from __future__ import annotations
@@ -25,7 +31,10 @@ import torch
 from ..camera import camera_const, camera_ray
 from ..microfacet import ggx_shade_vjp
 from ..samplers import make_sampler, select_on_restart
+from ..samplers.hashes import lcg_step, lcg_to_unit_float
 from ..samplers.pmj02bn import bluenoise
+from ..texture import (SPLAT_BATCH, nearest_ids, reservoir_merge_taps, scatter_add4,
+                       stochastic_corner_ids)
 from ..vec import div
 from .path import (apply_rr, bilinear_of, depths, nee_term, next_beta, splat, stochastic_of,
                    walk_one_bounce)
@@ -98,6 +107,50 @@ def render_path_persistent(data, material, camera, seed: int, cfg, coords) -> to
     return div(torch.stack(acc, dim=1), float(cfg.spp))
 
 
+class _SplatBuffer:
+    """The JAX walk's splat buffer (path_persistent.py:211-242, :300-340,
+    texture.py:265-319): SCATTER_BATCH rows of each lane's (id, 4 channels),
+    rounded to bf16 at emission where packed; with merge > 1 a pending tap a
+    lane, into which each iteration's tap is reservoir-merged (u_m from the
+    salt's next LCG state), rewritten into the slot of its group and reset
+    at the group's end; a flush every merge * SCATTER_BATCH iterations, and
+    one at the end, adds the rows' per-texel totals (rounded to bf16 where
+    packed) to the gradient."""
+
+    def __init__(self, n: int, n_bins: int, merge: int, packed: bool, dev):
+        self.n_bins, self.merge, self.packed = n_bins, merge, packed
+        self.ids = torch.full((SPLAT_BATCH, n), n_bins, dtype=torch.int64, device=dev)
+        self.vals = torch.zeros((SPLAT_BATCH, n, 4), dtype=torch.float32, device=dev)
+        zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+        self.pend0 = (self.ids[0].clone(), zero, zero, zero, zero)
+        self.pend = self.pend0
+
+    def add(self, d_mat, it: int, ids, grads, salt):
+        """Iteration it's taps, (N,) ids and 4 (N,) channels -> d_mat."""
+        tap = (ids, *grads)
+        slot, batch = it % SPLAT_BATCH, SPLAT_BATCH
+        if self.merge > 1:
+            u_m = lcg_to_unit_float(lcg_step(salt))
+            tap = reservoir_merge_taps(self.pend, tap, u_m, self.n_bins)
+            group_end = it % self.merge == self.merge - 1
+            self.pend = self.pend0 if group_end else tap
+            slot, batch = (it // self.merge) % SPLAT_BATCH, self.merge * SPLAT_BATCH
+        self.ids[slot] = tap[0]
+        self.vals[slot] = torch.stack(tap[1:], 1)
+        if it % batch == batch - 1:
+            return self.flush(d_mat)
+        return d_mat
+
+    def flush(self, d_mat):
+        """d_mat plus the buffer's per-texel totals; the buffer emptied."""
+        h, w = d_mat.shape[0], d_mat.shape[1]
+        add = scatter_add4(self.ids.reshape(-1), self.vals.reshape(-1, 4), self.n_bins,
+                           packed=self.packed, prepacked=self.packed)
+        self.ids.fill_(self.n_bins)
+        self.vals.zero_()
+        return d_mat + add.reshape(h, w, 4)
+
+
 def render_path_backward_persistent(data, material, camera, seed: int, cfg, coords,
                                     le_grad) -> torch.Tensor:
     """PRB texture gradient of the pixels coords (N, 2), given their (N, 3)
@@ -118,7 +171,11 @@ def render_path_backward_persistent(data, material, camera, seed: int, cfg, coor
     depth = torch.zeros_like(sample_idx)
     phase = torch.zeros_like(sample_idx)  # 0: the Le walk, 1: the gradient walk
     gok = torch.ones((n,), dtype=torch.bool, device=dev)  # False once Le was NaN
-    for _ in range(2 * (cfg.spp + 1) * md + 2 * md):
+    h, w = material.shape[0], material.shape[1]
+    buf = None
+    if stochastic and (cfg.splat_merge > 1 or cfg.packed_splat):
+        buf = _SplatBuffer(n, h * w, max(int(cfg.splat_merge), 1), bool(cfg.packed_splat), dev)
+    for it in range(2 * (cfg.spp + 1) * md + 2 * md):
         lane_live = sample_idx < cfg.spp
         if not bool(lane_live.any()):
             break
@@ -147,8 +204,19 @@ def render_path_backward_persistent(data, material, camera, seed: int, cfg, coor
             torch.where(in_grad & v.active & gok & (b_bounce[c] > 1e-8),
                         le_rem[c] / torch.clamp_min(b_bounce[c], 1e-8) * lg_in[c], 0.0)
             for c in range(3))
-        d_mat = splat(d_mat, v.uv, vjp((ct_nee, ct_bounce)), in_grad & (v.nee_ok | v.active),
-                      smp.salt(), stochastic, bilinear)
+        grads = vjp((ct_nee, ct_bounce))
+        on = in_grad & (v.nee_ok | v.active)
+        if buf is None:
+            d_mat = splat(d_mat, v.uv, grads, on, smp.salt(), stochastic, bilinear)
+        else:
+            salt = smp.salt()
+            if bilinear:
+                ids = stochastic_corner_ids(v.uv, lcg_to_unit_float(salt), h, w)
+            else:
+                ids = nearest_ids(v.uv[:, 0], v.uv[:, 1], h, w)
+            ids = torch.where(on, ids, h * w)
+            grads = tuple(torch.where(on & ~torch.isnan(g), g, 0.0) for g in grads)
+            d_mat = buf.add(d_mat, it, ids, grads, salt)
 
         # continuation or termination
         inv_pdf = 1.0 / torch.clamp_min(v.pdf_bounce, 1e-9)
@@ -177,4 +245,4 @@ def render_path_backward_persistent(data, material, camera, seed: int, cfg, coor
                      for c in range(3))
         pdf_prev = torch.where(terminated, 1e30, torch.where(alive, v.pdf_bounce, pdf_prev))
         depth = torch.where(terminated, 0, depth + 1)
-    return d_mat
+    return d_mat if buf is None else buf.flush(d_mat)

@@ -51,9 +51,12 @@ class RenderConfig:
     max_depth: int = 16
     rr_depth: int = 2
     bilinear: bool = True
-    # the PRB backward's TPU scatter knobs (JAX defaults 4 and True); the
-    # port splats every tap unmerged, in float32: the JAX package's exact
-    # estimator. The direct integrator never merges (direct_fused.py:320).
+    # the gradient splat's knobs (JAX defaults 4 and True; the port's 1 and
+    # False, the JAX package's exact estimator): splat_merge, the taps of a
+    # path lane merged into one (the direct and collocated integrators never
+    # merge, direct_fused.py:320); packed_splat, the splat's totals rounded
+    # to bf16. Under render_sharded each rank rounds its own partial
+    # gradient before the all_reduce.
     splat_merge: int = 1
     packed_splat: bool = False
     # the unfused path walk: persistent lanes (a finished path restarts its
@@ -97,11 +100,6 @@ def check_scope(cfg: RenderConfig, material: torch.Tensor, data) -> None:
         raise ValueError(f"spp must be >= 1, got {cfg.spp}")
     if cfg.fused not in ("auto", "force", True, False):
         raise ValueError(f"fused must be 'auto', 'force', True or False, got {cfg.fused!r}")
-    if (cfg.integrator == "path" and cfg.splat_merge != 1) or cfg.packed_splat:
-        raise NotImplementedError(
-            "splat_merge != 1 or packed_splat=True (merged or bf16-packed "
-            "gradient splats): ROADMAP A17"
-        )
     if not kernel_route(cfg, material):
         return
     from ..kernels import check_table_fits

@@ -36,6 +36,10 @@ Kernels:
                   (csrc/path_loop_grad.cu); `.plan` holds its last launch's
                   near rows, block, registers and occupancy;
                   plain version: integrators/path_loop.render_path_backward_loop_plain
+                  with splat_merge > 1 (LoopTables.splat_merge) its kMerge
+                  instantiations, which merge each group of a lane's taps
+                  into one before its atomic; with packed_splat,
+                  splat_round after the launch
   path_loop_env, path_loop_grad_env
                   the same under an environment light (LoopTables.env): the
                   kernels' env instantiations, the env's tables in global
@@ -55,7 +59,10 @@ Kernels:
                   launch's; plain version:
                   integrators/direct.render_direct_plain
   direct_grad     its texture gradient, one atomic tap a sample
-                  (csrc/direct.cu), likewise; plain version:
+                  (csrc/direct.cu), likewise; with packed_splat
+                  (LoopTables.packed_splat) its kPacked instantiation, one
+                  launch a group of SPLAT_BATCH samples into a scratch,
+                  each followed by splat_round's round-add; plain version:
                   integrators/direct.render_direct_backward_plain
   direct_env, direct_grad_env
                   the same under an environment light (LoopTables.env):
@@ -68,9 +75,13 @@ Kernels:
                   out, the block picked at launch; `.plan` as direct's);
                   plain version:
                   integrators/collocated.render_collocated_plain
-  collocated_grad its texture gradient, one atomic tap a sample, likewise;
-                  plain version:
+  collocated_grad its texture gradient, one atomic tap a sample, likewise
+                  (packed_splat as direct_grad's); plain version:
                   integrators/collocated.render_collocated_backward_plain
+  splat_round     the packed splat's epilogue (csrc/splat.cu): the
+                  gradient's texels rounded to bf16 in place, or a scratch
+                  gradient rounded and added into it and zeroed; plain
+                  version: texture.round_bf16
   trace_closest   closest hit of a ray batch, dense or through the BVH
   trace_any       any hit of a ray batch, likewise (csrc/accel.cu); plain
                   versions: accel/trace.trace_closest_plain, trace_any_plain
@@ -125,6 +136,9 @@ from ..integrators.collocated import (
 )
 from ..envmap import SAMPLE_MAP_H, SAMPLE_MAP_W
 from ..accel.trace import trace_any_plain, trace_closest_plain
+# SPLAT_BATCH: the samples of a packed direct or collocated gradient launch
+# (splat.cuh kSplatBatch)
+from ..texture import SPLAT_BATCH, round_bf16
 from ..accel.variants import (
     MODES,
     aabb_sweep_plain,
@@ -143,9 +157,9 @@ from ..samplers.hashes import next_pow2_mask
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 CUDA_SOURCES = ("path_loop.cu", "path_loop_grad.cu", "direct.cu", "accel.cu",
-                "sweep_variants.cu", "collocated.cu")
+                "sweep_variants.cu", "collocated.cu", "splat.cu")
 HEADERS = ("path_loop_step.cuh", "direct_step.cuh", "trace.cuh", "sweep_variants.cuh",
-           "launch.cuh", "collocated_step.cuh")
+           "launch.cuh", "collocated_step.cuh", "splat.cuh")
 # -fmad=false and no fast math: the kernel rounds as its plain version does
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -157,7 +171,8 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 KINDS = {"lcg": 0, "pmj02bn": 1, "corrmj": 2}
 # the floats of a tap row of path_loop_grad (path_loop_step.cuh kRowPlanes):
 # the 16 tap planes less u_m (no merge) and flags (the replay runs at the
-# sample's end), with Q and S as bq, u0 and u3
+# sample's end), with Q and S as bq, u0 and u3; the kMerge instantiations
+# keep u_m too (row_planes<true>)
 GRAD_ROW_PLANES = N_TAP_PLANES - 3
 # the most tap rows of a sample that the gradient kernels keep in shared
 # memory, by route (zdr_path_loop_grad_plan takes fewer where the tables
@@ -289,7 +304,7 @@ _VARIANT_ARGS = _VARIANT_HOST_ARGS[:2] + [_I] + _VARIANT_HOST_ARGS[2:]
 def load_library() -> types.SimpleNamespace:
     """Build (if needed) and load the CUDA libraries -> their entries."""
     builds = [((src,), f"libzdr_{src.split('.')[0]}") for src in CUDA_SOURCES]
-    fwd, grad, direct_lib, accel_lib, variants_lib, coll_lib = (
+    fwd, grad, direct_lib, accel_lib, variants_lib, coll_lib, splat_lib = (
         ctypes.CDLL(p) for p in _compile(_nvcc(), NVCC_FLAGS, builds))
     return types.SimpleNamespace(
         # the forward kernels take the block and the plan's ints before the stream
@@ -320,6 +335,8 @@ def load_library() -> types.SimpleNamespace:
         zdr_sweep_variant=_bind(variants_lib, "zdr_sweep_variant", _VARIANT_ARGS + [_P]),
         zdr_floor_probe=_bind(variants_lib, "zdr_floor_probe", [_P, _P, _P, _I, _P]),
         zdr_sweep_points=_bind(variants_lib, "zdr_sweep_points", [_P, _I]),
+        # grad, scratch (null: in place), n, stream
+        zdr_splat_round=_bind(splat_lib, "zdr_splat_round", [_P, _P, ctypes.c_longlong, _P]),
     )
 
 
@@ -348,6 +365,8 @@ def load_host_library() -> types.SimpleNamespace:
         zdr_gen_sampler_host=_bind(lib, "zdr_gen_sampler_host", [_P]),
         # wo, wi, rough, g_spec, out, n
         zdr_ggx_droughness_host=_bind(lib, "zdr_ggx_droughness_host", [_P] * 5 + [_I]),
+        # x, out, n: splat.cuh round_bf16
+        zdr_round_bf16_host=_bind(lib, "zdr_round_bf16_host", [_P, _P, _I]),
         zdr_sampler_probe_host=_bind(lib, "zdr_sampler_probe_host", [_P, _P, _P, _I, _I, _P]),
         zdr_path_loop_grad_host=_bind(lib, "zdr_path_loop_grad_host", _GRAD_ARGS),
         # the forward when le_grad (8th) is null
@@ -374,26 +393,29 @@ def load_host_library() -> types.SimpleNamespace:
 
 def pack_params(kind: str, spp: int, seed: int, *, res=(1, 1), use_tent=True,
                 rr_depth=0, max_depth=0, counts=(0, 0, 0, 0), tex=(0, 0),
-                bn_res=0, bn_ntex=0, n_env=0):
+                bn_res=0, bn_ntex=0, n_env=0, splat_merge=1, packed_splat=False, first=0):
     """The kernel's integer parameters (path_loop_step.cuh LoopParams);
-    corrmj's grid side and its mask as samplers/corrmj.py computes them."""
+    corrmj's grid side and its mask as samplers/corrmj.py computes them;
+    the splat knobs, and the first sample of a packed gradient launch."""
     if spp <= 0:
         raise ValueError(f"spp must be >= 1, got {spp}")
     seed &= 0xFFFFFFFF
     cmj_res = grid_side(spp) if kind == "corrmj" else 0
     vals = [KINDS[kind], spp, next_pow2_mask(spp), seed - (seed >> 31 << 32),
             res[0], res[1], int(use_tent), rr_depth, max_depth, *counts, *tex,
-            bn_res, bn_ntex, n_env, cmj_res, next_pow2_mask(cmj_res) if cmj_res else 0]
+            bn_res, bn_ntex, n_env, cmj_res, next_pow2_mask(cmj_res) if cmj_res else 0,
+            max(int(splat_merge), 1), int(bool(packed_splat)), first]
     return (ctypes.c_int * len(vals))(*vals)
 
 
-def loop_params(tb: LoopTables, material: torch.Tensor):
+def loop_params(tb: LoopTables, material: torch.Tensor, first: int = 0):
     counts = (tb.scene.shape[0], tb.lights.shape[0], tb.n_mesh, tb.n_point)
     return pack_params(
         tb.kind, tb.spp, tb.seed, res=tb.res, use_tent=tb.use_tent,
         rr_depth=tb.rr_depth, max_depth=tb.max_depth, counts=counts,
         tex=(material.shape[0], material.shape[1]), bn_res=tb.bn_res,
-        bn_ntex=tb.bn_ntex, n_env=tb.n_env,
+        bn_ntex=tb.bn_ntex, n_env=tb.n_env, splat_merge=tb.splat_merge,
+        packed_splat=tb.packed_splat, first=first,
     )
 
 
@@ -648,7 +670,9 @@ def grad_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor
     wrappers, and the tests and studies of other row layouts. k_cap: the
     most tap rows a sample in shared memory (GRAD_NEAR_ROWS of the route;
     0 keeps them all in global scratch) -> (d_material, the final carry,
-    counts (the BVH kernel's) or None, the launch's plan)."""
+    counts (the BVH kernel's) or None, the launch's plan). The kMerge
+    instantiation where tb.splat_merge passes 1; packed_splat's rounding is
+    the wrappers' (_packed_grad), not this launch's."""
     dev = lanes.device
     n, tables, params, shared = _loop_inputs(tb, lanes, material, n_steps, dev, "path")
     _check(le_grad, "le_grad", torch.float32, (3, n), dev)
@@ -667,8 +691,8 @@ def grad_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor
                      "local_bytes"), info))
     carry = init_carry(lanes)
     f_out, i_out = torch.empty_like(carry.f), torch.empty_like(carry.i)
-    far = torch.empty((rows - plan["k_near"], GRAD_ROW_PLANES, n), dtype=torch.float32,
-                      device=dev)
+    planes = GRAD_ROW_PLANES + (1 if tb.splat_merge > 1 else 0)
+    far = torch.empty((rows - plan["k_near"], planes, n), dtype=torch.float32, device=dev)
     grad = _tap_grad(material)
     args = (params, tables.data_ptr(), tables.numel()) + ((int(shared),) if bvh else ()) + (
         _bn_ptr(tb), material.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(),
@@ -686,6 +710,78 @@ def grad_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor
         rc = entry(*args, *env, stream)
     _raise_on(rc, name)
     return grad, Carry(f_out, i_out), counts, plan
+
+
+def splat_round(grad: torch.Tensor, scratch=None) -> torch.Tensor:
+    """The packed splat's bf16 rounding (csrc/splat.cu): with scratch None,
+    grad's values rounded to bf16 in place; else grad += bf16(scratch) and
+    scratch zeroed. Both float32 tensors of the same shape, their size a
+    multiple of 4 -> grad. On the CPU the plain version, texture.round_bf16,
+    does the same in place."""
+    dev = grad.device
+    if scratch is not None:
+        _check(scratch, "scratch", torch.float32, grad.shape, dev)
+    if not _on_card(dev, "splat_round"):
+        if scratch is None:
+            grad.copy_(round_bf16(grad))
+        else:
+            grad += round_bf16(scratch)
+            scratch.zero_()
+        return grad
+    _check(grad, "grad", torch.float32, grad.shape, dev)
+    for t in (grad, scratch):
+        if t is not None and (t.data_ptr() % 16 or t.numel() % 4):
+            raise ValueError("splat_round takes 16-byte aligned tensors of whole float4s")
+    rc = load_library().zdr_splat_round(
+        grad.data_ptr(), None if scratch is None else scratch.data_ptr(), grad.numel(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "splat_round")
+    splat_round.launches += 1
+    return grad
+
+
+splat_round.launches = 0
+
+
+def _packed_grad(tb: LoopTables, grad: torch.Tensor) -> torch.Tensor:
+    """The path gradient kernels' epilogue: with packed_splat every texel
+    rounded to bf16 (splat_round), the JAX loop route's one rounded flush
+    of the totals (pallas_loop.py:1254-1258)."""
+    return splat_round(grad) if tb.packed_splat else grad
+
+
+def _acc(tb: LoopTables, n: int, le_grad, dev) -> torch.Tensor:
+    """The (3, n) radiance sums of a direct or collocated launch, le_grad
+    checked: zeroed for packed_splat's tap mode, whose launches each add
+    their group's radiance to the sums before them."""
+    if le_grad is None:
+        return torch.empty((3, n), dtype=torch.float32, device=dev)
+    _check(le_grad, "le_grad", torch.float32, (3, n), dev)
+    alloc = torch.zeros if tb.packed_splat else torch.empty
+    return alloc((3, n), dtype=torch.float32, device=dev)
+
+
+def _launches(tb: LoopTables, material, le_grad, launch):
+    """The direct and collocated kernels' launches, launch(params, target):
+    the forward (le_grad None) once with no gradient; the tap mode once into
+    a zeroed gradient, or with packed_splat once a group of SPLAT_BATCH
+    samples, the params' first sample the group's, into a zeroed scratch
+    that splat_round rounds into the gradient after each (the JAX package's
+    flush every SCATTER_BATCH samples, direct_fused.py:328-345) -> (the
+    gradient or None, the launches)."""
+    if le_grad is None:
+        launch(loop_params(tb, material), None)
+        return None, 1
+    grad = _tap_grad(material)
+    if not tb.packed_splat:
+        launch(loop_params(tb, material), grad)
+        return grad, 1
+    scratch = _tap_grad(material)
+    firsts = range(0, tb.spp, SPLAT_BATCH)
+    for first in firsts:
+        launch(loop_params(tb, material, first), scratch)
+        splat_round(grad, scratch)
+    return grad, len(firsts)
 
 
 def path_loop_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
@@ -710,7 +806,7 @@ def path_loop_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     grad, carry, _c, path_loop_grad.plan = grad_launch(load_library(), tb, lanes, material,
                                                        le_grad, n_steps)
     path_loop_grad.launches += 1
-    return grad, carry
+    return _packed_grad(tb, grad), carry
 
 
 path_loop_grad.launches = 0
@@ -728,7 +824,7 @@ def path_loop_grad_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tens
     grad, carry, path_loop_grad_bvh.counts, path_loop_grad_bvh.plan = grad_launch(
         load_library(), tb, lanes, material, le_grad, n_steps)
     path_loop_grad_bvh.launches += 1
-    return grad, carry
+    return _packed_grad(tb, grad), carry
 
 
 path_loop_grad_bvh.launches = 0
@@ -750,7 +846,7 @@ def path_loop_grad_env(tb: LoopTables, lanes: torch.Tensor, material: torch.Tens
     grad, carry, _c, path_loop_grad_env.plan = grad_launch(load_library(), tb, lanes, material,
                                                            le_grad, n_steps)
     path_loop_grad_env.launches += 1
-    return grad, carry
+    return _packed_grad(tb, grad), carry
 
 
 path_loop_grad_env.launches = 0
@@ -768,7 +864,7 @@ def path_loop_grad_env_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.
     grad, carry, path_loop_grad_env_bvh.counts, path_loop_grad_env_bvh.plan = grad_launch(
         load_library(), tb, lanes, material, le_grad, n_steps)
     path_loop_grad_env_bvh.launches += 1
-    return grad, carry
+    return _packed_grad(tb, grad), carry
 
 
 path_loop_grad_env_bvh.launches = 0
@@ -877,32 +973,32 @@ def direct_launch(lib, tb: LoopTables, lanes: torch.Tensor, material: torch.Tens
     largest (0: the launch's pick, as loop_launch's); early: the sweeps
     with the early out or without (None: direct_early's rule) ->
     (grad or None, acc, counts, the launch's plan: LOOP_PLAN's fields, the
-    waves and early)."""
+    waves, early and the launches: one, or with packed_splat in tap mode
+    one a group of SPLAT_BATCH samples, _launches)."""
     dev = lanes.device
     if early is None:
         early = direct_early(tb.scene.shape[0])
-    n, tables, params, _shared = _loop_inputs(tb, lanes, material, 0, dev, "direct")
-    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
-    grad = None
-    if le_grad is not None:
-        _check(le_grad, "le_grad", torch.float32, (3, n), dev)
-        grad = _tap_grad(material)
+    n, tables, _params, _shared = _loop_inputs(tb, lanes, material, 0, dev, "direct")
+    acc = _acc(tb, n, le_grad, dev)
     counts = _counts(dev)
     info = (ctypes.c_int * len(LOOP_PLAN))()
-    head = (params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
-            lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
-            None if grad is None else grad.data_ptr(), counts.data_ptr(), n, int(early))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    name = "direct" if le_grad is None else "direct_grad"
-    if tb.env is not None:
-        rc = lib.zdr_direct_env(*head, *env_args(tb.env, dev), block, info, stream)
-        name += "_env"
-    else:
-        rc = lib.zdr_direct(*head, block, info, stream)
-    _raise_on(rc, name)
+    name = ("direct" if le_grad is None else "direct_grad") + ("_env" if tb.env else "")
+    env = () if tb.env is None else env_args(tb.env, dev)
+    entry = lib.zdr_direct_env if env else lib.zdr_direct
+
+    def launch(params, target):
+        rc = entry(params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
+                   lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(),
+                   acc.data_ptr(), None if target is None else target.data_ptr(),
+                   counts.data_ptr(), n, int(early), *env, block, info, stream)
+        _raise_on(rc, name)
+
+    grad, launches = _launches(tb, material, le_grad, launch)
     plan = dict(zip(LOOP_PLAN, info))
     plan["waves"] = n / (plan["block"] * plan["blocks_per_sm"] * plan["sms"])
     plan["early"] = bool(early)
+    plan["launches"] = launches
     return grad, acc, counts, plan
 
 
@@ -950,7 +1046,7 @@ def direct_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
         return direct_grad_bvh(tb, lanes, material, le_grad)
     grad, acc, counts, direct_grad.plan = direct_launch(load_library(), tb, lanes, material,
                                                         le_grad)
-    direct_grad.launches += 1
+    direct_grad.launches += direct_grad.plan["launches"]
     direct_grad.tests, direct_grad.visits = counts[0], counts[1]
     return grad, acc
 
@@ -969,30 +1065,34 @@ def _tap_grad(material):
     return grad
 
 
-def _direct_bvh_launch(tb, lanes, material, le_grad, dev):
-    """One launch of zdr_direct_bvh (zdr_direct_env_bvh under tb.env),
-    forward (le_grad None) or tap mode -> (grad or None, acc, counts)."""
-    n, tables, params, shared = _loop_inputs(tb, lanes, material, 0, dev, "direct")
-    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
-    grad = None
-    if le_grad is not None:
-        _check(le_grad, "le_grad", torch.float32, (3, n), dev)
-        grad = _tap_grad(material)
+def _bvh_launches(tb, lanes, material, le_grad, dev, integrator):
+    """The launches of zdr_direct_bvh (zdr_direct_env_bvh under tb.env) or
+    zdr_collocated_bvh, forward (le_grad None) or tap mode, packed as
+    _launches says -> (grad or None, acc, counts, launches)."""
+    n, tables, _params, shared = _loop_inputs(tb, lanes, material, 0, dev, integrator)
+    acc = _acc(tb, n, le_grad, dev)
     counts = _counts(dev)
-    head = (params, tables.data_ptr(), tables.numel(), int(shared), _bn_ptr(tb),
-            material.data_ptr(), lanes.data_ptr(),
-            None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
-            None if grad is None else grad.data_ptr(), *bvh_args(tb.bvh, dev),
-            counts.data_ptr(), n)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = load_library()
-    if tb.env is not None:
-        rc = lib.zdr_direct_env_bvh(*head, *env_args(tb.env, dev), stream)
-        _raise_on(rc, "direct_env_bvh" if le_grad is None else "direct_grad_env_bvh")
+    # the collocated kernels take no env
+    env = () if tb.env is None or integrator == "collocated" else env_args(tb.env, dev)
+    if integrator == "collocated":
+        entry = lib.zdr_collocated_bvh
     else:
-        rc = lib.zdr_direct_bvh(*head, stream)
-        _raise_on(rc, "direct_bvh" if le_grad is None else "direct_grad_bvh")
-    return grad, acc, counts
+        entry = lib.zdr_direct_env_bvh if env else lib.zdr_direct_bvh
+    name = (integrator + ("" if le_grad is None else "_grad") + ("_env" if env else "")
+            + "_bvh")
+
+    def launch(params, target):
+        rc = entry(params, tables.data_ptr(), tables.numel(), int(shared), _bn_ptr(tb),
+                   material.data_ptr(), lanes.data_ptr(),
+                   None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
+                   None if target is None else target.data_ptr(), *bvh_args(tb.bvh, dev),
+                   counts.data_ptr(), n, *env, stream)
+        _raise_on(rc, name)
+
+    grad, launches = _launches(tb, material, le_grad, launch)
+    return grad, acc, counts, launches
 
 
 def direct_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch.Tensor:
@@ -1000,7 +1100,7 @@ def direct_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> t
     dev = lanes.device
     if not _on_card(dev, "direct_bvh"):
         return render_direct_plain(tb, lanes, material)
-    _grad, acc, counts = _direct_bvh_launch(tb, lanes, material, None, dev)
+    _grad, acc, counts, _k = _bvh_launches(tb, lanes, material, None, dev, "direct")
     direct_bvh.launches += 1
     direct_bvh.counts = counts
     return acc
@@ -1016,8 +1116,8 @@ def direct_grad_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
     dev = lanes.device
     if not _on_card(dev, "direct_grad_bvh"):
         return render_direct_backward_plain(tb, lanes, material, le_grad)
-    grad, acc, counts = _direct_bvh_launch(tb, lanes, material, le_grad, dev)
-    direct_grad_bvh.launches += 1
+    grad, acc, counts, k = _bvh_launches(tb, lanes, material, le_grad, dev, "direct")
+    direct_grad_bvh.launches += k
     direct_grad_bvh.counts = counts
     return grad, acc
 
@@ -1060,7 +1160,7 @@ def direct_grad_env(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
         return direct_grad_env_bvh(tb, lanes, material, le_grad)
     grad, acc, counts, direct_grad_env.plan = direct_launch(load_library(), tb, lanes,
                                                             material, le_grad)
-    direct_grad_env.launches += 1
+    direct_grad_env.launches += direct_grad_env.plan["launches"]
     direct_grad_env.tests, direct_grad_env.visits = counts[0], counts[1]
     return grad, acc
 
@@ -1075,7 +1175,7 @@ def direct_env_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) 
     dev = lanes.device
     if not _on_card(dev, "direct_env_bvh"):
         return render_direct_plain(tb, lanes, material)
-    _grad, acc, counts = _direct_bvh_launch(tb, lanes, material, None, dev)
+    _grad, acc, counts, _k = _bvh_launches(tb, lanes, material, None, dev, "direct")
     direct_env_bvh.launches += 1
     direct_env_bvh.counts = counts
     return acc
@@ -1091,8 +1191,8 @@ def direct_grad_env_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Ten
     dev = lanes.device
     if not _on_card(dev, "direct_grad_env_bvh"):
         return render_direct_backward_plain(tb, lanes, material, le_grad)
-    grad, acc, counts = _direct_bvh_launch(tb, lanes, material, le_grad, dev)
-    direct_grad_env_bvh.launches += 1
+    grad, acc, counts, k = _bvh_launches(tb, lanes, material, le_grad, dev, "direct")
+    direct_grad_env_bvh.launches += k
     direct_grad_env_bvh.counts = counts
     return grad, acc
 
@@ -1102,46 +1202,29 @@ direct_grad_env_bvh.counts = None
 
 
 def _collocated_launch(tb, lanes, material, le_grad, dev):
-    """One launch of zdr_collocated, forward (le_grad None) or tap mode, at
-    the block the launch picks -> (grad or None, acc, counts, the launch's
-    plan: LOOP_PLAN's fields and the waves)."""
-    n, tables, params, _shared = _loop_inputs(tb, lanes, material, 0, dev, "collocated")
-    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
-    grad = None
-    if le_grad is not None:
-        _check(le_grad, "le_grad", torch.float32, (3, n), dev)
-        grad = _tap_grad(material)
+    """The launches of zdr_collocated, forward (le_grad None) or tap mode
+    (packed as _launches says), at the block the launch picks -> (grad
+    or None, acc, counts, the launch's plan: LOOP_PLAN's fields, the waves
+    and the launches)."""
+    n, tables, _params, _shared = _loop_inputs(tb, lanes, material, 0, dev, "collocated")
+    acc = _acc(tb, n, le_grad, dev)
     counts = _counts(dev)
     info = (ctypes.c_int * len(LOOP_PLAN))()
-    rc = load_library().zdr_collocated(
-        params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
-        lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
-        None if grad is None else grad.data_ptr(), counts.data_ptr(), n, 0, info,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "collocated" if le_grad is None else "collocated_grad")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(params, target):
+        rc = load_library().zdr_collocated(
+            params, tables.data_ptr(), tables.numel(), _bn_ptr(tb), material.data_ptr(),
+            lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
+            None if target is None else target.data_ptr(), counts.data_ptr(), n, 0, info,
+            stream)
+        _raise_on(rc, "collocated" if le_grad is None else "collocated_grad")
+
+    grad, launches = _launches(tb, material, le_grad, launch)
     plan = dict(zip(LOOP_PLAN, info))
     plan["waves"] = n / (plan["block"] * plan["blocks_per_sm"] * plan["sms"])
+    plan["launches"] = launches
     return grad, acc, counts, plan
-
-
-def _collocated_bvh_launch(tb, lanes, material, le_grad, dev):
-    """One launch of zdr_collocated_bvh, forward (le_grad None) or tap mode
-    -> (grad or None, acc, counts)."""
-    n, tables, params, shared = _loop_inputs(tb, lanes, material, 0, dev, "collocated")
-    acc = torch.empty((3, n), dtype=torch.float32, device=dev)
-    grad = None
-    if le_grad is not None:
-        _check(le_grad, "le_grad", torch.float32, (3, n), dev)
-        grad = _tap_grad(material)
-    counts = _counts(dev)
-    rc = load_library().zdr_collocated_bvh(
-        params, tables.data_ptr(), tables.numel(), int(shared), _bn_ptr(tb),
-        material.data_ptr(), lanes.data_ptr(),
-        None if le_grad is None else le_grad.data_ptr(), acc.data_ptr(),
-        None if grad is None else grad.data_ptr(), *bvh_args(tb.bvh, dev), counts.data_ptr(),
-        n, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "collocated_bvh" if le_grad is None else "collocated_grad_bvh")
-    return grad, acc, counts
 
 
 def collocated(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) -> torch.Tensor:
@@ -1182,7 +1265,7 @@ def collocated_grad(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor,
         return collocated_grad_bvh(tb, lanes, material, le_grad)
     grad, acc, counts, collocated_grad.plan = _collocated_launch(tb, lanes, material, le_grad,
                                                                  dev)
-    collocated_grad.launches += 1
+    collocated_grad.launches += collocated_grad.plan["launches"]
     collocated_grad.tests = counts[0]
     return grad, acc
 
@@ -1197,7 +1280,7 @@ def collocated_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Tensor) 
     dev = lanes.device
     if not _on_card(dev, "collocated_bvh"):
         return render_collocated_plain(tb, lanes, material)
-    _grad, acc, counts = _collocated_bvh_launch(tb, lanes, material, None, dev)
+    _grad, acc, counts, _k = _bvh_launches(tb, lanes, material, None, dev, "collocated")
     collocated_bvh.launches += 1
     collocated_bvh.counts = counts
     return acc
@@ -1213,8 +1296,8 @@ def collocated_grad_bvh(tb: LoopTables, lanes: torch.Tensor, material: torch.Ten
     dev = lanes.device
     if not _on_card(dev, "collocated_grad_bvh"):
         return render_collocated_backward_plain(tb, lanes, material, le_grad)
-    grad, acc, counts = _collocated_bvh_launch(tb, lanes, material, le_grad, dev)
-    collocated_grad_bvh.launches += 1
+    grad, acc, counts, k = _bvh_launches(tb, lanes, material, le_grad, dev, "collocated")
+    collocated_grad_bvh.launches += k
     collocated_grad_bvh.counts = counts
     return grad, acc
 

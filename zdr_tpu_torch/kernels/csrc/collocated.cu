@@ -43,14 +43,15 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kMaxBlock = 512;
 
-// kGen: the generic sampler (zdr::gen_sampler), as direct.cu's kernels.
-template <bool kGrad, bool kGen>
+// kGen: the generic sampler (zdr::gen_sampler), as direct.cu's kernels;
+// kPacked: packed_splat's groups of samples and bf16 taps, as direct.cu's.
+template <bool kGrad, bool kGen, bool kPacked>
 __global__ void __launch_bounds__(kMaxBlock, 2)
     collocated_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                       const float* __restrict__ bn, const float* __restrict__ material,
                       const int* __restrict__ lanes, const float* __restrict__ le_grad,
                       float* __restrict__ acc_out, float* grad, unsigned long long* counts,
-                      int n) {
+                      int n, int first) {
   extern __shared__ float smem[];
   zdr::load_compact(smem, tables, q, zdr::compact_size(q));
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -66,8 +67,10 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
       dt.lg[2] = le_grad[2L * n + lane];
       dt.grad = grad;
     }
-    zdr::V3 acc = zdr::collocated_lane<kGrad, zdr::CompactSweep<false>, kGen>(tb, q, lc, &dt,
-                                                                              count);
+    zdr::V3 acc0 = {0.0f, 0.0f, 0.0f};
+    if (kPacked) acc0 = {acc_out[lane], acc_out[n + lane], acc_out[2L * n + lane]};
+    zdr::V3 acc = zdr::collocated_lane<kGrad, zdr::CompactSweep<false>, kGen, kPacked>(
+        tb, q, lc, &dt, count, zdr::CompactSweep<false>(), acc0, first);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -75,13 +78,14 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
   zdr::warp_add(counts, count.tests);
 }
 
-template <bool kGrad, bool kGen>
+template <bool kGrad, bool kGen, bool kPacked>
 __global__ void __launch_bounds__(kBlock, 4)
     collocated_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables,
                           int small_shared, const float* __restrict__ bn,
                           const float* __restrict__ material, const int* __restrict__ lanes,
                           const float* __restrict__ le_grad, float* __restrict__ acc_out,
-                          float* grad, zdr::Bvh bvh, unsigned long long* counts, int n) {
+                          float* grad, zdr::Bvh bvh, unsigned long long* counts, int n,
+                          int first) {
   extern __shared__ float smem[];
   const float* small = zdr::load_small(smem, tables, q, small_shared);
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -98,7 +102,11 @@ __global__ void __launch_bounds__(kBlock, 4)
       dt.grad = grad;
     }
     zdr::BvhTrace tr{bvh};
-    zdr::V3 acc = zdr::collocated_lane<kGrad, zdr::BvhTrace, kGen>(tb, q, lc, &dt, count, tr);
+    zdr::V3 acc0 = {0.0f, 0.0f, 0.0f};
+    if (kPacked) acc0 = {acc_out[lane], acc_out[n + lane], acc_out[2L * n + lane]};
+    zdr::V3 acc =
+        zdr::collocated_lane<kGrad, zdr::BvhTrace, kGen, kPacked>(tb, q, lc, &dt, count, tr, acc0,
+                                                                  first);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -127,12 +135,17 @@ int zdr_collocated(const int* params, const float* tables, int tables_n, const f
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
   int smem = zdr::compact_size(q) * (int)sizeof(float);
-  void* args[] = {&q,       &tables, &tables_n, &bn,     &material, &lanes,
-                  &le_grad, &acc,    &grad,     &counts, &n};
-  const void* fns[2][2] = {
-      {(const void*)collocated_kernel<false, false>, (const void*)collocated_kernel<false, true>},
-      {(const void*)collocated_kernel<true, false>, (const void*)collocated_kernel<true, true>}};
-  const void* fn = fns[le_grad != nullptr][zdr::gen_sampler(q)];
+  zdr::SplatKnobs knobs = zdr::splat_knobs(params);
+  void* args[] = {&q,   &tables, &tables_n, &bn, &material, &lanes,
+                  &le_grad, &acc, &grad, &counts, &n, &knobs.first};
+  const void* fns[3][2] = {{(const void*)collocated_kernel<false, false, false>,
+                            (const void*)collocated_kernel<false, true, false>},
+                           {(const void*)collocated_kernel<true, false, false>,
+                            (const void*)collocated_kernel<true, true, false>},
+                           {(const void*)collocated_kernel<true, false, true>,
+                            (const void*)collocated_kernel<true, true, true>}};
+  int mode = le_grad == nullptr ? 0 : (knobs.packed ? 2 : 1);
+  const void* fn = fns[mode][zdr::gen_sampler(q)];
   return zdr::launch(fn, n, smem, block, plan, args, stream);
 }
 
@@ -147,14 +160,19 @@ int zdr_collocated_bvh(const int* params, const float* tables, int tables_n, int
   size_t smem = small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0;
   zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
   int grid = (n + kBlock - 1) / kBlock;
-  auto fn = le_grad ? (zdr::gen_sampler(q) ? collocated_bvh_kernel<true, true>
-                                           : collocated_bvh_kernel<true, false>)
-                    : (zdr::gen_sampler(q) ? collocated_bvh_kernel<false, true>
-                                           : collocated_bvh_kernel<false, false>);
+  bool gen = zdr::gen_sampler(q);
+  zdr::SplatKnobs knobs = zdr::splat_knobs(params);
+  auto fn = !le_grad ? (gen ? collocated_bvh_kernel<false, true, false>
+                            : collocated_bvh_kernel<false, false, false>)
+            : knobs.packed ? (gen ? collocated_bvh_kernel<true, true, true>
+                              : collocated_bvh_kernel<true, false, true>)
+                       : (gen ? collocated_bvh_kernel<true, true, false>
+                              : collocated_bvh_kernel<true, false, false>);
   int err = launch_config(fn, smem);
   if (err) return err;
   fn<<<grid, kBlock, smem, (cudaStream_t)stream>>>(q, tables, small_shared, bn, material, lanes,
-                                                   le_grad, acc, grad, bvh, counts, n);
+                                                   le_grad, acc, grad, bvh, counts, n,
+                                                   knobs.first);
   return (int)cudaGetLastError();
 }
 

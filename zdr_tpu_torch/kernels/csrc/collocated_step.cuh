@@ -26,7 +26,8 @@ namespace zdr {
 // sweep goes through `tr` (the compact sweep, or trace.cuh's BVH) and adds
 // its work to `cnt`. kGen: the generic sampler (path_loop_step.cuh
 // lane_const).
-template <bool kGrad = false, class Tracer = CompactSweep<false>, bool kGen = false>
+template <bool kGrad = false, class Tracer = CompactSweep<false>, bool kGen = false,
+          bool kPacked = false>
 ZDR_HD V3 collocated_sample(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                             uint32_t sample_idx, const DirectTaps* dt, TraceCount& cnt,
                             const Tracer& tr = Tracer()) {
@@ -77,7 +78,10 @@ ZDR_HD V3 collocated_sample(const Tables& tb, const LoopParams& q, const LaneCon
                                      ggx_spec_cotangent(ct[0], ct[1], ct[2], wz));
       int id = splat_id(hit.ux, hit.uy, lcg_to_unit_float(sampler_salt<kGen>(sc, smp)),
                         q.tex_h, q.tex_w);
-      splat_add4(dt->grad, id, (ct[0] * wz) / kPi, (ct[1] * wz) / kPi, (ct[2] * wz) / kPi, g3);
+      float g[4] = {(ct[0] * wz) / kPi, (ct[1] * wz) / kPi, (ct[2] * wz) / kPi, g3};
+      if constexpr (kPacked)
+        for (int c = 0; c < 4; ++c) g[c] = round_bf16(g[c]);
+      splat_add4(dt->grad, id, g[0], g[1], g[2], g[3]);
     }
   }
   return rad;
@@ -85,13 +89,18 @@ ZDR_HD V3 collocated_sample(const Tables& tb, const LoopParams& q, const LaneCon
 
 // A lane's samples 0 .. stop-1, accumulated with the clamp-and-NaN rule of
 // the render wrapper (wrapper.py:194-196) -> the sum of its clamped
-// radiances.
-template <bool kGrad = false, class Tracer = CompactSweep<false>, bool kGen = false>
+// radiances. kPacked: the launch's group of samples, as direct_lane's, with
+// the taps rounded to bf16 (collocated_fused.py:263-284).
+template <bool kGrad = false, class Tracer = CompactSweep<false>, bool kGen = false,
+          bool kPacked = false>
 ZDR_HD V3 collocated_lane(const Tables& tb, const LoopParams& q, const LaneConst& lc,
-                          const DirectTaps* dt, TraceCount& cnt, const Tracer& tr = Tracer()) {
-  V3 acc = v3(0.0f, 0.0f, 0.0f);
-  for (int s = 0; s < lc.stop; ++s) {
-    V3 rad = collocated_sample<kGrad, Tracer, kGen>(tb, q, lc, (uint32_t)s, dt, cnt, tr);
+                          const DirectTaps* dt, TraceCount& cnt, const Tracer& tr = Tracer(),
+                          V3 acc = V3{0.0f, 0.0f, 0.0f}, int first = 0) {
+  int stop = kPacked ? (lc.stop < first + kSplatBatch ? lc.stop : first + kSplatBatch)
+                     : lc.stop;
+  for (int s = kPacked ? first : 0; s < stop; ++s) {
+    V3 rad = collocated_sample<kGrad, Tracer, kGen, kPacked>(tb, q, lc, (uint32_t)s, dt, cnt,
+                                                             tr);
     if (!(is_nan(rad.x) || is_nan(rad.y) || is_nan(rad.z)))
       acc = v3(acc.x + jclip(rad.x, 0.0f, kRadianceClamp),
                acc.y + jclip(rad.y, 0.0f, kRadianceClamp),

@@ -64,6 +64,15 @@
 // pmj02bn at a spp that is no power of two: zdr::gen_sampler), as
 // path_loop.cu's; the others compile to the code they had before them.
 //
+// packed_splat (the params' packed) runs the gradient kernels' kPacked
+// instantiations, the JAX package's packed flush (direct_fused.py:319-345):
+// each tap's channels are rounded to bf16 before its atomic, and a launch
+// runs one group of kSplatBatch samples (from the params' first, the
+// kernels' last argument) into a
+// zeroed scratch gradient, adding to each lane's radiance sums from the
+// launch before; the caller rounds the scratch's texels to bf16 into the
+// gradient after each launch (splat.cu). splat_merge is not read, as in JAX.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false (see zdr_tpu_torch/kernels/__init__.py).
 #include <cuda_runtime.h>
@@ -90,13 +99,13 @@ __global__ void __launch_bounds__(kBlock)
   zdr::trace_interact_lane(tb, q, rays, active, f_out, i_out, lane, n, lite != 0);
 }
 
-template <bool kGrad, bool kEarly, bool kEnv, bool kGen>
+template <bool kGrad, bool kEarly, bool kEnv, bool kGen, bool kPacked>
 __global__ void __launch_bounds__(kMaxBlock, 2)
     direct_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                   const float* __restrict__ bn, const float* __restrict__ material,
                   const int* __restrict__ lanes, const float* __restrict__ le_grad,
                   float* __restrict__ acc_out, float* grad, unsigned long long* counts,
-                  int n, zdr::EnvTables env) {
+                  int n, zdr::EnvTables env, int first) {
   extern __shared__ float smem[];
   zdr::load_compact(smem, tables, q, zdr::compact_size(q));
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -112,8 +121,10 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
       dt.lg[2] = le_grad[2L * n + lane];
       dt.grad = grad;
     }
-    zdr::V3 acc = zdr::direct_lane<kGrad, kEnv, zdr::CompactSweep<kEarly>, kGen>(
-        tb, q, lc, &dt, count, zdr::CompactSweep<kEarly>(), &env);
+    zdr::V3 acc0 = {0.0f, 0.0f, 0.0f};
+    if (kPacked) acc0 = {acc_out[lane], acc_out[n + lane], acc_out[2L * n + lane]};
+    zdr::V3 acc = zdr::direct_lane<kGrad, kEnv, zdr::CompactSweep<kEarly>, kGen, kPacked>(
+        tb, q, lc, &dt, count, zdr::CompactSweep<kEarly>(), &env, acc0, first);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -123,13 +134,13 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
 
 // The same samples with every sweep through the BVH; shared memory holds
 // the small tables only, where they fit (small_shared).
-template <bool kGrad, bool kEnv, bool kGen>
+template <bool kGrad, bool kEnv, bool kGen, bool kPacked>
 __global__ void __launch_bounds__(kBlock, 4)
     direct_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables, int small_shared,
                       const float* __restrict__ bn, const float* __restrict__ material,
                       const int* __restrict__ lanes, const float* __restrict__ le_grad,
                       float* __restrict__ acc_out, float* grad, zdr::Bvh bvh,
-                      unsigned long long* counts, int n, zdr::EnvTables env) {
+                      unsigned long long* counts, int n, zdr::EnvTables env, int first) {
   extern __shared__ float smem[];
   const float* small = zdr::load_small(smem, tables, q, small_shared);
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -146,8 +157,10 @@ __global__ void __launch_bounds__(kBlock, 4)
       dt.grad = grad;
     }
     zdr::BvhTrace tr{bvh};
-    zdr::V3 acc = zdr::direct_lane<kGrad, kEnv, zdr::BvhTrace, kGen>(tb, q, lc, &dt, count, tr,
-                                                                     &env);
+    zdr::V3 acc0 = {0.0f, 0.0f, 0.0f};
+    if (kPacked) acc0 = {acc_out[lane], acc_out[n + lane], acc_out[2L * n + lane]};
+    zdr::V3 acc = zdr::direct_lane<kGrad, kEnv, zdr::BvhTrace, kGen, kPacked>(
+        tb, q, lc, &dt, count, tr, &env, acc0, first);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -164,16 +177,21 @@ int launch_config(K kernel, size_t smem) {
 
 // The dense direct kernel of the generic sampler (kGen) or not.
 template <bool kGen>
-const void* dense_fn(bool grad, bool early, bool with_env) {
+const void* dense_fn(bool grad, bool early, bool with_env, bool packed) {
+  if (grad && packed)
+    return with_env ? (early ? (const void*)direct_kernel<true, true, true, kGen, true>
+                             : (const void*)direct_kernel<true, false, true, kGen, true>)
+                    : (early ? (const void*)direct_kernel<true, true, false, kGen, true>
+                             : (const void*)direct_kernel<true, false, false, kGen, true>);
   if (with_env)
-    return grad ? (early ? (const void*)direct_kernel<true, true, true, kGen>
-                         : (const void*)direct_kernel<true, false, true, kGen>)
-                : (early ? (const void*)direct_kernel<false, true, true, kGen>
-                         : (const void*)direct_kernel<false, false, true, kGen>);
-  return grad ? (early ? (const void*)direct_kernel<true, true, false, kGen>
-                       : (const void*)direct_kernel<true, false, false, kGen>)
-              : (early ? (const void*)direct_kernel<false, true, false, kGen>
-                       : (const void*)direct_kernel<false, false, false, kGen>);
+    return grad ? (early ? (const void*)direct_kernel<true, true, true, kGen, false>
+                         : (const void*)direct_kernel<true, false, true, kGen, false>)
+                : (early ? (const void*)direct_kernel<false, true, true, kGen, false>
+                         : (const void*)direct_kernel<false, false, true, kGen, false>);
+  return grad ? (early ? (const void*)direct_kernel<true, true, false, kGen, false>
+                       : (const void*)direct_kernel<true, false, false, kGen, false>)
+              : (early ? (const void*)direct_kernel<false, true, false, kGen, false>
+                       : (const void*)direct_kernel<false, false, false, kGen, false>);
 }
 
 // One launch of the dense direct kernel, forward or tap mode (le_grad
@@ -185,19 +203,25 @@ int direct_dense(const int* params, const float* tables, int tables_n, const flo
   zdr::LoopParams q = zdr::params_from(params);
   if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
   int smem = zdr::compact_size(q) * (int)sizeof(float);
-  void* args[] = {&q,       &tables, &tables_n, &bn,     &material, &lanes,
-                  &le_grad, &acc,    &grad,     &counts, &n,        &env};
-  const void* fn = zdr::gen_sampler(q) ? dense_fn<true>(le_grad != nullptr, early, with_env)
-                                        : dense_fn<false>(le_grad != nullptr, early, with_env);
+  zdr::SplatKnobs knobs = zdr::splat_knobs(params);
+  void* args[] = {&q,    &tables, &tables_n, &bn, &material, &lanes,      &le_grad,
+                  &acc,  &grad,   &counts,   &n,  &env,      &knobs.first};
+  bool taps = le_grad != nullptr, packed = knobs.packed != 0;
+  const void* fn = zdr::gen_sampler(q) ? dense_fn<true>(taps, early, with_env, packed)
+                                        : dense_fn<false>(taps, early, with_env, packed);
   return zdr::launch(fn, n, smem, block, plan, args, stream);
 }
 
 // The direct BVH kernel of the generic sampler (kGen) or not.
 template <bool kGen>
-auto bvh_fn(bool grad, bool with_env) {
-  return grad ? (with_env ? direct_bvh_kernel<true, true, kGen> : direct_bvh_kernel<true, false, kGen>)
-              : (with_env ? direct_bvh_kernel<false, true, kGen>
-                          : direct_bvh_kernel<false, false, kGen>);
+auto bvh_fn(bool grad, bool with_env, bool packed) {
+  if (grad && packed)
+    return with_env ? direct_bvh_kernel<true, true, kGen, true>
+                    : direct_bvh_kernel<true, false, kGen, true>;
+  return grad ? (with_env ? direct_bvh_kernel<true, true, kGen, false>
+                          : direct_bvh_kernel<true, false, kGen, false>)
+              : (with_env ? direct_bvh_kernel<false, true, kGen, false>
+                          : direct_bvh_kernel<false, false, kGen, false>);
 }
 
 // One launch of the direct BVH kernel, likewise.
@@ -211,12 +235,15 @@ int direct_bvh(const int* params, const float* tables, int tables_n, int small_s
   size_t smem = small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0;
   zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
   int grid = (n + kBlock - 1) / kBlock;
-  auto fn = zdr::gen_sampler(q) ? bvh_fn<true>(le_grad != nullptr, with_env)
-                                 : bvh_fn<false>(le_grad != nullptr, with_env);
+  zdr::SplatKnobs knobs = zdr::splat_knobs(params);
+  bool taps = le_grad != nullptr, packed = knobs.packed != 0;
+  auto fn = zdr::gen_sampler(q) ? bvh_fn<true>(taps, with_env, packed)
+                                 : bvh_fn<false>(taps, with_env, packed);
   int err = launch_config(fn, smem);
   if (err) return err;
   fn<<<grid, kBlock, smem, (cudaStream_t)stream>>>(q, tables, small_shared, bn, material, lanes,
-                                                   le_grad, acc, grad, bvh, counts, n, env);
+                                                   le_grad, acc, grad, bvh, counts, n, env,
+                                                   knobs.first);
   return (int)cudaGetLastError();
 }
 

@@ -20,23 +20,62 @@ std::vector<float> compact(const float* tables, const zdr::LoopParams& q, int n)
   return out;
 }
 
+// Whether the params' splat is packed (splat.cuh SplatKnobs).
+bool packed_of(const int* params) { return zdr::splat_knobs(params).packed != 0; }
+
+// The largest stop of n lanes: the samples of the longest lane.
+int max_stop(const int* lanes, int n) {
+  int m = 0;
+  for (long lane = 0; lane < n; ++lane) m = lanes[2L * n + lane] > m ? lanes[2L * n + lane] : m;
+  return m;
+}
+
+// Every lane's samples, forward (le_grad null) or tap mode; where the
+// splat is packed, the tap mode runs the kPacked instantiation one
+// group of samples after the other, as the card's launches do
+// (zdr::host_packed_groups).
 template <class Tracer, bool kEnv = false>
-void direct_lanes(const zdr::Tables& tb, const zdr::LoopParams& q, const Tracer& tr,
-                  const int* lanes, const float* le_grad, float* acc, float* grad,
-                  unsigned long long* counts, int n, const zdr::EnvTables* env = nullptr) {
+void direct_lanes(const zdr::Tables& tb, const zdr::LoopParams& q, bool packed,
+                  const Tracer& tr, const int* lanes, const float* le_grad, float* acc,
+                  float* grad, unsigned long long* counts, int n,
+                  const zdr::EnvTables* env = nullptr) {
   zdr::TraceCount c = {0, 0};
   zdr::with_gen(q, [&](auto gen) {
     constexpr bool kGen = decltype(gen)::value;
+    auto taps = [&](long lane, float* g) {
+      zdr::DirectTaps dt;
+      dt.lg[0] = le_grad[lane];
+      dt.lg[1] = le_grad[n + lane];
+      dt.lg[2] = le_grad[2L * n + lane];
+      dt.grad = g;
+      return dt;
+    };
+    auto lane_const = [&](long lane) {
+      return zdr::lane_const<kGen>(lanes[lane], lanes[n + lane], lanes[2L * n + lane], q.seed,
+                                   q);
+    };
+    if (le_grad && packed) {
+      for (long k = 0; k < 3L * n; ++k) acc[k] = 0.0f;
+      zdr::host_packed_groups(max_stop(lanes, n), grad, 4L * q.tex_h * q.tex_w,
+                              [&](int first, float* scratch) {
+        for (long lane = 0; lane < n; ++lane) {
+          zdr::LaneConst lc = lane_const(lane);
+          zdr::DirectTaps dt = taps(lane, scratch);
+          zdr::V3 a0 = {acc[lane], acc[n + lane], acc[2L * n + lane]};
+          zdr::V3 a = zdr::direct_lane<true, kEnv, Tracer, kGen, true>(tb, q, lc, &dt, c, tr,
+                                                                       env, a0, first);
+          acc[lane] = a.x;
+          acc[n + lane] = a.y;
+          acc[2L * n + lane] = a.z;
+        }
+      });
+      return;
+    }
     for (long lane = 0; lane < n; ++lane) {
-      zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
-                                                lanes[2L * n + lane], q.seed, q);
+      zdr::LaneConst lc = lane_const(lane);
       zdr::V3 a;
       if (le_grad) {
-        zdr::DirectTaps dt;
-        dt.lg[0] = le_grad[lane];
-        dt.lg[1] = le_grad[n + lane];
-        dt.lg[2] = le_grad[2L * n + lane];
-        dt.grad = grad;
+        zdr::DirectTaps dt = taps(lane, grad);
         a = zdr::direct_lane<true, kEnv, Tracer, kGen>(tb, q, lc, &dt, c, tr, env);
       } else {
         a = zdr::direct_lane<false, kEnv, Tracer, kGen>(tb, q, lc, nullptr, c, tr, env);
@@ -110,9 +149,11 @@ int zdr_direct_host(const int* params, const float* tables, int tables_n, const 
   std::vector<float> small = compact(tables, q, zdr::compact_size(q));
   zdr::Tables tb = zdr::compact_tables(small.data(), tables, bn, material, q);
   if (early)
-    direct_lanes(tb, q, zdr::CompactSweep<true>(), lanes, le_grad, acc, grad, counts, n);
+    direct_lanes(tb, q, packed_of(params), zdr::CompactSweep<true>(), lanes, le_grad, acc, grad,
+                 counts, n);
   else
-    direct_lanes(tb, q, zdr::CompactSweep<false>(), lanes, le_grad, acc, grad, counts, n);
+    direct_lanes(tb, q, packed_of(params), zdr::CompactSweep<false>(), lanes, le_grad, acc, grad,
+                 counts, n);
   return 0;
 }
 
@@ -131,7 +172,7 @@ int zdr_direct_bvh_host(const int* params, const float* tables, int tables_n,
   std::vector<float> copy(small, small + zdr::small_size(q));
   zdr::Tables tb = zdr::bvh_tables(small_shared ? copy.data() : small, tables, bn, material, q);
   zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
-  direct_lanes(tb, q, tr, lanes, le_grad, acc, grad, counts, n);
+  direct_lanes(tb, q, packed_of(params), tr, lanes, le_grad, acc, grad, counts, n);
   return 0;
 }
 
@@ -154,17 +195,20 @@ int zdr_direct_env_host(const int* params, const float* tables, int tables_n, co
     const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
     zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);
     zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
-    direct_lanes<zdr::BvhTrace, true>(tb, q, tr, lanes, le_grad, acc, grad, counts, n, &env);
+    direct_lanes<zdr::BvhTrace, true>(tb, q, packed_of(params), tr, lanes, le_grad, acc, grad,
+                                      counts, n, &env);
     return 0;
   }
   std::vector<float> small = compact(tables, q, zdr::compact_size(q));
   zdr::Tables tb = zdr::compact_tables(small.data(), tables, bn, material, q);
   if (early)
-    direct_lanes<zdr::CompactSweep<true>, true>(tb, q, zdr::CompactSweep<true>(), lanes,
-                                                le_grad, acc, grad, counts, n, &env);
+    direct_lanes<zdr::CompactSweep<true>, true>(tb, q, packed_of(params),
+                                                zdr::CompactSweep<true>(), lanes, le_grad, acc,
+                                                grad, counts, n, &env);
   else
-    direct_lanes<zdr::CompactSweep<false>, true>(tb, q, zdr::CompactSweep<false>(), lanes,
-                                                 le_grad, acc, grad, counts, n, &env);
+    direct_lanes<zdr::CompactSweep<false>, true>(tb, q, packed_of(params),
+                                                 zdr::CompactSweep<false>(), lanes, le_grad, acc,
+                                                 grad, counts, n, &env);
   return 0;
 }
 

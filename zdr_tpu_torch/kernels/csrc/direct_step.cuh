@@ -243,9 +243,10 @@ struct DirectTaps {
 // of its own: the taps read the env through nee.ev and rad - rk.
 // The sweeps go through `tr` (the compact sweep, or trace.cuh's BVH) and
 // add their work to `cnt`. kGen: the generic sampler (path_loop_step.cuh
-// lane_const).
+// lane_const). kPacked: the tap's channels rounded to bf16 first
+// (packed_splat: texture.py splat_buffer_row's prepacking).
 template <bool kGrad = false, bool kEnv = false, class Tracer = CompactSweep<true>,
-          bool kGen = false>
+          bool kGen = false, bool kPacked = false>
 ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                         uint32_t sample_idx, const DirectTaps* dt, TraceCount& cnt,
                         const Tracer& tr = Tracer(), const EnvTables* env = nullptr) {
@@ -350,6 +351,8 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
     if (nee_ok || bounce_ok) {
       int id = splat_id(hit.ux, hit.uy, lcg_to_unit_float(sampler_salt<kGen>(sc, smp)),
                         q.tex_h, q.tex_w);
+      if constexpr (kPacked)
+        for (int c = 0; c < 4; ++c) g[c] = round_bf16(g[c]);
       splat_add4(dt->grad, id, g[0], g[1], g[2], g[3]);
     }
   }
@@ -357,15 +360,20 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
 }
 
 // A lane's samples 0 .. stop-1, accumulated with the clamp-and-NaN rule of
-// direct_fused.py:283-286 -> the sum of its clamped radiances.
+// direct_fused.py:283-286 -> the sum of its clamped radiances. kPacked:
+// only the samples of the launch's group, first .. first + kSplatBatch - 1
+// (below stop), added to acc, the sums of the groups before.
 template <bool kGrad = false, bool kEnv = false, class Tracer = CompactSweep<true>,
-          bool kGen = false>
+          bool kGen = false, bool kPacked = false>
 ZDR_HD V3 direct_lane(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                       const DirectTaps* dt, TraceCount& cnt, const Tracer& tr = Tracer(),
-                      const EnvTables* env = nullptr) {
-  V3 acc = v3(0.0f, 0.0f, 0.0f);
-  for (int s = 0; s < lc.stop; ++s) {
-    V3 rad = direct_sample<kGrad, kEnv, Tracer, kGen>(tb, q, lc, (uint32_t)s, dt, cnt, tr, env);
+                      const EnvTables* env = nullptr, V3 acc = V3{0.0f, 0.0f, 0.0f},
+                      int first = 0) {
+  int stop = kPacked ? (lc.stop < first + kSplatBatch ? lc.stop : first + kSplatBatch)
+                     : lc.stop;
+  for (int s = kPacked ? first : 0; s < stop; ++s) {
+    V3 rad = direct_sample<kGrad, kEnv, Tracer, kGen, kPacked>(tb, q, lc, (uint32_t)s, dt, cnt,
+                                                               tr, env);
     if (!(is_nan(rad.x) || is_nan(rad.y) || is_nan(rad.z)))
       acc = v3(acc.x + jclip(rad.x, 0.0f, kRadianceClamp),
                acc.y + jclip(rad.y, 0.0f, kRadianceClamp),

@@ -44,6 +44,15 @@
 // The generic sampler (corrmj; pmj02bn at a spp that is no power of two)
 // runs the kGen instantiations, as path_loop.cu's.
 //
+// splat_merge > 1 (the params' merge) runs the kMerge instantiations: a
+// row carries a 14th plane, its step's merge draw, and a finished sample's
+// rows are merged in step order into the lane's pending tap, one atomic a
+// group of `merge` steps (path_loop_step.cuh replay_merge: the JAX loop
+// backward's reservoir merge, pallas_loop.py:1232-1261). The others keep
+// their code (a template argument, as kEnv and kGen). packed_splat rounds
+// the gradient's texels to bf16 after the launch (splat.cu), as the JAX
+// loop route's one flush rounds its totals.
+//
 // path_loop_grad_bvh_kernel is the same walk with its sweeps through the
 // ordered BVH walk in global memory (trace.cuh), as path_loop.cu's
 // path_loop_bvh_kernel: the big-mesh route of the JAX package's path_fused
@@ -68,8 +77,9 @@ constexpr int kBlock = 128;
 constexpr int kNearStride = kBlock + 1;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may hold
 
-size_t near_bytes(int k_near) {
-  return (size_t)k_near * zdr::kRowPlanes * kNearStride * sizeof(float);
+size_t near_bytes(int k_near, bool merge) {
+  int planes = merge ? zdr::row_planes<true>() : zdr::kRowPlanes;
+  return (size_t)k_near * planes * kNearStride * sizeof(float);
 }
 
 // The lane's tap-mode state: its adjoint (0 past n) and its rows' homes.
@@ -92,12 +102,13 @@ __device__ zdr::GradLane grad_lane(const float* le_grad, long lane, int n, float
 }
 
 // A thread past the last lane has no sample (stop 0): its walk ends at once.
-template <bool kEnv, bool kGen, class Tracer>
+template <bool kEnv, bool kGen, bool kMerge, class Tracer>
 __device__ __forceinline__ void walk(const zdr::Tables& tb, const zdr::LoopParams& q,
                                      const int* lanes, const float* f_in, const int* i_in,
                                      float* f_out, int* i_out, long lane, int n, int n_steps,
                                      const zdr::GradLane& gl, const Tracer& tr,
-                                     zdr::TraceCount* count, const zdr::EnvTables* env) {
+                                     zdr::TraceCount* count, const zdr::EnvTables* env,
+                                     int merge) {
   zdr::LaneState s;
   zdr::LaneConst lc;
   if (lane < n) {
@@ -108,11 +119,12 @@ __device__ __forceinline__ void walk(const zdr::Tables& tb, const zdr::LoopParam
     s.sample_idx = 0;
     s.in_flight = 0;
   }
-  zdr::run_lane<true, Tracer, kEnv, kGen>(s, lc, tb, q, n_steps, &gl, tr, count, env);
+  zdr::run_lane<true, Tracer, kEnv, kGen, kMerge>(s, lc, tb, q, n_steps, &gl, tr, count, env,
+                                                  merge);
   if (lane < n) zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
 }
 
-template <bool kEnv, bool kGen>
+template <bool kEnv, bool kGen, bool kMerge>
 __global__ void __launch_bounds__(kBlock)
     path_loop_grad_kernel(zdr::LoopParams q, const float* __restrict__ tables, int tables_n,
                           const float* __restrict__ bn, const float* __restrict__ material,
@@ -120,18 +132,18 @@ __global__ void __launch_bounds__(kBlock)
                           const float* __restrict__ f_in, const int* __restrict__ i_in,
                           float* __restrict__ f_out, int* __restrict__ i_out,
                           float* __restrict__ far, float* grad, int n, int n_steps,
-                          int k_near, zdr::EnvTables env) {
+                          int k_near, zdr::EnvTables env, int merge) {
   extern __shared__ float smem[];
   for (int k = threadIdx.x; k < tables_n; k += blockDim.x) smem[k] = tables[k];
   __syncthreads();
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   zdr::Tables tb = zdr::tables_at(smem, bn, material, q);
   zdr::GradLane gl = grad_lane(le_grad, lane, n, smem + tables_n, k_near, far, grad);
-  walk<kEnv, kGen>(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl,
-                   zdr::DenseSweep<>(), nullptr, &env);
+  walk<kEnv, kGen, kMerge>(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl,
+                           zdr::DenseSweep<>(), nullptr, &env, merge);
 }
 
-template <bool kEnv, bool kGen>
+template <bool kEnv, bool kGen, bool kMerge>
 __global__ void __launch_bounds__(kBlock, 4)
     path_loop_grad_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables,
                               int small_shared, const float* __restrict__ bn,
@@ -141,7 +153,7 @@ __global__ void __launch_bounds__(kBlock, 4)
                               float* __restrict__ f_out, int* __restrict__ i_out,
                               float* __restrict__ far, float* grad, int n, int n_steps,
                               int k_near, zdr::Bvh bvh, unsigned long long* counts,
-                              zdr::EnvTables env) {
+                              zdr::EnvTables env, int merge) {
   extern __shared__ float smem[];
   const float* small = zdr::load_small(smem, tables, q, small_shared);
   int n_small = small_shared ? zdr::small_size(q) : 0;
@@ -149,10 +161,34 @@ __global__ void __launch_bounds__(kBlock, 4)
   zdr::TraceCount count = {0, 0};
   zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);
   zdr::GradLane gl = grad_lane(le_grad, lane, n, smem + n_small, k_near, far, grad);
-  walk<kEnv, kGen>(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl,
-                   zdr::BvhTrace{bvh}, &count, &env);
+  walk<kEnv, kGen, kMerge>(tb, q, lanes, f_in, i_in, f_out, i_out, lane, n, n_steps, gl,
+                           zdr::BvhTrace{bvh}, &count, &env, merge);
   zdr::warp_add(counts, count.tests);
   zdr::warp_add(counts + 1, count.visits);
+}
+
+// The dense kernel's instantiation for the params and the splat's merge:
+// the env, the generic sampler, the merge.
+using DenseKernel = decltype(&path_loop_grad_kernel<false, false, false>);
+using BvhKernel = decltype(&path_loop_grad_bvh_kernel<false, false, false>);
+
+DenseKernel dense_fn(const zdr::LoopParams& q, int merge) {
+  const DenseKernel fns[8] = {
+      path_loop_grad_kernel<false, false, false>, path_loop_grad_kernel<true, false, false>,
+      path_loop_grad_kernel<false, true, false>,  path_loop_grad_kernel<true, true, false>,
+      path_loop_grad_kernel<false, false, true>,  path_loop_grad_kernel<true, false, true>,
+      path_loop_grad_kernel<false, true, true>,   path_loop_grad_kernel<true, true, true>};
+  return fns[(q.n_env != 0 ? 1 : 0) | (zdr::gen_sampler(q) ? 2 : 0) | (merge > 1 ? 4 : 0)];
+}
+
+// The BVH kernel's, likewise.
+BvhKernel bvh_fn(const zdr::LoopParams& q, int merge) {
+  const BvhKernel fns[8] = {
+      path_loop_grad_bvh_kernel<false, false, false>, path_loop_grad_bvh_kernel<true, false, false>,
+      path_loop_grad_bvh_kernel<false, true, false>,  path_loop_grad_bvh_kernel<true, true, false>,
+      path_loop_grad_bvh_kernel<false, false, true>,  path_loop_grad_bvh_kernel<true, false, true>,
+      path_loop_grad_bvh_kernel<false, true, true>,   path_loop_grad_bvh_kernel<true, true, true>};
+  return fns[(q.n_env != 0 ? 1 : 0) | (zdr::gen_sampler(q) ? 2 : 0) | (merge > 1 ? 4 : 0)];
 }
 
 // Dynamic shared memory past 48 KB needs the kernel's consent; give it the
@@ -169,20 +205,18 @@ int grad_dense(const int* params, const float* tables, int tables_n, const float
                float* grad, int n, int n_steps, int k_near, zdr::EnvTables env, bool with_env,
                void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
+  int merge = zdr::splat_knobs(params).merge;
   // the params' env count must be the instantiation's
   if (tables_n != zdr::tables_size(q) || (q.n_env != 0) != with_env)
     return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)tables_n * sizeof(float) + near_bytes(k_near);
-  auto fn = with_env ? (zdr::gen_sampler(q) ? path_loop_grad_kernel<true, true>
-                                            : path_loop_grad_kernel<true, false>)
-                     : (zdr::gen_sampler(q) ? path_loop_grad_kernel<false, true>
-                                            : path_loop_grad_kernel<false, false>);
+  size_t smem = (size_t)tables_n * sizeof(float) + near_bytes(k_near, merge > 1);
+  DenseKernel fn = dense_fn(q, merge);
   int err = allow_smem((const void*)fn);
   if (err) return err;
   int grid = (n + kBlock - 1) / kBlock;
   fn<<<grid, kBlock, smem, (cudaStream_t)stream>>>(q, tables, tables_n, bn, material, lanes,
                                                    le_grad, f_in, i_in, f_out, i_out, far, grad,
-                                                   n, n_steps, k_near, env);
+                                                   n, n_steps, k_near, env, merge);
   return (int)cudaGetLastError();
 }
 
@@ -194,21 +228,19 @@ int grad_bvh(const int* params, const float* tables, int tables_n, int small_sha
              int n_nodes, int n_rows, unsigned long long* counts, zdr::EnvTables env,
              bool with_env, void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
+  int merge = zdr::splat_knobs(params).merge;
   // the params' env count must be the instantiation's
   if (tables_n != zdr::tables_size(q) || (q.n_env != 0) != with_env)
     return (int)cudaErrorInvalidValue;
   size_t smem = (small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0) +
-                near_bytes(k_near);
-  auto fn = with_env ? (zdr::gen_sampler(q) ? path_loop_grad_bvh_kernel<true, true>
-                                            : path_loop_grad_bvh_kernel<true, false>)
-                     : (zdr::gen_sampler(q) ? path_loop_grad_bvh_kernel<false, true>
-                                            : path_loop_grad_bvh_kernel<false, false>);
+                near_bytes(k_near, merge > 1);
+  BvhKernel fn = bvh_fn(q, merge);
   int err = allow_smem((const void*)fn);
   if (err) return err;
   int grid = (n + kBlock - 1) / kBlock;
   fn<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
       q, tables, small_shared, bn, material, lanes, le_grad, f_in, i_in, f_out, i_out, far,
-      grad, n, n_steps, k_near, zdr::Bvh{nodes, geom, n_nodes, n_rows}, counts, env);
+      grad, n, n_steps, k_near, zdr::Bvh{nodes, geom, n_nodes, n_rows}, counts, env, merge);
   return (int)cudaGetLastError();
 }
 
@@ -217,8 +249,9 @@ int grad_bvh(const int* params, const float* tables, int tables_n, int small_sha
 extern "C" {
 
 // The launch of the gradient kernel that the params pick (the env where
-// their n_env is 1, the generic sampler where zdr::gen_sampler holds; the
-// BVH where bvh is 1), as grad_dense and grad_bvh pick it, whose tables
+// their n_env is 1, the generic sampler where zdr::gen_sampler holds, the
+// merge where their merge passes 1; the BVH where bvh is 1), as grad_dense
+// and grad_bvh pick it, whose tables
 // take table_bytes of shared memory: k_near, the most near rows, up to
 // k_cap, that keep the resident blocks an SM of k_near = 0 (the rows are
 // only as deep as max_depth, so k_cap need not pass it). info: k_near, the
@@ -227,18 +260,11 @@ extern "C" {
 // CUDA error (cudaErrorInvalidValue when the tables alone do not fit a
 // block).
 int zdr_path_loop_grad_plan(const int* params, int bvh, int table_bytes, int k_cap, int* info) {
-  const void* kernels[8] = {
-      (const void*)path_loop_grad_kernel<false, false>,
-      (const void*)path_loop_grad_bvh_kernel<false, false>,
-      (const void*)path_loop_grad_kernel<true, false>,
-      (const void*)path_loop_grad_bvh_kernel<true, false>,
-      (const void*)path_loop_grad_kernel<false, true>,
-      (const void*)path_loop_grad_bvh_kernel<false, true>,
-      (const void*)path_loop_grad_kernel<true, true>,
-      (const void*)path_loop_grad_bvh_kernel<true, true>};
   if (bvh < 0 || bvh > 1) return (int)cudaErrorInvalidValue;
   zdr::LoopParams q = zdr::params_from(params);
-  const void* kernel = kernels[bvh | (q.n_env != 0 ? 2 : 0) | (zdr::gen_sampler(q) ? 4 : 0)];
+  int knob = zdr::splat_knobs(params).merge;
+  const void* kernel = bvh ? (const void*)bvh_fn(q, knob) : (const void*)dense_fn(q, knob);
+  bool merge = knob > 1;
   int err = allow_smem(kernel);
   if (err) return err;
   if (table_bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -249,7 +275,7 @@ int zdr_path_loop_grad_plan(const int* params, int bvh, int table_bytes, int k_c
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&base, kernel, kBlock, table_bytes);
   if (err) return err;
   for (int k = 1; k <= k_cap; ++k) {
-    size_t bytes = table_bytes + near_bytes(k);
+    size_t bytes = table_bytes + near_bytes(k, merge);
     if (bytes > (size_t)kMaxSmem) break;
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kBlock, bytes);
     if (err) return err;
@@ -260,14 +286,15 @@ int zdr_path_loop_grad_plan(const int* params, int bvh, int table_bytes, int k_c
   info[1] = kBlock;
   info[2] = attr.numRegs;
   info[3] = base;
-  info[4] = (int)(table_bytes + near_bytes(k_near));
+  info[4] = (int)(table_bytes + near_bytes(k_near, merge));
   info[5] = (int)attr.localSizeBytes;
   return 0;
 }
 
 // As zdr_path_loop (path_loop.cu), plus le_grad: (3, n) float32, each
 // lane's per-sample adjoint; k_near from zdr_path_loop_grad_plan; far:
-// (max(max_depth - k_near, 0), kRowPlanes, n) float32, the deeper rows;
+// (max(max_depth - k_near, 0), kRowPlanes, n) float32, the deeper rows
+// (kRowPlanes + 1 planes where the params' merge passes 1);
 // grad: (tex_h * tex_w, 4) float32, 16-byte aligned, zeroed by the caller,
 // to which the kernel adds. The carry in must be the first carry (no
 // sample in flight). Returns the CUDA error of the launch (0 when it was

@@ -14,7 +14,8 @@ namespace {
 
 // The tap-mode state of host lane `lane`: its adjoint, its first k_near
 // rows in `near` (the kernel's shared-memory rows, here (k_near,
-// kRowPlanes, n)), the rest in `far`.
+// kRowPlanes, n), or kRowPlanes + 1 planes where the params merge), the
+// rest in `far`.
 zdr::GradLane host_grad_lane(const float* le_grad, long lane, int n, float* near, int k_near,
                              float* far, float* grad) {
   zdr::GradLane gl;
@@ -30,6 +31,13 @@ zdr::GradLane host_grad_lane(const float* le_grad, long lane, int n, float* near
   gl.lane = lane;
   gl.grad = grad;
   return gl;
+}
+
+// The floats of k_near rows of n lanes, at the row planes of the splat's
+// merge.
+size_t near_floats(int merge, int k_near, int n) {
+  int planes = merge > 1 ? zdr::row_planes<true>() : zdr::kRowPlanes;
+  return (size_t)k_near * planes * n;
 }
 
 }  // namespace
@@ -64,27 +72,33 @@ int zdr_path_loop_host(const int* params, const float* tables, int tables_n,
 }
 
 // zdr_path_loop_grad (path_loop_grad.cu) without the stream and the
-// replay's counts; each lane replays its own rows.
+// replay's counts; each lane replays its own rows (merged where the params'
+// splat merge passes 1, the kMerge instantiation; far then has kRowPlanes
+// + 1 planes).
 int zdr_path_loop_grad_host(const int* params, const float* tables, int tables_n,
                             const float* bn, const float* material, const int* lanes,
                             const float* le_grad, const float* f_in, const int* i_in,
                             float* f_out, int* i_out, float* far, float* grad, int n,
                             int n_steps, int k_near) {
   zdr::LoopParams q = zdr::params_from(params);
+  int merge = zdr::splat_knobs(params).merge;
   if (tables_n != zdr::tables_size(q) || k_near < 0) return 1;
   zdr::Tables tb = zdr::tables_at(tables, bn, material, q);
-  std::vector<float> near((size_t)k_near * zdr::kRowPlanes * n);
+  std::vector<float> near(near_floats(merge, k_near, n));
   zdr::with_gen(q, [&](auto gen) {
-    constexpr bool kGen = decltype(gen)::value;
-    for (long lane = 0; lane < n; ++lane) {
-      zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
-                                                lanes[2L * n + lane], q.seed, q);
-      zdr::GradLane gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
-      zdr::LaneState s;
-      zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
-      zdr::run_lane<true, zdr::DenseSweep<>, false, kGen>(s, lc, tb, q, n_steps, &gl);
-      zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
-    }
+    zdr::with_merge(merge, [&](auto kmerge) {
+      constexpr bool kGen = decltype(gen)::value, kMerge = decltype(kmerge)::value;
+      for (long lane = 0; lane < n; ++lane) {
+        zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                                  lanes[2L * n + lane], q.seed, q);
+        zdr::GradLane gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
+        zdr::LaneState s;
+        zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
+        zdr::run_lane<true, zdr::DenseSweep<>, false, kGen, kMerge>(
+            s, lc, tb, q, n_steps, &gl, zdr::DenseSweep<>(), nullptr, nullptr, merge);
+        zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
+      }
+    });
   });
   return 0;
 }
@@ -102,29 +116,33 @@ int zdr_path_loop_bvh_host(const int* params, const float* tables, int tables_n,
                            int n_nodes, int n_rows,
                            unsigned long long* counts) {
   zdr::LoopParams q = zdr::params_from(params);
+  int merge = zdr::splat_knobs(params).merge;
   if (tables_n != zdr::tables_size(q) || k_near < 0) return 1;
   const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
   std::vector<float> copy(small, small + zdr::small_size(q));
   zdr::Tables tb = zdr::bvh_tables(small_shared ? copy.data() : small, tables, bn, material, q);
   zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
   zdr::TraceCount c = {0, 0};
-  std::vector<float> near(le_grad ? (size_t)k_near * zdr::kRowPlanes * n : 0);
+  std::vector<float> near(le_grad ? near_floats(merge, k_near, n) : 0);
   zdr::with_gen(q, [&](auto gen) {
-    constexpr bool kGen = decltype(gen)::value;
-    for (long lane = 0; lane < n; ++lane) {
-      zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
-                                                lanes[2L * n + lane], q.seed, q);
-      zdr::LaneState s;
-      zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
-      if (le_grad) {
-        zdr::GradLane gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
-        zdr::run_lane<true, zdr::BvhTrace, false, kGen>(s, lc, tb, q, n_steps, &gl, tr, &c);
-      } else {
-        zdr::run_lane<false, zdr::BvhTrace, false, kGen>(s, lc, tb, q, n_steps, nullptr, tr,
-                                                         &c);
+    zdr::with_merge(merge, [&](auto kmerge) {
+      constexpr bool kGen = decltype(gen)::value, kMerge = decltype(kmerge)::value;
+      for (long lane = 0; lane < n; ++lane) {
+        zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                                  lanes[2L * n + lane], q.seed, q);
+        zdr::LaneState s;
+        zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
+        if (le_grad) {
+          zdr::GradLane gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
+          zdr::run_lane<true, zdr::BvhTrace, false, kGen, kMerge>(s, lc, tb, q, n_steps, &gl,
+                                                                  tr, &c, nullptr, merge);
+        } else {
+          zdr::run_lane<false, zdr::BvhTrace, false, kGen>(s, lc, tb, q, n_steps, nullptr, tr,
+                                                           &c);
+        }
+        zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
       }
-      zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
-    }
+    });
   });
   counts[0] += c.tests;
   counts[1] += c.visits;
@@ -148,6 +166,7 @@ int zdr_path_loop_env_host(const int* params, const float* tables, int tables_n,
                            int env_w, const float* env_prob, const int* env_alias,
                            const float* env_pdf) {
   zdr::LoopParams q = zdr::params_from(params);
+  int merge = zdr::splat_knobs(params).merge;
   if (tables_n != zdr::tables_size(q) || k_near < 0 || q.n_env != 1) return 1;
   zdr::EnvTables env =
       zdr::env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf);
@@ -159,30 +178,34 @@ int zdr_path_loop_env_host(const int* params, const float* tables, int tables_n,
                        : zdr::tables_at(tables, bn, material, q);
   zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
   zdr::TraceCount c = {0, 0};
-  std::vector<float> near(le_grad ? (size_t)k_near * zdr::kRowPlanes * n : 0);
+  std::vector<float> near(le_grad ? near_floats(merge, k_near, n) : 0);
   zdr::with_gen(q, [&](auto gen) {
-    constexpr bool kGen = decltype(gen)::value;
-    const zdr::DenseSweep<> dense;
-    for (long lane = 0; lane < n; ++lane) {
-      zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
-                                                lanes[2L * n + lane], q.seed, q);
-      zdr::LaneState s;
-      zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
-      zdr::GradLane gl;
-      if (le_grad) gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
-      const zdr::GradLane* g = le_grad ? &gl : nullptr;
-      if (bvh && le_grad)
-        zdr::run_lane<true, zdr::BvhTrace, true, kGen>(s, lc, tb, q, n_steps, g, tr, &c, &env);
-      else if (bvh)
-        zdr::run_lane<false, zdr::BvhTrace, true, kGen>(s, lc, tb, q, n_steps, g, tr, &c, &env);
-      else if (le_grad)
-        zdr::run_lane<true, zdr::DenseSweep<>, true, kGen>(s, lc, tb, q, n_steps, g, dense, &c,
-                                                           &env);
-      else
-        zdr::run_lane<false, zdr::DenseSweep<>, true, kGen>(s, lc, tb, q, n_steps, g, dense, &c,
-                                                            &env);
-      zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
-    }
+    zdr::with_merge(merge, [&](auto kmerge) {
+      constexpr bool kGen = decltype(gen)::value, kMerge = decltype(kmerge)::value;
+      const zdr::DenseSweep<> dense;
+      for (long lane = 0; lane < n; ++lane) {
+        zdr::LaneConst lc = zdr::lane_const<kGen>(lanes[lane], lanes[n + lane],
+                                                  lanes[2L * n + lane], q.seed, q);
+        zdr::LaneState s;
+        zdr::load_lane<kGen>(s, f_in, i_in, lane, n);
+        zdr::GradLane gl;
+        if (le_grad) gl = host_grad_lane(le_grad, lane, n, near.data(), k_near, far, grad);
+        const zdr::GradLane* g = le_grad ? &gl : nullptr;
+        if (bvh && le_grad)
+          zdr::run_lane<true, zdr::BvhTrace, true, kGen, kMerge>(s, lc, tb, q, n_steps, g, tr,
+                                                                 &c, &env, merge);
+        else if (bvh)
+          zdr::run_lane<false, zdr::BvhTrace, true, kGen>(s, lc, tb, q, n_steps, g, tr, &c,
+                                                          &env);
+        else if (le_grad)
+          zdr::run_lane<true, zdr::DenseSweep<>, true, kGen, kMerge>(s, lc, tb, q, n_steps, g,
+                                                                     dense, &c, &env, merge);
+        else
+          zdr::run_lane<false, zdr::DenseSweep<>, true, kGen>(s, lc, tb, q, n_steps, g, dense,
+                                                              &c, &env);
+        zdr::store_lane<kGen>(s, f_out, i_out, lane, n);
+      }
+    });
   });
   counts[0] += c.tests;
   counts[1] += c.visits;
@@ -198,6 +221,12 @@ int zdr_sampler_probe_host(const int* params, const float* bn, const int* lanes,
           q, bn, lanes[lane], lanes[n + lane], (uint32_t)lanes[2L * n + lane],
           (uint32_t)lanes[3L * n + lane], k, out, lane, n);
   });
+  return 0;
+}
+
+// The kernels' bf16 rounding (splat.cuh round_bf16) of n floats x -> out.
+int zdr_round_bf16_host(const float* x, float* out, int n) {
+  for (long k = 0; k < n; ++k) out[k] = zdr::round_bf16(x[k]);
   return 0;
 }
 

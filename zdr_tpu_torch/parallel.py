@@ -147,7 +147,10 @@ def render_sharded(scene: Scene, material: torch.Tensor, *, res, spp, seed=0, me
     the world's) -> the (H, W, 4) image on every rank; differentiable in the
     material like Scene.render, d_material summed over the ranks. Every rank
     of the mesh calls it with the same arguments. W*H must be divisible by
-    the mesh size. With no mesh and no process group it is Scene.render."""
+    the mesh size. With no mesh and no process group it is Scene.render.
+    The scene's splat_merge is lane-local, so the gradient does not depend
+    on the ranks; under packed_splat each rank rounds its own partial
+    gradient to bf16 before the sum over the ranks."""
     group, rank, n = _layout(mesh)
     cfg = scene._config(res, spp)
     w, h = cfg.res

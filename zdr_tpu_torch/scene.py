@@ -116,7 +116,8 @@ class Scene:
         self.max_depth = 16
         self.rr_depth = 2
         self.bilinear = True
-        # PRB scatter knobs; the port takes only 1 and False (ROADMAP A17)
+        # the gradient splat's knobs (RenderConfig): 1 and False, the exact
+        # splat, where the JAX package defaults to 4 and True
         self.splat_merge = 1
         self.packed_splat = False
         # "auto" (default) and "force": the kernel routes where they apply;

@@ -10,7 +10,10 @@ with read_quads_planes' clamp, weights and summation order.
 The gradient side: `splat_ids` (the one-corner splat of pallas_loop.py:
 544-572) and `scatter_add4`, the meaning of texture.segment_scatter_add4,
 in the (H*W, 4) layout of the material rather than JAX's channel-major
-(4, H*W), which was a TPU layout choice.
+(4, H*W), which was a TPU layout choice; its bf16 packing (`round_bf16`,
+`pack_bf16_pair`, `unpack_bf16_pair`, texture.py:112-125) and the
+weighted-reservoir merge of two taps (`reservoir_merge_taps`, :231-262),
+the plain versions of the kernels' splat knobs (kernels/csrc/splat.cuh).
 
 The unfused estimators' side (texture.py:383-593): `read_bsdf`, the fetch
 with nearest filtering too and the generic corners of a material under 2x2,
@@ -89,14 +92,95 @@ def _to_int(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.clamp(torch.where(torch.isnan(x), 0.0, x), -1, n).to(torch.int64)
 
 
-def scatter_add4(ids: torch.Tensor, vals: torch.Tensor, n_bins: int) -> torch.Tensor:
+def scatter_add4(ids: torch.Tensor, vals: torch.Tensor, n_bins: int, packed: bool = False,
+                 prepacked: bool = False) -> torch.Tensor:
     """Sum (M, 4) values into (n_bins, 4) rows by (M,) id; id n_bins is the
     sentinel of a tap that splats nowhere, and its row is dropped. The
-    meaning of the JAX package's texture.segment_scatter_add4 (unpacked),
-    in the (texel, channel) layout."""
+    meaning of the JAX package's texture.segment_scatter_add4, in the
+    (texel, channel) layout: with `packed` each texel's total is rounded to
+    bf16; with `prepacked` each entry is rounded to bf16 first, as
+    splat_buffer_row packs it at emission (a no-op on entries already
+    rounded)."""
+    if prepacked:
+        vals = round_bf16(vals)
     buf = torch.zeros((n_bins + 1, 4), dtype=vals.dtype, device=vals.device)
     buf.index_add_(0, ids, vals)
-    return buf[:n_bins]
+    return round_bf16(buf[:n_bins]) if packed else buf[:n_bins]
+
+
+# the samples whose taps the direct and collocated backwards gather before a
+# packed flush (the JAX package's SCATTER_BATCH, path_persistent.py:30)
+SPLAT_BATCH = 4
+
+
+def add_taps(grad, scratch, it: int, n_samples: int, ids, vals, n_bins: int, packed: bool):
+    """Sample `it`'s taps, (M,) ids and (M, 4) values, into the (n_bins, 4)
+    grad in place: straight in, or with `packed` as the JAX package's
+    buffered direct and collocated backwards flush them
+    (direct_fused.py:319-345): each value rounded to bf16 (NaN -> 0) into
+    scratch, whose texels are rounded to bf16 and added into grad after
+    every SPLAT_BATCH samples and after the last."""
+    if not packed:
+        grad += scatter_add4(ids, vals, n_bins)
+        return
+    vals = round_bf16(vals)
+    scratch += scatter_add4(ids, torch.where(torch.isnan(vals), 0.0, vals), n_bins)
+    if it % SPLAT_BATCH == SPLAT_BATCH - 1 or it == n_samples - 1:
+        grad += round_bf16(scratch)
+        scratch.zero_()
+
+
+# the bits of a bf16 in the high half of a float32's
+_HIGH = -0x10000  # 0xFFFF0000 as int32
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest bf16 (ties to even), as float32: JAX's
+    x.astype(bfloat16).astype(float32), with denormals kept, values past
+    bf16's largest rounding to inf and NaN kept. Integer arithmetic on the
+    bits, as the kernels' zdr::round_bf16 (splat.cuh) does it: add 0x7FFF
+    and the lowest kept bit, then drop the low 16 bits."""
+    u = x.contiguous().view(torch.int32)
+    r = (u + (0x7FFF + ((u >> 16) & 1))) & _HIGH
+    return torch.where(torch.isnan(x), x, r.view(torch.float32))
+
+
+def pack_bf16_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two float32 tensors -> one float32 whose bits are bf16(a) << 16 |
+    bf16(b) (texture.py:112)."""
+    hi = round_bf16(a).view(torch.int32)
+    lo = (round_bf16(b).view(torch.int32) >> 16) & 0xFFFF
+    return (hi | lo).view(torch.float32)
+
+
+def unpack_bf16_pair(p: torch.Tensor):
+    """pack_bf16_pair's inverse -> (a, b) float32 (texture.py:121)."""
+    u = p.contiguous().view(torch.int32)
+    return (u & _HIGH).view(torch.float32), (u << 16).view(torch.float32)
+
+
+def reservoir_merge_taps(pend, new, u: torch.Tensor, n_bins: int):
+    """Weighted-reservoir merge of two taps a lane into one (texture.py:231):
+    pend and new are (ids, g0, g1, g2, g3), ids with the sentinel n_bins
+    for no tap; keeps one with probability its L1 weight by the uniform u,
+    rescaled by total / its weight, so the merge is unbiased, and exact
+    (scale 1) where one side weighs 0; a pair of weight 0 becomes the
+    sentinel. The same operations in the same order as JAX's, so the
+    result is its bit for bit."""
+    ids_p, *p = pend
+    ids_n, *q = new
+    wp = torch.abs(p[0]) + torch.abs(p[1]) + torch.abs(p[2]) + torch.abs(p[3])
+    wn = torch.abs(q[0]) + torch.abs(q[1]) + torch.abs(q[2]) + torch.abs(q[3])
+    wp = torch.where(ids_p < n_bins, wp, 0.0)
+    wn = torch.where(ids_n < n_bins, wn, 0.0)
+    tot = wp + wn
+    take_p = u * tot < wp
+    sp = tot / torch.clamp_min(wp, 1e-30)
+    sn = tot / torch.clamp_min(wn, 1e-30)
+    ids = torch.where(take_p, ids_p, ids_n)
+    gs = tuple(torch.where(take_p, a * sp, b * sn) for a, b in zip(p, q))
+    ids = torch.where(tot > 0, ids, torch.full_like(ids, n_bins))
+    return (ids, *gs)
 
 
 # ----------------------------------------------- the unfused estimators' side
