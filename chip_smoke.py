@@ -223,6 +223,25 @@ Phases, one line each; any failure raises and exits non-zero:
      first CHECK_SAMPLES samples of every 64th lane), timed; the new
      instantiations' ptxas (registers, stack, spills).
 
+ 25. the direct kernels' emitter-first bounce lookup (the JAX package's
+     merged bounce_emit mode and streamed emitter-first route: a closest
+     hit over the light triangles, then one any-hit capped at 0.9999 of
+     it), which every direct drive above took (at most 32 light
+     triangles): on the protocol by the dense route and by accel="auto",
+     the big mesh, the cornell box, apps/example.py's env scene (no light
+     triangle: the any-hit to 1e30 tells an escape) and the lightstage's
+     first pattern (14 light triangles), at their main paths' sizes: the
+     emitter-first kernels against their plain versions (_bvh_check, phase
+     10's bars); each scene's tables again with the cap lowered
+     (scene_tables.MERGED_MAX_LIGHT_TRIS = -1: the closest lookup), both
+     lookups' kernels alone and the iteration through the Scene in turns A
+     B B A (medians of BOUNCE_REPS), emitter first against the closest
+     lookup at full size (the image's mean and worst difference, the
+     mean within BOUNCE_MEAN_BAR, the pixels past the golden bar; the
+     gradient's error), the tests and visits a sample and the bounds of
+     both lookups' counted work; ptxas of every direct instantiation; the
+     main-path iterations of phases 11, 13, 18 and 22 beside them.
+
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
 The next-to-last line is the kernels' JSON record: "launches" on the main
@@ -245,7 +264,9 @@ under "parallel" in the records of path_loop, path_loop_grad, direct_bvh
 and direct_grad_bvh (launches a rank a call, counted in the ranks);
 phase 24's under "splat" in the records of path_loop_grad,
 path_loop_grad_bvh, direct_grad and collocated_grad_bvh, and splat_round's
-own record (its launches on phase 24's flagship at (4, True));
+own record (its launches on phase 24's flagship at (4, True)); phase 25's
+under "bounce_emit" in the records of the kernels each of its scenes ran,
+by scene (its ptxas and the main paths' iterations in direct's);
 for
 the probes and the sweep variants, the sum over all of them; trace_interact's "body_launches" counts, by kernel, the launches of
 phases 17-18's main paths, each of which runs B3's body a sample),
@@ -593,23 +614,26 @@ def _early_work(tb, lanes, mat, stride=4 * CHECK_STRIDE):
     """The early out's tests by the place they leave (accel/trace.py
     early_stages), counted on every `stride`-th lane over the rays that the
     plain direct samples sweep as the kernel does (each primary ray, a
-    shading lane's shadow ray, a bouncing lane's bounce ray) -> ((3,) int64
-    tests: left after u's numerator, after v's and t's, at the division;
-    the lanes (3, N'))."""
+    shading lane's shadow ray, and a bouncing lane's bounce ray: its
+    closest hit, or emitter first its tests of the light triangles and its
+    capped any-hit where it walks) -> ((4,) int64 tests: left after u's
+    numerator, after v's and t's, at the division, and the light
+    triangles' whole tests; the lanes (3, N'))."""
     from zdr_tpu_torch.accel.trace import early_stages
     from zdr_tpu_torch.integrators import bounce
     from zdr_tpu_torch.integrators import direct as dr
     from zdr_tpu_torch.integrators.path_loop import T_MAX
 
     sub = lanes[:, ::stride].contiguous()
-    stages = torch.zeros(3, dtype=torch.int64, device=lanes.device)
+    stages = torch.zeros(4, dtype=torch.int64, device=lanes.device)
     shading = []
     trace, shade, occluded = dr.trace_interact_plain, dr.shade_plain, bounce.occluded_plain
+    light_hit, bounce_any = dr.light_hit_plain, dr.bounce_any_plain
 
     def counted_trace(scene, rays, lite=False, bvh=None):
         act = rays[7] != 0
         o, d = tuple(x[act] for x in rays[0:3]), tuple(x[act] for x in rays[3:6])
-        stages.add_(early_stages(scene, o, d, torch.full_like(o[0], T_MAX)))
+        stages[:3] += early_stages(scene, o, d, torch.full_like(o[0], T_MAX))
         return trace(scene, rays, lite, bvh)
 
     def counted_shade(scene, ray, *args, **kw):
@@ -618,26 +642,40 @@ def _early_work(tb, lanes, mat, stride=4 * CHECK_STRIDE):
 
     def counted_occluded(scene, p, wi, dist, bvh=None):
         m = shading[0]
-        stages.add_(early_stages(scene, tuple(x[m] for x in p), tuple(x[m] for x in wi),
-                                 dist[m], any_hit=True))
+        stages[:3] += early_stages(scene, tuple(x[m] for x in p), tuple(x[m] for x in wi),
+                                   dist[m], any_hit=True)
         return occluded(scene, p, wi, dist, bvh)
 
+    def counted_light_hit(scene, lights, light_rows, o, d, pdf_prev, active):
+        stages[3] += int(active.sum()) * lights.shape[0]
+        return light_hit(scene, lights, light_rows, o, d, pdf_prev, active)
+
+    def counted_bounce_any(scene, o, d, t_max, active, bvh=None):
+        stages[:3] += early_stages(scene, tuple(x[active] for x in o),
+                                   tuple(x[active] for x in d), t_max[active], any_hit=True,
+                                   from_zero=True)
+        return bounce_any(scene, o, d, t_max, active, bvh)
+
     dr.trace_interact_plain, dr.shade_plain = counted_trace, counted_shade
+    dr.light_hit_plain, dr.bounce_any_plain = counted_light_hit, counted_bounce_any
     bounce.occluded_plain = counted_occluded
     try:
         dr.render_direct_plain(tb, sub, mat)
     finally:
         dr.trace_interact_plain, dr.shade_plain, bounce.occluded_plain = trace, shade, occluded
+        dr.light_hit_plain, dr.bounce_any_plain = light_hit, bounce_any
     return stages.cpu(), sub
 
 
 def _test_ops(stages=None):
     """FP32 operations of a dense direct kernel's test: MT_OPS, or for the
     sweep with the early out the mean of EARLY_OPS over the places that
-    `stages` (_early_work's counts) says its tests leave."""
+    `stages` (_early_work's counts) says its tests leave, with the light
+    triangles' tests at MT_OPS."""
     if stages is None:
         return MT_OPS
-    return sum(n * ops for n, ops in zip(stages.tolist(), EARLY_OPS)) / int(stages.sum())
+    ops = EARLY_OPS + (MT_OPS,)
+    return sum(n * k for n, k in zip(stages.tolist(), ops)) / int(stages.sum())
 
 
 def _direct_env_work(tb, lanes, mat, stride=4 * CHECK_STRIDE):
@@ -1399,7 +1437,8 @@ def _direct_main(scene, res, spp, what, smi, reps):
         shares = (stages.double() / stages.sum()).tolist()
         stage_note = (f", at every {4 * CHECK_STRIDE}th lane {shares[0]:.4f} of them leave "
                       f"after u's numerator, {shares[1]:.4f} after v's and t's, "
-                      f"{shares[2]:.4f} reach the division (the kernel's count of those "
+                      f"{shares[2]:.4f} reach the division, {shares[3]:.4f} are the light "
+                      f"triangles' whole tests (the kernel's count of those "
                       f"lanes, {sub_tests}, equal): {_test_ops(stages):.2f} FP32 operations "
                       f"a test")
     test_ops = _test_ops(stages)
@@ -1427,6 +1466,7 @@ def _direct_main(scene, res, spp, what, smi, reps):
           + f"), tests only {gbound_tests:.3f} ms; plain versions not run at full width; card "
           f"{smi}", flush=True)
     return dict(launches=launches, ms=ms, gms=gms, bound=bound, gbound=gbound,
+                iteration_ms=it_ms,
                 bound_tests=bound_tests, gbound_tests=gbound_tests, early=plan["early"],
                 stages=None if stages is None else stages.tolist(), test_ops=test_ops,
                 err=float((got - want).abs().max() / spp), g_err=g_err, plain_ms=plain_ms,
@@ -1538,19 +1578,20 @@ def phase_trace_bvh(dev, smi):
     return records
 
 
-def _bvh_check(tb, tb1, mat, integrator, what, stride=None, exact=False):
+def _bvh_check(tb, tb1, mat, integrator, what, stride=None, exact=False,
+               samples=CHECK_SAMPLES):
     """Both BVH kernels against their plain walks on the main path's own
     inputs (its tables at seed 0 and 1, its material, the adjoint 1 / spp)
-    at every `stride`-th lane (CHECK_STRIDE), the first CHECK_SAMPLES
-    samples of each, the forward bit for bit where `exact` -> (forward max
-    abs diff a sample, gradient max abs diff, a note)."""
+    at every `stride`-th lane (CHECK_STRIDE), the first `samples` samples
+    of each, the forward bit for bit where `exact` -> (forward max abs diff
+    a sample, gradient max abs diff, a note)."""
     from zdr_tpu_torch import kernels
     from zdr_tpu_torch.integrators import direct as dr
     from zdr_tpu_torch.integrators import path_loop as pl
 
     dev, spp = mat.device, tb.spp
     stride = stride or CHECK_STRIDE
-    sub = pl.pixel_lanes(tb.res, CHECK_SAMPLES, dev)[:, ::stride].contiguous()
+    sub = pl.pixel_lanes(tb.res, samples, dev)[:, ::stride].contiguous()
     le = torch.full((3, sub.shape[1]), 1.0 / spp, device=dev)
     if integrator == "direct":
         got = kernels.direct(tb, sub, mat)
@@ -1575,7 +1616,7 @@ def _bvh_check(tb, tb1, mat, integrator, what, stride=None, exact=False):
         (gwant, _c), gplain_ms = _sync_ms(
             lambda: pl.render_path_backward_loop_plain(tb1, sub, mat, le, tb.n_steps))
     torch.cuda.synchronize()
-    diff = (got - want).abs().amax(0) / CHECK_SAMPLES
+    diff = (got - want).abs().amax(0) / samples
     mean, within = float(diff.mean()), float((diff <= 1e-5).float().mean())
     if not (mean <= 1e-6 and within >= 0.999):
         raise AssertionError(f"{what} {integrator}: kernel vs plain mean abs diff {mean:.3e}, "
@@ -1584,7 +1625,7 @@ def _bvh_check(tb, tb1, mat, integrator, what, stride=None, exact=False):
         raise AssertionError(f"{what} {integrator}: {int((got != want).any(0).sum())} lanes "
                              f"differ from the plain walk (bit for bit expected)")
     g_err, g_worst = _assert_grad_close(ggot, gwant, f"{what} {integrator} gradient")
-    note = (f"at every {stride}th lane, the first {CHECK_SAMPLES} samples "
+    note = (f"at every {stride}th lane, the first {samples} samples "
             f"({sub.shape[1]} lanes): forward vs plain mean abs diff {mean:.3e}, bit-identical "
             f"{bool(torch.equal(got, want))}, plain {plain_ms:.1f} ms; gradient worst texel rel "
             f"err {g_worst:.3e} (rtol 1e-4), max abs diff {g_err:.3e}, plain {gplain_ms:.1f} ms")
@@ -2267,7 +2308,7 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16):
                 shares = (stages.double() / stages.sum()).tolist()
                 stage_note = (f", {shares[0]:.4f} of them leave after u's numerator, "
                               f"{shares[1]:.4f} after v's and t's, {shares[2]:.4f} reach the "
-                              f"division")
+                              f"division, {shares[3]:.4f} are the light triangles' tests")
                 fk.tests = tests
             test_ops = _test_ops(stages)
             bound = _direct_bound(tests, n_samples, _nbytes(*tables, acc), test_ops=test_ops,
@@ -3624,6 +3665,222 @@ def phase_splat(dev, smi, ptxas, grad_run, big, coll, proto):
     return out
 
 
+# phase 25: the turns of each lookup's timing (A B B A) and the runs a turn
+BOUNCE_TURNS = ("emit", "closest", "closest", "emit")
+BOUNCE_REPS = 3
+# the samples of each lane that phase 25 holds against the plain versions
+# (phases 11, 13, 18 and 22 hold the same kernels on their main paths)
+BOUNCE_CHECK_SAMPLES = 2
+# the image's mean difference that emitter first may leave against the
+# closest lookup (tests/test_fused.py:234: a non-light triangle on
+# [0.9999 t, t) of a light hit, the epsilon class)
+BOUNCE_MEAN_BAR = 1e-5
+# the direct wrappers of a route: (forward, gradient)
+DIRECT_ROUTES = {("dense", False): ("direct", "direct_grad"),
+                 ("bvh", False): ("direct_bvh", "direct_grad_bvh"),
+                 ("dense", True): ("direct_env", "direct_grad_env"),
+                 ("bvh", True): ("direct_env_bvh", "direct_grad_env_bvh")}
+
+
+def _bounce_scenes(dev):
+    """Phase 25's scenes: (key, what, scene, res, spp, tex) of the
+    protocol by the dense route and by accel="auto", the big mesh, the
+    cornell box, apps/example.py's env scene and the lightstage's first
+    pattern (14 light triangles), at their main paths' sizes."""
+    from zdr_tpu_torch.apps import lightstage
+
+    n_lights, ls_res, ls_spp, _iters, ls_tex, n_pat = lightstage.FULL
+    stage = lightstage.build_lightstage(n_lights, device=dev)
+    stage.camera = lightstage.make_camera()
+    stage.update_lights(lightstage.make_patterns(n_lights, n_pat)[0])
+    return (("protocol_dense", "the protocol, dense", _protocol(dev), RES, PROTOCOL_SPP, TEX),
+            ("protocol_auto", "the protocol by accel='auto'", _protocol(dev, accel="auto"), RES,
+             PROTOCOL_SPP, TEX),
+            ("big_mesh", "the big mesh", _bigmesh(dev, "direct"), RES, SPP, TEX),
+            ("cornell_box", "the cornell box", _flagship(dev, "direct"), RES, SPP, TEX),
+            ("example", "apps/example.py's env scene", _example(dev), RES, SPP, 512),
+            ("lightstage", "the lightstage's pattern 0", stage, ls_res, ls_spp, ls_tex))
+
+
+def _closest_tables(data, camera, cfg, seeds):
+    """The direct tables at `seeds` with the closest bounce lookup: the
+    emitter-first cap lowered below every scene's light count while they
+    are built."""
+    from zdr_tpu_torch.integrators import path_loop as pl
+    from zdr_tpu_torch.integrators import scene_tables
+
+    cap = scene_tables.MERGED_MAX_LIGHT_TRIS
+    scene_tables.MERGED_MAX_LIGHT_TRIS = -1
+    try:
+        return [pl.build_loop_tables(data, camera, cfg, s) for s in seeds]
+    finally:
+        scene_tables.MERGED_MAX_LIGHT_TRIS = cap
+
+
+def _direct_work(kname):
+    """A direct wrapper's counted work of its last launch: [tests, visits]."""
+    from zdr_tpu_torch import kernels
+
+    k = getattr(kernels, kname)
+    if getattr(k, "counts", None) is not None:
+        return [int(x) for x in k.counts.tolist()]
+    return [int(k.tests), int(k.visits or 0)]
+
+
+def _bounce_bounds(tb, lanes, m, le, work, gwork, early, n_samples):
+    """The bounds of a direct route's counted work, as phases 11, 13 and 18
+    count it: the dense kernels' counted-work bound (_direct_bound, the
+    early out's operations a test from _early_work on its stride), the BVH
+    kernels' tests and visits (_bound), with the env's lookups and samples
+    (_direct_env_work) -> (forward bound, gradient bound, operations a
+    test)."""
+    acc = torch.empty((3, lanes.shape[1]), device=m.device)
+    tables = [lanes, m, tb.scene, tb.lights, tb.bn]
+    if tb.light_rows is not None:
+        tables.append(tb.light_rows)
+    if tb.env is not None:
+        tables += [tb.env.texture, tb.env.alias_prob, tb.env.alias_idx, tb.env.pdf]
+    env_work = _direct_env_work(dataclasses.replace(tb, bvh=None), lanes, m)
+    if tb.bvh is not None:
+        tables += [tb.bvh.geom, tb.bvh.nodes]
+        ops = _env_ops(env_work)
+        return (_bound(work[0], _nbytes(*tables, acc), work[1], extra_ops=ops),
+                _bound(gwork[0], _nbytes(*tables, le, m, acc), gwork[1], extra_ops=ops), MT_OPS)
+    test_ops = _test_ops(_early_work(tb, lanes, m)[0] if early else None)
+    return (_direct_bound(work[0], n_samples, _nbytes(*tables, acc), test_ops=test_ops,
+                          env_work=env_work),
+            _direct_bound(gwork[0], n_samples, _nbytes(*tables, le, m, acc), True, test_ops,
+                          env_work), test_ops)
+
+
+def _bounce_emit_scene(what, scene, res, spp, tex, smi):
+    """Phase 25 on one scene: the emitter-first kernels against their plain
+    versions (_bvh_check: every CHECK_STRIDE-th lane, the first
+    BOUNCE_CHECK_SAMPLES samples), then both lookups at full size in turns A B B A
+    (BOUNCE_TURNS): each kernel alone and the iteration through the Scene
+    (the cap lowered for the closest lookup), the image and the gradient of
+    one against the other, the counted work and its bounds -> the
+    numbers."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import path_loop as pl
+    from zdr_tpu_torch.integrators import scene_tables
+
+    dev = scene.device
+    data = scene._render_data("direct")
+    cfg = scene._config(res, spp)
+    tbs = {"emit": [pl.build_loop_tables(data, scene.camera, cfg, s) for s in (0, 1)],
+           "closest": _closest_tables(data, scene.camera, cfg, (0, 1))}
+    n_light = len(data.meta.light_tri_ids)
+    tb = tbs["emit"][0]
+    if tb.light_rows is None or tbs["closest"][0].light_rows is not None:
+        raise AssertionError(f"25 {what}: {n_light} light triangles do not route emitter first")
+    route = "bvh" if tb.bvh is not None else "dense"
+    fwd, bwd = DIRECT_ROUTES[route, tb.env is not None]
+    m = torch.full((tex, tex, 4), 0.5, dtype=torch.float32, device=dev)
+    err, g_err, plain_ms, gplain_ms, check = _bvh_check(*tbs["emit"], m, "direct", what,
+                                                        samples=BOUNCE_CHECK_SAMPLES)
+
+    lanes = pl.pixel_lanes(res, spp, dev)
+    le = torch.full((3, lanes.shape[1]), 1.0 / spp, device=dev)
+    mat = m.clone().requires_grad_()
+    iteration = _iteration(scene, mat, res, spp)
+    turns = {look: dict(ms=[], gms=[], it_ms=[]) for look in ("emit", "closest")}
+    out = {}
+    cap = scene_tables.MERGED_MAX_LIGHT_TRIS
+    for look in BOUNCE_TURNS:
+        t0, t1 = tbs[look]
+        before = {k: getattr(kernels, k).launches for k in (fwd, bwd)}
+        ms, _r = _event_ms(lambda: kernels.direct(t0, lanes, m), BOUNCE_REPS)
+        acc = kernels.direct(t0, lanes, m)
+        work = _direct_work(fwd)
+        plan = getattr(getattr(kernels, fwd), "plan", None)
+        gms, _r = _event_ms(lambda: kernels.direct_grad(t1, lanes, m, le), BOUNCE_REPS)
+        grad, _acc = kernels.direct_grad(t1, lanes, m, le)
+        gwork = _direct_work(bwd)
+        # each kernel: _event_ms's warm-up and runs, and the call kept
+        if any(getattr(kernels, k).launches - before[k] != 2 + BOUNCE_REPS for k in (fwd, bwd)):
+            raise AssertionError(f"25 {what}: {look} did not launch {fwd} and {bwd}")
+        scene_tables.MERGED_MAX_LIGHT_TRIS = cap if look == "emit" else -1
+        try:
+            it_ms, _r = _median_ms(iteration, BOUNCE_REPS)
+        finally:
+            scene_tables.MERGED_MAX_LIGHT_TRIS = cap
+        turns[look]["ms"].append(ms)
+        turns[look]["gms"].append(gms)
+        turns[look]["it_ms"].append(it_ms)
+        out[look] = dict(acc=acc, grad=grad, work=work, gwork=gwork,
+                         early=bool(plan and plan.get("early")))
+
+    n_samples = res[0] * res[1] * spp
+    img_e, img_c = out["emit"]["acc"] / spp, out["closest"]["acc"] / spp
+    diff = (img_e - img_c).abs()
+    past = int((diff > GOLDEN_ATOL + GOLDEN_RTOL * img_c.abs()).any(0).sum())
+    mean, worst = float(diff.mean()), float(diff.max())
+    if not (bool(torch.isfinite(img_e).all()) and mean < BOUNCE_MEAN_BAR):
+        raise AssertionError(f"25 {what}: emitter first against the closest lookup mean abs "
+                             f"diff {mean:.3e} (bar {BOUNCE_MEAN_BAR}), worst {worst:.3e}")
+    g_e, g_c = out["emit"]["grad"], out["closest"]["grad"]
+    g_scale = float(g_c.abs().max())
+    g_rel = float((g_e - g_c).abs().max()) / max(g_scale, 1e-30)
+    g_sums = ((g_e.sum((0, 1)) - g_c.sum((0, 1))).abs() / g_c.sum((0, 1)).abs().clamp_min(1e-30))
+    rec = dict(scene=what, tris=int(tb.scene.shape[0]), light_tris=n_light, route=route,
+               kernels=[fwd, bwd], env=tb.env is not None, res=list(res), spp=spp,
+               max_abs_err=err, g_max_abs_err=g_err, plain_ms=plain_ms, gplain_ms=gplain_ms,
+               image_mean_diff=mean, image_worst_diff=worst, pixels_past_golden=past,
+               grad_rel_err=g_rel, grad_sum_rel_err=float(g_sums.max()))
+    for look in ("emit", "closest"):
+        o, tt = out[look], turns[look]
+        bound, gbound, test_ops = _bounce_bounds(tbs[look][0], lanes, m, le, o["work"],
+                                                 o["gwork"], o["early"], n_samples)
+        rec[look] = dict(ms_turns=tt["ms"], grad_ms_turns=tt["gms"],
+                         iteration_ms_turns=tt["it_ms"], ms=statistics.median(tt["ms"]),
+                         grad_ms=statistics.median(tt["gms"]),
+                         iteration_ms=statistics.median(tt["it_ms"]),
+                         tests_a_sample=o["work"][0] / n_samples,
+                         visits_a_sample=o["work"][1] / n_samples,
+                         grad_tests_a_sample=o["gwork"][0] / n_samples,
+                         grad_visits_a_sample=o["gwork"][1] / n_samples,
+                         bound_ms=bound[0], bound_by=bound[1], grad_bound_ms=gbound[0],
+                         grad_bound_by=gbound[1], test_ops=test_ops)
+    e, c = rec["emit"], rec["closest"]
+    print(f"[25 bounce_emit] {what}: {rec['tris']} tris, {n_light} light tris, {route}"
+          f"{' under the envmap' if rec['env'] else ''}, {res[0]}x{res[1]} {spp} spp, {tex}^2 "
+          f"material of 0.5; {fwd} and {bwd} emitter first {check}; emitter first vs the "
+          f"closest lookup at full size: image mean abs diff {mean:.3e}, worst {worst:.3e}, "
+          f"{past} pixels past the golden bar; gradient max|a - b| / max|a| {g_rel:.3e}, "
+          f"channel sums rel {float(g_sums.max()):.3e}; turns A B B A (emit, closest, closest, "
+          f"emit), medians of {BOUNCE_REPS}: {fwd} {[round(x, 3) for x in turns['emit']['ms']]}"
+          f" vs {[round(x, 3) for x in turns['closest']['ms']]} ms, {bwd} "
+          f"{[round(x, 3) for x in turns['emit']['gms']]} vs "
+          f"{[round(x, 3) for x in turns['closest']['gms']]} ms, iteration "
+          f"{[round(x, 2) for x in turns['emit']['it_ms']]} vs "
+          f"{[round(x, 2) for x in turns['closest']['it_ms']]} ms; a sample emitter first "
+          f"{e['tests_a_sample']:.2f} tests and {e['visits_a_sample']:.2f} visits (closest "
+          f"{c['tests_a_sample']:.2f} and {c['visits_a_sample']:.2f}); bounds emitter first "
+          f"{e['bound_ms']:.3f} / {e['grad_bound_ms']:.3f} ms ({e['bound_by']}, "
+          f"{e['test_ops']:.2f} operations a test), closest {c['bound_ms']:.3f} / "
+          f"{c['grad_bound_ms']:.3f} ms; card {smi}", flush=True)
+    return rec
+
+
+def phase_bounce_emit(dev, smi, ptxas, earlier):
+    """Phase 25: the direct kernels' emitter-first bounce lookup on the
+    protocol (dense and accel="auto"), the big mesh, the cornell box, the
+    example's env scene and a lightstage pattern (_bounce_emit_scene each);
+    ptxas of every direct instantiation; beside them the main-path
+    iterations of phases 11, 13, 18 and 22, which ran emitter first ->
+    {scene: numbers, "ptxas": ..., "main_paths": ...}."""
+    out = {}
+    for key, what, scene, res, spp, tex in _bounce_scenes(dev):
+        out[key] = _bounce_emit_scene(what, scene, res, spp, tex, smi)
+    out["ptxas"] = {k: v for k, v in ptxas.items() if k.startswith("direct")}
+    out["main_paths"] = earlier
+    print(f"[25 bounce_emit] ptxas of every direct instantiation {json.dumps(out['ptxas'])}; "
+          f"the main paths' iterations emitter first (ms): {json.dumps(earlier)}; card {smi}",
+          flush=True)
+    return out
+
+
 def _direct_extra(proto, g, ptxas):
     """The dense direct kernels' record beyond the contract's keys: the
     counted-work bound's terms and the tests-only bound on the protocol,
@@ -3683,6 +3940,15 @@ def main():
     apps = timed("22", phase_apps, dev, smi)
     par = timed("23", phase_parallel, dev, smi)
     splat = timed("24", phase_splat, dev, smi, ptxas, grad_run, big, coll, proto)
+    earlier = {"11 protocol dense": proto["iteration_ms"],
+               "11 cornell box": proto["cornell_box"]["iteration_ms"],
+               "11 protocol auto": auto["direct_bvh"]["iteration_ms"],
+               "13 big mesh": big["direct_bvh"]["iteration_ms"],
+               "18 example auto": env["direct_env_bvh"]["iteration_ms"],
+               "18 example dense": env["direct_env"]["iteration_ms"],
+               "22 example step": apps["example"]["step_ms"],
+               "22 lightstage step": apps["lightstage"]["step_ms"]}
+    bounce = timed("25", phase_bounce_emit, dev, smi, ptxas, earlier)
     print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     # direct_bvh and direct_grad_bvh report the protocol's main path by
@@ -3774,6 +4040,18 @@ def main():
     big["path_loop_grad_bvh"]["splat"] = splat["path_loop_grad_bvh"]
     coll["collocated_grad_bvh"]["splat"] = splat["collocated_grad_bvh"]
     direct_grad_splat = splat["direct_grad"]
+    # phase 25's emitter-first numbers under "bounce_emit" in the records of
+    # the kernels each of its scenes ran, by scene
+    bounce_emit = {}
+    for key, rec in bounce.items():
+        if isinstance(rec, dict) and "kernels" in rec:
+            for kname in rec["kernels"]:
+                bounce_emit.setdefault(kname, {})[key] = rec
+    for recs in (big, env):
+        for kname, rec in recs.items():
+            if kname in bounce_emit:
+                rec["bounce_emit"] = bounce_emit[kname]
+    bounce_emit["direct"].update(ptxas=bounce["ptxas"], main_paths=bounce["main_paths"])
     variants_src = "zdr_tpu_torch/kernels/csrc/sweep_variants.cu"
     record = {"kernels": [{
         "name": "sampler_probe",
@@ -3807,7 +4085,7 @@ def main():
         "launches": proto["launches"][0], "max_abs_err": max(check["err"], proto["err"]),
         "ms": proto["ms"], "plain_ms": proto["plain_ms"], "plain_shape": proto["plain_shape"],
         "bound_ms": proto["bound"][0], "bound_by": proto["bound"][1], "library_ms": None,
-        **_direct_extra(proto, "", ptxas),
+        **_direct_extra(proto, "", ptxas), "bounce_emit": bounce_emit["direct"],
     }, {
         "name": "direct_grad",
         "route": "cuda",
@@ -3817,6 +4095,7 @@ def main():
         "ms": proto["gms"], "plain_ms": proto["gplain_ms"], "plain_shape": proto["plain_shape"],
         "bound_ms": proto["gbound"][0], "bound_by": proto["gbound"][1], "library_ms": None,
         **_direct_extra(proto, "g", ptxas), "splat": direct_grad_splat,
+        "bounce_emit": bounce_emit["direct_grad"],
     }, {
         "name": "trace_closest",
         "route": "cuda",

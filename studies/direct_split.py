@@ -17,15 +17,19 @@ production's (kernels.direct_launch where the package has it). The inputs
 are chip_smoke.py phase 11's dense main paths: the cornell box (12
 triangles, pmj02bn, 512x512, 64 spp) and the reference's protocol (962
 triangles, 512x512, 256 spp, accel="bruteforce"), 1024^2 material of 0.5,
-the render at seed 0, the tap mode at seed 1 with the adjoint 1 / spp.
-The builds:
+the render at seed 0, the tap mode at seed 1 with the adjoint 1 / spp;
+each scene with the bounce ray's emitter-first lookup ("emit", where the
+sources have it) and with its closest hit over the scene ("closest": the
+tables built with scene_tables.MERGED_MAX_LIGHT_TRIS lowered). The builds:
   production  the package's sources;
   primary2x   the primary ray's sweep run twice (the second, on the same ray,
               folded into the ray's origin by a test that never holds, so
               that the compiler keeps both), likewise
   shadow2x    the NEE shadow ray's sweep (any hit), and
-  bounce2x    the bounce ray's sweep: each part's time is the build's time
-              less production's;
+  bounce2x    the bounce ray's lookup, whichever the launch takes (its
+              closest hit, or emitter first its light hit and capped
+              any-hit): each part's time is the build's time less
+              production's;
   sampler2x   every draw of a sample (next1, next2) computed twice;
   attrs2x     the hit triangle's attributes read twice;
   texel2x     the material's bilinear fetch twice;
@@ -102,15 +106,27 @@ SHADOW = "  bool occ = shade && tr.any(tb, q, hit.p, nee.wi, nee.dist, &cnt);\n"
 SHADOW2 = f"""  bool occ_again =
       shade && tr.any(tb, q, v3(hit.p.x + {ZERO}, hit.p.y, hit.p.z), nee.wi, nee.dist, nullptr);
 """ + SHADOW + "  occ = occ_again == occ ? occ : occ_again;\n"
-BOUNCE = ("  if (bounce_ok) bae = closest_interact(tb, q, next_o, wi, pdf_bounce, true, tr, "
-          "&cnt).ae;\n")
-BOUNCE2 = f"""  if (bounce_ok) {{
-    float again_t = kTMax, again_u = 0.0f, again_v = 0.0f;
-    int again = tr.closest(tb, q, v3(next_o.x + {ZERO}, next_o.y, next_o.z), wi, again_t,
-                           again_u, again_v, nullptr);
-    next_o.x += again < -1 ? 1.0f : 0.0f;
-  }}
+# the bounce ray's lookup: its closest hit over the scene (the lite B3), and
+# where the sources have it, emitter first (direct_step.cuh bounce_emit);
+# bounce2x runs the lookup the launch takes twice
+BOUNCE = "    Hit bh = closest_interact(tb, q, next_o, wi, pdf_bounce, true, tr, &cnt);\n"
+BOUNCE2 = f"""    {{
+      float again_t = kTMax, again_u = 0.0f, again_v = 0.0f;
+      int again = tr.closest(tb, q, v3(next_o.x + {ZERO}, next_o.y, next_o.z), wi, again_t,
+                             again_u, again_v, nullptr);
+      next_o.x += again < -1 ? 1.0f : 0.0f;
+    }}
 """ + BOUNCE
+EMIT = "    bae = bounce_emit<kEnv>(tb, q, light_rows, next_o, wi, pdf_bounce, tr, cnt, env);\n"
+EMIT2 = f"""    {{
+      TraceCount again_cnt = {{0, 0}};
+      V3 again = bounce_emit<kEnv>(tb, q, light_rows, v3(next_o.x + {ZERO}, next_o.y, next_o.z),
+                                   wi, pdf_bounce, tr, again_cnt, env);
+      next_o.x += again.x < -1.0f ? 1.0f : 0.0f;
+    }}
+""" + EMIT
+# the head of the bounce's lookup, either
+BOUNCE_HEAD = "  V3 bae = v3(0.0f, 0.0f, 0.0f);\n"
 # the draws twice: each of direct_sample's and nee_select's draws through a
 # wrapper that also draws from a copy of the state, folded into the result
 DRAW2 = """template <bool kGen>
@@ -246,7 +262,7 @@ TIMELINE = [
     (STEP, TAP_AT, STUDY_GLOBALS + TAP_AT),
     (STEP, PRIMARY, "  ZDR_STUDY_HEAD(0)\n" + PRIMARY),
     (STEP, SHADOW, "  if (shade) ZDR_STUDY_HEAD(1)\n" + SHADOW),
-    (STEP, BOUNCE, "  if (bounce_ok) ZDR_STUDY_HEAD(2)\n" + BOUNCE),
+    (STEP, BOUNCE_HEAD, BOUNCE_HEAD + "  if (bounce_ok) ZDR_STUDY_HEAD(2)\n"),
     (DIRECT, KERNEL_START, STUDY_START + KERNEL_START),
     (DIRECT, KERNEL_END, STUDY_END),
     (DIRECT, '}  // extern "C"\n', '}  // extern "C"\n' + STUDY_READ),
@@ -262,7 +278,7 @@ BUILDS = {
     "production": [],
     "primary2x": [(STEP, PRIMARY, PRIMARY2)],
     "shadow2x": [(STEP, SHADOW, SHADOW2)],
-    "bounce2x": [(STEP, BOUNCE, BOUNCE2)],
+    "bounce2x": [(STEP, BOUNCE, BOUNCE2)],  # and EMIT's where the sources have it
     "sampler2x": SAMPLER2X,
     "attrs2x": [(LOOP_STEP, ATTRS, ATTRS2)],
     "texel2x": [(STEP, FETCH, FETCH2)],
@@ -297,6 +313,32 @@ LEADS = {"oneout": [(STEP, STAGE1, STAGE1.splitlines(keepends=True)[0])],
 SIZES = (None, (3, 6), (4, 8), (6, 12), (8, 16), (16, 32))
 SPLIT = ("primary2x", "shadow2x", "bounce2x", "sampler2x", "attrs2x", "texel2x")
 SCENES = ("cornell box", "protocol")
+
+
+def emit_first(csrc):
+    """Whether the sources in `csrc` have the emitter-first bounce lookup."""
+    with open(os.path.join(csrc, STEP)) as fh:
+        return EMIT in fh.read()
+
+
+def with_emit(builds, csrc):
+    """`builds` with bounce2x's second edit, EMIT's, where the sources have
+    the emitter-first lookup."""
+    if not emit_first(csrc):
+        return builds
+    return dict(builds, bounce2x=builds["bounce2x"] + [(STEP, EMIT, EMIT2)])
+
+
+def lookup_tables(cs, data, camera, cfg, lookup):
+    """The tables at seeds 0 and 1 with the bounce's lookup `lookup`:
+    "emit" (the package's: emitter first, where the sources have it) or
+    "closest" (chip_smoke.py's _closest_tables where it has them; sources
+    without the emitter-first lookup have only the closest)."""
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    if lookup == "closest" and hasattr(cs, "_closest_tables"):
+        return cs._closest_tables(data, camera, cfg, (0, 1))
+    return [pl.build_loop_tables(data, camera, cfg, s) for s in (0, 1)]
 
 
 def compact_sweep(csrc):
@@ -403,7 +445,7 @@ def build_all(csrc):
     report}, {name: library path})."""
     from zdr_tpu_torch import kernels
 
-    builds = dict(BUILDS, **(LEADS if compact_sweep(csrc) else FIXED))
+    builds = with_emit(dict(BUILDS, **(LEADS if compact_sweep(csrc) else FIXED)), csrc)
     shutil.rmtree(BUILD, ignore_errors=True)
     running = {}
     for name, edits in builds.items():
@@ -464,9 +506,10 @@ def launch(lib, tb, lanes, mat, le, block=0, early=None):
     return acc, grad, counts, None
 
 
-def inputs(cs, scene_name, dev, stacks=None):
+def inputs(cs, scene_name, dev, stacks=None, lookup="emit"):
     """chip_smoke.py phase 11's dense main-path inputs, or phase 15's dense
-    scene of sphere `stacks` -> (tables at seed 0, tables at seed 1, lanes,
+    scene of sphere `stacks`, with the bounce's lookup `lookup`
+    (lookup_tables) -> (tables at seed 0, tables at seed 1, lanes,
     material, adjoint, reps)."""
     from zdr_tpu_torch.integrators import path_loop as pl
 
@@ -476,8 +519,7 @@ def inputs(cs, scene_name, dev, stacks=None):
         scene, spp, reps = cs._protocol(dev, "bruteforce", "direct", stacks), cs.SPP, 5
     else:
         scene, spp, reps = cs._flagship(dev, "direct"), cs.SPP, 5
-    tb, tb1 = (pl.build_loop_tables(scene._data, scene.camera, scene._config(cs.RES, spp), s)
-               for s in (0, 1))
+    tb, tb1 = lookup_tables(cs, scene._data, scene.camera, scene._config(cs.RES, spp), lookup)
     if tb.bvh is not None:
         raise SystemExit(f"{scene_name}: not the dense route")
     lanes = pl.pixel_lanes(cs.RES, spp, dev)
@@ -570,6 +612,12 @@ def timeline(cs, lib, inp, ref):
     }
 
 
+def kernels_csrc():
+    from zdr_tpu_torch import kernels
+
+    return kernels.CSRC
+
+
 def _blocks(largest):
     return [1 << k for k in range(5, 11) if 1 << k <= largest]
 
@@ -584,8 +632,10 @@ def study(cs, libs, reports, paths, compact, dev, smi, out_path):
           + json.dumps(out["sass_loads"]) + f" (SASS in {os.path.relpath(sass_path, ROOT)}); "
           f"card {smi}", flush=True)
     out["scenes"] = {}
-    for scene_name in SCENES:
-        inp = inputs(cs, scene_name, dev)
+    lookups = ("emit", "closest") if emit_first(kernels_csrc()) else ("closest",)
+    for scene_name, lookup in ((s, k) for s in SCENES for k in lookups):
+        inp = inputs(cs, scene_name, dev, lookup=lookup)
+        scene_name = f"{scene_name}, {lookup}"
         prod, ref = time_build(cs, libs["production"], inp)
         rows = {"production": prod}
         for name in libs:

@@ -20,15 +20,20 @@ production's.
 The inputs are chip_smoke.py's: the reference's protocol (962 triangles,
 pmj02bn, 512x512, 256 spp, the route accel="auto" takes, the BVH) and the
 big mesh (50,882 triangles, 512x512, 64 spp), 1024^2 material of 0.5, the
-render at seed 0, the tap mode at seed 1 with the adjoint 1 / spp. The
+render at seed 0, the tap mode at seed 1 with the adjoint 1 / spp; the
+direct builds on each scene with the bounce ray's emitter-first lookup
+("emit", where the sources have it) and with its closest hit ("closest":
+the tables built with scene_tables.MERGED_MAX_LIGHT_TRIS lowered). The
 builds:
   production  the package's sources;
   primary2x   the primary ray's walk run twice (the second, on the same ray,
               folded into the ray's origin by a test that never holds, so
               that the compiler keeps both), likewise
   shadow2x    the NEE shadow ray's walk (any hit), and
-  bounce2x    the bounce ray's walk: each part's time is the build's time
-              less production's, the rest production's less the three;
+  bounce2x    the bounce ray's lookup, whichever the launch takes (its
+              closest walk, or emitter first its light hit and capped
+              any-hit walk): each part's time is the build's time less
+              production's, the rest production's less the three;
   noatomic    direct_grad's gradient taps computed but not added (the add
               behind a test that never holds): the atomics' share;
   regs128, regs80, regs48, block128, block512
@@ -108,15 +113,27 @@ SHADOW = "  bool occ = shade && tr.any(tb, q, hit.p, nee.wi, nee.dist, &cnt);\n"
 SHADOW2 = f"""  bool occ_again =
       shade && tr.any(tb, q, v3(hit.p.x + {ZERO}, hit.p.y, hit.p.z), nee.wi, nee.dist, nullptr);
 """ + SHADOW + "  occ = occ_again == occ ? occ : occ_again;\n"
-BOUNCE = ("  if (bounce_ok) bae = closest_interact(tb, q, next_o, wi, pdf_bounce, true, tr, "
-          "&cnt).ae;\n")
-BOUNCE2 = f"""  if (bounce_ok) {{
-    float again_t = kTMax, again_u = 0.0f, again_v = 0.0f;
-    int again = tr.closest(tb, q, v3(next_o.x + {ZERO}, next_o.y, next_o.z), wi, again_t,
-                           again_u, again_v, nullptr);
-    next_o.x += again < -1 ? 1.0f : 0.0f;
-  }}
+# the bounce ray's lookup: its closest hit over the scene (the lite B3), and
+# where the sources have it, emitter first (direct_step.cuh bounce_emit);
+# bounce2x runs the lookup the launch takes twice
+BOUNCE = "    Hit bh = closest_interact(tb, q, next_o, wi, pdf_bounce, true, tr, &cnt);\n"
+BOUNCE2 = f"""    {{
+      float again_t = kTMax, again_u = 0.0f, again_v = 0.0f;
+      int again = tr.closest(tb, q, v3(next_o.x + {ZERO}, next_o.y, next_o.z), wi, again_t,
+                             again_u, again_v, nullptr);
+      next_o.x += again < -1 ? 1.0f : 0.0f;
+    }}
 """ + BOUNCE
+EMIT = "    bae = bounce_emit<kEnv>(tb, q, light_rows, next_o, wi, pdf_bounce, tr, cnt, env);\n"
+EMIT2 = f"""    {{
+      TraceCount again_cnt = {{0, 0}};
+      V3 again = bounce_emit<kEnv>(tb, q, light_rows, v3(next_o.x + {ZERO}, next_o.y, next_o.z),
+                                   wi, pdf_bounce, tr, again_cnt, env);
+      next_o.x += again.x < -1.0f ? 1.0f : 0.0f;
+    }}
+""" + EMIT
+# the head of the bounce's lookup, either
+BOUNCE_HEAD = "  V3 bae = v3(0.0f, 0.0f, 0.0f);\n"
 # the tap's add: four scalar atomics (the escape-link sources) or one vector
 # atomic (the ordered walk's)
 TAP_SCALAR = "      for (int c = 0; c < 4; ++c) splat_add(dt->grad, id, c, g[c]);\n"
@@ -281,7 +298,7 @@ BUILDS = {
     "production": [],
     "primary2x": [(STEP, PRIMARY, PRIMARY2)],
     "shadow2x": [(STEP, SHADOW, SHADOW2)],
-    "bounce2x": [(STEP, BOUNCE, BOUNCE2)],
+    "bounce2x": [(STEP, BOUNCE, BOUNCE2)],  # and EMIT's where the sources have it
     "noatomic": [(STEP, (TAP_SCALAR, TAP_VECTOR), TAP_NONE)],
     **{name: _caps(*cap) for name, cap in CAPS.items()},
 }
@@ -373,6 +390,32 @@ def _env_instantiation(mangled):
     return bool(m) and m.group(1).endswith("Lb1E")
 
 
+def emit_first(csrc):
+    """Whether the sources in `csrc` have the emitter-first bounce lookup."""
+    with open(os.path.join(csrc, STEP)) as fh:
+        return EMIT in fh.read()
+
+
+def with_emit(builds, csrc):
+    """`builds` with bounce2x's second edit, EMIT's, where the sources have
+    the emitter-first lookup."""
+    if not emit_first(csrc):
+        return builds
+    return dict(builds, bounce2x=builds["bounce2x"] + [(STEP, EMIT, EMIT2)])
+
+
+def lookup_tables(cs, data, camera, cfg, lookup):
+    """The tables at seeds 0 and 1 with the bounce's lookup `lookup`:
+    "emit" (the package's: emitter first, where the sources have it) or
+    "closest" (chip_smoke.py's _closest_tables where it has them; sources
+    without the emitter-first lookup have only the closest)."""
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    if lookup == "closest" and hasattr(cs, "_closest_tables"):
+        return cs._closest_tables(data, camera, cfg, (0, 1))
+    return [pl.build_loop_tables(data, camera, cfg, s) for s in (0, 1)]
+
+
 def build_all():
     """Copy, edit and compile every build that applies to these sources,
     all nvcc processes at once -> ({name: library entries}, {name: ptxas
@@ -387,7 +430,7 @@ def build_all():
         if span is None or text[span[0]:span[1]] != walk():
             raise SystemExit(f"walk() is not {TRACE}'s bvh_walk: bring WALK_WHILE and its "
                              f"pieces up to date with it")
-    builds = dict(BUILDS, **(DESIGN if ordered else {}))
+    builds = with_emit(dict(BUILDS, **(DESIGN if ordered else {})), kernels.CSRC)
     skipped = [] if ordered else list(DESIGN)
     shutil.rmtree(BUILD, ignore_errors=True)
     running = {}
@@ -444,10 +487,10 @@ def direct_launch(lib, tb, lanes, mat, le):
     return acc, grad, counts
 
 
-def inputs(cs, scene_name, integrator, dev):
+def inputs(cs, scene_name, integrator, dev, lookup="emit"):
     """chip_smoke.py's main-path inputs of the protocol (by accel="auto")
-    or the big mesh -> (tables at seed 0, tables at seed 1, lanes, material,
-    adjoint)."""
+    or the big mesh, with the bounce's lookup `lookup` (lookup_tables) ->
+    (tables at seed 0, tables at seed 1, lanes, material, adjoint)."""
     from zdr_tpu_torch.integrators import path_loop as pl
 
     if scene_name == "protocol":
@@ -455,8 +498,7 @@ def inputs(cs, scene_name, integrator, dev):
     else:
         scene, spp = cs._bigmesh(dev, integrator), cs.SPP
     data = scene._render_data(integrator)
-    tb, tb1 = (pl.build_loop_tables(data, scene.camera, scene._config(cs.RES, spp), s)
-               for s in (0, 1))
+    tb, tb1 = lookup_tables(cs, data, scene.camera, scene._config(cs.RES, spp), lookup)
     if tb.bvh is None:
         raise SystemExit(f"{scene_name}: not the BVH route")
     lanes = pl.pixel_lanes(cs.RES, spp, dev)
@@ -526,7 +568,12 @@ def study(cs, libs, reports, skipped, dev, smi, out_path):
           f"card {smi}", flush=True)
     direct_in = {name: inputs(cs, name, "direct", dev) for name in ("protocol", "big mesh")}
     rows, refs = {}, {}
-    for scene_name, inp in direct_in.items():
+    scenes = dict(direct_in)
+    if emit_first(kernels.CSRC):
+        scenes = {f"{k}, emit": v for k, v in direct_in.items()}
+        scenes.update({f"{k}, closest": inputs(cs, k, "direct", dev, "closest")
+                       for k in direct_in})
+    for scene_name, inp in scenes.items():
         prod, ref = time_direct(cs, libs["production"], inp)
         refs[scene_name] = ref
         rows[scene_name] = {"production": prod}
@@ -568,8 +615,9 @@ def study(cs, libs, reports, skipped, dev, smi, out_path):
             line = {}
             for scene_name, inp in direct_in.items():
                 tree = tv.leaf_accel(_geom_of(cs, scene_name, dev), leaf)
+                ref = refs.get(scene_name) or refs[f"{scene_name}, emit"]
                 line[scene_name] = time_direct(cs, libs["production"], _with_tree(inp, tree),
-                                               refs[scene_name])[0]
+                                               ref)[0]
                 line[scene_name]["nodes"] = int(tree.nodes.shape[0])
             tree = tv.leaf_accel(_geom_of(cs, "big mesh", dev), leaf)
             line["big mesh path"] = time_path(cs, libs["production"], _with_tree(path_in, tree),

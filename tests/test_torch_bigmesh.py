@@ -148,7 +148,8 @@ def _host_bvh(tb, lanes, mat, le_grad, integrator, small_shared=True,
     counts)."""
     lib = kernels.load_host_library()
     n = lanes.shape[1]
-    tables, params = kernels.pack_tables(tb), kernels.loop_params(tb, mat)
+    tables = kernels.direct_tables(tb) if integrator == "direct" else kernels.pack_tables(tb)
+    params = kernels.loop_params(tb, mat)
     a = tb.bvh
     bvh = kernels.bvh_args(a, torch.device("cpu"))
     counts = torch.zeros((2,), dtype=torch.int64)

@@ -328,7 +328,7 @@ def test_early_work_counts_the_kernels_tests(name):
     lanes = pl.pixel_lanes(tb.res, tb.spp, "cpu")
     stages, sub = cs._early_work(tb, lanes, mat, stride=3)
     lib = kernels.load_host_library()
-    tables = kernels.pack_tables(tb)
+    tables = kernels.direct_tables(tb)
     counts = []
     for early in (True, False):
         acc, tests = torch.empty((3, sub.shape[1])), torch.zeros((1,), dtype=torch.int64)

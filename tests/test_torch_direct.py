@@ -11,6 +11,7 @@ Tolerances are stated at each test; torch's and XLA's sin/cos differ by
 ulps, which only the GGX sample reads.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -387,7 +388,7 @@ def _host_direct(tb, lanes, mat, le_grad=None, early=None):
     acc = torch.empty((3, n))
     grad = torch.zeros_like(mat)
     tests = torch.zeros((1,), dtype=torch.int64)
-    tables = kernels.pack_tables(tb)
+    tables = kernels.direct_tables(tb)
     rc = lib.zdr_direct_host(
         kernels.loop_params(tb, mat), tables.data_ptr(), tables.numel(), tb.bn.data_ptr(),
         mat.data_ptr(), lanes.data_ptr(), None if le_grad is None else le_grad.data_ptr(),
@@ -406,15 +407,28 @@ def test_host_trace_interact_matches_plain(lite):
 
 
 @pytest.mark.parametrize("early", [False, True], ids=["sweep", "early"])
-@pytest.mark.parametrize("sampler,name", [("pmj02bn", "cbox"), ("lcg", "sphere")])
+@pytest.mark.parametrize("sampler,name", [("pmj02bn", "cbox"), ("lcg", "sphere"),
+                                          ("lcg", "points"), ("lcg", "lights48")])
 def test_host_direct_matches_plain(sampler, name, early):
     """24x24, 8 spp, roughness in [0.5, 0.9], a random adjoint: the render
     within mean abs diff 1e-6 and 99% of pixels within 1e-5 (glibc's
     sinf and torch's differ by ulps), the gradient within max|a - b| /
     max|a| < 1e-5, the tap mode's radiance equal to the forward's, and
     the test count between the bounds of the sweeps; with and without the
-    sweeps' early out (direct_step.cuh CompactSweep)."""
-    s = _port_scene(name, sampler)
+    sweeps' early out (direct_step.cuh CompactSweep). The bounce ray looks
+    up its emitter first on the cornell box and the sphere (2 light
+    triangles) and on "points" (point lights only, no light triangle: the
+    build's bounce term is 0, its radiance that of the closest lookup bit
+    for bit, and it makes fewer tests by whole sweeps of the scene, as
+    test_torch_bounce_emit.py counts them exactly); "lights48" (an emissive
+    sphere of 48 triangles, past MERGED_MAX_LIGHT_TRIS) keeps the closest
+    lookup."""
+    if name in ("points", "lights48"):
+        from test_torch_bounce_emit import _port_points_scene
+
+        s = _port_points_scene(lit_sphere=name == "lights48")
+    else:
+        s = _port_scene(name, sampler)
     mat = _material(seed=6)
     mat[..., 3] = np.random.RandomState(7).uniform(0.5, 0.9, mat.shape[:2])
     mat = torch.as_tensor(mat)
@@ -435,6 +449,13 @@ def test_host_direct_matches_plain(sampler, name, early):
     assert torch.equal(want_acc, want)
     assert float(want_g.abs().max()) > 0
     assert float((grad - want_g).abs().max() / want_g.abs().max()) < 1e-5
+    emit = kernels.loop_params(tb, mat)[23] != 0
+    assert emit == (name != "lights48") and emit == (tb.light_rows is not None)
+    if name == "points":
+        closest = dataclasses.replace(tb, light_rows=None)
+        c_acc, _g, c_tests = _host_direct(closest, lanes, mat, early=early)
+        assert torch.equal(c_acc, acc) and float(acc.max()) > 0
+        assert c_tests > tests and (c_tests - tests) % t == 0
 
 
 FD_EPS = 0.01

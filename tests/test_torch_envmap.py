@@ -344,7 +344,7 @@ def _host_env(tb, lanes, mat, le=None, early=0):
     acc = torch.empty((3, n))
     grad = torch.zeros_like(mat)
     counts = torch.zeros((2,), dtype=torch.int64)
-    tables = kernels.pack_tables(tb)
+    tables = kernels.direct_tables(tb)
     cpu = torch.device("cpu")
     bvh = (None, None, 0, 0) if tb.bvh is None else kernels.bvh_args(tb.bvh, cpu)
     rc = lib.zdr_direct_env_host(

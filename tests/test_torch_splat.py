@@ -338,7 +338,7 @@ def _host_run(entry, tb, lanes, mat, le_grad, tail):
     acc = torch.empty((3, n))
     grad = torch.zeros_like(mat)
     counts = torch.zeros((2,), dtype=torch.int64)
-    tables = kernels.pack_tables(tb)
+    tables = kernels.direct_tables(tb) if entry == "zdr_direct_host" else kernels.pack_tables(tb)
     rc = getattr(lib, entry)(
         kernels.loop_params(tb, mat), tables.data_ptr(), tables.numel(), tb.bn.data_ptr(),
         mat.data_ptr(), lanes.data_ptr(), le_grad.data_ptr(), acc.data_ptr(), grad.data_ptr(),

@@ -279,7 +279,7 @@ def test_host_build_of_the_direct_bvh_kernels_at_leaf_widths(leaf):
     mat = torch.as_tensor(mat)
     le = torch.as_tensor(rs.rand(3, lanes.shape[1]).astype(np.float32))
     lib = kernels.load_host_library()
-    tables, params = kernels.pack_tables(tb), kernels.loop_params(tb, mat)
+    tables, params = kernels.direct_tables(tb), kernels.loop_params(tb, mat)
     n = lanes.shape[1]
     out = {}
     for name, adj in (("fwd", None), ("grad", le)):

@@ -140,18 +140,20 @@ EARLY_T_FLOOR = 2.0**-80
 EARLY_SHADOW_LO = float(torch.tensor(1e-4) * torch.tensor(1.0 - 2.0**-20))
 
 
-def early_planes(rows, o, d, t_max, any_hit: bool = False):
+def early_planes(rows, o, d, t_max, any_hit: bool = False, from_zero: bool = False):
     """The compact sweep's early out (direct_step.cuh CompactSweep) for
     every ray over the rows of `rows` (T, >= 9) in the sweep's order: the
     closest sweep at t in (0, t_max), whose bound on t narrows at each hit,
-    or the shadow sweep at t in (1e-4, t_max), which stops at its first
+    or the shadow sweep at t in (1e-4, t_max) (from_zero: the bounce's
+    any-hit, bounce_any, at t in (0, t_max)), which stops at its first
     hit. Yields, a chunk of rays at a time, (N', T) bool planes: tested
     (the tests the sweep makes), hit (the rows it takes as its hits: each
     nearer than the last, or the first), left1 (a test that leaves after
     u's numerator) and left2 (after v's and t's, where not left1)."""
     n, n_tris = o[0].shape[0], rows.shape[0]
-    lo = EARLY_SHADOW_LO if any_hit else EARLY_UNDER
-    t_min = 1e-4 if any_hit else 0.0
+    shadow = any_hit and not from_zero
+    lo = EARLY_SHADOW_LO if shadow else EARLY_UNDER
+    t_min = 1e-4 if shadow else 0.0
     p0, e1, e2 = (tuple(x[None, :] for x in c) for c in _row_cols(rows))
     for sl in chunks(n, n_tris):
         oc, dc = tuple(x[sl, None] for x in o), tuple(x[sl, None] for x in d)
@@ -187,12 +189,12 @@ def early_planes(rows, o, d, t_max, any_hit: bool = False):
         yield tested, hit, left1, left2
 
 
-def early_stages(rows, o, d, t_max, any_hit: bool = False):
+def early_stages(rows, o, d, t_max, any_hit: bool = False, from_zero: bool = False):
     """early_planes' tests by where they leave -> (3,) int64 counts: after
     u's numerator, after v's and t's, at the division. Their sum is
     dense_closest's or dense_any's test count."""
     out = torch.zeros(3, dtype=torch.int64, device=rows.device)
-    for tested, _hit, left1, left2 in early_planes(rows, o, d, t_max, any_hit):
+    for tested, _hit, left1, left2 in early_planes(rows, o, d, t_max, any_hit, from_zero):
         out += torch.stack([(tested & left1).sum(), (tested & left2).sum(),
                             (tested & ~left1 & ~left2).sum()])
     return out

@@ -9,7 +9,13 @@ integrator calls them (direct_fused.py:124-268):
   shade_plain            _shade_kernel (:917) in split mode: the NEE shadow
                          sweep (or a given occlusion), MIS weights, GGX shade
                          and sample, the next ray, roulette, and with grad
-                         inputs the gradient taps and their splat id.
+                         inputs the gradient taps and their splat id;
+  light_hit_plain        the bounce ray's emitter-first lookup, its closest
+  bounce_any_plain       hit over the light triangles alone
+                         (fused_glue.light_hit_planes :384, the merged
+                         _shade_kernel :1143-1200) and the any-hit of the
+                         scene capped at it (:1201-1230, direct_fused.py
+                         :217-227).
 
 They take and return tuples of (N,) tensors in the order of the TPU
 kernels' planes, without the (rows, 512) tiling. They are the plain
@@ -33,10 +39,10 @@ from ..microfacet import (
     to_local,
     to_world,
 )
-from ..accel.trace import chunks
+from ..accel.trace import bvh_any, chunks
 from ..texture import splat_ids
-from ..vec import vadd, vdot, vscale
-from .path_loop import _mt_all, closest_hit, interact_epilogue, occluded
+from ..vec import vadd, vdot, vnormalize, vscale
+from .path_loop import T_MAX, _mt_all, closest_hit, interact_epilogue, occluded
 
 # trace_interact's 16 outputs (pallas_bounce.py:1360); lite returns the
 # last 4
@@ -96,6 +102,54 @@ def occluded_plain(scene, p, wi, dist, bvh=None):
         ok, _u, _v, t = _mt_all(scene, [x[sl] for x in p], [x[sl] for x in wi])
         out.append((ok & (t > 1e-4) & (t < dist[sl][:, None])).any(dim=1))
     return torch.cat(out)
+
+
+def light_hit_plain(scene, lights, light_rows, o, d, pdf_prev, active):
+    """The closest hit of every ray over the L light triangles alone, at t
+    in (0, 1e30), the first of equal nearest, with the emitter-hit MIS
+    (fused_glue.light_hit_planes; pallas_bounce.py:1143-1200). lights: the
+    (L, 16) light rows; light_rows: their scene-row ids, whose n0 dn1 dn2
+    in `scene` give the shading normal of the front test -> (t_e (1e30:
+    none), the radiance (3 tensors) as if the path to the light were clear,
+    has: an active ray's light hit, on: has, front-facing and emissive)."""
+    n, dev = o[0].shape[0], o[0].device
+    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+    if lights.shape[0] == 0:
+        none = torch.zeros((n,), dtype=torch.bool, device=dev)
+        return zero + T_MAX, (zero, zero, zero), none, none
+    best_t, bu, bv, prim = closest_hit_plain(lights, o, d)
+    has = active & (prim >= 0)
+    j = torch.clamp_min(prim, 0)
+    lt = lights[j]
+    nr = scene[light_rows.long()[j], 15:24]
+    ns = vnormalize(tuple(nr[:, k] + bu * nr[:, 3 + k] + bv * nr[:, 6 + k] for k in range(3)))
+    cos_light = -vdot((lt[:, 12], lt[:, 13], lt[:, 14]), d)
+    front = (cos_light >= 1e-4) & (-vdot(ns, d) >= 1e-4)
+    emissive = (lt[:, 9] > 0.0) | (lt[:, 10] > 0.0) | (lt[:, 11] > 0.0)
+    pdf_hit = best_t * best_t / torch.clamp_min(lt[:, 15] * cos_light, 1e-12)
+    mis = pdf_prev / torch.clamp_min(pdf_prev + pdf_hit, 1e-4)
+    on = has & front & emissive
+    return best_t, tuple(torch.where(on, mis * lt[:, 9 + c], 0.0) for c in range(3)), has, on
+
+
+def bounce_any_plain(scene, o, d, t_max, active, bvh=None):
+    """Any triangle hit at t in (0, t_max) by an active ray, the bounce's
+    any-hit from its offset origin (direct_fused.py:219-227, t_lo 0), over
+    the scene rows in chunks of rays, or through `bvh` -> (N,) bool, False
+    where inactive."""
+    occ = torch.zeros_like(active)
+    if not bool(active.any()):
+        return occ
+    o, d, t_max = tuple(x[active] for x in o), tuple(x[active] for x in d), t_max[active]
+    if bvh is not None:
+        occ[active] = bvh_any(bvh, o, d, torch.zeros_like(t_max), t_max)[0]
+        return occ
+    out = []
+    for sl in chunks(o[0].shape[0], scene.shape[0]):
+        ok, _u, _v, t = _mt_all(scene, [x[sl] for x in o], [x[sl] for x in d])
+        out.append((ok & (t > 0.0) & (t < t_max[sl][:, None])).any(dim=1))
+    occ[active] = torch.cat(out)
+    return occ
 
 
 def shade_plain(scene, ray, nee, draws, rr_depth: int, max_depth: int, tex_h: int,

@@ -12,8 +12,16 @@ of a lane (`direct_sample_plain`, `_one_sample` :124-268) runs, in order:
      BSDF's 3 draws (no roulette draw);
   4. shade at depth 0, beta = 1: the shadow test, MIS, GGX shade, the
      bounce sample (roulette is inert, rr_depth 2);
-  5. the lite trace_interact on the bounce ray: its MIS-weighted emitter;
-     radiance = shade's radiance + beta_next * that emitter.
+  5. the bounce ray's MIS-weighted emitter; radiance = shade's radiance +
+     beta_next * that emitter. Where the tables carry the light triangles'
+     scene rows (LoopTables.light_rows: L <= MERGED_MAX_LIGHT_TRIS, the JAX
+     package's merged _shade_kernel, pallas_bounce.py:1134-1237, and its
+     streamed route, direct_fused.py:203-236) it is looked up emitter
+     first (`bounce_emit_plain`): the closest hit over the light triangles
+     alone, then one any-hit of the scene on (0, 0.9999 t) of that hit; a
+     ray that reaches no light walks nothing, or under an env walks to 1e30
+     and adds the env where nothing is hit. Past the cap, the lite
+     trace_interact: the closest hit over the scene (:244-257).
 
 Under an environment light (LoopTables.env, direct_fused.py:151-156,
 :242-251) a miss of the primary ray adds the env at MIS against no BSDF pdf,
@@ -41,10 +49,11 @@ from ..envmap import env_miss_add
 from ..samplers.hashes import lcg_to_unit_float
 from ..texture import add_taps, read_bilinear
 from ..vec import div
-from .bounce import shade_plain, trace_interact_plain
+from .bounce import bounce_any_plain, light_hit_plain, shade_plain, trace_interact_plain
 from .path_loop import (
     PDF_NONE,
     RADIANCE_CLAMP,
+    T_MAX,
     LoopTables,
     _fresh_state,
     _sampler,
@@ -55,6 +64,32 @@ from .path_loop import (
 # direct_fused.py:204: rr_depth 2 and max_depth 16 at depth 0 -> no
 # roulette, and the bounce goes on whenever it is valid
 RR_DEPTH, MAX_DEPTH = 2, 16
+# the bounce's any-hit ends at this share of its light hit's t (the NEE
+# shadow ray's epsilon, pallas_bounce.py:1201, direct_fused.py:222)
+BOUNCE_CAP = 0.9999
+
+
+def bounce_emit_plain(tb: LoopTables, o, d, pdf_bounce, alive):
+    """The bounce rays' MIS-weighted emitter, looked up emitter first: each
+    alive ray's closest light hit (light_hit_plain), kept where nothing of
+    the scene lies on (0, BOUNCE_CAP t) of it (bounce_any_plain, walked
+    only where the light adds something); without a light hit, under the
+    env, the any-hit to 1e30 and the env where it is clear
+    (direct_fused.py:217-236) -> 3 (N,) tensors."""
+    bounce_emit_plain.calls += 1
+    t_e, add, has, on = light_hit_plain(tb.scene, tb.lights, tb.light_rows, o, d, pdf_bounce,
+                                        alive)
+    walk = on | (alive & ~has) if tb.env is not None else on
+    t_hi = torch.where(has, BOUNCE_CAP * t_e, T_MAX)
+    clear = ~bounce_any_plain(tb.scene, o, d, t_hi, walk, bvh=tb.bvh)
+    bae = tuple(torch.where(clear, a, 0.0) for a in add)
+    if tb.env is None:
+        return bae
+    em = env_miss_add(tb.env, d, pdf_bounce, alive & ~has & clear, tb.inv_n_lights)
+    return tuple(bae[c] + em[c] for c in range(3))
+
+
+bounce_emit_plain.calls = 0
 
 
 def direct_sample_plain(tb: LoopTables, lanes, material, sample_idx: int, le_grad=None):
@@ -87,10 +122,13 @@ def direct_sample_plain(tb: LoopTables, lanes, material, sample_idx: int, le_gra
     h, w = material.shape[0], material.shape[1]
     k2 = shade_plain(tb.scene, ray, nee, draws, RR_DEPTH, MAX_DEPTH, h, w,
                      want_occ=le_grad is not None, bvh=tb.bvh)
-    bae = trace_interact_plain(tb.scene, (*k2[7:13], k2[6], k2[13]), lite=True, bvh=tb.bvh)
-    if tb.env is not None:
-        em = env_miss_add(tb.env, k2[10:13], k2[6], bae[3] != 0, tb.inv_n_lights)
-        bae = tuple(bae[c] + em[c] for c in range(3))
+    if tb.light_rows is not None:
+        bae = bounce_emit_plain(tb, k2[7:10], k2[10:13], k2[6], k2[13] != 0)
+    else:
+        bae = trace_interact_plain(tb.scene, (*k2[7:13], k2[6], k2[13]), lite=True, bvh=tb.bvh)
+        if tb.env is not None:
+            em = env_miss_add(tb.env, k2[10:13], k2[6], bae[3] != 0, tb.inv_n_lights)
+            bae = tuple(bae[c] + em[c] for c in range(3))
     rad = tuple(k2[c] + k2[3 + c] * bae[c] for c in range(3))
     if le_grad is None:
         return rad

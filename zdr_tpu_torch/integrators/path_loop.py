@@ -141,6 +141,12 @@ class LoopTables:
     # 4 samples, their taps too)
     splat_merge: int = 1
     packed_splat: bool = False
+    # the direct integrator's bounce ray looks up its emitter first: each
+    # light triangle's scene-row id (scene_tables.light_row_table), which
+    # the direct kernels read after the packed tables
+    # (kernels.direct_tables); None: the closest hit over the scene. The
+    # other integrators do not read it.
+    light_rows: Optional[torch.Tensor] = None
 
     @property
     def n_env(self) -> int:
@@ -186,6 +192,7 @@ def build_loop_tables(data, camera, cfg, seed: int) -> LoopTables:
         env=data.env,
         splat_merge=max(int(cfg.splat_merge), 1),
         packed_splat=bool(cfg.packed_splat),
+        light_rows=scene_tables.light_row_table(data),
     )
 
 

@@ -9,9 +9,16 @@ without the TPU's row padding:
   light tris  (L, 16): p0 e1 e2 | emission | ng | n_total * tc * area
   light insts (n_lights, 2): first light-tri row, triangle count
   points      (n_point, 6): position | intensity
+
+and the direct kernels' side table for the bounce ray's emitter-first
+lookup (`light_row_table`): each light triangle's scene row, whose n0 dn1
+dn2 give the shading normal at a light hit (JAX's light_pack cols 16:25,
+pallas_bounce.py:308-315).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -21,6 +28,12 @@ from ..vec import vcross
 SCENE_COLS = 31
 LIGHT_COLS = 16
 CAM_COLS = 16
+# the most light triangles for which the direct integrator's bounce ray
+# looks up its emitter first (JAX's direct_fused.py MERGED_MAX_LIGHT_TRIS,
+# copied): a closest hit over the light rows, then one any-hit of the scene
+# capped at that hit; past it, the closest hit over the scene. Read at each
+# table build.
+MERGED_MAX_LIGHT_TRIS = 32
 
 
 def table_floats(meta) -> int:
@@ -83,6 +96,17 @@ def light_table(data: SceneData) -> torch.Tensor:
         [lv0, le1, le2, data.emission[inst], _normalized(lc), l_inv_pdf[:, None]],
         dim=1,
     ).to(torch.float32).contiguous()
+
+
+def light_row_table(data: SceneData) -> Optional[torch.Tensor]:
+    """Each light triangle's scene-row id, (L,) int32 (L = 0 included), where
+    the direct integrator's bounce ray looks up its emitter first (L <=
+    MERGED_MAX_LIGHT_TRIS); None where it takes the closest hit over the
+    scene."""
+    ids = list(data.meta.light_tri_ids)
+    if len(ids) > MERGED_MAX_LIGHT_TRIS:
+        return None
+    return torch.tensor(ids, dtype=torch.int32, device=data.device)
 
 
 def light_inst_table(data: SceneData) -> torch.Tensor:

@@ -8,7 +8,12 @@ direct and the collocated kernels. Everything else takes the unfused
 estimators, plain torch around the trace kernels: the persistent path walk
 (path_persistent.py; `persistent=False`, the per-sample loop over
 path.path_estimator and path_backward), and for the direct and collocated
-integrators the per-sample loop over their estimators.
+integrators the per-sample loop over their estimators. On the kernel
+route the direct integrator's bounce ray looks up its emitter first at up
+to scene_tables.MERGED_MAX_LIGHT_TRIS light triangles, by either accel
+(JAX's merged and streamed modes, direct_fused.py:166-236); JAX's own
+split also depends on its TPU thresholds MXU_MIN_TRIS and FUSED_MAX_TRIS,
+which the port does not copy (README's port "Differences").
 `render_forward_rays` and `render_grad_rays` send any batch of pixels
 down either route, the unit that parallel.py shards over ranks;
 `render_forward` and `render_grad` are their calls on the full grid.

@@ -393,10 +393,14 @@ def load_host_library() -> types.SimpleNamespace:
 
 def pack_params(kind: str, spp: int, seed: int, *, res=(1, 1), use_tent=True,
                 rr_depth=0, max_depth=0, counts=(0, 0, 0, 0), tex=(0, 0),
-                bn_res=0, bn_ntex=0, n_env=0, splat_merge=1, packed_splat=False, first=0):
+                bn_res=0, bn_ntex=0, n_env=0, splat_merge=1, packed_splat=False, first=0,
+                emit_first=False):
     """The kernel's integer parameters (path_loop_step.cuh LoopParams);
     corrmj's grid side and its mask as samplers/corrmj.py computes them;
-    the splat knobs, and the first sample of a packed gradient launch."""
+    the splat knobs, and the first sample of a packed gradient launch; then
+    whether the direct kernels' bounce ray looks up its emitter first
+    (direct_step.cuh light_rows_of: the tables then end with the light
+    triangles' scene-row ids, direct_tables)."""
     if spp <= 0:
         raise ValueError(f"spp must be >= 1, got {spp}")
     seed &= 0xFFFFFFFF
@@ -404,7 +408,7 @@ def pack_params(kind: str, spp: int, seed: int, *, res=(1, 1), use_tent=True,
     vals = [KINDS[kind], spp, next_pow2_mask(spp), seed - (seed >> 31 << 32),
             res[0], res[1], int(use_tent), rr_depth, max_depth, *counts, *tex,
             bn_res, bn_ntex, n_env, cmj_res, next_pow2_mask(cmj_res) if cmj_res else 0,
-            max(int(splat_merge), 1), int(bool(packed_splat)), first]
+            max(int(splat_merge), 1), int(bool(packed_splat)), first, int(bool(emit_first))]
     return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -415,7 +419,7 @@ def loop_params(tb: LoopTables, material: torch.Tensor, first: int = 0):
         rr_depth=tb.rr_depth, max_depth=tb.max_depth, counts=counts,
         tex=(material.shape[0], material.shape[1]), bn_res=tb.bn_res,
         bn_ntex=tb.bn_ntex, n_env=tb.n_env, splat_merge=tb.splat_merge,
-        packed_splat=tb.packed_splat, first=first,
+        packed_splat=tb.packed_splat, first=first, emit_first=tb.light_rows is not None,
     )
 
 
@@ -423,6 +427,18 @@ def pack_tables(tb: LoopTables) -> torch.Tensor:
     """Scene, light, light-instance, point and camera rows in one buffer."""
     parts = (tb.scene, tb.lights, tb.light_inst, tb.points, tb.cam)
     return torch.cat([t.reshape(-1).to(torch.float32) for t in parts]).contiguous()
+
+
+def direct_tables(tb: LoopTables) -> torch.Tensor:
+    """The direct kernels' tables: pack_tables', and where tb.light_rows is
+    set (loop_params' emit_first) the light triangles' scene-row ids after
+    them, as the bits of int32 in float32 (direct_step.cuh light_rows_of),
+    read once a light hit and never copied to shared memory."""
+    tables = pack_tables(tb)
+    if tb.light_rows is None:
+        return tables
+    rows = tb.light_rows.to(device=tables.device, dtype=torch.int32).view(torch.float32)
+    return torch.cat([tables, rows]).contiguous()
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -480,13 +496,17 @@ def _loop_inputs(tb: LoopTables, lanes, material, n_steps, dev, integrator):
         raise ValueError("material must be 16-byte aligned for float4 loads")
     if tb.kind == "pmj02bn":
         _check(tb.bn, "blue noise", torch.float32, (tb.bn_res * tb.bn_res * tb.bn_ntex,), dev)
-    tables = pack_tables(tb).to(dev)
+    tables = (direct_tables(tb) if integrator == "direct" else pack_tables(tb)).to(dev)
+    # the floats a block may copy to shared memory: the light rows' ids of
+    # direct_tables stay in global memory
+    n_ids = tb.light_rows.numel() if integrator == "direct" and tb.light_rows is not None else 0
+    n_floats = tables.numel() - n_ids
     n_tris = tb.scene.shape[0]
     if tb.bvh is None:
-        check_table_fits(n_tris, tables.numel(), integrator)
+        check_table_fits(n_tris, n_floats, integrator)
     if n_steps < 0 or n >= 2**31:
         raise ValueError("n_steps must be >= 0 and N < 2**31")
-    shared = small_tables_shared(tables.numel() - n_tris * SCENE_COLS)
+    shared = small_tables_shared(n_floats - n_tris * SCENE_COLS)
     return n, tables, loop_params(tb, material), shared
 
 

@@ -6,8 +6,9 @@
 // direct_fused.py chains them (:124-268), with the XLA glue between them:
 //   direct        one thread per pixel lane, persistent over the lane's spp:
 //                 each sample is the primary ray's closest hit, NEE + shadow
-//                 + GGX shade + bounce sample, and the bounce ray's closest
-//                 hit (direct_step.cuh), accumulated in registers.
+//                 + GGX shade + bounce sample, and the bounce ray's
+//                 emitter, looked up emitter first or by its closest hit
+//                 (direct_step.cuh), accumulated in registers.
 //   direct_grad   the same samples (the caller passes seed + 1) in tap mode:
 //                 each sample's four gradient channels go with one 16-byte
 //                 float4 atomic (sm_90) into the (H*W, 4) gradient at its
@@ -42,8 +43,16 @@
 // 512x512 (7% faster than 256 on the cornell box; 2% slower on the
 // protocol, whose blocks take 43-225 ms, so that SMs idle 10-13% of the
 // span, but a 256-thread cap halved the resident threads of a table past
-// 114 KB). Their atomics cost 0-3%. An emissive-first bounce lookup and
-// lane sorting are later work.
+// 114 KB). Their atomics cost 0-3%. Lane sorting is later work.
+//
+// The bounce ray looks up its emitter first where the launch's params say
+// emit_first (kernels: at most 32 light triangles), as JAX's merged
+// _shade_kernel (pallas_bounce.py:1134-1237) and streamed route
+// (direct_fused.py:203-236) do: a closest hit over the light rows, then one
+// any-hit of the scene (CompactSweep / BvhTrace bounce_any) capped at it, or
+// none where no light is hit and there is no env (direct_step.cuh
+// bounce_emit); the light triangles' scene-row ids follow the packed tables.
+// Otherwise its closest hit over the scene, the lite B3.
 //
 // The BVH instantiations (direct_bvh_kernel<false> / <true>, both behind
 // zdr_direct_bvh) run the same samples with every sweep an ordered walk of
@@ -105,7 +114,7 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
                   const float* __restrict__ bn, const float* __restrict__ material,
                   const int* __restrict__ lanes, const float* __restrict__ le_grad,
                   float* __restrict__ acc_out, float* grad, unsigned long long* counts,
-                  int n, zdr::EnvTables env, int first) {
+                  int n, zdr::EnvTables env, int first, const float* __restrict__ light_rows) {
   extern __shared__ float smem[];
   zdr::load_compact(smem, tables, q, zdr::compact_size(q));
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -124,7 +133,7 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
     zdr::V3 acc0 = {0.0f, 0.0f, 0.0f};
     if (kPacked) acc0 = {acc_out[lane], acc_out[n + lane], acc_out[2L * n + lane]};
     zdr::V3 acc = zdr::direct_lane<kGrad, kEnv, zdr::CompactSweep<kEarly>, kGen, kPacked>(
-        tb, q, lc, &dt, count, zdr::CompactSweep<kEarly>(), &env, acc0, first);
+        tb, q, lc, &dt, count, zdr::CompactSweep<kEarly>(), &env, light_rows, acc0, first);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -140,7 +149,8 @@ __global__ void __launch_bounds__(kBlock, 4)
                       const float* __restrict__ bn, const float* __restrict__ material,
                       const int* __restrict__ lanes, const float* __restrict__ le_grad,
                       float* __restrict__ acc_out, float* grad, zdr::Bvh bvh,
-                      unsigned long long* counts, int n, zdr::EnvTables env, int first) {
+                      unsigned long long* counts, int n, zdr::EnvTables env, int first,
+                      const float* __restrict__ light_rows) {
   extern __shared__ float smem[];
   const float* small = zdr::load_small(smem, tables, q, small_shared);
   long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -160,7 +170,7 @@ __global__ void __launch_bounds__(kBlock, 4)
     zdr::V3 acc0 = {0.0f, 0.0f, 0.0f};
     if (kPacked) acc0 = {acc_out[lane], acc_out[n + lane], acc_out[2L * n + lane]};
     zdr::V3 acc = zdr::direct_lane<kGrad, kEnv, zdr::BvhTrace, kGen, kPacked>(
-        tb, q, lc, &dt, count, tr, &env, acc0, first);
+        tb, q, lc, &dt, count, tr, &env, light_rows, acc0, first);
     acc_out[lane] = acc.x;
     acc_out[n + lane] = acc.y;
     acc_out[2L * n + lane] = acc.z;
@@ -201,11 +211,13 @@ int direct_dense(const int* params, const float* tables, int tables_n, const flo
                  float* grad, unsigned long long* counts, int n, int early, zdr::EnvTables env,
                  bool with_env, int block, int* plan, void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
+  const float* light_rows;
+  if (!zdr::light_rows_of(params, q, tables, tables_n, light_rows))
+    return (int)cudaErrorInvalidValue;
   int smem = zdr::compact_size(q) * (int)sizeof(float);
   zdr::SplatKnobs knobs = zdr::splat_knobs(params);
-  void* args[] = {&q,    &tables, &tables_n, &bn, &material, &lanes,      &le_grad,
-                  &acc,  &grad,   &counts,   &n,  &env,      &knobs.first};
+  void* args[] = {&q,   &tables, &tables_n, &bn, &material, &lanes,       &le_grad,
+                  &acc, &grad,   &counts,   &n,  &env,      &knobs.first, &light_rows};
   bool taps = le_grad != nullptr, packed = knobs.packed != 0;
   const void* fn = zdr::gen_sampler(q) ? dense_fn<true>(taps, early, with_env, packed)
                                         : dense_fn<false>(taps, early, with_env, packed);
@@ -231,7 +243,9 @@ int direct_bvh(const int* params, const float* tables, int tables_n, int small_s
                int n_rows, unsigned long long* counts, int n, zdr::EnvTables env,
                bool with_env, void* stream) {
   zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q)) return (int)cudaErrorInvalidValue;
+  const float* light_rows;
+  if (!zdr::light_rows_of(params, q, tables, tables_n, light_rows))
+    return (int)cudaErrorInvalidValue;
   size_t smem = small_shared ? (size_t)zdr::small_size(q) * sizeof(float) : 0;
   zdr::Bvh bvh{nodes, geom, n_nodes, n_rows};
   int grid = (n + kBlock - 1) / kBlock;
@@ -243,7 +257,7 @@ int direct_bvh(const int* params, const float* tables, int tables_n, int small_s
   if (err) return err;
   fn<<<grid, kBlock, smem, (cudaStream_t)stream>>>(q, tables, small_shared, bn, material, lanes,
                                                    le_grad, acc, grad, bvh, counts, n, env,
-                                                   knobs.first);
+                                                   knobs.first, light_rows);
   return (int)cudaGetLastError();
 }
 
@@ -269,7 +283,10 @@ int zdr_trace_interact(const int* params, const float* tables, int tables_n,
   return (int)cudaGetLastError();
 }
 
-// As zdr_path_loop (path_loop.cu) for the tables; lanes: (3, n) int32 px,
+// As zdr_path_loop (path_loop.cu) for the tables, and where the params' int
+// 23 (emit_first) is set, the light triangles' n_light_tris scene-row ids
+// (int bits) after them, for the emitter-first bounce lookup (tables_n
+// counts them); lanes: (3, n) int32 px,
 // py, spp; le_grad: null for the forward, or (3, n) float32, each lane's
 // per-sample adjoint, for the tap mode; acc: (3, n) float32, each lane's sum
 // of clamped radiances; grad: (tex_h * tex_w, 4) float32, zeroed by the

@@ -37,7 +37,7 @@ int max_stop(const int* lanes, int n) {
 template <class Tracer, bool kEnv = false>
 void direct_lanes(const zdr::Tables& tb, const zdr::LoopParams& q, bool packed,
                   const Tracer& tr, const int* lanes, const float* le_grad, float* acc,
-                  float* grad, unsigned long long* counts, int n,
+                  float* grad, unsigned long long* counts, int n, const float* light_rows,
                   const zdr::EnvTables* env = nullptr) {
   zdr::TraceCount c = {0, 0};
   zdr::with_gen(q, [&](auto gen) {
@@ -63,7 +63,8 @@ void direct_lanes(const zdr::Tables& tb, const zdr::LoopParams& q, bool packed,
           zdr::DirectTaps dt = taps(lane, scratch);
           zdr::V3 a0 = {acc[lane], acc[n + lane], acc[2L * n + lane]};
           zdr::V3 a = zdr::direct_lane<true, kEnv, Tracer, kGen, true>(tb, q, lc, &dt, c, tr,
-                                                                       env, a0, first);
+                                                                       env, light_rows, a0,
+                                                                       first);
           acc[lane] = a.x;
           acc[n + lane] = a.y;
           acc[2L * n + lane] = a.z;
@@ -76,9 +77,10 @@ void direct_lanes(const zdr::Tables& tb, const zdr::LoopParams& q, bool packed,
       zdr::V3 a;
       if (le_grad) {
         zdr::DirectTaps dt = taps(lane, grad);
-        a = zdr::direct_lane<true, kEnv, Tracer, kGen>(tb, q, lc, &dt, c, tr, env);
+        a = zdr::direct_lane<true, kEnv, Tracer, kGen>(tb, q, lc, &dt, c, tr, env, light_rows);
       } else {
-        a = zdr::direct_lane<false, kEnv, Tracer, kGen>(tb, q, lc, nullptr, c, tr, env);
+        a = zdr::direct_lane<false, kEnv, Tracer, kGen>(tb, q, lc, nullptr, c, tr, env,
+                                                        light_rows);
       }
       acc[lane] = a.x;
       acc[n + lane] = a.y;
@@ -108,9 +110,10 @@ int zdr_trace_interact_host(const int* params, const float* tables, int tables_n
 
 // One sweep a ray over n_tris rows of kGeomCols floats: the direct
 // kernels' CompactSweep without the early out (early 0) or with it (1),
-// closest hit (any 0) or the shadow test (any 1). rays: (7, n) float32 o3
-// d3 and t_max (the closest sweep's best t coming in, the shadow sweep's
-// dist); f_out: (3, n) t, u, v (t_max, 0, 0 on a miss; closest only);
+// closest hit (any 0), the shadow test (any 1) or the bounce's any-hit
+// from 0 (any 2, bounce_any). rays: (7, n) float32 o3 d3 and t_max (the
+// closest sweep's best t coming in, the any-hits' end); f_out: (3, n) t,
+// u, v (t_max, 0, 0 on a miss; closest only);
 // i_out: (n,) the hit triangle (-1: none) or the occlusion; counts: one
 // uint64, the tests.
 int zdr_sweep_host(const float* rows, int n_tris, const float* rays, int n, int any, int early,
@@ -124,6 +127,11 @@ int zdr_sweep_host(const float* rows, int n_tris, const float* rays, int n, int 
     zdr::V3 o = zdr::v3(rays[k], rays[n + k], rays[2L * n + k]);
     zdr::V3 d = zdr::v3(rays[3L * n + k], rays[4L * n + k], rays[5L * n + k]);
     float t = rays[6L * n + k], u = 0.0f, v = 0.0f;
+    if (any == 2) {
+      i_out[k] = early ? zdr::CompactSweep<true>().bounce_any(tb, q, o, d, t, &c)
+                       : zdr::CompactSweep<false>().bounce_any(tb, q, o, d, t, &c);
+      continue;
+    }
     if (any) {
       i_out[k] = early ? zdr::CompactSweep<true>().any(tb, q, o, d, t, &c)
                        : zdr::CompactSweep<false>().any(tb, q, o, d, t, &c);
@@ -145,15 +153,16 @@ int zdr_direct_host(const int* params, const float* tables, int tables_n, const 
                     const float* material, const int* lanes, const float* le_grad,
                     float* acc, float* grad, unsigned long long* counts, int n, int early) {
   zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q)) return 1;
+  const float* lrows;
+  if (!zdr::light_rows_of(params, q, tables, tables_n, lrows)) return 1;
   std::vector<float> small = compact(tables, q, zdr::compact_size(q));
   zdr::Tables tb = zdr::compact_tables(small.data(), tables, bn, material, q);
   if (early)
     direct_lanes(tb, q, packed_of(params), zdr::CompactSweep<true>(), lanes, le_grad, acc, grad,
-                 counts, n);
+                 counts, n, lrows);
   else
     direct_lanes(tb, q, packed_of(params), zdr::CompactSweep<false>(), lanes, le_grad, acc, grad,
-                 counts, n);
+                 counts, n, lrows);
   return 0;
 }
 
@@ -167,12 +176,13 @@ int zdr_direct_bvh_host(const int* params, const float* tables, int tables_n,
                         int n_nodes, int n_rows,
                         unsigned long long* counts, int n) {
   zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q)) return 1;
+  const float* lrows;
+  if (!zdr::light_rows_of(params, q, tables, tables_n, lrows)) return 1;
   const float* small = tables + (long)q.n_tris * zdr::kSceneCols;
   std::vector<float> copy(small, small + zdr::small_size(q));
   zdr::Tables tb = zdr::bvh_tables(small_shared ? copy.data() : small, tables, bn, material, q);
   zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
-  direct_lanes(tb, q, packed_of(params), tr, lanes, le_grad, acc, grad, counts, n);
+  direct_lanes(tb, q, packed_of(params), tr, lanes, le_grad, acc, grad, counts, n, lrows);
   return 0;
 }
 
@@ -188,7 +198,8 @@ int zdr_direct_env_host(const int* params, const float* tables, int tables_n, co
                         const int* env_alias, const float* env_pdf, const float* nodes,
                         const float* geom, int n_nodes, int n_rows) {
   zdr::LoopParams q = zdr::params_from(params);
-  if (tables_n != zdr::tables_size(q) || q.n_env != 1) return 1;
+  const float* lrows;
+  if (!zdr::light_rows_of(params, q, tables, tables_n, lrows) || q.n_env != 1) return 1;
   zdr::EnvTables env =
       zdr::env_tables(q, env_tex, env_h, env_w, env_prob, env_alias, env_pdf);
   if (nodes || n_rows) {
@@ -196,7 +207,7 @@ int zdr_direct_env_host(const int* params, const float* tables, int tables_n, co
     zdr::Tables tb = zdr::bvh_tables(small, tables, bn, material, q);
     zdr::BvhTrace tr{zdr::Bvh{nodes, geom, n_nodes, n_rows}};
     direct_lanes<zdr::BvhTrace, true>(tb, q, packed_of(params), tr, lanes, le_grad, acc, grad,
-                                      counts, n, &env);
+                                      counts, n, lrows, &env);
     return 0;
   }
   std::vector<float> small = compact(tables, q, zdr::compact_size(q));
@@ -204,11 +215,11 @@ int zdr_direct_env_host(const int* params, const float* tables, int tables_n, co
   if (early)
     direct_lanes<zdr::CompactSweep<true>, true>(tb, q, packed_of(params),
                                                 zdr::CompactSweep<true>(), lanes, le_grad, acc,
-                                                grad, counts, n, &env);
+                                                grad, counts, n, lrows, &env);
   else
     direct_lanes<zdr::CompactSweep<false>, true>(tb, q, packed_of(params),
                                                  zdr::CompactSweep<false>(), lanes, le_grad, acc,
-                                                 grad, counts, n, &env);
+                                                 grad, counts, n, lrows, &env);
   return 0;
 }
 

@@ -14,6 +14,18 @@
 // On the TPU those are three kernels a sample with their planes in HBM
 // between them; here one thread keeps the whole sample in registers.
 //
+// Where the launch's params say emit_first (a scene of at most
+// MERGED_MAX_LIGHT_TRIS = 32 light triangles), the bounce ray's emitter is
+// looked up emitter first, as the JAX package's merged _shade_kernel
+// (pallas_bounce.py:1134-1237, its bounce_emit mode, and the taps :1256-1262)
+// and its streamed big-mesh route (direct_fused.py:203-236, light_hit_planes
+// and the capped _stream_any_kernel) do: the closest hit over the light
+// triangles alone (light_hit), then one any-hit of the scene on
+// (0, 0.9999 t) of it (bounce_emit). A ray that reaches no light walks
+// nothing, or under an env walks to 1e30 and adds the env where it is clear.
+// The light triangles' scene-row ids follow the packed tables (light_rows):
+// their rows give the shading normal of the front test.
+//
 // The interaction, the light selection, the GGX and ONB helpers, the
 // sampler and the roughness derivative are path_loop_step.cuh's own,
 // included, not copies: the same formulas in the same operand order as the
@@ -159,20 +171,32 @@ template <bool kEarly>
 struct CompactSweep {
   static constexpr bool kBvh = false;
 
-  // Any triangle hit at t in (1e-4, dist); the sweep stops at the first.
-  ZDR_HD bool any(const Tables& tb, const LoopParams& q, V3 p, V3 wi, float dist,
-                  TraceCount* c) const {
-    float hi = t_cut(dist);
+  // Any triangle hit at t in (t_min, t_max), lo bounding t's numerator
+  // from below as mt_early says; the sweep stops at the first.
+  ZDR_HD bool any_in(const Tables& tb, const LoopParams& q, V3 o, V3 d, float t_min,
+                     float lo, float t_max, TraceCount* c) const {
+    float hi = t_cut(t_max);
     for (int ti = 0; ti < q.n_tris; ++ti) {
       float t, u, v;
-      if (mt_early<kEarly>(tb.scene + ti * kGeomCols, p, wi, 1e-4f, dist, kShadowLo, hi, t, u,
-                           v)) {
+      if (mt_early<kEarly>(tb.scene + ti * kGeomCols, o, d, t_min, t_max, lo, hi, t, u, v)) {
         if (c) c->tests += (unsigned long long)(ti + 1);
         return true;
       }
     }
     if (c) c->tests += (unsigned long long)q.n_tris;
     return false;
+  }
+
+  // The shadow test: any triangle hit at t in (1e-4, dist).
+  ZDR_HD bool any(const Tables& tb, const LoopParams& q, V3 p, V3 wi, float dist,
+                  TraceCount* c) const {
+    return any_in(tb, q, p, wi, 1e-4f, kShadowLo, dist, c);
+  }
+
+  // The bounce's any-hit from its offset origin: at t in (0, t_max).
+  ZDR_HD bool bounce_any(const Tables& tb, const LoopParams& q, V3 o, V3 d, float t_max,
+                         TraceCount* c) const {
+    return any_in(tb, q, o, d, 0.0f, kUnder, t_max, c);
   }
 
   // The nearest hit at t in (0, best_t), the first of equal nearest
@@ -228,6 +252,101 @@ ZDR_HD void trace_interact_lane(const Tables& tb, const LoopParams& q, const flo
   i_out[n + lane] = miss;
 }
 
+// ------------------------------------------- the emitter-first bounce lookup
+
+// The bounce's any-hit ends at this share of its light hit's t (the NEE
+// shadow ray's epsilon, pallas_bounce.py:1201).
+constexpr float kBounceCap = 0.9999f;
+
+// The light triangles' scene-row ids of a direct launch: where its params
+// (kernels.pack_params' int 23, after the splat knobs) ask for the
+// emitter-first lookup, the n_light_tris floats after the packed tables;
+// null for the closest lookup. false where tables_n is not the size of the
+// tables with them.
+inline bool light_rows_of(const int* params, const LoopParams& q, const float* tables,
+                          int tables_n, const float*& light_rows) {
+  bool emit = params[23] != 0;
+  light_rows = emit ? tables + tables_size(q) : nullptr;
+  return tables_n == tables_size(q) + (emit ? q.n_light_tris : 0);
+}
+
+// Light triangle j's scene-row id: the int bits of float j of `light_rows`.
+ZDR_HD int light_row(const float* light_rows, int j) {
+#ifdef __CUDA_ARCH__
+  return __float_as_int(__ldg(light_rows + j));
+#else
+  int id;
+  memcpy(&id, light_rows + j, sizeof(int));
+  return id;
+#endif
+}
+
+struct LightHit {
+  float t;   // kTMax: no light hit
+  V3 add;    // the MIS-weighted emission, as if the path to it were clear
+  bool has;  // a light triangle is hit
+  bool on;   // and it is front-facing and emissive
+};
+
+// The closest hit at t in (0, kTMax) over the light rows alone, the first of
+// equal nearest, and its emitter-hit MIS against the BSDF pdf pdf_prev
+// (pallas_bounce.py:1143-1200, fused_glue.light_hit_planes): the front test
+// takes the triangle's interpolated shading normal from its scene row. Its
+// tests go to `c`.
+ZDR_HD LightHit light_hit(const Tables& tb, const LoopParams& q, const float* light_rows, V3 o,
+                          V3 d, float pdf_prev, TraceCount* c) {
+  float bt = kTMax, bu = 0.0f, bv = 0.0f;
+  int bj = -1;
+  for (int j = 0; j < q.n_light_tris; ++j) {
+    float t, u, v;
+    if (mt_hit(tb.lights + j * kLightCols, o, d, t, u, v) && t > 0.0f && t < bt) {
+      bt = t;
+      bu = u;
+      bv = v;
+      bj = j;
+    }
+  }
+  if (c) c->tests += (unsigned long long)q.n_light_tris;
+  LightHit r;
+  r.t = bt;
+  r.has = bj >= 0;
+  r.on = false;
+  r.add = v3(0.0f, 0.0f, 0.0f);
+  if (!r.has) return r;
+  const float* lt = tb.lights + bj * kLightCols;
+  const float* nr = tb.attrs + (long)light_row(light_rows, bj) * kSceneCols + 15;
+  V3 ns = vnormalize(v3(nr[0] + bu * nr[3] + bv * nr[6], nr[1] + bu * nr[4] + bv * nr[7],
+                        nr[2] + bu * nr[5] + bv * nr[8]));
+  float cos_light = -vdot(v3(lt[12], lt[13], lt[14]), d);
+  bool front = cos_light >= 1e-4f && -vdot(ns, d) >= 1e-4f;
+  bool emissive = lt[9] > 0.0f || lt[10] > 0.0f || lt[11] > 0.0f;
+  float pdf_hit = bt * bt / jmax(lt[15] * cos_light, 1e-12f);
+  float mis = pdf_prev / jmax(pdf_prev + pdf_hit, 1e-4f);
+  r.on = front && emissive;
+  if (r.on) r.add = v3(mis * lt[9], mis * lt[10], mis * lt[11]);
+  return r;
+}
+
+// A bouncing ray's MIS-weighted emitter, looked up emitter first: its light
+// hit where nothing of the scene lies on (0, kBounceCap t) of it; the walk
+// runs only where the light adds something. Without a light hit: nothing,
+// or under the env (kEnv) the any-hit to kTMax and the env where it is
+// clear (direct_fused.py:217-236).
+template <bool kEnv, class Tracer>
+ZDR_HD V3 bounce_emit(const Tables& tb, const LoopParams& q, const float* light_rows, V3 o, V3 d,
+                      float pdf_prev, const Tracer& tr, TraceCount& cnt, const EnvTables* env) {
+  LightHit lh = light_hit(tb, q, light_rows, o, d, pdf_prev, &cnt);
+  V3 zero = v3(0.0f, 0.0f, 0.0f);
+  if (lh.has) {
+    if (!lh.on || tr.bounce_any(tb, q, o, d, kBounceCap * lh.t, &cnt)) return zero;
+    return lh.add;
+  }
+  if constexpr (kEnv) {
+    if (!tr.bounce_any(tb, q, o, d, kTMax, &cnt)) return vadd(zero, env_miss_add(*env, d, pdf_prev));
+  }
+  return zero;
+}
+
 // What tap mode adds to a lane: its per-sample adjoint and the gradient.
 struct DirectTaps {
   float lg[3];
@@ -244,12 +363,15 @@ struct DirectTaps {
 // The sweeps go through `tr` (the compact sweep, or trace.cuh's BVH) and
 // add their work to `cnt`. kGen: the generic sampler (path_loop_step.cuh
 // lane_const). kPacked: the tap's channels rounded to bf16 first
-// (packed_splat: texture.py splat_buffer_row's prepacking).
+// (packed_splat: texture.py splat_buffer_row's prepacking). light_rows: the
+// light triangles' scene-row ids, for the emitter-first bounce lookup
+// (bounce_emit); null: the closest hit over the scene.
 template <bool kGrad = false, bool kEnv = false, class Tracer = CompactSweep<true>,
           bool kGen = false, bool kPacked = false>
 ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                         uint32_t sample_idx, const DirectTaps* dt, TraceCount& cnt,
-                        const Tracer& tr = Tracer(), const EnvTables* env = nullptr) {
+                        const Tracer& tr = Tracer(), const EnvTables* env = nullptr,
+                        const float* light_rows = nullptr) {
   SamplerCtx sc;
   sc.q = &q;
   sc.lc = &lc;
@@ -310,10 +432,12 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
   V3 rk = v3(hit.ae.x + (nee_ok ? nee_c.x : 0.0f), hit.ae.y + (nee_ok ? nee_c.y : 0.0f),
              hit.ae.z + (nee_ok ? nee_c.z : 0.0f));
 
-  // the lite B3 on the bounce ray: its MIS-weighted emitter. A ray that
-  // does not go on adds nothing, so its sweep is skipped.
+  // the bounce ray's MIS-weighted emitter, emitter first or by the lite B3.
+  // A ray that does not go on adds nothing, so its lookup is skipped.
   V3 bae = v3(0.0f, 0.0f, 0.0f);
-  if (bounce_ok) {
+  if (bounce_ok && light_rows) {
+    bae = bounce_emit<kEnv>(tb, q, light_rows, next_o, wi, pdf_bounce, tr, cnt, env);
+  } else if (bounce_ok) {
     Hit bh = closest_interact(tb, q, next_o, wi, pdf_bounce, true, tr, &cnt);
     bae = bh.ae;
     if constexpr (kEnv) {
@@ -362,18 +486,19 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
 // A lane's samples 0 .. stop-1, accumulated with the clamp-and-NaN rule of
 // direct_fused.py:283-286 -> the sum of its clamped radiances. kPacked:
 // only the samples of the launch's group, first .. first + kSplatBatch - 1
-// (below stop), added to acc, the sums of the groups before.
+// (below stop), added to acc, the sums of the groups before. light_rows as
+// direct_sample's.
 template <bool kGrad = false, bool kEnv = false, class Tracer = CompactSweep<true>,
           bool kGen = false, bool kPacked = false>
 ZDR_HD V3 direct_lane(const Tables& tb, const LoopParams& q, const LaneConst& lc,
                       const DirectTaps* dt, TraceCount& cnt, const Tracer& tr = Tracer(),
-                      const EnvTables* env = nullptr, V3 acc = V3{0.0f, 0.0f, 0.0f},
-                      int first = 0) {
+                      const EnvTables* env = nullptr, const float* light_rows = nullptr,
+                      V3 acc = V3{0.0f, 0.0f, 0.0f}, int first = 0) {
   int stop = kPacked ? (lc.stop < first + kSplatBatch ? lc.stop : first + kSplatBatch)
                      : lc.stop;
   for (int s = kPacked ? first : 0; s < stop; ++s) {
     V3 rad = direct_sample<kGrad, kEnv, Tracer, kGen, kPacked>(tb, q, lc, (uint32_t)s, dt, cnt,
-                                                               tr, env);
+                                                               tr, env, light_rows);
     if (!(is_nan(rad.x) || is_nan(rad.y) || is_nan(rad.z)))
       acc = v3(acc.x + jclip(rad.x, 0.0f, kRadianceClamp),
                acc.y + jclip(rad.y, 0.0f, kRadianceClamp),

@@ -252,13 +252,19 @@ ZDR_HD int dense_any(const float* rows, int count, V3 o, V3 d, float t_min, floa
 }
 
 // The megakernels' sweeps through the BVH (DenseSweep's interface): the
-// shadow test at t in (1e-4, dist), the closest hit at t > 0.
+// shadow test at t in (1e-4, dist), the closest hit at t > 0; and for the
+// direct kernels' emitter-first bounce lookup (direct_step.cuh bounce_emit)
+// the bounce's any-hit from its offset origin, at t in (0, t_max).
 struct BvhTrace {
   static constexpr bool kBvh = true;
   Bvh b;
   ZDR_HD bool any(const Tables&, const LoopParams&, V3 p, V3 wi, float dist,
                   TraceCount* c) const {
     return bvh_any(b, p, wi, 1e-4f, dist, c);
+  }
+  ZDR_HD bool bounce_any(const Tables&, const LoopParams&, V3 o, V3 d, float t_max,
+                         TraceCount* c) const {
+    return bvh_any(b, o, d, 0.0f, t_max, c);
   }
   ZDR_HD int closest(const Tables&, const LoopParams&, V3 o, V3 d, float& best_t, float& bu,
                      float& bv, TraceCount* c) const {
