@@ -241,6 +241,17 @@ Phases, one line each; any failure raises and exits non-zero:
      gradient's error), the tests and visits a sample and the bounds of
      both lookups' counted work; ptxas of every direct instantiation; the
      main-path iterations of phases 11, 13, 18 and 22 beside them.
+ 26. the direct env BVH kernels as redesigned (the NEE shadow walk only
+     where the light sample lies above the shading hemisphere; in tap mode
+     the env sample's pdf and texels read after it, where NEE counts): the
+     big mesh under make_test_envmap(256, 512) through Scene.render +
+     loss.backward() by accel="auto" (_slice_main: the kernels against
+     their plain versions at the first BOUNCE_CHECK_SAMPLES samples of
+     every 64th lane, each alone, its counted work and bound); on it and on
+     phase 18's example the shadow walks walked and skipped a sample, the
+     env samples the tap mode reads after the walk (the plain walk on a
+     stride of the lanes, _direct_env_work); ptxas of the direct env
+     kernels beside their no-env twins; phase 22's example step.
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
@@ -266,8 +277,9 @@ phase 24's under "splat" in the records of path_loop_grad,
 path_loop_grad_bvh, direct_grad and collocated_grad_bvh, and splat_round's
 own record (its launches on phase 24's flagship at (4, True)); phase 25's
 under "bounce_emit" in the records of the kernels each of its scenes ran,
-by scene (its ptxas and the main paths' iterations in direct's);
-for
+by scene (its ptxas and the main paths' iterations in direct's); phase
+26's big mesh under "big_mesh_env" in the records of direct_env_bvh and
+direct_grad_env_bvh; for
 the probes and the sweep variants, the sum over all of them; trace_interact's "body_launches" counts, by kernel, the launches of
 phases 17-18's main paths, each of which runs B3's body a sample),
 "max_abs_err" the largest difference from the plain version over the
@@ -402,6 +414,10 @@ DIRECT_INT, DIRECT_TAP_INT = 3 * NEXT1_INT + 3 * NEXT2_SET_INT, 20
 # scale 10, the selection's 1/n 1, the MIS weight 3, env_fetch 40 and the
 # weighted radiance 3, run for each ray that misses (_EnvWork counts both)
 ENV_NEE_FP, ENV_MISS_FP = 85, 66
+# of ENV_NEE_FP, what the direct kernels' tap mode reads after the shadow
+# walk and only where NEE counts (direct_step.cuh direct_sample<kGrad,
+# kEnv>): the pdf 8 and env_fetch 40
+ENV_READ_FP = 48
 # A collocated sample's work besides its sweep (collocated_step.cuh, counted
 # as DIRECT_FP is): FP32: the camera ray and the clamped accumulation 64, the
 # hit's interaction 67, the bilinear fetch 49, the frame 32, a projection 15,
@@ -517,10 +533,65 @@ class _EnvWork:
         self.mod.env_miss_add, self.mod.nee_select = self.saved
 
 
-def _env_ops(work):
+def _env_ops(work, grad=False):
     """FP32 operations of the env's counted work (_path_work's or
-    _direct_env_work's env_miss and env_nee)."""
-    return work.get("env_miss", 0) * ENV_MISS_FP + work.get("env_nee", 0) * ENV_NEE_FP
+    _direct_env_work's env_miss and env_nee; in the direct kernels' tap mode
+    (`grad` and env_read counted) the env samples whose pdf and texels it
+    does not read without ENV_READ_FP)."""
+    unread = work["env_nee"] - work["env_read"] if grad and "env_read" in work else 0
+    return (work.get("env_miss", 0) * ENV_MISS_FP + work.get("env_nee", 0) * ENV_NEE_FP
+            - unread * ENV_READ_FP)
+
+
+class _ShadeWork:
+    """Counts, in the plain direct forward while entered, the shadow rays
+    that the direct kernels' shade walks (direct_step.cuh direct_sample):
+    those of the shading lanes, under an env (`env`) only where the light
+    sample lies above the hemisphere (wll.z >= 1e-4). .walks is the current
+    shade's mask of them, set before its occlusion test runs; .walked and
+    .skipped the shading lanes walked and not, and .read the env samples
+    whose pdf and texels the tap mode reads after the walk (NEE counts:
+    shading, clear and above). It wraps direct.shade_plain and bounce.occluded_plain, whose
+    occlusion of every lane it reads."""
+
+    def __init__(self, env=True):
+        self.env, self.walks = env, None
+        self.walked, self.skipped, self.read = 0, 0, 0
+
+    def __enter__(self):
+        from zdr_tpu_torch.integrators import bounce
+        from zdr_tpu_torch.integrators import direct as dr
+        from zdr_tpu_torch.microfacet import make_onb, to_local
+
+        self.saved = (dr.shade_plain, bounce.occluded_plain)
+        shade, occluded = self.saved
+        seen = []
+
+        def counted_occluded(*args, **kw):
+            occ = occluded(*args, **kw)
+            seen[:] = [occ]
+            return occ
+
+        def counted_shade(scene, ray, nee, *args, **kw):
+            on = ray[12] != 0
+            self.walks = on
+            if self.env:
+                t, b = make_onb(ray[3:6])
+                self.walks = on & (to_local(t, b, ray[3:6], nee[0:3])[2] >= 1e-4)
+            out = shade(scene, ray, nee, *args, **kw)
+            self.walked += int(self.walks.sum())
+            self.skipped += int((on & ~self.walks).sum())
+            self.read += int((self.walks & ~seen[0] & (nee[3] == 1e30)).sum())
+            return out
+
+        dr.shade_plain, bounce.occluded_plain = counted_shade, counted_occluded
+        return self
+
+    def __exit__(self, *exc):
+        from zdr_tpu_torch.integrators import bounce
+        from zdr_tpu_torch.integrators import direct as dr
+
+        dr.shade_plain, bounce.occluded_plain = self.saved
 
 
 def _path_work(tb, lanes, mat, stride=16, carry_out=None):
@@ -614,9 +685,12 @@ def _early_work(tb, lanes, mat, stride=4 * CHECK_STRIDE):
     """The early out's tests by the place they leave (accel/trace.py
     early_stages), counted on every `stride`-th lane over the rays that the
     plain direct samples sweep as the kernel does (each primary ray, a
-    shading lane's shadow ray, and a bouncing lane's bounce ray: its
-    closest hit, or emitter first its tests of the light triangles and its
-    capped any-hit where it walks) -> ((4,) int64 tests: left after u's
+    shading lane's shadow ray (under an env only where its light sample
+    lies above the hemisphere, _ShadeWork: the plain version tests every
+    shading lane, the count only what the kernel walks), and a bouncing
+    lane's bounce ray: its closest hit, or emitter first its tests of the
+    light triangles and its capped any-hit where it walks) -> ((4,) int64
+    tests: left after u's
     numerator, after v's and t's, at the division, and the light
     triangles' whole tests; the lanes (3, N'))."""
     from zdr_tpu_torch.accel.trace import early_stages
@@ -626,9 +700,7 @@ def _early_work(tb, lanes, mat, stride=4 * CHECK_STRIDE):
 
     sub = lanes[:, ::stride].contiguous()
     stages = torch.zeros(4, dtype=torch.int64, device=lanes.device)
-    shading = []
-    trace, shade, occluded = dr.trace_interact_plain, dr.shade_plain, bounce.occluded_plain
-    light_hit, bounce_any = dr.light_hit_plain, dr.bounce_any_plain
+    shading = _ShadeWork(env=tb.env is not None)
 
     def counted_trace(scene, rays, lite=False, bvh=None):
         act = rays[7] != 0
@@ -636,12 +708,8 @@ def _early_work(tb, lanes, mat, stride=4 * CHECK_STRIDE):
         stages[:3] += early_stages(scene, o, d, torch.full_like(o[0], T_MAX))
         return trace(scene, rays, lite, bvh)
 
-    def counted_shade(scene, ray, *args, **kw):
-        shading[:] = [ray[12] != 0]
-        return shade(scene, ray, *args, **kw)
-
     def counted_occluded(scene, p, wi, dist, bvh=None):
-        m = shading[0]
+        m = shading.walks
         stages[:3] += early_stages(scene, tuple(x[m] for x in p), tuple(x[m] for x in wi),
                                    dist[m], any_hit=True)
         return occluded(scene, p, wi, dist, bvh)
@@ -656,14 +724,16 @@ def _early_work(tb, lanes, mat, stride=4 * CHECK_STRIDE):
                                    from_zero=True)
         return bounce_any(scene, o, d, t_max, active, bvh)
 
-    dr.trace_interact_plain, dr.shade_plain = counted_trace, counted_shade
-    dr.light_hit_plain, dr.bounce_any_plain = counted_light_hit, counted_bounce_any
-    bounce.occluded_plain = counted_occluded
-    try:
-        dr.render_direct_plain(tb, sub, mat)
-    finally:
-        dr.trace_interact_plain, dr.shade_plain, bounce.occluded_plain = trace, shade, occluded
-        dr.light_hit_plain, dr.bounce_any_plain = light_hit, bounce_any
+    with shading:
+        trace, occluded = dr.trace_interact_plain, bounce.occluded_plain
+        light_hit, bounce_any = dr.light_hit_plain, dr.bounce_any_plain
+        dr.trace_interact_plain, bounce.occluded_plain = counted_trace, counted_occluded
+        dr.light_hit_plain, dr.bounce_any_plain = counted_light_hit, counted_bounce_any
+        try:
+            dr.render_direct_plain(tb, sub, mat)
+        finally:
+            dr.trace_interact_plain, bounce.occluded_plain = trace, occluded
+            dr.light_hit_plain, dr.bounce_any_plain = light_hit, bounce_any
     return stages.cpu(), sub
 
 
@@ -678,20 +748,30 @@ def _test_ops(stages=None):
     return sum(n * k for n, k in zip(stages.tolist(), ops)) / int(stages.sum())
 
 
-def _direct_env_work(tb, lanes, mat, stride=4 * CHECK_STRIDE):
+# the lanes on which the direct env's work is counted: a stride that is no
+# multiple of an image row's 512 lanes, so that the lanes walk across the
+# columns (every 256th lane of a 512-wide image is two columns)
+ENV_WORK_STRIDE = 4 * CHECK_STRIDE + 1
+
+
+def _direct_env_work(tb, lanes, mat, stride=ENV_WORK_STRIDE):
     """The env's work of the direct kernels, counted with the plain direct
     samples on every `stride`-th lane and scaled to all lanes -> {env_miss:
     the primary and bounce rays that miss, env_nee: the light samples that
-    take the env}; {} without an env."""
+    take the env, env_read: those whose pdf and texels the kernels read
+    (_ShadeWork), shadow_walked / shadow_skipped: the shading lanes' shadow
+    rays walked and not}; {} without an env."""
     from zdr_tpu_torch.integrators import direct as dr
 
     if tb.env is None:
         return {}
     sub = lanes[:, ::stride].contiguous()
-    with _EnvWork(dr) as counter:
+    with _EnvWork(dr) as counter, _ShadeWork() as shading:
         dr.render_direct_plain(tb, sub, mat)
     scale = lanes.shape[1] / sub.shape[1]
-    return dict(env_miss=counter.miss * scale, env_nee=counter.nee * scale)
+    return dict(env_miss=counter.miss * scale, env_nee=counter.nee * scale,
+                env_read=shading.read * scale, shadow_walked=shading.walked * scale,
+                shadow_skipped=shading.skipped * scale)
 
 
 def _direct_bound(tests, samples, nbytes, grad=False, test_ops=MT_OPS, env_work=None):
@@ -703,7 +783,7 @@ def _direct_bound(tests, samples, nbytes, grad=False, test_ops=MT_OPS, env_work=
     FP32_RATE, the draws' integer operations at INT32_RATE, both together at
     ISSUE_RATE, and the bytes at HBM_RATE."""
     fp = (tests * test_ops + samples * (DIRECT_FP + (DIRECT_TAP_FP if grad else 0))
-          + _env_ops(env_work or {}))
+          + _env_ops(env_work or {}, grad))
     ints = samples * (DIRECT_INT + (DIRECT_TAP_INT if grad else 0))
     terms = {"fp32": fp / FP32_RATE * 1e3, "int32": ints / INT32_RATE * 1e3,
              "issue": (fp + ints) / ISSUE_RATE * 1e3, "bytes": nbytes / HBM_RATE * 1e3}
@@ -2147,7 +2227,8 @@ def _slice_kernels(integrator):
                                                                         tb.n_steps))
 
 
-def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16):
+def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16,
+                check_samples=CHECK_SAMPLES, env_stride=ENV_WORK_STRIDE):
     """One main path of phases 17-20, Scene.render + loss.backward() of
     `scene` (its sampler, `res`, `spp`, a tex^2 material of 0.5) by the
     route its accel takes: one launch of each of its two kernels
@@ -2155,11 +2236,11 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16):
     env) and of no other, no plain version called; both kernels against their
     plain versions on the main path's own inputs at every CHECK_STRIDE-th
     lane (the dense kernels over all the samples, the BVH kernels over the
-    first CHECK_SAMPLES), the forward bit for bit and the gradient at phase
+    first check_samples), the forward bit for bit and the gradient at phase
     7's bars; the iteration's median, Scene.render's and each kernel's
     alone, with its counted work (the path walk's on every work_stride-th
-    lane) and bound -> (the two kernels' records, the image rendered at seed
-    0)."""
+    lane, the direct env's on every env_stride-th) and bound -> (the two
+    kernels' records, the image rendered at seed 0)."""
     from zdr_tpu_torch import kernels
     from zdr_tpu_torch.integrators import path_loop as pl
 
@@ -2190,9 +2271,9 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16):
     fkern, gkern, fplain, gplain = _slice_kernels(integrator)
     if route == "bvh":
         err, g_err, plain_ms, gplain_ms, check = _bvh_check(tb, tb1, m, integrator, what,
-                                                            exact=True)
+                                                            exact=True, samples=check_samples)
         shape = (f"every {CHECK_STRIDE}th lane of {res[0]}x{res[1]}, the first "
-                 f"{CHECK_SAMPLES} of {spp} samples")
+                 f"{check_samples} of {spp} samples")
     else:
         sub = lanes[:, ::CHECK_STRIDE].contiguous()
         got = fkern(tb, lanes, m)[:, ::CHECK_STRIDE]
@@ -2251,7 +2332,9 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16):
             path_work = _path_work(dense_tb, lanes, m, stride=work_stride)
         env_work = {k: path_work[k] for k in ("env_miss", "env_nee")}
     elif integrator == "direct":
-        env_work = _direct_env_work(dense_tb, lanes, m)
+        # the route's own tables: the plain BVH walk counts as the dense one
+        # and stays quick on the big mesh
+        env_work = _direct_env_work(tb, lanes, m, stride=env_stride)
     else:
         env_work = {}
     env_note = "" if not env_work else (
@@ -2263,7 +2346,7 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16):
         work, gwork = fk.counts.tolist(), gk.counts.tolist()
         bound = _bound(work[0], _nbytes(*tables, *state), work[1], extra_ops=_env_ops(env_work))
         gbound = _bound(gwork[0], _nbytes(*tables, le, m, *state), gwork[1],
-                        extra_ops=_env_ops(env_work))
+                        extra_ops=_env_ops(env_work, grad=True))
         work_note = (f"{work[0]:.4g} tests and {work[1]:.4g} node visits ({work[0] / n_samples:.2f}"
                      f" and {work[1] / n_samples:.2f} a sample){env_note}")
         extra = dict(tests=work[0], visits=work[1], **env_work)
@@ -3743,9 +3826,9 @@ def _bounce_bounds(tb, lanes, m, le, work, gwork, early, n_samples):
     env_work = _direct_env_work(dataclasses.replace(tb, bvh=None), lanes, m)
     if tb.bvh is not None:
         tables += [tb.bvh.geom, tb.bvh.nodes]
-        ops = _env_ops(env_work)
-        return (_bound(work[0], _nbytes(*tables, acc), work[1], extra_ops=ops),
-                _bound(gwork[0], _nbytes(*tables, le, m, acc), gwork[1], extra_ops=ops), MT_OPS)
+        return (_bound(work[0], _nbytes(*tables, acc), work[1], extra_ops=_env_ops(env_work)),
+                _bound(gwork[0], _nbytes(*tables, le, m, acc), gwork[1],
+                       extra_ops=_env_ops(env_work, grad=True)), MT_OPS)
     test_ops = _test_ops(_early_work(tb, lanes, m)[0] if early else None)
     return (_direct_bound(work[0], n_samples, _nbytes(*tables, acc), test_ops=test_ops,
                           env_work=env_work),
@@ -3900,6 +3983,68 @@ def _direct_extra(proto, g, ptxas):
     }
 
 
+# the direct env kernels of phase 2's ptxas report, and their no-env twins
+ENV_TWINS = {"direct_env": "direct", "direct_env_early": "direct_early",
+             "direct_grad_env": "direct_grad", "direct_grad_env_early": "direct_grad_early",
+             "direct_env_bvh": "direct_bvh", "direct_grad_env_bvh": "direct_grad_bvh"}
+
+
+def _bigmesh_env(device):
+    """The big mesh (_bigmesh: 50,882 triangles, the quad light) under
+    make_test_envmap(256, 512), the direct integrator by accel="auto" (the
+    BVH)."""
+    from zdr_tpu_torch.envmap import make_test_envmap
+
+    scene = _bigmesh(device, "direct")
+    scene.add_envmap(make_test_envmap(256, 512))
+    return scene
+
+
+def _shadow_note(rec, n_samples):
+    """A direct env kernel's record's shadow walks, reads and work a sample."""
+    return (f"{rec['shadow_walked'] / n_samples:.3f} shadow walks and "
+            f"{rec['shadow_skipped'] / n_samples:.3f} skipped a sample (the light sample below "
+            f"the hemisphere), {rec['env_read'] / n_samples:.3f} env samples read after the "
+            f"walk in tap mode, {rec['tests'] / n_samples:.2f} tests and {rec['visits'] / n_samples:.2f} "
+            f"visits a sample, {rec['ms']:.3f} / {rec['bound_ms']:.3f} ms bound")
+
+
+def phase_env_redesign(dev, smi, ptxas, example, earlier):
+    """Phase 26: the direct env BVH kernels as redesigned (the NEE shadow
+    walk only where the light sample lies above the hemisphere, in tap mode
+    the env sample's pdf and texels read after the walk). The main path: the
+    big mesh under the envmap (_slice_main: Scene.render + loss.backward()
+    by accel="auto", both kernels against their plain versions, the images
+    bit for bit, the gradients at phase 7's bars, each kernel alone with its
+    counted work and the bound from it). Beside it the example's records of
+    phase 18 (`example`), each scene's shadow walks walked and skipped a
+    sample (_direct_env_work), ptxas of the direct env kernels against their
+    no-env twins, and the example app's step of phase 22 (`earlier`) -> the
+    big mesh's records."""
+    records, _img = _slice_main(_bigmesh_env(dev), RES, SPP, 512, "26 env redesign",
+                                "the big mesh under the envmap", smi,
+                                check_samples=BOUNCE_CHECK_SAMPLES,
+                                env_stride=2 * ENV_WORK_STRIDE - 1)
+    n_samples = RES[0] * RES[1] * SPP
+    notes = []
+    for what, recs in (("the example", example), ("the big mesh", records)):
+        for k in ("direct_env_bvh", "direct_grad_env_bvh"):
+            notes.append(f"{what} {k} {_shadow_note(recs[k], n_samples)}")
+    regs = {k: [ptxas[k][f] for f in ("registers", "local_bytes", "spill_stores", "spill_loads")]
+            for k in (*ENV_TWINS, *ENV_TWINS.values())}
+    spills = {k: regs[k][2] <= regs[t][2] and regs[k][3] <= regs[t][3]
+              for k, t in ENV_TWINS.items()}
+    print(f"[26 env redesign] {'; '.join(notes)}; ptxas [registers, stack frame bytes, spill "
+          f"stores, spill loads] {json.dumps(regs)}; spills no larger than the no-env twin's: "
+          f"{json.dumps(spills)}; the example app's step (phase 22) "
+          f"{earlier['22 example step']:.2f} ms, the example's iteration by auto (phase 18) "
+          f"{earlier['18 example auto']:.2f} ms; card {smi}", flush=True)
+    for k in records:
+        records[k]["ptxas"] = {e: regs[e] for e in (k, ENV_TWINS[k])}
+        records[k]["spills_within_twin"] = spills[k]
+    return records
+
+
 def main():
     t_start = time.perf_counter()
     seconds = {}
@@ -3949,6 +4094,7 @@ def main():
                "22 example step": apps["example"]["step_ms"],
                "22 lightstage step": apps["lightstage"]["step_ms"]}
     bounce = timed("25", phase_bounce_emit, dev, smi, ptxas, earlier)
+    env_big = timed("26", phase_env_redesign, dev, smi, ptxas, env, earlier)
     print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     # direct_bvh and direct_grad_bvh report the protocol's main path by
@@ -4012,6 +4158,9 @@ def main():
                                        step_ms=par["lightstage"]["step_ms"]),
             "lightstage_small_gate": par["lightstage_small"]}
     env["direct_env_bvh"]["apps"]["adam_step_ms"] = apps["adam_ms"]
+    # phase 26's big mesh under the envmap beside the example's main path
+    for k, rec in env_big.items():
+        env[k]["big_mesh_env"] = rec
     direct_src = "zdr_tpu_torch/kernels/csrc/direct.cu"
     coll_src = "zdr_tpu_torch/kernels/csrc/collocated.cu"
     for pair in SLICE_KERNELS.values():

@@ -12,8 +12,13 @@ fused route (zdr_tpu/integrators/fused_glue.py: `_env_direction_to_uv`
 envmap.py's `direction_to_uv`, `uv_to_direction`, `texture_sample`,
 `env_sampled_light_pdf`, `env_radiance`, `_sample_alias` and
 `sample_envmap` on (N,) tensors. Two TPU layouts are not carried over: the
-texture is read texel by texel (no quad-packed table), and the alias
-indices stay int32 (no float-encoded index).
+texture is read texel by texel, and the alias indices stay int32 (no
+float-encoded index). The JAX package's quad-packed texture
+(`fused_glue.pack_env_quads`: a 64-byte row of the four texels at each
+anchor, so that a fetch is one row gather on the TPU) was measured on the
+H100 with 16-byte alias records and the marginal in shared memory, and
+made the CUDA kernels no faster (studies/iteration_ab.py --scene env;
+PERF.md).
 
 These are the plain versions of the env code of the CUDA kernels
 (kernels/csrc/path_loop_step.cuh, the envmap section): the same formulas in

@@ -67,7 +67,14 @@
 // kernels count their node visits beside their tests. They stay at 64
 // registers and 256 threads: 128, 80 and 48 registers, and blocks of 128
 // and 512, measured slower, or no faster on the protocol and the big mesh
-// at once (studies/walk_split.py; PERF.md).
+// at once (studies/walk_split.py; PERF.md), and so do their env
+// instantiations: 80, 96 and 128 registers and blocks of 128 measured
+// slower, or no faster on apps/example.py's scene and the big mesh under
+// the env at once (studies/env_split.py). Under the env a lane walks its
+// NEE shadow ray only where the light sample lies above its hemisphere
+// (most of a lone object's env samples do not); in tap mode it reads the
+// env sample's pdf and texels after the walk, where NEE counts
+// (direct_step.cuh direct_sample).
 //
 // Each kernel has kGen instantiations for the generic sampler (corrmj;
 // pmj02bn at a spp that is no power of two: zdr::gen_sampler), as

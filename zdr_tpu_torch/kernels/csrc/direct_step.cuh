@@ -395,7 +395,12 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
   V3 dif;
   float rough;
   read_bilinear(tb.material, q.tex_h, q.tex_w, hit.ux, hit.uy, dif, rough);
-  Nee nee = nee_select<kEnv, kGen>(tb, q, sc, smp, hit.p, env);
+  // in tap mode under the env, the light sample's pdf and radiance are read
+  // after the shadow walk, where NEE counts (from `pick`); the forward reads
+  // them at once, which measured faster there (PERF.md)
+  EnvPick pick = {0.0f, 0.0f, 0.0f, false};
+  Nee nee = nee_select<kEnv, kGen>(tb, q, sc, smp, hit.p, env,
+                                   kEnv && kGrad ? &pick : nullptr);
   float u_lobe = next1<kGen>(sc, smp);
   float ub0, ub1;
   next2<kGen>(sc, smp, ub0, ub1);
@@ -408,10 +413,25 @@ ZDR_HD V3 direct_sample(const Tables& tb, const LoopParams& q, const LaneConst& 
   V3 tangent, binormal;
   make_onb(hit.ns, tangent, binormal);
   V3 wo_local = to_local(tangent, binormal, hit.ns, wo);
-  // only a shading lane reads the shadow test
-  bool occ = shade && tr.any(tb, q, hit.p, nee.wi, nee.dist, &cnt);
-  V3 wll = to_local(tangent, binormal, hit.ns, nee.wi);
+  // only a shading lane reads the shadow test; under the env only one whose
+  // light sample lies above its hemisphere (occ is read nowhere else)
+  bool occ;
+  V3 wll;
+  if constexpr (kEnv) {
+    wll = to_local(tangent, binormal, hit.ns, nee.wi);
+    occ = shade && wll.z >= 1e-4f && tr.any(tb, q, hit.p, nee.wi, nee.dist, &cnt);
+  } else {
+    occ = shade && tr.any(tb, q, hit.p, nee.wi, nee.dist, &cnt);
+    wll = to_local(tangent, binormal, hit.ns, nee.wi);
+  }
   bool nee_ok = shade && !occ && wll.z >= 1e-4f;
+  if constexpr (kEnv && kGrad) {
+    // nee.pdf and nee.ev feed only terms that nee_ok masks
+    if (nee_ok && pick.on) {
+      nee.pdf = env_sample_pdf(*env, pick);
+      nee.ev = env_fetch(*env, pick.u, pick.v);
+    }
+  }
   float pdf_bsdf_at_light = ggx_sample_pdf(wo_local, wll, rough);
   float mis_nee = nee.pdf / jmax(nee.pdf + pdf_bsdf_at_light, 1e-4f);
   float nee_weight = mis_nee / jmax(nee.pdf, 1e-4f);
