@@ -252,6 +252,18 @@ Phases, one line each; any failure raises and exits non-zero:
      env samples the tap mode reads after the walk (the plain walk on a
      stride of the lanes, _direct_env_work); ptxas of the direct env
      kernels beside their no-env twins; phase 22's example step.
+ 27. the path env kernels as redesigned (the NEE shadow walk only where the
+     light sample lies above the shading hemisphere; in tap mode an env
+     light sample's pdf and texels read at the next step, where NEE
+     counts): the big mesh under make_test_envmap(256, 512) through
+     Scene.render + loss.backward() by accel="auto" (_slice_main: the BVH
+     kernels against their plain versions at the first BOUNCE_CHECK_SAMPLES
+     samples of every 64th lane, each alone, its counted work and bound);
+     on it and on phase 19's two scenes the shadow walks walked and skipped
+     a sample, the light samples below the hemisphere by kind, the tap
+     mode's rows, replays and atomics (_TapWork), the counted work and the
+     bounds with the taps counted; ptxas of the four path env kernels
+     beside their no-env twins.
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
@@ -279,7 +291,8 @@ own record (its launches on phase 24's flagship at (4, True)); phase 25's
 under "bounce_emit" in the records of the kernels each of its scenes ran,
 by scene (its ptxas and the main paths' iterations in direct's); phase
 26's big mesh under "big_mesh_env" in the records of direct_env_bvh and
-direct_grad_env_bvh; for
+direct_grad_env_bvh, phase 27's in those of path_loop_env_bvh and
+path_loop_grad_env_bvh; for
 the probes and the sweep variants, the sum over all of them; trace_interact's "body_launches" counts, by kernel, the launches of
 phases 17-18's main paths, each of which runs B3's body a sample),
 "max_abs_err" the largest difference from the plain version over the
@@ -293,7 +306,8 @@ tile-box tests, SLAB_OPS each, counted in this run)
 at 67 TFLOP/s and its bytes (each input read once, each output written
 once) at 3.35 TB/s; for path_loop, direct and direct_grad the bound of all
 their counted work (_loop_bound, _direct_bound: FP32, INT32, the issue of
-both, bytes), with the tests-only bound beside it as "bound_tests_ms" (for
+both, bytes; the path env kernels' likewise, with the BVH kernels' own
+tests and visits, and the path gradients' with their taps), with the tests-only bound beside it as "bound_tests_ms" (for
 direct and direct_grad, a test of the sweep with the early out counted up to
 the place it leaves, EARLY_OPS, "test_ops" a test on average, and the
 cornell box's numbers under "cornell_box"). The
@@ -426,6 +440,25 @@ ENV_READ_FP = 48
 # camera's next2 (no permutation) and the tap mode's salt.
 COLLOCATED_FP, COLLOCATED_TAP_FP = 309, 75
 COLLOCATED_INT, COLLOCATED_TAP_INT = NEXT2_SET_INT, 20
+# What the path gradient kernels' tap mode adds to the walk
+# (path_loop_step.cuh loop_step<kGrad = true>, replay_sample), counted as
+# STEP_FP is, for their bound (_loop_bound with _TapWork's counts). A row,
+# written by every step of a lane in flight: FP32: the NEE cotangents 9, two
+# roughness taps (ggx_spec_cotangent 5 and ggx_spec_droughness 130 each,
+# torch.func's reverse chain: ggx_alpha_vjp's half vector 13, D, F and G
+# forward 48, their reverse 66), u0 and u3 2, the bounce adjoints 9, P's
+# channels 6, the splat corner 22; INT32: the salt and its unit draw (28),
+# where the row has a texel; 13 stores. A row replayed (the rows of a
+# sample whose radiance is not NaN): FP32: the four channels 18, their
+# NaN and zero tests 16, G' 3; 13 loads; and a 16-byte atomic where the
+# tap adds something. The stores, loads and atomics count as issued
+# instructions; their bytes (TAP_ROW_BYTES a row each way, in shared
+# memory below the launch's k_near rows and in global scratch past them;
+# 16 an atomic, in L2) are reported beside the bound, not in it: none of
+# them need reach device memory.
+PATH_TAP_FP, PATH_TAP_INT, PATH_REPLAY_FP = 318, 28, 37
+TAP_ROW_PLANES = 13
+TAP_ROW_BYTES = 4 * TAP_ROW_PLANES
 # rates without FMA: one FP32 operation a lane a cycle (half the FMA peak),
 # INT32 at half that (64 INT32 lanes an SM against 128 FP32: the Hopper
 # white paper), and one warp instruction a cycle per SM quarter for both
@@ -603,19 +636,28 @@ def _path_work(tb, lanes, mat, stride=16, carry_out=None):
     (those of the lanes that run, by their share of the plain walk's),
     tests:
     ray-triangle tests (each step a lane runs sweeps the whole table for its
-    next hit, and a shading lane's shadow sweep stops at its first hit),
-    steps: the lanes' steps, restarts: the samples begun, glossy: steps
-    whose BSDF sample takes the glossy lobe; under an env, env_miss: the
-    env lookups of rays that miss, env_nee: the light samples that take the
-    env}. The tests are the dense sweep's: pass the tables without their
-    BVH (the routes' walks are equal, so the rest counts the same)."""
+    next hit, and a shading lane's shadow sweep stops at its first hit;
+    under an env only where the kernels walk it, the light sample above the
+    shading hemisphere: loop_step<kEnv>), steps: the lanes' steps,
+    restarts: the samples begun, glossy: steps whose BSDF sample takes the
+    glossy lobe; shadow_walked / shadow_skipped: the shading steps whose
+    shadow ray the kernels walk and skip; below_env / below_mesh: the
+    shading steps whose light sample (the env's, or a mesh or point
+    light's) lies below the hemisphere, with or without an env; under an
+    env, env_miss: the env lookups of rays that miss, env_nee: the light
+    samples that take the env}. The tests are the dense sweep's: pass the tables without
+    their BVH (the routes' walks are equal, so the rest counts the same);
+    through a BVH (on a scene too large to sweep) they are not counted (0:
+    the BVH kernels count their own)."""
     from zdr_tpu_torch.integrators import path_loop as pl
+    from zdr_tpu_torch.microfacet import make_onb, to_local
 
     sub = lanes[:, ::stride].contiguous()
     carry = pl.init_carry(sub)
     n_tris = tb.scene.shape[0]
     fi, ii = pl.F_IDX, pl.I_IDX
-    work = dict(tests=0, steps=0, restarts=0, glossy=0, env_miss=0, env_nee=0)
+    work = dict(tests=0, steps=0, restarts=0, glossy=0, env_miss=0, env_nee=0,
+                shadow_walked=0, shadow_skipped=0, below_env=0, below_mesh=0)
     counter, perm = _EnvWork(pl), _PermRounds()
     walked = 0
     for _ in range(tb.n_steps):
@@ -624,12 +666,23 @@ def _path_work(tb, lanes, mat, stride=16, carry_out=None):
         if not bool(run.any()):
             break
         shade = run & flying & (carry.i[ii["shade"]] != 0)
-        p = tuple(carry.f[fi[k]][shade] for k in ("p_x", "p_y", "p_z"))
-        wl = tuple(carry.f[fi[k]][shade] for k in ("wl_x", "wl_y", "wl_z"))
-        ok, _u, _v, t = pl._mt_all(tb.scene, p, wl)
-        hit = ok & (t > 1e-4) & (t < carry.f[fi["l_dist"]][shade][:, None])
-        first = torch.where(hit.any(1), hit.int().argmax(1) + 1, n_tris)
-        work["tests"] += int(run.sum()) * n_tris + int(first.sum())
+        ns = tuple(carry.f[fi[k]] for k in ("ns_x", "ns_y", "ns_z"))
+        t_, b_ = make_onb(ns)
+        wl_all = tuple(carry.f[fi[k]] for k in ("wl_x", "wl_y", "wl_z"))
+        below = shade & (to_local(t_, b_, ns, wl_all)[2] < 1e-4)
+        env_sample = carry.f[fi["l_dist"]] == 1e30
+        walk = shade & ~below if tb.env is not None else shade
+        work["shadow_walked"] += int(walk.sum())
+        work["shadow_skipped"] += int((shade & ~walk).sum())
+        work["below_env"] += int((below & env_sample).sum())
+        work["below_mesh"] += int((below & ~env_sample).sum())
+        if tb.bvh is None:
+            p = tuple(carry.f[fi[k]][walk] for k in ("p_x", "p_y", "p_z"))
+            wl = tuple(x[walk] for x in wl_all)
+            ok, _u, _v, t = pl._mt_all(tb.scene, p, wl)
+            hit = ok & (t > 1e-4) & (t < carry.f[fi["l_dist"]][walk][:, None])
+            first = torch.where(hit.any(1), hit.int().argmax(1) + 1, n_tris)
+            work["tests"] += int(run.sum()) * n_tris + int(first.sum())
         work["steps"] += int(run.sum())
         walked += sub.shape[1]
         work["glossy"] += int((run & (carry.f[fi["u_lobe"]] >= 0.5)).sum())
@@ -803,26 +856,99 @@ def _collocated_bound(tests, samples, nbytes, grad=False):
     return terms[by], "bytes" if by == "bytes" else "operations", terms
 
 
-def _loop_bound(work, nbytes):
-    """The least time of a path-loop forward launch's counted work ->
-    (bound_ms, bound_by, {term: ms}): the larger of the FP32 operations
-    (the sweeps' tests and the steps', STEP_FP and the rest) at FP32_RATE,
-    the draws' integer operations at INT32_RATE, both together at
-    ISSUE_RATE, and the bytes at HBM_RATE; under an env, its misses' and
-    light samples' work (_env_ops) among the FP32 operations."""
+def _loop_bound(work, nbytes, taps=None):
+    """The least time of a path-loop launch's counted work -> (bound_ms,
+    bound_by, {term: ms}): the larger of the FP32 operations (the sweeps'
+    tests, node visits on the BVH route (work's "visits"), and the steps',
+    STEP_FP and the rest) at FP32_RATE, the draws' integer operations at
+    INT32_RATE, both together at ISSUE_RATE, and the bytes at HBM_RATE;
+    under an env, its misses' and light samples' work (_env_ops) among the
+    FP32 operations. With `taps` (_TapWork's counts, scaled to the launch)
+    the gradient kernel's: its rows' and replay's operations
+    (PATH_TAP_FP ...), and their stores, loads and atomics among the issued
+    instructions."""
     steps, restarts, glossy = work["steps"], work["restarts"], work["glossy"]
-    fp = (work["tests"] * MT_OPS + steps * STEP_FP + glossy * GLOSSY_FP
-          + (steps - glossy) * DIFFUSE_FP + restarts * RESTART_FP + _env_ops(work))
+    fp = (work["tests"] * MT_OPS + work.get("visits", 0) * VISIT_OPS + steps * STEP_FP
+          + glossy * GLOSSY_FP + (steps - glossy) * DIFFUSE_FP + restarts * RESTART_FP
+          + _env_ops(work))
     if work.get("kind") == "corrmj":
         ints = steps * 4 * CMJ_NEXT1_INT + (steps * 2 + restarts) * CMJ_NEXT2_INT
     else:
         ints = (steps * 4 * NEXT1_INT + (steps - restarts) * 2 * NEXT2_INT
                 + restarts * 3 * NEXT2_SET_INT)
     ints += work.get("rounds", 0) * PERM_ROUND_INT
+    mem = 0
+    if taps is not None:
+        fp += taps["rows"] * PATH_TAP_FP + taps["replayed"] * PATH_REPLAY_FP
+        ints += taps["ids"] * PATH_TAP_INT
+        mem = (taps["rows"] + taps["replayed"]) * TAP_ROW_PLANES + taps["atomics"]
     terms = {"fp32": fp / FP32_RATE * 1e3, "int32": ints / INT32_RATE * 1e3,
-             "issue": (fp + ints) / ISSUE_RATE * 1e3, "bytes": nbytes / HBM_RATE * 1e3}
+             "issue": (fp + ints + mem) / ISSUE_RATE * 1e3, "bytes": nbytes / HBM_RATE * 1e3}
     by = max(terms, key=terms.get)
     return terms[by], "bytes" if by == "bytes" else "operations", terms
+
+
+class _TapWork:
+    """Counts, in the plain path backward (render_path_backward_loop_plain)
+    while entered, the tap mode's work as the gradient kernels do it: .rows
+    the rows written (a step of a lane in flight; .by_depth by the row's
+    depth), .ids the rows with a texel, .replayed the rows replayed (a
+    sample's depth + 1 rows where it ends with a radiance that is not NaN)
+    and .atomics the taps that add something (a texel, a channel not 0 after
+    the post-pass: splat_add4's test). It wraps path_loop.loop_step and
+    scatter_add4."""
+
+    def __init__(self):
+        self.rows = self.ids = self.replayed = self.atomics = 0
+        self.by_depth = {}
+
+    def __enter__(self):
+        from zdr_tpu_torch.integrators import path_loop as pl
+
+        self.saved = (pl.loop_step, pl.scatter_add4)
+        step, scatter = self.saved
+
+        def counted_step(carry, tb, lanes, material, le_grad=None):
+            out = step(carry, tb, lanes, material, le_grad)
+            if le_grad is None:
+                return out
+            taps = out[1]
+            flags, ids = taps[15], taps[14]
+            row = (flags & 4) != 0
+            depth = carry.i[pl.I_IDX["depth"]]
+            self.rows += int(row.sum())
+            for d, n in zip(*torch.unique(depth[row], return_counts=True)):
+                self.by_depth[int(d)] = self.by_depth.get(int(d), 0) + int(n)
+            self.ids += int((row & (ids < material.shape[0] * material.shape[1])).sum())
+            ended = (flags & 3) == 3
+            self.replayed += int((depth[ended] + 1).sum())
+            return out
+
+        def counted_scatter(ids, vals, n_bins, packed=False):
+            self.atomics += int(((ids < n_bins) & (vals != 0).any(1)).sum())
+            return scatter(ids, vals, n_bins, packed=packed)
+
+        # loop_step counts its calls on the module's loop_step
+        counted_step.calls = step.calls
+        pl.loop_step, pl.scatter_add4 = counted_step, counted_scatter
+        return self
+
+    def __exit__(self, *exc):
+        from zdr_tpu_torch.integrators import path_loop as pl
+
+        self.saved[0].calls = pl.loop_step.calls
+        pl.loop_step, pl.scatter_add4 = self.saved
+
+    def scaled(self, scale, k_near):
+        """The counts times `scale`, with the rows' bytes each way by where
+        they lie (k_near rows a sample in shared memory, the deeper ones in
+        global scratch) and the atomics' bytes."""
+        far = sum(n for d, n in self.by_depth.items() if d >= k_near)
+        out = {k: getattr(self, k) * scale for k in ("rows", "ids", "replayed", "atomics")}
+        out.update(row_bytes_shared=(self.rows - far) * scale * TAP_ROW_BYTES,
+                   row_bytes_global=far * scale * TAP_ROW_BYTES,
+                   atomic_bytes=self.atomics * scale * 16)
+        return out
 
 
 def _material(seed, device, tex=TEX):
@@ -2199,6 +2325,29 @@ def _example(device):
     return scene
 
 
+# the path walk's shadow counts of _path_work that the records carry
+PATH_SHADOW_KEYS = ("shadow_walked", "shadow_skipped", "below_env", "below_mesh")
+
+
+def _shadow_path_note(work, n_samples):
+    """The path walk's shadow rays walked and skipped a sample, and its
+    light samples below the hemisphere by kind."""
+    return (f"{work['shadow_walked'] / n_samples:.3f} shadow walks and "
+            f"{work['shadow_skipped'] / n_samples:.3f} skipped a sample; light samples below "
+            f"the hemisphere {work['below_env'] / n_samples:.3f} env and "
+            f"{work['below_mesh'] / n_samples:.3f} mesh or point a sample, of "
+            f"{(work['shadow_walked'] + work['shadow_skipped']) / n_samples:.3f} shading steps")
+
+
+def _tap_note(taps, n_samples):
+    """The path gradient's counted taps a sample (_TapWork.scaled)."""
+    return (f"taps a sample: {taps['rows'] / n_samples:.3f} rows written "
+            f"({taps['row_bytes_shared'] / 1e6:.1f} MB in shared memory, "
+            f"{taps['row_bytes_global'] / 1e6:.1f} MB in global scratch), "
+            f"{taps['replayed'] / n_samples:.3f} replayed, {taps['atomics'] / n_samples:.3f} "
+            f"16-byte atomics")
+
+
 def _slice_kernels(integrator):
     """The wrappers a slice's forward and gradient run by, as (tb, lanes,
     mat) -> (3, N) radiance sums and (tb, lanes, mat, le) -> (gradient,
@@ -2228,7 +2377,7 @@ def _slice_kernels(integrator):
 
 
 def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16,
-                check_samples=CHECK_SAMPLES, env_stride=ENV_WORK_STRIDE):
+                check_samples=CHECK_SAMPLES, env_stride=ENV_WORK_STRIDE, work_bvh=False):
     """One main path of phases 17-20, Scene.render + loss.backward() of
     `scene` (its sampler, `res`, `spp`, a tex^2 material of 0.5) by the
     route its accel takes: one launch of each of its two kernels
@@ -2239,8 +2388,10 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16,
     first check_samples), the forward bit for bit and the gradient at phase
     7's bars; the iteration's median, Scene.render's and each kernel's
     alone, with its counted work (the path walk's on every work_stride-th
-    lane, the direct env's on every env_stride-th) and bound -> (the two
-    kernels' records, the image rendered at seed 0)."""
+    lane, over the dense tables or, with work_bvh, through the route's BVH;
+    the path gradient's taps on its check's lanes, _TapWork; the direct
+    env's on every env_stride-th lane) and bound -> (the two kernels'
+    records, the image rendered at seed 0)."""
     from zdr_tpu_torch import kernels
     from zdr_tpu_torch.integrators import path_loop as pl
 
@@ -2269,9 +2420,16 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16,
     tb1 = pl.build_loop_tables(data, scene.camera, scene._config(res, spp), 1)
     lanes = pl.pixel_lanes(res, spp, dev)
     fkern, gkern, fplain, gplain = _slice_kernels(integrator)
+    n_samples = res[0] * res[1] * spp
+    # the path gradient's taps, counted by the plain backward of the check
+    # on its lanes and samples
+    taps = _TapWork()
+    n_checked = len(range(0, res[0] * res[1], CHECK_STRIDE))
     if route == "bvh":
-        err, g_err, plain_ms, gplain_ms, check = _bvh_check(tb, tb1, m, integrator, what,
-                                                            exact=True, samples=check_samples)
+        with taps:
+            err, g_err, plain_ms, gplain_ms, check = _bvh_check(
+                tb, tb1, m, integrator, what, exact=True, samples=check_samples)
+        tap_scale = n_samples / (n_checked * check_samples)
         shape = (f"every {CHECK_STRIDE}th lane of {res[0]}x{res[1]}, the first "
                  f"{check_samples} of {spp} samples")
     else:
@@ -2294,8 +2452,10 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16,
         le_sub = torch.zeros((3, lanes.shape[1]), device=dev)
         le_sub[:, ::CHECK_STRIDE] = 1.0 / spp
         ggot, _acc = gkern(tb1, lanes, m, le_sub)
-        (gwant, _acc), gplain_ms = _sync_ms(
-            lambda: gplain(tb1, sub, m, le_sub[:, ::CHECK_STRIDE].contiguous()))
+        with taps:
+            (gwant, _acc), gplain_ms = _sync_ms(
+                lambda: gplain(tb1, sub, m, le_sub[:, ::CHECK_STRIDE].contiguous()))
+        tap_scale = n_samples / (n_checked * spp)
         g_err, g_worst = _assert_grad_close(ggot, gwant, f"{what}: {bwd}")
         err = 0.0
         shape = f"every {CHECK_STRIDE}th lane of {res[0]}x{res[1]}, {spp} spp{counted}"
@@ -2319,7 +2479,6 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16,
         ms, _r = _event_ms(lambda: fkern(tb, lanes, m), reps)
     fk, gk = getattr(kernels, fwd), getattr(kernels, bwd)
     gms, _r = _event_ms(lambda: gkern(tb1, lanes, m, le), reps)
-    n_samples = res[0] * res[1] * spp
     tables = [lanes, m, tb.scene, tb.lights, tb.bn]
     if tb.env is not None:
         tables += [tb.env.texture, tb.env.alias_prob, tb.env.alias_idx, tb.env.pdf]
@@ -2329,8 +2488,9 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16,
     dense_tb = dataclasses.replace(tb, bvh=None)
     if integrator == "path":
         if not (route == "dense" and work_stride == CHECK_STRIDE):
-            path_work = _path_work(dense_tb, lanes, m, stride=work_stride)
+            path_work = _path_work(tb if work_bvh else dense_tb, lanes, m, stride=work_stride)
         env_work = {k: path_work[k] for k in ("env_miss", "env_nee")}
+        tap_work = taps.scaled(tap_scale, gk.plan["k_near"])
     elif integrator == "direct":
         # the route's own tables: the plain BVH walk counts as the dense one
         # and stays quick on the big mesh
@@ -2344,35 +2504,51 @@ def _slice_main(scene, res, spp, tex, tag, what, smi, reps=3, work_stride=16,
     if route == "bvh":
         tables += [tb.bvh.geom, tb.bvh.nodes]
         work, gwork = fk.counts.tolist(), gk.counts.tolist()
-        bound = _bound(work[0], _nbytes(*tables, *state), work[1], extra_ops=_env_ops(env_work))
-        gbound = _bound(gwork[0], _nbytes(*tables, le, m, *state), gwork[1],
-                        extra_ops=_env_ops(env_work, grad=True))
+        nbytes, gnbytes = _nbytes(*tables, *state), _nbytes(*tables, le, m, *state)
+        if integrator == "path":
+            # the walk's counted work with the kernels' own tests and visits
+            bound = _loop_bound(dict(path_work, tests=work[0], visits=work[1]), nbytes)
+            gbound = _loop_bound(dict(path_work, tests=gwork[0], visits=gwork[1]), gnbytes,
+                                 tap_work)
+        else:
+            bound = _bound(work[0], nbytes, work[1], extra_ops=_env_ops(env_work))
+            gbound = _bound(gwork[0], gnbytes, gwork[1], extra_ops=_env_ops(env_work, grad=True))
         work_note = (f"{work[0]:.4g} tests and {work[1]:.4g} node visits ({work[0] / n_samples:.2f}"
                      f" and {work[1] / n_samples:.2f} a sample){env_note}")
         extra = dict(tests=work[0], visits=work[1], **env_work)
         gextra = dict(tests=gwork[0], visits=gwork[1], **env_work)
         if integrator == "path":
             lp, gp = fk.plan, gk.plan
-            work_note += (f"; {fwd} launch {lp['block']} threads a block, {lp['registers']} "
+            work_note += (f"; {_shadow_path_note(path_work, n_samples)}; {fwd} launch "
+                          f"{lp['block']} threads a block, {lp['registers']} "
                           f"registers, {lp['local_bytes']} bytes of local memory a thread, "
-                          f"{lp['waves']:.3f} waves; {bwd} launch {_plan_note(gp)}")
+                          f"{lp['waves']:.3f} waves; {bwd} launch {_plan_note(gp)}; "
+                          f"{_tap_note(tap_work, n_samples)}")
+            shadow = {k: path_work[k] for k in PATH_SHADOW_KEYS}
+            extra.update(bound_terms_ms=bound[2], steps=path_work["steps"], **shadow)
+            gextra.update(bound_terms_ms=gbound[2], steps=path_work["steps"], taps=tap_work,
+                          **shadow)
     elif integrator == "path":
-        # the walk's counted work bounds both kernels (the taps not counted)
+        # the walk's counted work bounds both kernels, the gradient's with
+        # its taps
         nbytes = _nbytes(*tables, *state)
         bound = _loop_bound(path_work, nbytes)
-        gbound = _loop_bound(path_work, _nbytes(*tables, le, m, *state))
+        gbound = _loop_bound(path_work, _nbytes(*tables, le, m, *state), tap_work)
         lp, gp = fk.plan, gk.plan
         work_note = (f"{path_work['tests']:.4g} tests, {path_work['steps']:.4g} steps "
                      f"({path_work['steps'] / n_samples:.2f} a sample, "
                      f"{path_work['rounds'] / n_samples:.3f} rejection rounds a sample; every "
                      f"{work_stride}th lane, scaled)"
-                     f"{env_note}; {fwd} launch {lp['block']} threads a block, "
+                     f"{env_note}; {_shadow_path_note(path_work, n_samples)}; {fwd} launch "
+                     f"{lp['block']} threads a block, "
                      f"{lp['registers']} registers, {lp['local_bytes']} bytes of local memory a "
-                     f"thread, {lp['waves']:.3f} waves; {bwd} launch {_plan_note(gp)}")
+                     f"thread, {lp['waves']:.3f} waves; {bwd} launch {_plan_note(gp)}; "
+                     f"{_tap_note(tap_work, n_samples)}")
+        shadow = {k: path_work[k] for k in PATH_SHADOW_KEYS}
         extra = dict(tests=path_work["tests"], steps=path_work["steps"],
-                     rounds=path_work["rounds"], bound_terms_ms=bound[2], **env_work)
+                     rounds=path_work["rounds"], bound_terms_ms=bound[2], **env_work, **shadow)
         gextra = dict(tests=path_work["tests"], steps=path_work["steps"],
-                      bound_terms_ms=gbound[2], **env_work)
+                      bound_terms_ms=gbound[2], taps=tap_work, **env_work, **shadow)
     else:
         acc = state[0]
         tests, gtests, plan = int(fk.tests), int(gk.tests), fk.plan
@@ -4045,6 +4221,100 @@ def phase_env_redesign(dev, smi, ptxas, example, earlier):
     return records
 
 
+# the path env kernels of phase 2's ptxas report, and their no-env twins
+PATH_ENV_TWINS = {"path_loop_env": "path_loop", "path_loop_grad_env": "path_loop_grad",
+                  "path_loop_env_bvh": "path_loop_bvh",
+                  "path_loop_grad_env_bvh": "path_loop_grad_bvh"}
+# phase 27 counts the big mesh's path work on every PATH_ENV_WORK_STRIDE-th
+# lane, through the BVH (its plain walk steps all its rays a node at a time)
+PATH_ENV_WORK_STRIDE = 2 * ENV_WORK_STRIDE - 1
+
+
+def _bigmesh_path_env(device):
+    """The big mesh (_bigmesh: 50,882 triangles, the quad light) under
+    make_test_envmap(256, 512), the path integrator by accel="auto" (the
+    BVH)."""
+    from zdr_tpu_torch.envmap import make_test_envmap
+
+    scene = _bigmesh(device, "path")
+    scene.add_envmap(make_test_envmap(256, 512))
+    return scene
+
+
+def _path_env_note(what, rec, n_samples):
+    """A path env kernel's record's shadow walks, work and bound a sample."""
+    walked, skipped = rec["shadow_walked"], rec["shadow_skipped"]
+    note = (f"{what} {rec['name']}: {walked / n_samples:.3f} shadow walks and "
+            f"{skipped / n_samples:.3f} skipped a sample ({skipped / max(walked + skipped, 1):.1%} "
+            f"of the shading steps; below the hemisphere {rec['below_env'] / n_samples:.3f} env "
+            f"and {rec['below_mesh'] / n_samples:.3f} mesh samples a sample), "
+            f"{rec['steps'] / n_samples:.3f} steps a sample")
+    if "visits" in rec:
+        note += (f", {rec['tests'] / n_samples:.2f} tests and {rec['visits'] / n_samples:.2f} "
+                 f"visits a sample")
+    if "taps" in rec:
+        note += f", {_tap_note(rec['taps'], n_samples)}"
+    return note + f", {rec['ms']:.3f} / {rec['bound_ms']:.3f} ms bound ({rec['bound_by']})"
+
+
+def phase_path_env_redesign(dev, smi, ptxas, path_env):
+    """Phase 27: the path env kernels as redesigned (the NEE shadow walk only
+    where the light sample lies above the hemisphere; in tap mode an env
+    light sample's pdf and texels read at the next step where NEE counts).
+    The main path: the big mesh under the envmap (_slice_main: Scene.render
+    + loss.backward() by accel="auto", both kernels against their plain
+    versions at the first BOUNCE_CHECK_SAMPLES samples of every 64th lane,
+    the forward bit for bit, the gradient at phase 7's bars, each kernel
+    alone with its counted work (the walk through the BVH on every
+    PATH_ENV_WORK_STRIDE-th lane, the taps on the check's lanes) and the
+    bound from it). Beside it phase 19's records of the flagship and
+    env_scene (`path_env`): each scene's shadow walks walked and skipped a
+    sample, the light samples below the hemisphere, the taps, and ptxas of
+    the four path env kernels against their no-env twins -> the big mesh's
+    records."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    big = _bigmesh_path_env(dev)
+    records, _img = _slice_main(big, RES, SPP, TEX, "27 path env redesign",
+                                "the big mesh under the envmap", smi,
+                                check_samples=BOUNCE_CHECK_SAMPLES,
+                                work_stride=PATH_ENV_WORK_STRIDE, work_bvh=True)
+    n_samples = RES[0] * RES[1] * SPP
+    # the tap mode walks what the forward walks: on the same tables (seed 0)
+    # and lanes their tests and node visits are equal
+    sub = pl.pixel_lanes(RES, BOUNCE_CHECK_SAMPLES, dev)[:, ::CHECK_STRIDE].contiguous()
+    m = torch.full((TEX, TEX, 4), 0.5, dtype=torch.float32, device=dev)
+    le = torch.full((3, sub.shape[1]), 1.0 / SPP, device=dev)
+    same = {}
+    for what, scene in (("env_scene", _env_scene(dev)), ("the big mesh", big)):
+        tb = pl.build_loop_tables(scene._render_data("path"), scene.camera,
+                                  scene._config(RES, SPP), 0)
+        kernels.path_loop(tb, sub, m, pl.init_carry(sub), tb.n_steps)
+        kernels.path_loop_grad(tb, sub, m, le, tb.n_steps)
+        fc = kernels.path_loop_env_bvh.counts.tolist()
+        gc = kernels.path_loop_grad_env_bvh.counts.tolist()
+        if fc != gc:
+            raise AssertionError(f"{what}: path_loop_env_bvh counts {fc} tests and visits, "
+                                 f"path_loop_grad_env_bvh {gc} on the same tables")
+        same[what] = fc
+    notes = [f"the tap mode's tests and node visits equal the forward's on the same tables "
+             f"(every {CHECK_STRIDE}th lane, {BOUNCE_CHECK_SAMPLES} samples): "
+             f"{json.dumps(same)}"]
+    for what, recs, pair in (("the flagship", path_env, SLICE_KERNELS["path", "dense"]),
+                             ("env_scene", path_env, SLICE_KERNELS["path", "bvh"]),
+                             ("the big mesh", records, SLICE_KERNELS["path", "bvh"])):
+        for k in pair:
+            notes.append(_path_env_note(what, dict(recs[k], name=k), n_samples))
+    regs = {k: [ptxas[k][f] for f in ("registers", "local_bytes", "spill_stores", "spill_loads")]
+            for k in (*PATH_ENV_TWINS, *PATH_ENV_TWINS.values())}
+    print(f"[27 path env redesign] {'; '.join(notes)}; ptxas [registers, stack frame bytes, "
+          f"spill stores, spill loads] {json.dumps(regs)}; card {smi}", flush=True)
+    for k in records:
+        records[k]["ptxas"] = {e: regs[e] for e in (k, PATH_ENV_TWINS[k])}
+    return records
+
+
 def main():
     t_start = time.perf_counter()
     seconds = {}
@@ -4095,6 +4365,7 @@ def main():
                "22 lightstage step": apps["lightstage"]["step_ms"]}
     bounce = timed("25", phase_bounce_emit, dev, smi, ptxas, earlier)
     env_big = timed("26", phase_env_redesign, dev, smi, ptxas, env, earlier)
+    path_big = timed("27", phase_path_env_redesign, dev, smi, ptxas, path_env)
     print(f"[timing] seconds a phase {seconds}; {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     # direct_bvh and direct_grad_bvh report the protocol's main path by
@@ -4158,9 +4429,12 @@ def main():
                                        step_ms=par["lightstage"]["step_ms"]),
             "lightstage_small_gate": par["lightstage_small"]}
     env["direct_env_bvh"]["apps"]["adam_step_ms"] = apps["adam_ms"]
-    # phase 26's big mesh under the envmap beside the example's main path
+    # phase 26's big mesh under the envmap beside the example's main path,
+    # phase 27's beside env_scene's
     for k, rec in env_big.items():
         env[k]["big_mesh_env"] = rec
+    for k, rec in path_big.items():
+        path_env[k]["big_mesh_env"] = rec
     direct_src = "zdr_tpu_torch/kernels/csrc/direct.cu"
     coll_src = "zdr_tpu_torch/kernels/csrc/collocated.cu"
     for pair in SLICE_KERNELS.values():

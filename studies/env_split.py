@@ -3,9 +3,10 @@
 direct_grad_env_bvh) against builds of them that each differ in one thing,
 on one CUDA card: where their time goes, their register caps and blocks,
 ptxas's report of the four direct env kernels, and how many shading lanes
-draw an env sample below their hemisphere.
+draw an env sample below their hemisphere. With --integrator path, the
+path integrator's env kernels likewise (below).
 
-    python3 studies/env_split.py [OUT.json]
+    python3 studies/env_split.py [--integrator direct|path] [OUT.json]
 
 Each build is a copy of zdr_tpu_torch/kernels/csrc/ under the textual edits
 of its entry in BUILDS (walk_split.py's manner: each edit names the text it
@@ -47,10 +48,49 @@ takes the env and lies below the shading hemisphere (wll.z < 1e-4, so that
 NEE adds nothing whatever the shadow ray finds) is counted with the plain
 direct samples (bounce.shade_plain's own frame) on every 64th lane, the
 first 8 samples. Writes the numbers to OUT.json (by default
-studies/_build/env_split.json). Runs from the root of a checkout; imports
-nothing of JAX.
+studies/_build/env_split.json, or env_split_path.json). Runs from the root
+of a checkout, the package's own or a parent's with this file copied into
+its studies/ (its edits match the path kernels' sources before and after
+their redesign); imports nothing of JAX.
+
+--integrator path: the path env kernels, path_loop_env(_bvh) and
+path_loop_grad_env(_bvh) (path_loop.cu, path_loop_grad.cu over
+path_loop_step.cuh loop_step<.., kEnv = true>), launched by
+kernels.loop_launch and grad_launch, against PATH_BUILDS: production;
+  closest2x   the next hit's sweep or walk (closest_interact's) run twice,
+  shadow2x    the NEE shadow ray's (where the sources walk it),
+  envdraw2x   nee_select's env draw, pdf entry and texel fetch,
+  miss2x      env_miss_add, and
+  rough2x     the tap mode's two roughness taps (ggx_spec_droughness,
+              torch.func's reverse chain since C3), each twice as above;
+  noatomic    the taps replayed but not added;
+  noreplay    no finished sample's rows replayed (nor added): the replay's
+              share is noatomic's time less noreplay's;
+  grad_b64, grad_b256, dense_min5, bvh_min3, bvh_min4, bvh_min5,
+  bvh_uncapped
+              the gradient kernels (every instantiation) at other blocks
+              and __launch_bounds__ (production: 128 threads, the dense
+              kernel uncapped, the BVH one at 4 blocks an SM, its env
+              instantiation at 8 since the redesign).
+A build whose edits are the gradient's alone compiles path_loop_grad.cu
+only; its forward is production's. PATH_SCENES at 512x512, 64 spp, a
+1024^2 material of 0.5, the render at seed 0 and the tap mode at seed 1
+with the adjoint 1 / spp: the flagship (chip_smoke._flagship: the cornell
+box and its light, the dense route) under make_test_envmap(256, 512),
+tools/bench_round3.py's env_scene (chip_smoke._env_scene, the BVH), the big
+mesh (chip_smoke._bigmesh, 50,882 triangles, the BVH) under
+make_test_envmap(256, 512), and the flagship under make_test_envmap(1024,
+2048). Each build's forward is held bit for bit against production's and
+its gradient at phase 7's bars (not the split's that change it). The share
+of shading steps whose light sample lies below the hemisphere (wll.z <
+1e-4: NEE adds nothing, whatever the shadow ray finds), split into env and
+mesh (or point) samples, is counted by the plain walk (path_loop.loop_step's
+own frame) on every 64th lane, the first 4 samples; the same share without
+an env on the flagship (path) and the direct protocol
+(tools/bench_reference.py by accel="auto", chip_smoke._protocol).
 """
 
+import argparse
 import ctypes
 import json
 import os
@@ -304,15 +344,303 @@ def below_share(tb, lanes, mat, stride=64, samples=8):
     return tally
 
 
+# ------------------------------------------------------------- the path kernels
+
+GRAD = "path_loop_grad.cu"
+# a value the compiler cannot know and that is 0 at run time (loop_step's)
+ZERO_L = ws.ZERO
+CLOSEST = "  Hit hit = closest_interact(tb, q, o_n, d_n, pdf_prev, in_flight_n, tr, c);\n"
+CLOSEST2 = f"""  {{
+    float again_t = kTMax, again_u = 0.0f, again_v = 0.0f;
+    int again = tr.closest(tb, q, v3(o_n.x + {ZERO_L}, o_n.y, o_n.z), d_n, again_t, again_u,
+                           again_v, nullptr);
+    o_n.x += again < -1 ? 1.0f : 0.0f;
+  }}
+""" + CLOSEST
+# the shadow walk: on every shading lane (before the redesign), or under the
+# env only where the light sample lies above the hemisphere
+P_SHADOW = "  bool occ = shade && tr.any(tb, q, s.p, s.wl, s.l_dist, c);\n"
+P_SHADOW2 = f"""  bool occ_again =
+      shade && tr.any(tb, q, v3(s.p.x + {ZERO_L}, s.p.y, s.p.z), s.wl, s.l_dist, nullptr);
+""" + P_SHADOW + "  occ = occ_again == occ ? occ : occ_again;\n"
+P_SKIP = ("    occ = shade && wi_light_local.z >= 1e-4f && tr.any(tb, q, s.p, s.wl, s.l_dist, "
+          "c);\n")
+P_SKIP2 = f"""    bool occ_again = shade && wi_light_local.z >= 1e-4f &&
+                     tr.any(tb, q, v3(s.p.x + {ZERO_L}, s.p.y, s.p.z), s.wl, s.l_dist, nullptr);
+""" + P_SKIP + "    occ = occ_again == occ ? occ : occ_again;\n"
+ROUGH = """      float p3 = ggx_spec_droughness(wo_local, wi_light_local, rough,
+                                     ggx_spec_cotangent(ct.x, ct.y, ct.z, wlz));
+      float u0 = wi_local.z / kPi;
+      // the plain version's unit cotangent on all three channels, a third
+      // of it for one channel's S
+      float u3 = ggx_spec_droughness(wo_local, wi_local, rough,
+                                     ggx_spec_cotangent(1.0f, 1.0f, 1.0f, wi_local.z)) *
+                 (1.0f / 3.0f);
+"""
+ROUGH2 = f"""      float again_p3 = ggx_spec_droughness(wo_local, wi_light_local, rough + {ZERO_L},
+                                           ggx_spec_cotangent(ct.x, ct.y, ct.z, wlz));
+      float again_u3 = ggx_spec_droughness(wo_local, wi_local, rough + {ZERO_L},
+                                           ggx_spec_cotangent(1.0f, 1.0f, 1.0f, wi_local.z));
+""" + ROUGH + "      u3 = again_p3 + again_u3 == 1234.5f ? again_u3 : u3;\n"
+ATOMIC = "  atomicAdd(reinterpret_cast<float4*>(grad) + id, make_float4(a, b, c, d));\n"
+REPLAY = "      if (last >= 0) replay_sample(*gl, last, q.tex_h * q.tex_w);\n"
+DENSE_BOUNDS = "__launch_bounds__(kBlock)\n    path_loop_grad_kernel("
+# the BVH kernel's bounds before the redesign and after it (the env
+# instantiation at 8 blocks an SM)
+BVH_BOUNDS = ("__launch_bounds__(kBlock, 4)\n    path_loop_grad_bvh_kernel(",
+              "__launch_bounds__(kBlock, kEnv ? 8 : 4)\n    path_loop_grad_bvh_kernel(")
+BLOCK = "constexpr int kBlock = 128;\n"
+# name -> [(file, old or (old, ...), new)]
+PATH_BUILDS = {
+    "production": [],
+    "closest2x": [(LOOPSTEP, CLOSEST, CLOSEST2)],
+    "shadow2x": [[(LOOPSTEP, P_SHADOW, P_SHADOW2), (LOOPSTEP, P_SKIP, P_SKIP2)]],
+    "envdraw2x": [(LOOPSTEP, ENVDRAW, ENVDRAW2)],
+    "miss2x": [(LOOPSTEP, MISS, MISS_ONCE), (LOOPSTEP, MISS_AT, MISS_TWICE + MISS_AT)],
+    "rough2x": [(LOOPSTEP, ROUGH, ROUGH2)],
+    "noatomic": [(LOOPSTEP, ATOMIC, "  if (a + b + c + d == 1e-38f) grad[0] = a;\n")],
+    "noreplay": [(LOOPSTEP, REPLAY, "")],
+    "grad_b64": [(GRAD, BLOCK, BLOCK.replace("128", "64"))],
+    "grad_b256": [(GRAD, BLOCK, BLOCK.replace("128", "256"))],
+    "dense_min5": [(GRAD, DENSE_BOUNDS, DENSE_BOUNDS.replace("(kBlock)", "(kBlock, 5)"))],
+    **{f"bvh_{k}": [(GRAD, BVH_BOUNDS,
+                     f"__launch_bounds__(kBlock{v})\n    path_loop_grad_bvh_kernel(")]
+       for k, v in (("min3", ", 3"), ("min4", ", 4"), ("min5", ", 5"), ("uncapped", ""))},
+}
+# the builds whose edits change the gradient alone (their forward is
+# production's), and those that change what the gradient computes
+GRAD_ONLY = ("rough2x", "noatomic", "noreplay", "grad_b64", "grad_b256", "dense_min5",
+             "bvh_min3", "bvh_min4", "bvh_min5", "bvh_uncapped")
+NOT_GRAD = ("noatomic", "noreplay")
+PATH_SPLIT = ("closest2x", "shadow2x", "envdraw2x", "miss2x")
+GRAD_SPLIT = PATH_SPLIT + ("rough2x",)
+PATH_KERNELS = ("path_loop", "path_loop_grad", "path_loop_env", "path_loop_grad_env",
+                "path_loop_bvh", "path_loop_grad_bvh", "path_loop_env_bvh",
+                "path_loop_grad_env_bvh")
+PATH_SCENES = (("flagship", 256), ("env_scene", 128), ("big mesh", 256),
+               ("flagship 1024x2048", 1024))
+LOOP_ENTRIES = ("zdr_path_loop_env", "zdr_path_loop_env_bvh")
+GRAD_ENTRIES = ("zdr_path_loop_grad_plan", "zdr_path_loop_grad_env",
+                "zdr_path_loop_grad_env_bvh")
+
+
+def build_path():
+    """Copy, edit and compile every path build, all nvcc processes at once
+    -> ({name: (forward entries, gradient entries)}, {name: ptxas of the
+    path kernels})."""
+    import chip_smoke as cs
+    from zdr_tpu_torch import kernels
+
+    root = os.path.join(BUILD, "path")
+    shutil.rmtree(root, ignore_errors=True)
+    running = []
+    for name, edits in PATH_BUILDS.items():
+        src = os.path.join(root, name)
+        shutil.copytree(kernels.CSRC, src, ignore=shutil.ignore_patterns("__pycache__"))
+        _edit(name, src, edits)
+        for source in ([GRAD] if name in GRAD_ONLY else ["path_loop.cu", GRAD]):
+            out = os.path.join(root, f"lib{name}_{source[:-3]}.so")
+            cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", out, os.path.join(src, source)]
+            running.append((name, source, cmd, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    prod = kernels.load_library()
+    libs, logs = {}, {}
+    for name, source, cmd, out, proc in running:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"{name}: build failed ({' '.join(cmd)}):\n{log}")
+        logs[name] = logs.get(name, "") + log
+        lib = ctypes.CDLL(out)
+        entries = LOOP_ENTRIES if source == "path_loop.cu" else GRAD_ENTRIES
+        libs.setdefault(name, {}).update({e: kernels._bind(lib, e, getattr(prod, e).argtypes)
+                                          for e in entries})
+    reports = {}
+    for name, entries in libs.items():
+        if name in GRAD_ONLY:
+            entries.update({e: libs["production"][e] for e in LOOP_ENTRIES})
+        report = cs.ptxas_bvh(logs[name])
+        reports[name] = {k: [report[k][f] for f in ("registers", "local_bytes", "spill_stores",
+                                                     "spill_loads")]
+                         for k in PATH_KERNELS if k in report}
+    return {k: types.SimpleNamespace(**v) for k, v in libs.items()}, reports
+
+
+def path_scene(cs, name, env_h, dev):
+    """The study's path scene `name` (PATH_SCENES)."""
+    from zdr_tpu_torch.envmap import make_test_envmap
+
+    if name == "env_scene":
+        return cs._env_scene(dev)
+    scene = cs._bigmesh(dev, "path") if name == "big mesh" else cs._flagship(dev)
+    scene.add_envmap(make_test_envmap(env_h, 2 * env_h))
+    return scene
+
+
+def path_inputs(cs, scene, dev):
+    """The scene's main-path inputs -> (tables at seed 0, tables at seed 1,
+    lanes, material, adjoint)."""
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    data = scene._render_data("path")
+    cfg = scene._config(cs.RES, cs.SPP)
+    tb, tb1 = (pl.build_loop_tables(data, scene.camera, cfg, s) for s in (0, 1))
+    if tb.env is None:
+        raise SystemExit("not an env scene")
+    lanes = pl.pixel_lanes(cs.RES, cs.SPP, dev)
+    mat = torch.full((cs.TEX, cs.TEX, 4), 0.5, dtype=torch.float32, device=dev)
+    le = torch.full((3, lanes.shape[1]), 1.0 / cs.SPP, device=dev)
+    return tb, tb1, lanes, mat, le
+
+
+def time_path_build(cs, lib, inp, ref=None, check_grad=True):
+    """A build's path env kernels on `inp`, held against `ref` (production's
+    outputs) -> ({fwd_ms, grad_ms, ...}, its outputs)."""
+    from zdr_tpu_torch import kernels
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    tb, tb1, lanes, mat, le = inp
+
+    def fwd():
+        return kernels.loop_launch(lib, tb, lanes, mat, pl.init_carry(lanes), tb.n_steps)
+
+    def bwd():
+        return kernels.grad_launch(lib, tb1, lanes, mat, le, tb1.n_steps)
+
+    carry, counts, plan = fwd()
+    grad, _carry, gcounts, gplan = bwd()
+    torch.cuda.synchronize()
+    acc = carry.f[0:3]
+    if ref is not None:
+        if not torch.equal(acc, ref[0]):
+            raise SystemExit(f"the forward differs from production's in "
+                             f"{int((acc != ref[0]).any(0).sum())} lanes")
+        if check_grad:
+            cs._assert_grad_close(grad, ref[1], "the gradient against production's")
+    f_ms = cs._event_ms(fwd)
+    g_ms = cs._event_ms(bwd)
+    n = lanes.shape[1] * tb.spp
+    row = {"fwd_ms": f_ms[0], "grad_ms": g_ms[0], "fwd_runs": f_ms[1], "grad_runs": g_ms[1],
+           "fwd_plan": plan, "grad_plan": gplan}
+    if counts is not None:
+        c, g = counts.tolist(), gcounts.tolist()
+        row.update(tests_a_sample=c[0] / n, visits_a_sample=c[1] / n,
+                   grad_tests_a_sample=g[0] / n, grad_visits_a_sample=g[1] / n)
+    return row, (acc, grad)
+
+
+def path_below_share(tb, lanes, mat, stride=64, samples=4):
+    """The plain path walk of every `stride`-th lane, the first `samples`
+    samples of each -> {shading steps, their light samples that take the env
+    and those that do not, and of each those below the shading hemisphere
+    (wll.z < 1e-4, loop_step's frame), with the shares}."""
+    from zdr_tpu_torch.integrators import path_loop as pl
+    from zdr_tpu_torch.microfacet import make_onb, to_local
+
+    sub = pl.pixel_lanes(tb.res, samples, lanes.device)[:, ::stride].contiguous()
+    fi, ii = pl.F_IDX, pl.I_IDX
+    tally = dict(shading=0, env=0, env_below=0, mesh=0, mesh_below=0)
+    carry = pl.init_carry(sub)
+    for _ in range(tb.n_steps):
+        if not bool((carry.i[ii["sample_idx"]] < sub[2]).any()):
+            break
+        shade = (carry.i[ii["in_flight"]] != 0) & (carry.i[ii["shade"]] != 0)
+        ns = tuple(carry.f[fi[k]] for k in ("ns_x", "ns_y", "ns_z"))
+        wl = tuple(carry.f[fi[k]] for k in ("wl_x", "wl_y", "wl_z"))
+        t_, b_ = make_onb(ns)
+        below = shade & (to_local(t_, b_, ns, wl)[2] < 1e-4)
+        env = shade & (carry.f[fi["l_dist"]] == 1e30)
+        tally["shading"] += int(shade.sum())
+        tally["env"] += int(env.sum())
+        tally["env_below"] += int((env & below).sum())
+        tally["mesh"] += int((shade & ~env).sum())
+        tally["mesh_below"] += int((shade & ~env & below).sum())
+        carry = pl.loop_step(carry, tb, sub, mat)
+    for k in ("env", "mesh"):
+        tally[f"{k}_below_share"] = tally[f"{k}_below"] / max(tally[k], 1)
+    tally["below_share"] = (tally["env_below"] + tally["mesh_below"]) / max(tally["shading"], 1)
+    return tally
+
+
+def _share_note(share):
+    return (f"shading steps {share['shading']}: env samples {share['env']}, "
+            f"{share['env_below_share']:.1%} below the hemisphere; mesh or point samples "
+            f"{share['mesh']}, {share['mesh_below_share']:.1%} below; all "
+            f"{share['below_share']:.1%}")
+
+
+def main_path(cs, dev, smi, out_path):
+    """The path env kernels' split (--integrator path)."""
+    from zdr_tpu_torch.integrators import path_loop as pl
+
+    libs, reports = build_path()
+    out = {"card": smi, "ptxas": reports, "scenes": {}, "no_env": {}}
+    print(f"[path ptxas] the path kernels of production [registers, stack frame (local) bytes, "
+          f"spill stores, spill loads]: {json.dumps(reports['production'])}; the gradient env "
+          f"kernels of every build: "
+          + json.dumps({k: {e: v.get(e) for e in ("path_loop_grad_env", "path_loop_grad_env_bvh")}
+                        for k, v in reports.items()}) + f"; card {smi}", flush=True)
+    for scene_name, env_h in PATH_SCENES:
+        inp = path_inputs(cs, path_scene(cs, scene_name, env_h, dev), dev)
+        prod, ref = time_path_build(cs, libs["production"], inp)
+        rows = {"production": prod}
+        for name in libs:
+            if name != "production":
+                rows[name] = time_path_build(cs, libs[name], inp, ref,
+                                             check_grad=name not in NOT_GRAD)[0]
+        base_f, base_g = prod["fwd_ms"], prod["grad_ms"]
+        split = {k: (rows[k]["fwd_ms"] - base_f) / base_f for k in PATH_SPLIT}
+        gsplit = {k: (rows[k]["grad_ms"] - base_g) / base_g for k in GRAD_SPLIT}
+        split["rest"], gsplit["rest"] = 1.0 - sum(split.values()), 1.0 - sum(gsplit.values())
+        gsplit["atomics"] = (base_g - rows["noatomic"]["grad_ms"]) / base_g
+        gsplit["replay"] = (rows["noatomic"]["grad_ms"] - rows["noreplay"]["grad_ms"]) / base_g
+        share = path_below_share(inp[0], inp[2], inp[3])
+        out["scenes"][scene_name] = dict(builds=rows, split=split, grad_split=gsplit,
+                                         below=share)
+        print(f"[path split] {scene_name} ({'BVH' if inp[0].bvh is not None else 'dense'}): "
+              f"production forward {base_f:.4f} ms, gradient {base_g:.4f} ms"
+              + (f", {prod['tests_a_sample']:.3f} tests and {prod['visits_a_sample']:.3f} "
+                 f"visits a sample" if "tests_a_sample" in prod else "")
+              + "; the forward's shares: " + ", ".join(f"{k} {v:.1%}" for k, v in split.items())
+              + "; the gradient's: " + ", ".join(f"{k} {v:.1%}" for k, v in gsplit.items())
+              + f"; {_share_note(share)}; builds (fwd / grad ms): "
+              + ", ".join(f"{k} {v['fwd_ms']:.4f} / {v['grad_ms']:.4f}" for k, v in rows.items())
+              + f"; card {smi}", flush=True)
+    # the no-env kernels' light samples below the hemisphere: the flagship
+    # (path) and the direct protocol by accel="auto"
+    flag = cs._flagship(dev)
+    cfg = flag._config(cs.RES, cs.SPP)
+    tb = pl.build_loop_tables(flag._render_data("path"), flag.camera, cfg, 0)
+    lanes = pl.pixel_lanes(cs.RES, cs.SPP, dev)
+    mat = torch.full((cs.TEX, cs.TEX, 4), 0.5, dtype=torch.float32, device=dev)
+    out["no_env"]["flagship"] = path_below_share(tb, lanes, mat)
+    proto = cs._protocol(dev, "auto")
+    tbp = pl.build_loop_tables(proto._render_data("direct"), proto.camera,
+                               proto._config(cs.RES, cs.PROTOCOL_SPP), 0)
+    lanes_p = pl.pixel_lanes(cs.RES, cs.PROTOCOL_SPP, dev)
+    out["no_env"]["protocol"] = below_share(tbp, lanes_p, mat)
+    print(f"[path split] without an env: the flagship (path) "
+          f"{_share_note(out['no_env']['flagship'])}; the protocol (direct, auto) "
+          f"{json.dumps(out['no_env']['protocol'])}; card {smi}", flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as fh:
+        json.dump(out, fh, indent=1)
+
+
 def main():
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("out", nargs="?", help="the JSON written")
+    ap.add_argument("--integrator", choices=("direct", "path"), default="direct")
+    args = ap.parse_args()
     _name, smi = cs.phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    out_path = sys.argv[1] if len(sys.argv) > 1 else os.path.join(HERE, "_build",
-                                                                   "env_split.json")
+    name = "env_split_path.json" if args.integrator == "path" else "env_split.json"
+    out_path = args.out or os.path.join(HERE, "_build", name)
+    if args.integrator == "path":
+        return main_path(cs, dev, smi, out_path)
     libs, reports = build_all()
     out = {"card": smi, "ptxas": reports, "scenes": {}}
     print(f"[env ptxas] the direct env kernels of production [registers, stack frame (local) "

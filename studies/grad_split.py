@@ -62,6 +62,8 @@ WARP_LOOP = """#ifdef __CUDA_ARCH__
     }
 #endif
 """
+# the BVH kernel's bound (the env instantiation's at 8 blocks an SM)
+BVH_BOUNDS = "__launch_bounds__(kBlock, kEnv ? 8 : 4)"
 WARP = [(STEP, STEP_MARK, '#include "replay_warp.cuh"\n\n' + STEP_MARK),
         (STEP, LOOP_TOP, WARP_LOOP + LOOP_TOP)]
 # name -> ([(file, old, new)], extra nvcc flags)
@@ -74,8 +76,8 @@ BUILDS = {
     "count": (WARP, ("-DSTUDY_COUNT",)),
     "block64": ([(GRAD, "constexpr int kBlock = 128;", "constexpr int kBlock = 64;")], ()),
     "block256": ([(GRAD, "constexpr int kBlock = 128;", "constexpr int kBlock = 256;")], ()),
-    "bvh_uncapped": ([(GRAD, "__launch_bounds__(kBlock, 4)", "__launch_bounds__(kBlock)")], ()),
-    "min5": ([(GRAD, "__launch_bounds__(kBlock, 4)", "__launch_bounds__(kBlock, 5)"),
+    "bvh_uncapped": ([(GRAD, BVH_BOUNDS, "__launch_bounds__(kBlock)")], ()),
+    "min5": ([(GRAD, BVH_BOUNDS, "__launch_bounds__(kBlock, 5)"),
               (GRAD, "__launch_bounds__(kBlock)\n", "__launch_bounds__(kBlock, 5)\n")], ()),
 }
 COUNTS = 36  # replay_warp.cuh kStudyCounts

@@ -4,7 +4,8 @@ checkout first and last, the others between, in order and then reversed
 (two checkouts: A B B A), so that each has two turns placed alike around
 the first's.
 
-    python3 studies/iteration_ab.py [LABEL=]DIR [LABEL=]DIR ... [--scene flagship|env]
+    python3 studies/iteration_ab.py [LABEL=]DIR [LABEL=]DIR ...
+                                    [--scene flagship|env|path-env]
                                     [--reps N] [--out OUT_DIR] [--images]
 
 Every checkout's kernels are built first, all at once, into its own
@@ -36,6 +37,21 @@ chip_smoke.py phase 7's bars. With --images the first turns also save
 Scene.render's images of IMAGES' scenes (512x512, 64 spp: the dense and
 BVH direct env kernels and the path env kernels), held bit for bit the
 same way.
+
+--scene path-env (--reps 7; --out needed): the path integrator's env
+kernels, kernels.path_loop (path_loop_env, path_loop_env_bvh) and
+path_loop_grad (path_loop_grad_env, path_loop_grad_env_bvh), as --scene env
+times the direct ones, on PATH_SCENES at 512x512, 64 spp, a 1024^2 material
+of 0.5, by the route accel="auto" takes: bench.py's flagship under
+make_test_envmap(256, 512) (chip_smoke._flagship, dense),
+tools/bench_round3.py's env_scene (chip_smoke._env_scene, the BVH), the big
+mesh (chip_smoke._bigmesh, 50,882 triangles, the BVH) under
+make_test_envmap(256, 512), and the flagship under make_test_envmap(1024,
+2048); with the BVH kernels' tests and node visits a sample, and ptxas's
+report of the path kernels with and without the env. --images saves
+Scene.render's image of each scene (but the 1024 x 2048 map's). Its turn
+uses only what chip_smoke.py and the package have had since the path env
+kernels came, so an older checkout takes its turns too.
 
 Needs one CUDA card; imports nothing of JAX.
 """
@@ -211,9 +227,90 @@ IMAGES = ("example dense", "big mesh", "cornell box direct", "cornell box path",
           "env_scene path")
 
 
+PATH_SCENES = (("flagship", 256), ("env_scene", 128), ("big mesh", 256),
+               ("flagship 1024x2048", 1024))
+PATH_KERNELS = ("path_loop", "path_loop_grad", "path_loop_env", "path_loop_grad_env",
+                "path_loop_bvh", "path_loop_grad_bvh", "path_loop_env_bvh",
+                "path_loop_grad_env_bvh")
+
+PATH_ENV_TURN = r"""
+import json, os, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from zdr_tpu_torch import kernels
+from zdr_tpu_torch.envmap import make_test_envmap
+from zdr_tpu_torch.integrators import path_loop as pl
+
+reps, out_dir, save = int(sys.argv[1]), sys.argv[2], sys.argv[3] == "save"
+images = sys.argv[6] == "images"
+kernels.load_library()
+if reps == 0:
+    raise SystemExit(0)
+report = cs.ptxas_bvh(kernels.build_info["log"])
+dev = torch.device("cuda", 0)
+
+
+def scene_of(name, env_h):
+    if name == "env_scene":
+        return cs._env_scene(dev)
+    scene = cs._bigmesh(dev, "path") if name == "big mesh" else cs._flagship(dev)
+    scene.add_envmap(make_test_envmap(env_h, 2 * env_h))
+    return scene
+
+
+out = {"ptxas": {k: report.get(k) for k in json.loads(sys.argv[4])}, "scenes": {}}
+for name, env_h in json.loads(sys.argv[5]):
+    scene = scene_of(name, env_h)
+    data = scene._render_data("path")
+    cfg = scene._config(cs.RES, cs.SPP)
+    tb, tb1 = (pl.build_loop_tables(data, scene.camera, cfg, s) for s in (0, 1))
+    lanes = pl.pixel_lanes(cs.RES, cs.SPP, dev)
+    mat = torch.full((cs.TEX, cs.TEX, 4), 0.5, dtype=torch.float32, device=dev)
+    le = torch.full((3, lanes.shape[1]), 1.0 / cs.SPP, device=dev)
+    bvh = tb.bvh is not None
+    fname, gname = (("path_loop_env_bvh", "path_loop_grad_env_bvh") if bvh
+                    else ("path_loop_env", "path_loop_grad_env"))
+
+    def fwd():
+        return kernels.path_loop(tb, lanes, mat, pl.init_carry(lanes), tb.n_steps)
+
+    def bwd():
+        return kernels.path_loop_grad(tb1, lanes, mat, le, tb1.n_steps)
+
+    carry = fwd()
+    fcounts = getattr(kernels, fname).counts if bvh else None
+    fcounts = None if fcounts is None else [int(c) for c in fcounts.tolist()]
+    grad, _carry = bwd()
+    gcounts = getattr(kernels, gname).counts if bvh else None
+    gcounts = None if gcounts is None else [int(c) for c in gcounts.tolist()]
+    torch.cuda.synchronize()
+    if save:
+        torch.save({"acc": carry.f[0:3].cpu(), "grad": grad.cpu()},
+                   os.path.join(out_dir, name.replace(" ", "_") + ".pt"))
+        if images and env_h != 1024:
+            img = scene.render(mat, res=cs.RES, spp=cs.SPP, seed=0)
+            torch.save(img.cpu(), os.path.join(out_dir, "image_" + name.replace(" ", "_") + ".pt"))
+    f_ms = cs._event_ms(fwd, reps)
+    g_ms = cs._event_ms(bwd, reps)
+    n = lanes.shape[1] * cs.SPP
+    rec = {"route": "bvh" if bvh else "dense", "fwd": fname, "grad": gname,
+           "fwd_ms": f_ms[0], "grad_ms": g_ms[0], "fwd_runs": f_ms[1], "grad_runs": g_ms[1],
+           "plan": getattr(kernels, gname).plan}
+    if fcounts is not None:
+        rec.update(tests_a_sample=fcounts[0] / n, visits_a_sample=fcounts[1] / n,
+                   grad_tests_a_sample=gcounts[0] / n, grad_visits_a_sample=gcounts[1] / n)
+    out["scenes"][name] = rec
+print("AB " + json.dumps(out), flush=True)
+"""
+
+
 def _turn_cmd(args, reps, out_dir="", save=False):
     if args.scene == "flagship":
         return [sys.executable, "-c", FLAGSHIP_TURN, str(reps)]
+    if args.scene == "path-env":
+        return [sys.executable, "-c", PATH_ENV_TURN, str(reps), out_dir,
+                "save" if save else "run", json.dumps(PATH_KERNELS), json.dumps(PATH_SCENES),
+                "images" if args.images else "none"]
     return [sys.executable, "-c", ENV_TURN, str(reps), out_dir, "save" if save else "run",
             json.dumps(ENV_KERNELS), json.dumps(SCENES),
             json.dumps(IMAGES if args.images else [])]
@@ -231,46 +328,59 @@ def _turn(args, root, out_dir, save):
 
 def _env_compare(args, labels):
     """Each label's images against the first label's, bit for bit, and its
-    gradients at chip_smoke.py phase 7's bars."""
+    gradients at chip_smoke.py phase 7's bars -> the failures (none: all
+    held)."""
     import torch
 
     import chip_smoke as cs
 
+    path = args.scene == "path-env"
+    scenes = [n for n, _h in (PATH_SCENES if path else SCENES)]
+    images = ([n for n, h in PATH_SCENES if h != 1024] if path else IMAGES) if args.images else []
+    failed = []
     base = labels[0]
     for label in labels[1:]:
-        for name, _h in SCENES:
+        for name in scenes:
             f = name.replace(" ", "_") + ".pt"
             want = torch.load(os.path.join(args.out, base, f))
             got = torch.load(os.path.join(args.out, label, f))
             if not torch.equal(got["acc"], want["acc"]):
-                raise SystemExit(f"{label} {name}: the image differs from {base}'s in "
-                                 f"{int((got['acc'] != want['acc']).any(0).sum())} lanes")
-            _err, worst = cs._assert_grad_close(got["grad"], want["grad"],
-                                                f"{label} {name} gradient against {base}'s")
+                failed.append(f"{label} {name}: the image differs from {base}'s in "
+                              f"{int((got['acc'] != want['acc']).any(0).sum())} lanes")
+                continue
+            try:
+                _err, worst = cs._assert_grad_close(got["grad"], want["grad"],
+                                                    f"{label} {name} gradient against {base}'s")
+            except AssertionError as e:
+                failed.append(str(e))
+                continue
             print(f"[ab] {label} {name}: the image equals {base}'s bit for bit, the "
                   f"gradient worst texel rel err {worst:.3e} (rtol 1e-4)", flush=True)
-        for name in IMAGES if args.images else ():
+        for name in images:
             f = "image_" + name.replace(" ", "_") + ".pt"
             want = torch.load(os.path.join(args.out, base, f))
             got = torch.load(os.path.join(args.out, label, f))
             if not torch.equal(got, want):
-                raise SystemExit(f"{label} {name}: Scene.render's image differs from {base}'s "
-                                 f"in {int((got != want).any(-1).sum())} pixels")
+                failed.append(f"{label} {name}: Scene.render's image differs from {base}'s "
+                              f"in {int((got != want).any(-1).sum())} pixels")
+                continue
             print(f"[ab] {label} {name}: Scene.render's image equals {base}'s bit for bit",
                   flush=True)
+    return failed
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("dirs", nargs="+", help="[LABEL=]DIR, two or more, the first first and last")
-    ap.add_argument("--scene", choices=("flagship", "env"), default="flagship")
-    ap.add_argument("--reps", type=int, default=None, help="11 (flagship), 7 (env)")
-    ap.add_argument("--out", help="the env scene's images and JSON (needed with --scene env)")
+    ap.add_argument("--scene", choices=("flagship", "env", "path-env"), default="flagship")
+    ap.add_argument("--reps", type=int, default=None, help="11 (flagship), 7 (env, path-env)")
+    ap.add_argument("--out", help="the env scenes' images and JSON (needed with --scene env "
+                                  "or path-env)")
     ap.add_argument("--images", action="store_true",
-                    help="env: also compare Scene.render's images of IMAGES' scenes")
+                    help="env, path-env: also compare Scene.render's images")
     args = ap.parse_args()
-    if len(args.dirs) < 2 or (args.scene == "env" and not args.out):
-        ap.error("two or more checkouts; --scene env needs --out")
+    if len(args.dirs) < 2 or (args.scene != "flagship" and not args.out):
+        ap.error("two or more checkouts; --scene env and path-env need --out")
     if args.reps is None:
         args.reps = 11 if args.scene == "flagship" else 7
     sys.path.insert(0, ROOT)
@@ -295,13 +405,20 @@ def main():
         runs[label].append(rec)
         print(f"[ab] turn {i + 1} {label} ({trees[label]}): {json.dumps(rec)}; card {smi}",
               flush=True)
-    if args.scene == "env":
-        _env_compare(args, labels)
     summary = {}
     for k, v in runs.items():
         if args.scene == "flagship":
             summary[k] = {name: [r[name]["median"] for r in v]
                           for name in ("iteration", "path_loop", "path_loop_grad")}
+        elif args.scene == "path-env":
+            summary[k] = {name: {f: [r["scenes"][name][f] for r in v]
+                                 for f in ("fwd_ms", "grad_ms")}
+                          for name, _h in PATH_SCENES}
+            for name, _h in PATH_SCENES:
+                first = v[0]["scenes"][name]
+                summary[k][name].update({f: first[f] for f in (
+                    "tests_a_sample", "visits_a_sample", "grad_tests_a_sample",
+                    "grad_visits_a_sample") if f in first})
         else:
             summary[k] = {name: {"fwd_ms": [r["scenes"][name]["fwd_ms"] for r in v],
                                  "grad_ms": [r["scenes"][name]["grad_ms"] for r in v],
@@ -313,6 +430,10 @@ def main():
     if args.out:
         with open(os.path.join(args.out, "ab.json"), "w") as fh:
             json.dump({"card": smi, "turns": order, "runs": runs}, fh, indent=1)
+    if args.scene != "flagship":
+        failed = _env_compare(args, labels)
+        if failed:
+            raise SystemExit("[ab] " + "; ".join(failed))
 
 
 if __name__ == "__main__":

@@ -63,7 +63,10 @@
 // memory taken by tap rows takes L1 away (kernels.GRAD_NEAR_ROWS keeps its
 // rows in global scratch), and it is compiled for 4 resident blocks an SM
 // (128 registers, no spills), so that its register use cannot grow past
-// them (studies/grad_split.py times it uncapped and at 5).
+// them (studies/grad_split.py times it uncapped and at 5). Under the env
+// (path_loop_grad_env_bvh), whose walk skips the shadow rays that cannot
+// count, it is compiled for 8 (64 registers, spilling): twice the resident
+// warps hide more of the walk's latency (studies/env_split.py).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false (see zdr_tpu_torch/kernels/__init__.py).
@@ -144,7 +147,7 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 template <bool kEnv, bool kGen, bool kMerge>
-__global__ void __launch_bounds__(kBlock, 4)
+__global__ void __launch_bounds__(kBlock, kEnv ? 8 : 4)
     path_loop_grad_bvh_kernel(zdr::LoopParams q, const float* __restrict__ tables,
                               int small_shared, const float* __restrict__ bn,
                               const float* __restrict__ material,
