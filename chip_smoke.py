@@ -252,18 +252,20 @@ Phases, one line each; any failure raises and exits non-zero:
      env samples the tap mode reads after the walk (the plain walk on a
      stride of the lanes, _direct_env_work); ptxas of the direct env
      kernels beside their no-env twins; phase 22's example step.
- 27. the path env kernels as redesigned (the NEE shadow walk only where the
-     light sample lies above the shading hemisphere; in tap mode an env
-     light sample's pdf and texels read at the next step, where NEE
-     counts): the big mesh under make_test_envmap(256, 512) through
+ 27. the path env kernels as redesigned (the NEE shadow walk only where
+     the light sample lies above the shading hemisphere, in all four; the
+     BVH env gradient at 8 blocks of 128 an SM): the big mesh
+     under make_test_envmap(256, 512) through
      Scene.render + loss.backward() by accel="auto" (_slice_main: the BVH
      kernels against their plain versions at the first BOUNCE_CHECK_SAMPLES
      samples of every 64th lane, each alone, its counted work and bound);
      on it and on phase 19's two scenes the shadow walks walked and skipped
      a sample, the light samples below the hemisphere by kind, the tap
      mode's rows, replays and atomics (_TapWork), the counted work and the
-     bounds with the taps counted; ptxas of the four path env kernels
-     beside their no-env twins.
+     bounds with the taps counted; on env_scene and the big mesh at every
+     CHECK_STRIDE-th lane the BVH forward's and the tap mode's tests and
+     node visits equal to the plain walk's (_path_walk_counts); ptxas of
+     the four path env kernels beside their no-env twins.
 
 Phase 1 prints nvidia-smi's name and power limit on a line of their own;
 a line before the last gives each phase's seconds.
@@ -2329,6 +2331,75 @@ def _example(device):
 PATH_SHADOW_KEYS = ("shadow_walked", "shadow_skipped", "below_env", "below_mesh")
 
 
+def _path_walk_counts(tb, lanes, mat):
+    """The plain walk of what the path BVH kernels walk on `lanes` (tables
+    with a BVH): each step a lane runs (a sample left, or in flight) its
+    next ray's closest hit, and a shading lane's shadow ray, under an env
+    only where the light sample lies above the hemisphere, each through
+    accel/trace.py's ordered walk, which counts as the kernels do; the
+    other rays are not walked (their results are read nowhere) -> {tests,
+    visits, steps, shadow_walks}."""
+    from zdr_tpu_torch.accel import trace as ttrace
+    from zdr_tpu_torch.integrators import path_loop as pl
+    from zdr_tpu_torch.microfacet import make_onb, to_local
+
+    if tb.bvh is None:
+        raise ValueError("_path_walk_counts walks a BVH")
+    fi, ii = pl.F_IDX, pl.I_IDX
+    out = dict(tests=0, visits=0, steps=0, shadow_walks=0)
+    mask = {}
+
+    def add(work):
+        out["tests"] += int(work[0])
+        out["visits"] += int(work[1])
+
+    def occluded(scene, p, wi, dist, bvh=None):
+        m = mask["walk"]
+        occ = torch.zeros(dist.shape, dtype=torch.bool, device=dist.device)
+        if bool(m.any()):
+            hit, work = ttrace.bvh_any(bvh, tuple(x[m] for x in p), tuple(x[m] for x in wi),
+                                       torch.full_like(dist[m], 1e-4), dist[m])
+            occ[m] = hit
+            add(work)
+        return occ
+
+    def closest_hit(scene, o, d, bvh=None):
+        m = mask["run"]
+        best_t = torch.full_like(o[0], pl.T_MAX)
+        bu, bv = torch.zeros_like(best_t), torch.zeros_like(best_t)
+        prim = torch.full(best_t.shape, -1, dtype=torch.int64, device=best_t.device)
+        if bool(m.any()):
+            zero = torch.zeros_like(best_t[m])
+            (t, p_, u, v), work = ttrace.bvh_closest(bvh, tuple(x[m] for x in o),
+                                                     tuple(x[m] for x in d), zero, zero + pl.T_MAX)
+            best_t[m], bu[m], bv[m], prim[m] = t, u, v, p_.to(torch.int64)
+            add(work)
+        return best_t, bu, bv, prim
+
+    carry = pl.init_carry(lanes)
+    saved = pl.occluded, pl.closest_hit
+    pl.occluded, pl.closest_hit = occluded, closest_hit
+    try:
+        for _ in range(tb.n_steps):
+            flying = carry.i[ii["in_flight"]] != 0
+            run = (carry.i[ii["sample_idx"]] < lanes[2]) | flying
+            if not bool(run.any()):
+                break
+            walk = run & flying & (carry.i[ii["shade"]] != 0)
+            if tb.env is not None:
+                ns = tuple(carry.f[fi[k]] for k in ("ns_x", "ns_y", "ns_z"))
+                wl = tuple(carry.f[fi[k]] for k in ("wl_x", "wl_y", "wl_z"))
+                t_, b_ = make_onb(ns)
+                walk = walk & (to_local(t_, b_, ns, wl)[2] >= 1e-4)
+            mask.update(run=run, walk=walk)
+            out["steps"] += int(run.sum())
+            out["shadow_walks"] += int(walk.sum())
+            carry = pl.loop_step(carry, tb, lanes, mat)
+    finally:
+        pl.occluded, pl.closest_hit = saved
+    return out
+
+
 def _shadow_path_note(work, n_samples):
     """The path walk's shadow rays walked and skipped a sample, and its
     light samples below the hemisphere by kind."""
@@ -4259,19 +4330,22 @@ def _path_env_note(what, rec, n_samples):
 
 def phase_path_env_redesign(dev, smi, ptxas, path_env):
     """Phase 27: the path env kernels as redesigned (the NEE shadow walk only
-    where the light sample lies above the hemisphere; in tap mode an env
-    light sample's pdf and texels read at the next step where NEE counts).
-    The main path: the big mesh under the envmap (_slice_main: Scene.render
-    + loss.backward() by accel="auto", both kernels against their plain
+    where the light sample lies above the hemisphere; the BVH env gradient
+    at 8 blocks of 128 an SM). The main path: the big mesh
+    under the envmap (_slice_main: Scene.render + loss.backward() by
+    accel="auto", both kernels against their plain
     versions at the first BOUNCE_CHECK_SAMPLES samples of every 64th lane,
     the forward bit for bit, the gradient at phase 7's bars, each kernel
     alone with its counted work (the walk through the BVH on every
     PATH_ENV_WORK_STRIDE-th lane, the taps on the check's lanes) and the
     bound from it). Beside it phase 19's records of the flagship and
     env_scene (`path_env`): each scene's shadow walks walked and skipped a
-    sample, the light samples below the hemisphere, the taps, and ptxas of
-    the four path env kernels against their no-env twins -> the big mesh's
-    records."""
+    sample, the light samples below the hemisphere, the taps; on env_scene
+    and the big mesh at every CHECK_STRIDE-th lane, the first
+    BOUNCE_CHECK_SAMPLES samples, the BVH forward's tests and node visits
+    equal to the plain walk's (_path_walk_counts) and to the tap mode's;
+    and ptxas of the four path env kernels against their no-env twins ->
+    the big mesh's records."""
     from zdr_tpu_torch import kernels
     from zdr_tpu_torch.integrators import path_loop as pl
 
@@ -4294,13 +4368,16 @@ def phase_path_env_redesign(dev, smi, ptxas, path_env):
         kernels.path_loop_grad(tb, sub, m, le, tb.n_steps)
         fc = kernels.path_loop_env_bvh.counts.tolist()
         gc = kernels.path_loop_grad_env_bvh.counts.tolist()
-        if fc != gc:
+        plain = _path_walk_counts(tb, sub, m)
+        if fc != gc or fc != [plain["tests"], plain["visits"]]:
             raise AssertionError(f"{what}: path_loop_env_bvh counts {fc} tests and visits, "
-                                 f"path_loop_grad_env_bvh {gc} on the same tables")
-        same[what] = fc
-    notes = [f"the tap mode's tests and node visits equal the forward's on the same tables "
-             f"(every {CHECK_STRIDE}th lane, {BOUNCE_CHECK_SAMPLES} samples): "
-             f"{json.dumps(same)}"]
+                                 f"path_loop_grad_env_bvh {gc} on the same tables, the plain "
+                                 f"walk {plain}")
+        same[what] = dict(plain, tests_a_sample=fc[0] / (sub.shape[1] * BOUNCE_CHECK_SAMPLES),
+                          visits_a_sample=fc[1] / (sub.shape[1] * BOUNCE_CHECK_SAMPLES))
+    notes = [f"the tap mode's and the plain walk's tests and node visits equal the forward's "
+             f"on the same tables (every {CHECK_STRIDE}th lane, {BOUNCE_CHECK_SAMPLES} "
+             f"samples): {json.dumps(same)}"]
     for what, recs, pair in (("the flagship", path_env, SLICE_KERNELS["path", "dense"]),
                              ("env_scene", path_env, SLICE_KERNELS["path", "bvh"]),
                              ("the big mesh", records, SLICE_KERNELS["path", "bvh"])):

@@ -71,9 +71,14 @@ kernels.loop_launch and grad_launch, against PATH_BUILDS: production;
               the gradient kernels (every instantiation) at other blocks
               and __launch_bounds__ (production: 128 threads, the dense
               kernel uncapped, the BVH one at 4 blocks an SM, its env
-              instantiation at 8 since the redesign).
+              instantiation at 8 since the redesign);
+  fwd_dense_b256r64, fwd_bvh_b128r64, fwd_bvh_b128r80
+              the env forwards alone at B threads a block and R registers
+              (production: 512 x 2 dense, 256 x 4 BVH, 64 registers).
 A build whose edits are the gradient's alone compiles path_loop_grad.cu
-only; its forward is production's. PATH_SCENES at 512x512, 64 spp, a
+only; its forward is production's. A build whose edits are the forward's
+alone compiles path_loop.cu only; its gradient is production's and is not
+timed. PATH_SCENES at 512x512, 64 spp, a
 1024^2 material of 0.5, the render at seed 0 and the tap mode at seed 1
 with the adjoint 1 / spp: the flagship (chip_smoke._flagship: the cornell
 box and its light, the dense route) under make_test_envmap(256, 512),
@@ -385,6 +390,10 @@ ROUGH2 = f"""      float again_p3 = ggx_spec_droughness(wo_local, wi_light_local
 ATOMIC = "  atomicAdd(reinterpret_cast<float4*>(grad) + id, make_float4(a, b, c, d));\n"
 REPLAY = "      if (last >= 0) replay_sample(*gl, last, q.tex_h * q.tex_w);\n"
 DENSE_BOUNDS = "__launch_bounds__(kBlock)\n    path_loop_grad_kernel("
+# the forward kernels' bounds (path_loop.cu); a cap build applies to the
+# env instantiations alone, by kEnv in the bound, as the BVH gradient's does
+FWD_DENSE_BOUNDS = "__launch_bounds__(512, 2)\n    path_loop_kernel("
+FWD_BVH_BOUNDS = "__launch_bounds__(256, 4)\n    path_loop_bvh_kernel("
 # the BVH kernel's bounds before the redesign and after it (the env
 # instantiation at 8 blocks an SM)
 BVH_BOUNDS = ("__launch_bounds__(kBlock, 4)\n    path_loop_grad_bvh_kernel(",
@@ -406,11 +415,23 @@ PATH_BUILDS = {
     **{f"bvh_{k}": [(GRAD, BVH_BOUNDS,
                      f"__launch_bounds__(kBlock{v})\n    path_loop_grad_bvh_kernel(")]
        for k, v in (("min3", ", 3"), ("min4", ", 4"), ("min5", ", 5"), ("uncapped", ""))},
+    # the env forwards at B threads a block and R registers (65536 / (B x
+    # blocks an SM)): production's are 512 x 2 dense and 256 x 4 on the BVH
+    "fwd_dense_b256r64": [("path_loop.cu", FWD_DENSE_BOUNDS,
+                           "__launch_bounds__(kEnv ? 256 : 512, kEnv ? 4 : 2)\n"
+                           "    path_loop_kernel(")],
+    **{f"fwd_bvh_b128r{r}": [("path_loop.cu", FWD_BVH_BOUNDS,
+                              f"__launch_bounds__(kEnv ? 128 : 256, kEnv ? {m} : 4)\n"
+                              "    path_loop_bvh_kernel(")]
+       for r, m in ((64, 8), (80, 6))},
 }
 # the builds whose edits change the gradient alone (their forward is
 # production's), and those that change what the gradient computes
 GRAD_ONLY = ("rough2x", "noatomic", "noreplay", "grad_b64", "grad_b256", "dense_min5",
              "bvh_min3", "bvh_min4", "bvh_min5", "bvh_uncapped")
+# the builds whose edits change the forward alone (their gradient is
+# production's, and is not timed again)
+FWD_ONLY = ("fwd_dense_b256r64", "fwd_bvh_b128r64", "fwd_bvh_b128r80")
 NOT_GRAD = ("noatomic", "noreplay")
 PATH_SPLIT = ("closest2x", "shadow2x", "envdraw2x", "miss2x")
 GRAD_SPLIT = PATH_SPLIT + ("rough2x",)
@@ -438,7 +459,9 @@ def build_path():
         src = os.path.join(root, name)
         shutil.copytree(kernels.CSRC, src, ignore=shutil.ignore_patterns("__pycache__"))
         _edit(name, src, edits)
-        for source in ([GRAD] if name in GRAD_ONLY else ["path_loop.cu", GRAD]):
+        sources = ([GRAD] if name in GRAD_ONLY else
+                   ["path_loop.cu"] if name in FWD_ONLY else ["path_loop.cu", GRAD])
+        for source in sources:
             out = os.path.join(root, f"lib{name}_{source[:-3]}.so")
             cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", out, os.path.join(src, source)]
             running.append((name, source, cmd, out, subprocess.Popen(
@@ -458,6 +481,8 @@ def build_path():
     for name, entries in libs.items():
         if name in GRAD_ONLY:
             entries.update({e: libs["production"][e] for e in LOOP_ENTRIES})
+        if name in FWD_ONLY:
+            entries.update({e: libs["production"][e] for e in GRAD_ENTRIES})
         report = cs.ptxas_bvh(logs[name])
         reports[name] = {k: [report[k][f] for f in ("registers", "local_bytes", "spill_stores",
                                                      "spill_loads")]
@@ -492,9 +517,10 @@ def path_inputs(cs, scene, dev):
     return tb, tb1, lanes, mat, le
 
 
-def time_path_build(cs, lib, inp, ref=None, check_grad=True):
+def time_path_build(cs, lib, inp, ref=None, check_grad=True, time_grad=True):
     """A build's path env kernels on `inp`, held against `ref` (production's
-    outputs) -> ({fwd_ms, grad_ms, ...}, its outputs)."""
+    outputs) -> ({fwd_ms, grad_ms, ...}, its outputs); grad_ms None where
+    time_grad is false."""
     from zdr_tpu_torch import kernels
     from zdr_tpu_torch.integrators import path_loop as pl
 
@@ -517,7 +543,7 @@ def time_path_build(cs, lib, inp, ref=None, check_grad=True):
         if check_grad:
             cs._assert_grad_close(grad, ref[1], "the gradient against production's")
     f_ms = cs._event_ms(fwd)
-    g_ms = cs._event_ms(bwd)
+    g_ms = cs._event_ms(bwd) if time_grad else (None, None)
     n = lanes.shape[1] * tb.spp
     row = {"fwd_ms": f_ms[0], "grad_ms": g_ms[0], "fwd_runs": f_ms[1], "grad_runs": g_ms[1],
            "fwd_plan": plan, "grad_plan": gplan}
@@ -575,9 +601,9 @@ def main_path(cs, dev, smi, out_path):
     libs, reports = build_path()
     out = {"card": smi, "ptxas": reports, "scenes": {}, "no_env": {}}
     print(f"[path ptxas] the path kernels of production [registers, stack frame (local) bytes, "
-          f"spill stores, spill loads]: {json.dumps(reports['production'])}; the gradient env "
+          f"spill stores, spill loads]: {json.dumps(reports['production'])}; the env "
           f"kernels of every build: "
-          + json.dumps({k: {e: v.get(e) for e in ("path_loop_grad_env", "path_loop_grad_env_bvh")}
+          + json.dumps({k: {e: v.get(e) for e in PATH_KERNELS if "_env" in e}
                         for k, v in reports.items()}) + f"; card {smi}", flush=True)
     for scene_name, env_h in PATH_SCENES:
         inp = path_inputs(cs, path_scene(cs, scene_name, env_h, dev), dev)
@@ -586,7 +612,8 @@ def main_path(cs, dev, smi, out_path):
         for name in libs:
             if name != "production":
                 rows[name] = time_path_build(cs, libs[name], inp, ref,
-                                             check_grad=name not in NOT_GRAD)[0]
+                                             check_grad=name not in NOT_GRAD,
+                                             time_grad=name not in FWD_ONLY)[0]
         base_f, base_g = prod["fwd_ms"], prod["grad_ms"]
         split = {k: (rows[k]["fwd_ms"] - base_f) / base_f for k in PATH_SPLIT}
         gsplit = {k: (rows[k]["grad_ms"] - base_g) / base_g for k in GRAD_SPLIT}
@@ -603,7 +630,9 @@ def main_path(cs, dev, smi, out_path):
               + "; the forward's shares: " + ", ".join(f"{k} {v:.1%}" for k, v in split.items())
               + "; the gradient's: " + ", ".join(f"{k} {v:.1%}" for k, v in gsplit.items())
               + f"; {_share_note(share)}; builds (fwd / grad ms): "
-              + ", ".join(f"{k} {v['fwd_ms']:.4f} / {v['grad_ms']:.4f}" for k, v in rows.items())
+              + ", ".join(f"{k} {v['fwd_ms']:.4f} / "
+                          + ("-" if v["grad_ms"] is None else f"{v['grad_ms']:.4f}")
+                          for k, v in rows.items())
               + f"; card {smi}", flush=True)
     # the no-env kernels' light samples below the hemisphere: the flagship
     # (path) and the direct protocol by accel="auto"

@@ -30,7 +30,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD = os.path.join(ROOT, "studies", "_build", "sass")
-SOURCES = ("path_loop.cu", "path_loop_grad.cu", "direct.cu", "collocated.cu")
+SOURCES = ("path_loop.cu", "path_loop_grad.cu", "direct.cu", "collocated.cu", "accel.cu",
+           "sweep_variants.cu", "splat.cu")
 CSRC = os.path.join("zdr_tpu_torch", "kernels", "csrc")
 
 
@@ -165,6 +166,9 @@ def main():
               f"spill loads] {other[key][1]} vs {mine[key][1]}"
               + ("" if diff is None else f"; first difference at {diff}: "
                  f"{a[diff:diff + 1]} vs {b[diff:diff + 1]}"), flush=True)
+    equal = sorted(k for k, v in report["pairs"].items() if v["equal"])
+    print(f"[sass] {len(equal)} of {len(report['pairs'])} kernels equal; different: "
+          f"{sorted(set(report['pairs']) - set(equal))}", flush=True)
     print(f"[sass] new here: {report['new']}; gone: {report['gone']}", flush=True)
     if len(sys.argv) > 2:
         with open(sys.argv[2], "w") as fh:

@@ -38,8 +38,17 @@
 //     length, and a block holds its SM's slots until its slowest lane; at
 //     128 registers 256 threads cost 13% over 128 on the big mesh).
 // The sweeps themselves (and the divergence of a step's branches) are what
-// is left: a wavefront split of the sampler, sweeps and shading into passes
-// is the next redesign's.
+// is left. A step's two walks in one loop (the env forwards' NEE shadow ray
+// and next ray, each its own ordered walk, both rays' loads issued before
+// either visit; the dense sweep reading a row once for both) kept the bits
+// and the counts but measured slower (studies/env_split.py,
+// studies/iteration_ab.py; PERF.md): through the BVH +18-24% (two walks'
+// state spills: 840 bytes of local memory a thread at 64 registers, 768 at
+// 80), dense +1.5% to -0.5%; the serial walks stay. The BVH env forward
+// at blocks of 128 (8 an SM, the same code) ran tools/bench_round3.py's
+// env_scene 12-14% faster and the big mesh 4-5% slower than at 256; the
+// launch keeps its pick of 256 (studies/env_block.py maps both blocks over
+// tree sizes and scene layouts).
 //
 // Under an environment map the same kernels run their kEnv instantiations
 // (path_loop_env, path_loop_env_bvh): the port of the JAX package's route
